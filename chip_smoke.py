@@ -5,16 +5,16 @@
 
 Run from the root of a checkout on a machine with a CUDA card and `nvcc`.
 It imports only the port (`src/repro_torch`), never JAX or the reference
-package, and runs four phases:
+package, and runs five phases:
 
-  1. build   compile the hand-written kernels (`kernels/csrc/*.cu`) with
-             nvcc for sm_90a; print the build time, the card's name and
-             power limit.
+  1. build   compile the hand-written kernels (`kernels/csrc/*.cu`, one
+             nvcc per source, started together) for sm_90a; print the build
+             time, the card's name and power limit.
   2. kernel vs plain
-             each kernel against its plain PyTorch version on the card, bit
-             for bit on every output and on the updated table: spectra none
-             / low / all_same, all seven op kinds, several k (odd included),
-             and the main path's shapes.
+             the engine-round kernels against their plain PyTorch versions
+             on the card, bit for bit on every output and on the updated
+             table: spectra none / low / all_same, all seven op kinds,
+             several k (odd included), and the main path's shapes.
   3. main path
              `atomics.apply` at n=2**22, k=4, p=16384 for seqlock, indirect,
              cached_wf and cached_me: (a) distinct slots, all kinds; (b)
@@ -25,6 +25,17 @@ package, and runs four phases:
              The same batches replay through the numpy sequential oracle:
              results, links, logical values, versions and `read()` must
              agree exactly.
+  3b. table ops
+             the raw-table layer (`kernels/ops.py`, `llsc_commit`): its four
+             kernels against their plain versions (k = 1, 3, 4, 5, 16,
+             CacheHash kw/vw = 1/1, 2/2, 4/2, and full width), then, with
+             the counts reset, `bigatomic_load`, `bigatomic_update_rounds`
+             (uniform and Zipf 0.99), `llsc_commit_round`, `commit_round`
+             on cached_me and `cachehash_find` at n = m = 2**22,
+             p = q = 16384, each equal to a numpy oracle; all four kernels
+             (and `fast_round` under `commit_round`) must have run.  Then
+             each entry point's and kernel's time, the plain versions' and
+             the device-busy share.
   4. timing  median time per `apply` by tier (CUDA events), the kernels
              alone, their plain versions, and the host-side steps around
              them.
@@ -42,6 +53,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -51,12 +63,24 @@ SRC = ROOT / "src"
 N, K, P = 2 ** 22, 4, 16384
 STRATEGIES = ("seqlock", "indirect", "cached_wf", "cached_me")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM published memory rate
+TABLE_OPS_CU = "src/repro_torch/kernels/csrc/table_ops.cu"
 KERNELS = {
     "fast_round": ("src/repro_torch/kernels/csrc/engine_round.cu",
                    "src/repro/kernels/engine_round.py:340"),
     "slow_round": ("src/repro_torch/kernels/csrc/engine_round.cu",
                    "src/repro/kernels/engine_round.py:506"),
+    "seqlock_gather": (TABLE_OPS_CU, "src/repro/kernels/seqlock_gather.py:105"),
+    "cas_apply_round": (TABLE_OPS_CU, "src/repro/kernels/cas_apply.py:154"),
+    "llsc_commit_round": (TABLE_OPS_CU,
+                          "src/repro/kernels/llsc_commit.py:77"),
+    "cachehash_probe": (TABLE_OPS_CU,
+                        "src/repro/kernels/cachehash_probe.py:81"),
 }
+TABLE_KERNELS = ("seqlock_gather", "cas_apply_round", "llsc_commit_round",
+                 "cachehash_probe")
+M, KW, VW, MAX_CHAIN = 2 ** 22, 2, 2, 8     # CacheHash: buckets, key/value
+STORE, CAS, FULL = 1, 2, 1                  # words, chain depth; constants
+NEXT_END = 2 ** 32 - 1                      # next word of a chain's end
 
 
 def log(*args):
@@ -72,11 +96,11 @@ def card_line() -> str:
 
 
 class Smoke:
-    def __init__(self, torch, atomics, engine, er, convert):
+    def __init__(self, torch, atomics, engine, er, convert, tk):
         self.torch, self.atomics, self.engine = torch, atomics, engine
-        self.er, self.convert = er, convert
+        self.er, self.convert, self.tk = er, convert, tk
         self.dev = torch.device("cuda", 0)
-        self.max_err = {"fast_round": 0, "slow_round": 0}
+        self.max_err = dict.fromkeys(KERNELS, 0)
 
     # -- helpers -------------------------------------------------------------
 
@@ -86,51 +110,63 @@ class Smoke:
     def np_words(self, t):
         return self.convert.array(t, word=True)
 
-    def time_ms(self, fn, reps=20, warmup=3):
-        """Median ms per call, CUDA events around each call."""
+    def time_ms(self, fn, reps=20, warmup=3, setup=None):
+        """Median ms per call, CUDA events around each call.  With `setup`,
+        each call is `fn(*setup())`, its operands made and synchronised
+        before its events: a call that updates its operands in place is
+        timed on fresh copies of them."""
         torch = self.torch
-        for _ in range(warmup):
-            fn()
         pairs = []
-        for _ in range(reps):
+        for _ in range(warmup + reps):
+            args = ()
+            if setup is not None:
+                args = setup()
+                torch.cuda.synchronize()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            fn()
+            fn(*args)
             b.record()
             pairs.append((a, b))
         torch.cuda.synchronize()
-        return statistics.median(a.elapsed_time(b) for a, b in pairs)
+        return statistics.median(a.elapsed_time(b) for a, b in pairs[warmup:])
 
-    def device_ms(self, fn, reps=20):
+    def device_ms(self, fn, reps=20, setup=None):
         """Device ms per call of a launch-only `fn` (no host syncs): the
         calls queue behind a spin kernel, so the events bracket the
-        kernels alone and not the host's time to launch them."""
+        kernels alone and not the host's time to launch them.  With
+        `setup`, every call gets its own operands `setup()`, all made
+        before the spin."""
         torch = self.torch
-        fn()
+        fresh = [setup() if setup is not None else ()
+                 for _ in range(reps + 1)]
+        fn(*fresh[0])
         torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(100_000_000)       # ~50 ms while the host enqueues
         a.record()
-        for _ in range(reps):
-            fn()
+        for args in fresh[1:]:
+            fn(*args)
         b.record()
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps
 
-    def device_busy(self, run, reps=5, trace=None):
+    def device_busy(self, run, reps=5, trace=None, setup=None):
         """Share of the wall time of `run` (which ends synchronised) that
         the card spends in kernels, memcpys and memsets, from a
-        torch.profiler trace; plus the kernels' device time by name."""
+        torch.profiler trace; plus the kernels' device time by name.  With
+        `setup`, each call is `run(*setup())`, made before the trace."""
         from torch.profiler import ProfilerActivity, profile
         torch = self.torch
+        fresh = [setup() if setup is not None else () for _ in range(reps)]
+        torch.cuda.synchronize()
         try:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t = time.perf_counter()
-                for _ in range(reps):
-                    run()
+                for args in fresh:
+                    run(*args)
                 wall_us = (time.perf_counter() - t) * 1e6
             path = trace or (ROOT / "chiprun_out" / "apply_trace.tmp.json")
             prof.export_chrome_trace(str(path))
@@ -276,7 +312,7 @@ class Smoke:
         names = ["a_distinct_all_kinds", "b_read_only_dup", "c_uniform_u20",
                  "d_zipf099_u20", "e1_ll", "e2_sc_validate"]
         torch.cuda.synchronize()
-        er.reset_launch_counts()
+        self.tk.reset_launch_counts()
         t0 = time.perf_counter()
         for name in names:
             current = self.np_words(atomics.logical(spec, state))
@@ -352,6 +388,9 @@ class Smoke:
             ops = self.convert.op_batch(ops_np, self.dev)
             row = {"tier": tier}
             host = []
+            # the table the batch was made for, for the kernels alone
+            d = impl.engine_view(state).clone()
+            v = state.version.clone()
 
             def run():
                 nonlocal state
@@ -365,16 +404,20 @@ class Smoke:
             row["ops_per_s"] = P / (row["apply_ms"] * 1e-3)
             ctx_np = self.convert.to_numpy(ctx)
             args = self.round_inputs(N, ops_np, ctx_np, tier)
-            d = impl.engine_view(state).clone()
-            v = state.version.clone()
             kern = er.fast_round if tier == "fast" else er.slow_round
             plain = er.fast_round_plain if tier == "fast" \
                 else er.slow_round_plain
-            row["kernel_ms"] = self.device_ms(lambda: kern(d, v, *args))
+
+            def fresh():
+                return d.clone(), v.clone()
+
+            row["kernel_ms"] = self.device_ms(
+                lambda dd, vv: kern(dd, vv, *args), setup=fresh)
             row["kernel_with_launch_ms"] = self.time_ms(
-                lambda: kern(d, v, *args))
-            row["plain_ms"] = self.time_ms(lambda: plain(d, v, *args),
-                                           reps=5, warmup=1)
+                lambda dd, vv: kern(dd, vv, *args), setup=fresh)
+            row["plain_ms"] = self.time_ms(
+                lambda dd, vv: plain(dd, vv, *args), reps=5, warmup=1,
+                setup=fresh)
             steps = {
                 "check_kinds": lambda: engine.check_kinds(
                     ops.kind, engine.TABLE_KINDS, "table"),
@@ -384,13 +427,13 @@ class Smoke:
             }
             if tier == "slow":
                 lanes = engine.sort_lanes(N, ctx, ops)
-                _, _, val, verpt, succ = er.slow_round(d, v, *args)
+                _, _, val, verpt, succ = er.slow_round(*fresh(), *args)
                 steps["sort_pre"] = lambda: engine.sort_lanes(N, ctx, ops)
                 steps["rebuild_stats_post"] = lambda: engine.rebuild(
                     N, ctx, lanes, val, verpt, succ != 0)
             else:
                 link_ver = engine.poisoned_link_ver(ctx, ops.slot)
-                _, _, wit, verpt, okw = er.fast_round(d, v, *args)
+                _, _, wit, verpt, okw = er.fast_round(*fresh(), *args)
                 steps["assemble_post"] = lambda: er._assemble_fast(
                     N, ctx, ops, link_ver, wit, verpt, okw != 0, d, v)
             scratch = atomics.TableState(*(x.clone() for x in state))
@@ -428,6 +471,469 @@ class Smoke:
         return lane_in + lane_out + (rows + written) * (4 * k + 4)
 
 
+# ---------------------------------------------------------------------------
+# Phase 3b: the raw-table kernel layer (kernels/ops.py, llsc_commit).
+# ---------------------------------------------------------------------------
+
+def np_hash(keys, m):
+    """`ops.hash_keys` in numpy uint32 arithmetic (its oracle)."""
+    h = np.zeros(keys.shape[0], np.uint32)
+    for j in range(keys.shape[1]):
+        h = (h ^ keys[:, j]) * np.uint32(0x9E3779B1)
+        h = h ^ (h >> np.uint32(15))
+    return (h % np.uint32(m)).astype(np.int32)
+
+
+def clone(tensors):
+    """A copy of a tuple (or named tuple) of tensors."""
+    copies = [x.clone() for x in tensors]
+    return (type(tensors)(*copies) if hasattr(tensors, "_fields")
+            else tuple(copies))
+
+
+def seg_rank(sorted_ids):
+    """Each entry's rank among the equal ids before it (ids sorted)."""
+    idx = np.arange(len(sorted_ids))
+    start = np.r_[True, sorted_ids[1:] != sorted_ids[:-1]]
+    return (idx - np.maximum.accumulate(np.where(start, idx, 0))).astype(
+        np.int32)
+
+
+def update_batch(rng, p, n, k, zipf, current):
+    """All-update STORE/CAS batch as the reference's `random_batch`
+    (update_frac=1.0), half the comparands current; sorted by slot, with
+    each op's round (its rank on its cell)."""
+    slot = (rng.zipf(1.01, p) - 1) % n if zipf else rng.integers(0, n, p)
+    kind = np.where(rng.random(p) < 0.5, CAS, STORE).astype(np.int32)
+    desired = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
+    expected = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
+    use_cur = rng.random(p) < 0.5
+    expected = np.where(use_cur[:, None], current[slot], expected)
+    order = np.argsort(slot, kind="stable")
+    s_slot = slot[order].astype(np.int32)
+    return (kind[order], s_slot, expected[order], desired[order]), \
+        seg_rank(s_slot)
+
+
+def build_cachehash(rng, m, n_keys):
+    """A CacheHash table of `n_keys` distinct 2-word keys placed by the
+    hash: a bucket's first key inline in `cells`, the rest chained in
+    `chain_pool` (at most MAX_CHAIN deep; deeper keys are left out).
+    Returns (cells, chain_pool, placed keys as uint64, their values, their
+    chain depth (0 = inline), every key drawn as uint64)."""
+    cw = KW + VW + 3                     # [key | value | next | flags | ver]
+    drawn = np.unique(rng.integers(1, 2 ** 64, int(n_keys * 1.01),
+                                   dtype=np.uint64))
+    drawn = drawn[rng.permutation(len(drawn))[:n_keys]]
+    keys = drawn.view(np.uint32).reshape(-1, KW)
+    vals = rng.integers(0, 2 ** 32, (len(keys), VW), dtype=np.uint32)
+    bucket = np_hash(keys, m)
+    order = np.argsort(bucket, kind="stable")
+    k64, vals, bucket = drawn[order], vals[order], bucket[order]
+    depth = seg_rank(bucket)
+    keep = depth <= MAX_CHAIN
+    k64, vals, bucket, depth = k64[keep], vals[keep], bucket[keep], \
+        depth[keep]
+    rows = np.zeros((len(k64), cw), np.uint32)
+    rows[:, :KW] = k64.view(np.uint32).reshape(-1, KW)
+    rows[:, KW:KW + VW] = vals
+    rows[:, KW + VW + 1] = FULL
+    chained = depth > 0
+    node = np.cumsum(chained) - 1                     # chain-pool index
+    has_next = np.r_[bucket[1:] == bucket[:-1], False]
+    rows[:, KW + VW] = np.where(has_next, np.r_[node[1:], 0], NEXT_END)
+    cells = np.zeros((m, cw), np.uint32)
+    cells[bucket[~chained]] = rows[~chained]
+    return cells, rows[chained], k64, vals, depth, drawn
+
+
+class TableOps:
+    """Phase 3b: the raw-table layer's kernels against their plain
+    versions, its entry points at full width against numpy oracles, and
+    their times."""
+
+    def __init__(self, smoke, tk, ops, llsc, ref):
+        self.s, self.torch, self.dev = smoke, smoke.torch, smoke.dev
+        self.tk, self.ops, self.llsc, self.ref = tk, ops, llsc, ref
+        self.w = smoke.words
+
+    def ints(self, arr):
+        return self.s.convert.tensor(np.asarray(arr, np.int32), self.dev)
+
+    def fail(self, what):
+        raise SystemExit(f"table ops: {what}")
+
+    def same(self, what, got, want):
+        """Exact equality of a port result (words as uint32) and numpy."""
+        if isinstance(got, self.torch.Tensor):
+            word = got.dtype == self.torch.int32 and want.dtype == np.uint32
+            got = self.s.convert.array(got, word=word)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            self.fail(f"{what} differs from the numpy oracle")
+
+    # -- inputs ----------------------------------------------------------------
+
+    @staticmethod
+    def table(rng, n1, k, locked=0.05, marked=0.05):
+        """data[n1, k] and meta[n1, 2]: even versions, a share odd (locked),
+        a share of rows marked, and row 0's version about to wrap."""
+        data = rng.integers(0, 2 ** 32, (n1, k), dtype=np.uint32)
+        meta = np.zeros((n1, 2), np.uint32)
+        meta[:, 0] = (rng.integers(0, 2 ** 30, n1) * 2
+                      + (rng.random(n1) < locked)).astype(np.uint32)
+        meta[:, 1] = rng.random(n1) < marked
+        meta[0, 0] = 2 ** 32 - 2
+        return data, meta
+
+    @staticmethod
+    def lanes(rng, n, p, live_frac=0.9):
+        """Distinct real slots for a share of p lanes, the dummy row n for
+        the rest, interleaved."""
+        n_real = min(int(p * live_frac), n)
+        slot = np.full(p, n, np.int32)
+        slot[:n_real] = rng.choice(n, n_real, replace=False)
+        perm = rng.permutation(p)
+        return slot[perm], (np.arange(p) < n_real)[perm]
+
+    def cas_lanes(self, rng, data, n, k, p):
+        slot, real = self.lanes(rng, n, p)
+        kind = np.where(real, rng.choice([STORE, CAS], p), 0).astype(np.int32)
+        kind[real & (rng.random(p) < 0.1)] = 0       # read-and-fail lanes
+        expected = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
+        take = rng.random(p) < 0.5
+        expected[take] = data[slot[take]]
+        return (slot, kind, expected,
+                rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32))
+
+    def llsc_lanes(self, rng, meta, n, k, p):
+        slot, real = self.lanes(rng, n, p)
+        cur = meta[slot, 0]
+        link = np.where(rng.random(p) < 0.5, cur, cur + np.uint32(2))
+        return (slot, real.astype(np.int32), link.astype(np.uint32),
+                rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32))
+
+    @staticmethod
+    def probe_inputs(rng, m, kw, vw, q):
+        cw = kw + vw + 3
+        cells = rng.integers(0, 2 ** 32, (m, cw), dtype=np.uint32)
+        cells[:, kw + vw] = np.where(rng.random(m) < 0.5, NEXT_END,
+                                     rng.integers(0, 64, m))
+        cells[:, kw + vw + 1] = np.where(rng.random(m) < 0.6, FULL,
+                                         rng.choice([0, 2], m))
+        bidx = rng.integers(0, m, q).astype(np.int32)
+        keys = rng.integers(0, 2 ** 32, (q, kw), dtype=np.uint32)
+        take = rng.random(q) < 0.5
+        keys[take] = cells[bidx[take], :kw]
+        return cells, bidx, keys
+
+    # -- kernels against their plain versions -----------------------------------
+
+    def kernel_vs_plain(self):
+        """Bit for bit on every output and on the updated tables: k = 1, 3,
+        4, 5, 16 at q = p = 1003 (not a multiple of 8), locked / marked /
+        wrapping rows, dead lanes on row n and out of range, three CacheHash
+        layouts, and the full-width shapes.  Returns the case count."""
+        tk, ref, w, ints = self.tk, self.ref, self.w, self.ints
+        rng = np.random.default_rng(2000)
+        cases = 0
+        for n, k, p in [(4096, k, 1003) for k in (1, 3, 4, 5, 16)] + \
+                [(N, K, P)]:
+            data, meta = self.table(rng, n + 1, k)
+            d, m = w(data), w(meta)
+            idx = rng.integers(0, n, p).astype(np.int32)
+            idx[:2] = [-1, n + 1]                     # dead lanes
+            self.s.compare("seqlock_gather", tk.seqlock_gather(d, m, ints(idx)),
+                           ref.seqlock_gather_ref(d, m, ints(idx)))
+            for name, lanes, kern, plain in (
+                    ("cas_apply_round", self.cas_lanes(rng, data, n, k, p),
+                     tk.cas_apply_round, ref.cas_apply_round_ref),
+                    ("llsc_commit_round", self.llsc_lanes(rng, meta, n, k, p),
+                     tk.llsc_commit_round, ref.llsc_commit_round_ref)):
+                args = (ints(lanes[0]), ints(lanes[1]), w(lanes[2]),
+                        w(lanes[3]))
+                got = kern(d.clone(), m.clone(), *args)
+                want = plain(d.clone(), m.clone(), *args)
+                self.s.compare(name, got, want)
+            cases += 3
+        for m_, kw, vw, q in [(4096, 1, 1, 1003), (4096, 2, 2, 1003),
+                              (4096, 4, 2, 1003), (M, KW, VW, P)]:
+            cells, bidx, keys = self.probe_inputs(rng, m_, kw, vw, q)
+            args = (w(cells), ints(bidx), w(keys))
+            self.s.compare("cachehash_probe",
+                           tk.cachehash_probe(*args, kw=kw, vw=vw),
+                           ref.cachehash_probe_ref(*args, kw=kw, vw=vw))
+            cases += 1
+        self.torch.cuda.synchronize()
+        return cases
+
+    # -- the path through the ops layer ------------------------------------------
+
+    def main_path(self, atomics, engine, convert):
+        """Drive the layer's entry points once at full width, with the
+        launch counts reset just before; check each against numpy.
+        Returns the launch counts, the launches of `fast_round` under
+        `commit_round`, and the operands for the timing: each call's
+        inputs, with a copy (`pre_*`) of each table or state as it was
+        before the call that updated it."""
+        torch, tk, ops, llsc, w, ints = (self.torch, self.tk, self.ops,
+                                         self.llsc, self.w, self.ints)
+        rng = np.random.default_rng(3000)
+        n, k, p = N, K, P
+        data, meta = self.table(rng, n + 1, k)
+        d, m = convert.raw_table(data, meta, self.dev)
+        op = {}
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+
+        # bigatomic_load: uniform slots over locked and marked rows
+        idx = rng.integers(0, n, p).astype(np.int32)
+        op["idx"] = ints(idx)
+        vals, ok = ops.bigatomic_load(d, m, op["idx"])
+        self.same("bigatomic_load values", vals, data[idx])
+        self.same("bigatomic_load ok", ok, (meta[idx, 0] % 2 == 0)
+                  & (meta[idx, 1] == 0))
+
+        # bigatomic_update_rounds: uniform, then Zipf 0.99 slots
+        ctx0 = (np.full(p, -1, np.int32), np.zeros(p, np.uint32),
+                np.zeros((p, k), np.uint32), np.zeros(p, bool))
+        op["rounds"] = {}
+        for name, zipf in (("uniform", False), ("zipf099", True)):
+            batch, rank = update_batch(rng, p, n, k, zipf, data[:n])
+            rounds = int(rank.max()) + 1
+            kind, slot, expected, desired = batch
+            args = (ints(slot), ints(kind), w(expected), w(desired), rounds,
+                    ints(rank))
+            op["pre_update_" + name] = (d.clone(), m.clone())
+            _, _, succ, wit = ops.bigatomic_update_rounds(d, m, *args)
+            new_data, new_ver, _, res = engine.apply_ops_reference(
+                data[:n], meta[:n, 0], ctx0, batch)
+            data[:n], meta[:n, 0] = new_data, new_ver
+            self.same(f"update rounds ({name}) success", succ,
+                      res.success.astype(np.int32))
+            self.same(f"update rounds ({name}) witness", wit, res.value)
+            self.same(f"update rounds ({name}) table", d, data)
+            self.same(f"update rounds ({name}) meta", m, meta)
+            op["update_" + name] = args
+            op["rounds"][name] = rounds
+            if name == "uniform":                  # round 0, for the kernel
+                live = rank == 0
+                op["cas_round0"] = (
+                    ints(np.where(live, slot, n)),
+                    ints(np.where(live, kind, 0)), w(expected), w(desired))
+
+        # llsc_commit_round: distinct live slots, half the links stale
+        slot, live, link, desired = self.llsc_lanes(rng, meta, n, k, p)
+        op["llsc"] = (ints(slot), ints(live), w(link), w(desired))
+        op["pre_llsc"] = (d.clone(), m.clone())
+        _, _, succ, wit = tk.llsc_commit_round(d, m, *op["llsc"])
+        win = live.astype(bool) & (meta[slot, 0] == link)
+        self.same("llsc_commit_round witness", wit, data[slot])
+        data[slot[win]] = desired[win]
+        meta[slot[win], 0] += np.uint32(2)
+        self.same("llsc_commit_round success", succ,
+                  win.astype(np.int32)[:, None])
+        self.same("llsc_commit_round table", d, data)
+        self.same("llsc_commit_round meta", m, meta)
+        if not 0.3 < win.mean() < 0.6:
+            self.fail(f"llsc_commit_round: {win.mean():.2f} of lanes won")
+
+        # commit_round on cached_me: LL, a STORE to some linked cells, SC
+        spec = atomics.AtomicSpec(n, k, "cached_me", p_max=p)
+        initial = rng.integers(0, 2 ** 32, (n, k), dtype=np.uint32)
+        state = atomics.init(spec, initial, device=self.dev)
+        ctx = atomics.init_ctx(p, k, device=self.dev)
+        cells_ll = rng.choice(n, p, replace=False).astype(np.int32)
+        zeros = np.zeros((p, k), np.uint32)
+        batches = [
+            (np.full(p, engine.LL, np.int32), cells_ll, zeros, zeros),
+            (np.where(rng.random(p) < 0.25, STORE, engine.IDLE).astype(
+                np.int32), cells_ll, zeros,
+             rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32))]
+        for batch in batches:
+            state, ctx, *_ = atomics.apply(
+                spec, state, convert.op_batch(batch, self.dev), ctx,
+                donate=True)
+        sc_slots = np.where(rng.random(p) < 0.9, cells_ll, n).astype(np.int32)
+        sc_des = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
+        op["commit"] = (spec, ints(sc_slots), w(sc_des))
+        op["pre_commit"] = (clone(state), clone(ctx))
+        f0 = tk.fast_round.launches
+        state, ctx, succ, wit = llsc.commit_round(
+            spec, state, ctx, *op["commit"][1:], donate=True)
+        fast_in_commit = tk.fast_round.launches - f0
+        o_data, o_ver, o_ctx = initial, np.zeros(n, np.uint32), ctx0
+        batches.append((np.where(sc_slots < n, engine.SC, engine.IDLE).astype(
+            np.int32), sc_slots, zeros, sc_des))
+        for batch in batches:
+            o_data, o_ver, o_ctx, o_res = engine.apply_ops_reference(
+                o_data, o_ver, o_ctx, batch)
+        self.same("commit_round success", succ, o_res.success)
+        self.same("commit_round witness", wit, o_res.value)
+        self.same("commit_round logical", atomics.logical(spec, state),
+                  o_data)
+        self.same("commit_round versions", state.version, o_ver)
+        for f, got, want in zip(engine.LinkCtx._fields, ctx, o_ctx):
+            self.same(f"commit_round ctx.{f}", got, np.asarray(want))
+        op["commit_wins"] = float(o_res.success.mean())
+
+        # cachehash_find: 2**21 keys in 2**22 buckets; a third of the
+        # queries inline hits, a third chain hits, a third absent
+        t0 = time.perf_counter()
+        cells, pool, k64, vals, depth, drawn = build_cachehash(rng, M, M // 2)
+        third = p // 3
+        absent = rng.integers(1, 2 ** 64, 2 * third, dtype=np.uint64)
+        absent = absent[~np.isin(absent, drawn)][:p - 2 * third]
+        q64 = np.concatenate([rng.choice(k64[depth == 0], third),
+                              rng.choice(k64[depth > 0], third), absent])
+        q64 = q64[rng.permutation(p)]
+        qk = q64.view(np.uint32).reshape(-1, KW)
+        op["build_cachehash_s"] = time.perf_counter() - t0
+        op["max_depth"] = int(depth.max())
+        cells_t, pool_t = convert.cachehash_tables(cells, pool, self.dev)
+        op["find"] = (cells_t, pool_t, w(qk))
+        bidx = np_hash(qk, M)
+        self.same("hash_keys", ops.hash_keys(op["find"][2], M), bidx)
+        found, val = ops.cachehash_find(*op["find"], kw=KW, vw=VW,
+                                        max_chain=MAX_CHAIN)
+        sorted_k = np.argsort(k64)
+        pos = np.minimum(np.searchsorted(k64[sorted_k], q64), len(k64) - 1)
+        hit = k64[sorted_k][pos] == q64
+        want = np.where(hit[:, None], vals[sorted_k][pos],
+                        cells[bidx, KW:KW + VW])
+        self.same("cachehash_find found", found, hit)
+        self.same("cachehash_find value", val, want)
+        op["probe"] = (cells_t, ints(bidx), op["find"][2])
+        op["find_mix"] = [int(hit.sum()), int((~hit).sum())]
+
+        torch.cuda.synchronize()
+        counts = tk.launch_counts()
+        for name in TABLE_KERNELS:
+            if counts[name] <= 0:
+                self.fail(f"{name} never launched on the table-ops path")
+        if fast_in_commit <= 0:
+            self.fail("commit_round did not run the fast_round kernel")
+        return counts, fast_in_commit, op
+
+    # -- timing ------------------------------------------------------------------
+
+    def timing(self, op):
+        """Median ms of each entry point (CUDA events, launch included) and
+        its device-busy share; each kernel's device time, its plain
+        version's time and its bound in bytes.  Every call that updates its
+        table, and every kernel rep, runs on a fresh copy of the table (or
+        state and links) that the checked call saw, so each rep does the
+        checked call's work."""
+        torch, tk, ops, llsc, ref = (self.torch, self.tk, self.ops, self.llsc,
+                                     self.ref)
+        s = self.s
+
+        def fresh(key):
+            return lambda: clone(op[key])
+
+        d0, m0 = op["pre_update_uniform"]         # the table the load read
+        spec, sc_slots, sc_des = op["commit"]
+        entry = {
+            "bigatomic_load": (
+                lambda: ops.bigatomic_load(d0, m0, op["idx"]), None),
+            "bigatomic_update_rounds_uniform": (
+                lambda d, m: ops.bigatomic_update_rounds(
+                    d, m, *op["update_uniform"]),
+                fresh("pre_update_uniform")),
+            "bigatomic_update_rounds_zipf099": (
+                lambda d, m: ops.bigatomic_update_rounds(
+                    d, m, *op["update_zipf099"]),
+                fresh("pre_update_zipf099")),
+            "llsc_commit_round": (
+                lambda d, m: tk.llsc_commit_round(d, m, *op["llsc"]),
+                fresh("pre_llsc")),
+            "commit_round": (
+                lambda state, ctx: llsc.commit_round(
+                    spec, state, ctx, sc_slots, sc_des, donate=True),
+                lambda: tuple(map(clone, op["pre_commit"]))),
+            "cachehash_find": (
+                lambda: ops.cachehash_find(*op["find"], kw=KW, vw=VW,
+                                           max_chain=MAX_CHAIN), None),
+        }
+        entries = {}
+        for name, (fn, setup) in entry.items():
+            def run(*args, fn=fn):
+                fn(*args)
+                torch.cuda.synchronize()
+            entries[name] = {"ms": s.time_ms(fn, setup=setup),
+                             "profile": s.device_busy(run, setup=setup)}
+        # every kernel rep, read-only ones too, gets its own copy of the
+        # table: rows left in L2 by the rep before would halve its time
+        kernels = {
+            "seqlock_gather": (
+                lambda d, m: tk.seqlock_gather(d, m, op["idx"]),
+                lambda d, m: ref.seqlock_gather_ref(d, m, op["idx"]),
+                fresh("pre_update_uniform")),
+            "cas_apply_round": (
+                lambda d, m: tk.cas_apply_round(d, m, *op["cas_round0"]),
+                lambda d, m: ref.cas_apply_round_ref(d, m, *op["cas_round0"]),
+                fresh("pre_update_uniform")),
+            "llsc_commit_round": (
+                lambda d, m: tk.llsc_commit_round(d, m, *op["llsc"]),
+                lambda d, m: ref.llsc_commit_round_ref(d, m, *op["llsc"]),
+                fresh("pre_llsc")),
+            "cachehash_probe": (
+                lambda cells: tk.cachehash_probe(cells, *op["probe"][1:],
+                                                 kw=KW, vw=VW),
+                lambda cells: ref.cachehash_probe_ref(cells, *op["probe"][1:],
+                                                      kw=KW, vw=VW),
+                lambda: (op["probe"][0].clone(),)),
+        }
+        rows = {}
+        for name, (fn, plain, setup) in kernels.items():
+            nbytes, written = self.kernel_bytes(name, op)
+            rows[name] = {
+                "ms": s.device_ms(fn, setup=setup),
+                "with_launch_ms": s.time_ms(fn, setup=setup),
+                "plain_ms": s.time_ms(plain, reps=5, warmup=1, setup=setup),
+                "bytes": nbytes, "written_rows": written,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        idx64 = op["idx"].to(torch.int64)
+        rows["seqlock_gather"]["index_select_ms"] = s.device_ms(
+            lambda d, m: d.index_select(0, idx64),
+            setup=fresh("pre_update_uniform"))
+        return entries, rows
+
+    def kernel_bytes(self, name, op):
+        """Bytes the kernel must move on the timed inputs, and the rows it
+        writes: each lane operand read once and each output written once;
+        each distinct row it reads (data words, and the meta words it
+        reads) once; each row it writes (data and version) once."""
+        torch, tk = self.torch, self.tk
+        k = op["pre_llsc"][0].shape[1]
+
+        def distinct(idx):
+            return int(torch.unique(idx).numel())
+
+        if name == "seqlock_gather":
+            q = op["idx"].shape[0]
+            return (q * 4 + distinct(op["idx"]) * (4 * k + 8)
+                    + q * (4 * k + 4)), 0
+        if name == "cachehash_probe":
+            cells, bidx, _ = op["probe"]
+            q = bidx.shape[0]
+            return (q * (4 + 4 * KW) + q * (12 + 4 * VW)
+                    + distinct(bidx) * 4 * (KW + VW + 2)), 0
+        if name == "cas_apply_round":
+            args, table = op["cas_round0"], op["pre_update_uniform"]
+        else:
+            args, table = op["llsc"], op["pre_llsc"]
+        p = args[0].shape[0]
+        succ = getattr(tk, name)(*clone(table), *args)[2]
+        written = int(succ.sum())
+        if name == "cas_apply_round":   # slot, kind, expected, desired
+            return (p * (8 + 8 * k) + p * (4 + 4 * k)
+                    + distinct(args[0]) * 4 * k
+                    + written * (4 * k + 8)), written
+        return (p * (12 + 4 * k) + p * (4 + 4 * k)   # slot, live, link, des.
+                + distinct(args[0]) * (4 * k + 4)
+                + written * (4 * k + 4)), written
+
+
 def main() -> int:
     try:
         import torch
@@ -445,7 +951,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch import atomics, convert
     from repro_torch.core import engine
-    from repro_torch.kernels import _build
+    from repro_torch import kernels as tk
+    from repro_torch.kernels import _build, llsc_commit, ops, ref
     from repro_torch.kernels import engine_round as er
 
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -457,12 +964,14 @@ def main() -> int:
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    lib = _build.build()
-    _build.load()
+    with ThreadPoolExecutor(len(_build.SIGNATURES)) as pool:  # nvcc's at once
+        libs = list(pool.map(_build.build, _build.SIGNATURES))
+    for name in _build.SIGNATURES:
+        _build.load(name)
     build_s = time.perf_counter() - t0
-    log(f"[build] {lib.name} in {build_s:.2f} s")
+    log(f"[build] {', '.join(lib.name for lib in libs)} in {build_s:.2f} s")
 
-    smoke = Smoke(torch, atomics, engine, er, convert)
+    smoke = Smoke(torch, atomics, engine, er, convert, tk)
 
     # -- 2. kernel vs plain ----------------------------------------------------
     t0 = time.perf_counter()
@@ -490,6 +999,37 @@ def main() -> int:
             f"{launches}, tiers {tiers}; oracle-equal")
         states[strategy] = (spec, state)
     launches_main = dict(totals)
+
+    # -- 3b. table ops -----------------------------------------------------------
+    table = TableOps(smoke, tk, ops, llsc_commit, ref)
+    t0 = time.perf_counter()
+    n_cases = table.kernel_vs_plain()
+    log(f"[table-ops] {n_cases} cases x 4 kernels bit-identical to their "
+        f"plain versions in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts, fast_in_commit, op = table.main_path(atomics, engine, convert)
+    table_wall = time.perf_counter() - t0
+    for name in TABLE_KERNELS:
+        launches_main[name] = counts[name]
+    log(f"[table-ops] path in {table_wall:.2f} s (CacheHash build "
+        f"{op['build_cachehash_s']:.2f} s, chains <= {op['max_depth']}, "
+        f"queries hit/miss {op['find_mix']}), update rounds "
+        f"{op['rounds']}, launches {counts}, fast_round under commit_round "
+        f"{fast_in_commit}; oracle-equal")
+    table_entries, table_kernels = table.timing(op)
+    for name, row in table_entries.items():
+        prof = row["profile"]
+        log(f"[table-timing] {name:32s} {row['ms']:.4f} ms, device busy "
+            f"{prof.get('device_busy_share', prof.get('error'))}")
+    for name, row in table_kernels.items():
+        log(f"[table-timing] kernel {name:18s} {row['ms']:.5f} ms device / "
+            f"{row['with_launch_ms']:.4f} ms with launch, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+            f"({row['bytes']} B, {row['written_rows']} rows written)")
+    log(f"[table-timing] note: data.index_select(0, idx) "
+        f"{table_kernels['seqlock_gather']['index_select_ms']:.5f} ms device")
+    del op, table
+    torch.cuda.empty_cache()
 
     # -- 4. timing -------------------------------------------------------------
     rng = np.random.default_rng(99)
@@ -537,9 +1077,23 @@ def main() -> int:
             "max_abs_err": smoke.max_err[name], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None})
+    for name in TABLE_KERNELS:
+        t = table_kernels[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1], "launches": launches_main[name],
+            "max_abs_err": smoke.max_err[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": None})
     details = {"card": card, "build_s": build_s, "n": N, "k": K, "p": P,
                "launches_main_path": launches_main, "timing": timings,
-               "slow_round_all_same_ms": worst_ms, "kernels": rows}
+               "slow_round_all_same_ms": worst_ms,
+               "table_ops": {"m": M, "kw": KW, "vw": VW,
+                             "path_wall_s": table_wall,
+                             "fast_round_under_commit_round": fast_in_commit,
+                             "entry_points": table_entries,
+                             "kernels": table_kernels},
+               "kernels": rows}
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -29,10 +29,10 @@ _WORD_FIELDS = {
 def tensor(arr, device, *, word: bool = False) -> torch.Tensor:
     """One numpy array (or array-like) as a tensor on `device`; `word=True`
     reinterprets uint32 bits as int32."""
-    arr = np.asarray(arr)
-    if word:
-        arr = np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32)
-    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+    arr = np.array(arr, dtype=np.uint32 if word else None, order="C")
+    if word:                         # (np.ascontiguousarray would make a
+        arr = arr.view(np.int32)     # 0-d word, e.g. ring_head, 1-d)
+    return torch.from_numpy(arr).to(device)
 
 
 def array(t: torch.Tensor, *, word: bool = False) -> np.ndarray:
@@ -59,6 +59,20 @@ def to_numpy(nt) -> tuple:
     words = _WORD_FIELDS[type(nt)]
     return tuple(array(x, word=name in words)
                  for name, x in zip(nt._fields, nt))
+
+
+def raw_table(data, meta, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """The raw-table layer's (data word[n+1, k], meta word[n+1, 2]) from
+    the reference's uint32 arrays (row n is the dummy row)."""
+    return tensor(data, device, word=True), tensor(meta, device, word=True)
+
+
+def cachehash_tables(cells, chain_pool, device="cuda"
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CacheHash's (cells word[m, cw], chain_pool word[c, cw]) from the
+    reference's uint32 arrays."""
+    return (tensor(cells, device, word=True),
+            tensor(chain_pool, device, word=True))
 
 
 def table_state(fields, device="cuda") -> TableState:

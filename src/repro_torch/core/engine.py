@@ -585,15 +585,24 @@ def apply(spec: AtomicSpec, state: TableState, ops: OpBatch,
     ctx = (init_ctx(ops.p, spec.k, device=device) if ctx is None
            else canonicalize_ctx(ctx, device))
     impl = registry.get_strategy(spec.strategy)
+    new_state, new_ctx, result, stats = run_round(
+        impl, round_for(spec, impl), state, ctx, ops, donate=donate)
+    traffic = impl.traffic(stats, spec.k, ops.p)
+    return new_state, new_ctx, result, stats, traffic
+
+
+def run_round(impl, round_fn, state: TableState, ctx: LinkCtx, ops: OpBatch,
+              *, donate: bool):
+    """Run `round_fn` on canonical `ops`/`ctx` and commit it to the layout,
+    with `apply`'s ownership rule: copy the state first unless `donate`.
+    Returns (state', ctx', ApplyResult, ApplyStats)."""
     if not donate:
         state = TableState(*(x.clone() for x in state))
-    round_fn = round_for(spec, impl)
     new_data, new_version, new_ctx, result, stats = round_fn(
         impl.engine_view(state), state.version.clone(), ctx, ops)
     new_state = impl.commit(state, new_data, new_version, stats.n_updates,
                             ops.p)
-    traffic = impl.traffic(stats, spec.k, ops.p)
-    return new_state, new_ctx, result, stats, traffic
+    return new_state, new_ctx, result, stats
 
 
 class RoundHandle:

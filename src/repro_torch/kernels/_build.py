@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and call the port's CUDA kernels.
 
-`nvcc` compiles `csrc/engine_round.cu` for Hopper (`sm_90a`) into a shared
-library with a plain C interface, which `ctypes` loads.  The build happens
-at first use, into `build/kernels/` at the root of the checkout, under a
-name keyed by a hash of the source, so an edited source rebuilds and an
-unchanged one loads at once.  A missing `nvcc` or a failed build raises:
-nothing falls back to the plain PyTorch versions.
+Every source `csrc/<name>.cu` is compiled by `nvcc` for Hopper (`sm_90a`)
+into its own shared library with a plain C interface, which `ctypes`
+loads: `engine_round.cu` (the fused engine round) and `table_ops.cu` (the
+raw-table kernels).  A build happens at first use, into `build/kernels/`
+at the root of the checkout, under `<name>_<hash of the source>.so`, so an
+edited source rebuilds and an unchanged one loads at once.  A missing
+`nvcc` or a failed build raises: nothing falls back to the plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -18,13 +20,31 @@ import subprocess
 import threading
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "engine_round.cu"
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ROUND = [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P]
+# C signatures of each library's entry points (all return a cudaError_t).
+SIGNATURES = {
+    "engine_round": {"fast_round": _ROUND, "slow_round": _ROUND},
+    "table_ops": {
+        "seqlock_gather": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _P],
+        "cas_apply_round": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I,
+                            _P],
+        "llsc_commit_round": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P,
+                              _I, _P],
+        "cachehash_probe": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                            _I, _P],
+    },
+}
+
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def nvcc() -> str:
@@ -40,48 +60,87 @@ def nvcc() -> str:
                        "kernels cannot be built")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"engine_round_{digest}.so"
+def source(name: str) -> Path:
+    if name not in SIGNATURES:
+        raise ValueError(f"no kernel library {name!r}; expected one of "
+                         f"{sorted(SIGNATURES)}")
+    return CSRC / f"{name}.cu"
 
 
-def build() -> Path:
-    """Compile the kernels unless the library for this source exists.
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(source(name).read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}_{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile library `name` unless the library for its source exists.
     Writes the compiler's output (registers, spills) beside it as `.log`."""
-    out = library_path()
+    out = library_path(name)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source(name))]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+        raise RuntimeError(f"nvcc failed on {out.name} ({proc.returncode}):"
+                           f"\n{proc.stderr[-4000:]}")
     os.replace(tmp, out)
     return out
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call), with its C
-    signatures declared."""
-    global _lib
+def load(name: str) -> ctypes.CDLL:
+    """Kernel library `name` (built on first call), with its C signatures
+    declared."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, i32 = ctypes.c_void_p, ctypes.c_int
-            for name in ("fast_round", "slow_round"):
-                fn = getattr(lib, name)
-                fn.argtypes = [vp, vp, i32, i32, vp, vp, vp, vp, vp, i32,
-                               vp, vp, vp, i32, vp]
-                fn.restype = i32
-            lib.engine_round_error_string.argtypes = [i32]
-            lib.engine_round_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build(name)))
+            for fn_name, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = _I
+            err_fn = getattr(lib, f"{name}_error_string")
+            err_fn.argtypes = [_I]
+            err_fn.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return _libs[name]
 
 
-def error_string(err: int) -> str:
-    return f"{err} ({load().engine_round_error_string(err).decode()})"
+def error_string(name: str, err: int) -> str:
+    text = getattr(load(name), f"{name}_error_string")(err).decode()
+    return f"{err} ({text})"
+
+
+def launch(name: str, fn_name: str, device: torch.device, *args) -> None:
+    """Call entry point `fn_name` of library `name` with `args`, then the
+    device index and the current stream; raise if the launch failed."""
+    lib = load(name)
+    err = getattr(lib, fn_name)(
+        *args, device.index, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} kernel launch failed: "
+                           f"{error_string(name, err)}")
+
+
+def runs_plain(device: torch.device, who: str) -> bool:
+    """True on the CPU (the wrapper runs its plain version), False on a
+    card (it launches its kernel); any other device raises."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who}: unsupported device {device}")
+    return device.type == "cpu"
+
+
+def check(device: torch.device, *operands) -> None:
+    """Raise ValueError unless every (name, tensor, dtype, shape) operand
+    has that dtype and shape, is contiguous and lies on `device`."""
+    for name, t, dtype, shape in operands:
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, the table on "
+                             f"{device}")

@@ -131,14 +131,6 @@ def fast_round_plain(data, version, slot, kind, link_ver, expected, desired):
 slow_round_plain = engine.slow_round_plain
 
 
-def _check(name, t, dtype, shape):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
-                         f"{t.dtype} {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _launch(fn_name, data, version, slot, kind, link_ver, expected,
             desired):
     """Validate the round's operands and launch kernel `fn_name` on the
@@ -148,31 +140,24 @@ def _launch(fn_name, data, version, slot, kind, link_ver, expected,
     n, k = data.shape
     p = slot.shape[0]
     dev = data.device
-    for name, t, dtype, shape in (
-            ("data", data, WORD_DTYPE, (n, k)),
-            ("version", version, WORD_DTYPE, (n,)),
-            ("slot", slot, torch.int32, (p,)),
-            ("kind", kind, torch.int32, (p,)),
-            ("link_ver", link_ver, WORD_DTYPE, (p,)),
-            ("expected", expected, WORD_DTYPE, (p, k)),
-            ("desired", desired, WORD_DTYPE, (p, k))):
-        _check(name, t, dtype, shape)
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, the table on {dev}")
+    _build.check(dev,
+                 ("data", data, WORD_DTYPE, (n, k)),
+                 ("version", version, WORD_DTYPE, (n,)),
+                 ("slot", slot, torch.int32, (p,)),
+                 ("kind", kind, torch.int32, (p,)),
+                 ("link_ver", link_ver, WORD_DTYPE, (p,)),
+                 ("expected", expected, WORD_DTYPE, (p, k)),
+                 ("desired", desired, WORD_DTYPE, (p, k)))
     val = torch.empty((p, k), dtype=WORD_DTYPE, device=dev)
     ver = torch.empty((p,), dtype=WORD_DTYPE, device=dev)
     ok = torch.empty((p,), dtype=torch.int32, device=dev)
     if p == 0:
         return val, ver, ok
-    lib = _build.load()
-    err = getattr(lib, fn_name)(
-        data.data_ptr(), version.data_ptr(), n, k, slot.data_ptr(),
-        kind.data_ptr(), link_ver.data_ptr(), expected.data_ptr(),
-        desired.data_ptr(), p, val.data_ptr(), ver.data_ptr(),
-        ok.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} kernel launch failed: "
-                           f"{_build.error_string(err)}")
+    _build.launch("engine_round", fn_name, dev, data.data_ptr(),
+                  version.data_ptr(), n, k, slot.data_ptr(), kind.data_ptr(),
+                  link_ver.data_ptr(), expected.data_ptr(),
+                  desired.data_ptr(), p, val.data_ptr(), ver.data_ptr(),
+                  ok.data_ptr())
     return val, ver, ok
 
 
@@ -225,11 +210,6 @@ def slow_round(data, version, s_slot, s_kind, s_link_ver, s_expected,
 
 fast_round.launches = 0
 slow_round.launches = 0
-
-
-def reset_launch_counts() -> None:
-    fast_round.launches = 0
-    slow_round.launches = 0
 
 
 # ---------------------------------------------------------------------------

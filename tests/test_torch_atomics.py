@@ -174,13 +174,22 @@ def test_port_imports_neither_jax_nor_reference():
         sys.meta_path.insert(0, Block())
         import numpy as np
         from repro_torch import atomics, convert
-        from repro_torch.kernels import _build, engine_round
+        from repro_torch.kernels import _build, engine_round, llsc_commit, ops
         spec = atomics.AtomicSpec(8, 2, "cached_me", p_max=4)
         state = atomics.init(spec, device="cpu")
-        ops = atomics.stores([1, 1, 2], np.ones((3, 2), np.uint32), k=2,
-                             device="cpu")
-        state, *_ = atomics.apply(spec, state, ops)
+        batch = atomics.stores([1, 1, 2], np.ones((3, 2), np.uint32), k=2,
+                               device="cpu")
+        state, *_ = atomics.apply(spec, state, batch)
         assert int(state.version[1]) == 4
+        state, _, succ, _ = llsc_commit.commit_round(
+            spec, state, atomics.init_ctx(1, 2, device="cpu"), [3],
+            np.ones((1, 2), np.uint32))
+        assert not bool(succ[0])
+        data, meta = convert.raw_table(np.ones((5, 2), np.uint32),
+                                       np.zeros((5, 2), np.uint32), "cpu")
+        vals, ok = ops.bigatomic_load(data, meta, convert.tensor(
+            np.arange(4, dtype=np.int32), "cpu"))
+        assert bool(ok.all()) and int(ops.hash_keys(vals, 7)[0]) >= 0
         bad = [m for m in sys.modules if m.split(".")[0] in
                ("jax", "jaxlib", "repro")]
         assert not bad, bad
