@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card and `nvcc`.
 It imports only the port (`src/repro_torch`), never JAX or the reference
-package, and runs five phases:
+package, and runs these phases:
 
   1. build   compile the hand-written kernels (`kernels/csrc/*.cu`, one
              nvcc per source, started together) for sm_90a; print the build
@@ -39,6 +39,31 @@ package, and runs five phases:
   4. timing  median time per `apply` by tier (CUDA events), the kernels
              alone, their plain versions, and the host-side steps around
              them.
+  5. guard   the integrity scrub (`guard`, `runtime.LocalTarget`): the
+             digest kernel bit for bit against its plain version (k = 1,
+             3, 4, 5, 16 at n = 1003; full width, also against numpy);
+             then, with the counts reset, per layout at n=2**22: batch (a),
+             a checkpoint, a STORE batch to 4096 distinct cells, the
+             baseline digest, 64 seeded bit flips and torn writes on
+             distinct cells (half dirty; a `bptr` flip on indirect and
+             cached_wf, a version flip on cached_me), `Scrubber.scrub`:
+             detected = the injected cells, repaired = the clean ones with
+             the checkpoint's values, quarantined = the dirty ones, the
+             invariants naming the pointer and version faults; a batch
+             through `mask_ops` equal to the numpy oracle with every
+             poisoned lane failed; a second scrub clean.  Then the times of
+             `cell_digest`, the digest kernel, its plain version,
+             `check_invariants` and `Scrubber.scrub`, and of the
+             whole-table row gather (`table[idx]` against
+             `layout.gather_rows`, 2**22 rows of 16 bytes).
+  6. attention
+             `flash_attention` against `flash_attention_plain` at the
+             attention widths of glm4_9b (t=4096, causal, bf16) and
+             mixtral_8x7b (t=8192, window 4096, bf16 and fp32), and a
+             ragged fp32 case (t=1000), with the counts reset (bf16 within
+             1e-3 + 1e-2 |want|, fp32 within 1e-4 + 1e-4 |want|); then the
+             kernel's time, its bound, the plain version's and
+             `scaled_dot_product_attention`'s.
 
 Exits non-zero on any failure, without the result line.  On success the
 last lines are the card (nvidia-smi), a JSON line with one entry per
@@ -75,9 +100,14 @@ KERNELS = {
                           "src/repro/kernels/llsc_commit.py:77"),
     "cachehash_probe": (TABLE_OPS_CU,
                         "src/repro/kernels/cachehash_probe.py:81"),
+    "digest_rows": ("src/repro_torch/kernels/csrc/scrub_digest.cu",
+                    "src/repro/guard/scrub.py:91"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:120"),
 }
 TABLE_KERNELS = ("seqlock_gather", "cas_apply_round", "llsc_commit_round",
                  "cachehash_probe")
+GUARD_STORES, GUARD_FAULTS = 4096, 64      # the scrub path's batch, faults
 M, KW, VW, MAX_CHAIN = 2 ** 22, 2, 2, 8     # CacheHash: buckets, key/value
 STORE, CAS, FULL = 1, 2, 1                  # words, chain depth; constants
 NEXT_END = 2 ** 32 - 1                      # next word of a chain's end
@@ -934,6 +964,365 @@ class TableOps:
                 + written * (4 * k + 4)), written
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the integrity-scrub path (guard, runtime.LocalTarget).
+# ---------------------------------------------------------------------------
+
+def np_digest(logical, versions):
+    """The FNV-1a cell digest in numpy uint32 arithmetic (its oracle)."""
+    h = np.full(versions.shape, 2166136261, np.uint32)
+    with np.errstate(over="ignore"):
+        for j in range(logical.shape[1]):
+            h = (h ^ logical[:, j]) * np.uint32(16777619)
+        return (h ^ versions) * np.uint32(16777619)
+
+
+class GuardPhase:
+    """Phase 5: the digest kernel against its plain version and numpy, then
+    per layout the scrub path at n = 2**22 (checkpoint, a STORE batch,
+    baseline, 64 seeded faults, `Scrubber.scrub`, `mask_ops`, a second
+    scrub), each step checked; then its times."""
+
+    def __init__(self, smoke, guard, inject, runtime, digest):
+        self.s, self.torch, self.dev = smoke, smoke.torch, smoke.dev
+        self.guard, self.inject = guard, inject
+        self.runtime, self.digest = runtime, digest
+
+    def fail(self, what):
+        raise SystemExit(f"guard: {what}")
+
+    def kernel_vs_plain(self):
+        """Bit for bit at k = 1, 3, 4, 5, 16 with n = 1003, and at full
+        width against `np_digest` too.  Returns the case count."""
+        rng = np.random.default_rng(5000)
+        w, dg = self.s.words, self.digest
+        cases = 0
+        for n, k in [(1003, k) for k in (1, 3, 4, 5, 16)] + [(N, K)]:
+            vals = rng.integers(0, 2 ** 32, (n, k), dtype=np.uint32)
+            ver = rng.integers(0, 2 ** 32, n, dtype=np.uint32)
+            got = dg.digest_rows(w(vals), w(ver))
+            self.s.compare("digest_rows", (got,),
+                           (dg.digest_rows_plain(w(vals), w(ver)),))
+            if n == N and not np.array_equal(self.s.np_words(got),
+                                              np_digest(vals, ver)):
+                self.fail("digest_rows differs from the numpy oracle")
+            cases += 1
+        self.torch.cuda.synchronize()
+        return cases
+
+    def layout(self, strategy, seed):
+        """Drive the scrub path for one layout and check it.  Returns the
+        operands of the timing: the spec, the checkpoint, the STORE batch
+        and its success, the faulted state and the baseline."""
+        s, torch, dev = self.s, self.torch, self.dev
+        atomics, convert = s.atomics, s.convert
+        Fault = self.runtime.Fault
+        spec = atomics.AtomicSpec(N, K, strategy, p_max=P)
+        rng = np.random.default_rng(seed)
+        initial = rng.integers(0, 2 ** 32, (N, K), dtype=np.uint32)
+        target = self.runtime.LocalTarget(spec, initial, device=dev)
+        ctx = atomics.init_ctx(P, K, device=dev)
+        batch_a = s.main_batch("a_distinct_all_kinds", rng, initial, None)
+        target.issue(convert.op_batch(batch_a, dev), ctx)
+        scrubber = self.guard.Scrubber(spec, device=dev)
+        ckpt = target.snapshot()
+        scrubber.set_checkpoint(ckpt)
+        ckpt_np = {f: s.np_words(x) for f, x in ckpt.items()}
+
+        # a STORE batch to distinct cells
+        dirty = rng.choice(N, GUARD_STORES, replace=False).astype(np.int32)
+        stores = atomics.stores(dirty, rng.integers(
+            0, 2 ** 32, (GUARD_STORES, K), dtype=np.uint32), k=K, device=dev)
+        store_success = target.issue(stores, None).result.success
+        scrubber.note_results(stores, store_success)
+        baseline = scrubber.digest_of(target)
+        snap = target.snapshot()
+        if not np.array_equal(s.np_words(baseline), np_digest(
+                s.np_words(snap["logical"]), s.np_words(snap["versions"]))):
+            self.fail(f"{strategy}: baseline digest differs from numpy")
+
+        # faults on distinct cells, half of them dirty
+        half = GUARD_FAULTS // 2
+        clean = np.setdiff1d(np.arange(N), dirty)
+        victims = np.concatenate([rng.choice(dirty, half, replace=False),
+                                  rng.choice(clean, half, replace=False)])
+        named = {"indirect": ("pointer_range", dict(field="bptr", bit=30)),
+                 "cached_wf": ("pointer_range", dict(field="bptr", bit=30)),
+                 "cached_me": ("tagged_null", dict(field="version", bit=1))}
+        for i, slot in enumerate(victims):
+            kind = "bit_flip" if i % 2 == 0 else "torn_write"
+            extra = named[strategy][1] if i == 0 and strategy in named \
+                else {}
+            target.state, _ = self.inject.inject_table_fault(
+                spec, target.state, Fault(1, kind, slot=int(slot), **extra),
+                np.random.default_rng([seed, i]))
+        faulted = clone(target.state)
+
+        report = scrubber.scrub(target, round_idx=1, baseline=baseline)
+        dirty_v, clean_v = sorted(victims[:half].tolist()), \
+            sorted(victims[half:].tolist())
+        if report.detected != sorted(victims.tolist()):
+            self.fail(f"{strategy}: detected {len(report.detected)} cells, "
+                      f"not exactly the {GUARD_FAULTS} injected")
+        if report.repaired != clean_v or report.quarantined != dirty_v:
+            self.fail(f"{strategy}: repaired/quarantined are not the clean/"
+                      "dirty victims")
+        if strategy in named:
+            name = named[strategy][0]
+            if int(victims[0]) not in report.invariant_violations.get(name,
+                                                                      []):
+                self.fail(f"{strategy}: {name} does not name the fault")
+        snap = target.snapshot()
+        logical, versions = (s.np_words(snap["logical"]),
+                             s.np_words(snap["versions"]))
+        if not (np.array_equal(logical[clean_v], ckpt_np["logical"][clean_v])
+                and np.array_equal(versions[clean_v],
+                                   ckpt_np["versions"][clean_v])):
+            self.fail(f"{strategy}: repaired cells differ from the "
+                      "checkpoint")
+
+        # a batch through mask_ops, half its updates aimed at the
+        # quarantined cells, against the numpy oracle
+        slot = np.concatenate([dirty_v, rng.choice(N, P - half)])
+        slot = slot[rng.permutation(P)].astype(np.int32)
+        ops = s.update_mix(rng, slot, P, K, logical)
+        masked, bad = scrubber.mask_ops(convert.op_batch(ops, dev))
+        want_bad = np.isin(slot, dirty_v) & (ops[0] != 3)
+        if bad is None or not np.array_equal(bad.cpu().numpy(), want_bad):
+            self.fail(f"{strategy}: mask_ops masked the wrong lanes")
+        h = target.issue(masked, None)
+        masked_np = (np.where(want_bad, 3, ops[0]).astype(np.int32),
+                     *ops[1:])
+        ctx0 = (np.full(P, -1, np.int32), np.zeros(P, np.uint32),
+                np.zeros((P, K), np.uint32), np.zeros(P, bool))
+        o_data, o_ver, _, o_res = s.engine.apply_ops_reference(
+            logical, versions, ctx0, masked_np)
+        success = h.result.success.cpu().numpy()
+        if success[want_bad].any():
+            self.fail(f"{strategy}: a poisoned lane reported success")
+        if not (np.array_equal(success, o_res.success) and np.array_equal(
+                s.np_words(h.result.value), o_res.value)):
+            self.fail(f"{strategy}: mask_ops batch differs from the oracle")
+        snap = target.snapshot()
+        if not (np.array_equal(s.np_words(snap["logical"]), o_data)
+                and np.array_equal(s.np_words(snap["versions"]), o_ver)):
+            self.fail(f"{strategy}: table after the batch differs from the "
+                      "oracle")
+        scrubber.note_results(masked, h.result.success)
+        second = scrubber.scrub(target, round_idx=2,
+                                baseline=scrubber.digest_of(target))
+        if not second.clean or second.poisoned_total != half:
+            self.fail(f"{strategy}: the second scrub found "
+                      f"{len(second.detected)} new cells")
+        torch.cuda.synchronize()
+        return {"spec": spec, "ckpt": ckpt, "stores": (stores,
+                store_success), "faulted": faulted, "baseline": baseline,
+                "report": report.to_json(), "second": second.to_json()}
+
+    def timing(self, op):
+        """Median ms (CUDA events) of `cell_digest`, the digest kernel
+        alone (device time), its plain version, `check_invariants` and
+        `Scrubber.scrub` on a clean table and with the 64 faults, each rep
+        on a fresh copy of the state and scrubber the checked run saw."""
+        s, torch = self.s, self.torch
+        spec, faulted, baseline = op["spec"], op["faulted"], op["baseline"]
+        impl = s.atomics.get_strategy(spec.strategy)
+        dg, guard = self.digest, self.guard
+        vals = impl.logical(faulted).contiguous()
+        ver = faulted.version
+
+        def fresh_vals():
+            return vals.clone(), ver.clone()
+
+        def fresh_scrub(state):
+            def setup():
+                target = self.runtime.LocalTarget(spec, device=self.dev)
+                target.state = clone(state)
+                sc = guard.Scrubber(spec, device=self.dev)
+                sc.set_checkpoint(op["ckpt"])
+                sc.note_results(*op["stores"])
+                return sc, target
+            return setup
+
+        def scrub(sc, target):
+            sc.scrub(target, round_idx=1, baseline=baseline)
+
+        row = {
+            "cell_digest_ms": s.time_ms(lambda: guard.cell_digest(spec,
+                                                                  faulted)),
+            "digest_kernel_ms": s.device_ms(dg.digest_rows,
+                                            setup=fresh_vals),
+            "digest_plain_ms": s.time_ms(dg.digest_rows_plain, reps=5,
+                                         warmup=1, setup=fresh_vals),
+            "check_invariants_ms": s.time_ms(
+                lambda: guard.check_invariants(spec, faulted)),
+            "scrub_faulted_ms": s.time_ms(scrub, reps=10, warmup=2,
+                                          setup=fresh_scrub(faulted)),
+        }
+        # the clean table: the scrub of the repaired, reloaded state
+        sc, target = fresh_scrub(faulted)()
+        scrub(sc, target)
+        clean_state = clone(target.state)
+        clean_base = guard.cell_digest(spec, clean_state)
+
+        def clean_scrub(sc, target):
+            sc.scrub(target, round_idx=2, baseline=clean_base)
+        row["scrub_clean_ms"] = s.time_ms(clean_scrub, reps=10, warmup=2,
+                                          setup=fresh_scrub(clean_state))
+
+        def run(sc, target):
+            scrub(sc, target)
+            torch.cuda.synchronize()
+        row["scrub_faulted_profile"] = s.device_busy(
+            run, setup=fresh_scrub(faulted))
+        nbytes = vals.numel() * 4 + ver.numel() * 4 + ver.numel() * 4
+        row["digest_bytes"] = nbytes
+        row["digest_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        return row
+
+    def row_gather(self, layout):
+        """Device ms of the whole-table row gather that indirect's
+        `logical` and the node-pool invariants run: PyTorch's `table[idx]`
+        against `layout.gather_rows`, for N rows of K words, with an
+        identity and a random permutation index; the two must agree."""
+        s, torch = self.s, self.torch
+        gen = torch.Generator(device=self.dev).manual_seed(7100)
+        table = torch.randint(-2 ** 31, 2 ** 31 - 1, (N, K), generator=gen,
+                              device=self.dev, dtype=torch.int32)
+        out = {}
+        for name, idx in (("identity", torch.arange(N, device=self.dev)),
+                          ("permutation", torch.randperm(
+                              N, generator=gen, device=self.dev))):
+            if not torch.equal(layout.gather_rows(table, idx), table[idx]):
+                self.fail(f"gather_rows differs from table[idx] ({name})")
+            out[name] = {
+                "index_ms": s.device_ms(lambda: table[idx]),
+                "gather_rows_ms": s.device_ms(
+                    lambda: layout.gather_rows(table, idx))}
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: attention (kernels/flash_attention.py).
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS, FP32_FLOPS = 989e12, 67e12       # H100 SXM dense peaks
+# bf16: both sides compute in fp32 and round to bf16, so they may differ by
+# one bf16 ulp, at most 2^-7 of the value (rtol 1e-2), or by atol 1e-3 near
+# 0.  fp32: the summation order differs from the plain version's.
+BF16_TOL, FP32_TOL = (1e-3, 1e-2), (1e-4, 1e-4)
+ATTENTION_CASES = {
+    # name: (b, t, h, kvh, hd, causal, window, dtype, (atol, rtol))
+    "glm4_9b_t4096": (1, 4096, 32, 2, 128, True, 0, "bfloat16", BF16_TOL),
+    "mixtral_8x7b_t8192_w4096": (1, 8192, 32, 8, 128, True, 4096,
+                                 "bfloat16", BF16_TOL),
+    "glm4_9b_t1000_fp32": (1, 1000, 32, 2, 128, True, 0, "float32",
+                           FP32_TOL),
+    # the window mask and the tiles it skips, held at the fp32 tolerance
+    "mixtral_8x7b_t8192_w4096_fp32": (1, 8192, 32, 8, 128, True, 4096,
+                                      "float32", FP32_TOL),
+}
+
+
+def live_pairs(t, causal, window):
+    """(query, key) pairs the masks leave live, for t queries and keys."""
+    q = np.arange(t, dtype=np.int64)
+    hi = q + 1 if causal else np.full(t, t)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(t, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+class AttentionPhase:
+    """Phase 6: `flash_attention` against `flash_attention_plain` on the
+    card at the attention widths of glm4_9b and mixtral_8x7b, plus a ragged
+    fp32 case; then the kernel's, the plain version's and
+    `scaled_dot_product_attention`'s times."""
+
+    def __init__(self, smoke, fa):
+        self.s, self.torch, self.dev, self.fa = smoke, smoke.torch, \
+            smoke.dev, fa
+
+    def inputs(self, name, seed):
+        b, t, h, kvh, hd, _, _, dtype, _ = ATTENTION_CASES[name]
+        torch = self.torch
+        gen = torch.Generator(device=self.dev).manual_seed(seed)
+        dt = getattr(torch, dtype)
+        return tuple(torch.randn(shape, generator=gen, device=self.dev,
+                                 dtype=torch.float32).to(dt)
+                     for shape in ((b, t, h, hd), (b, t, kvh, hd),
+                                   (b, t, kvh, hd)))
+
+    def path(self):
+        """Every case once through `flash_attention`, with the launch count
+        reset just before; each output finite and within tolerance of the
+        plain version.  Returns the launches and the largest errors."""
+        torch, fa = self.torch, self.fa
+        outs = {}
+        torch.cuda.synchronize()
+        self.s.tk.reset_launch_counts()
+        for i, name in enumerate(ATTENTION_CASES):
+            *_, causal, window, _, _ = ATTENTION_CASES[name]
+            outs[name] = fa.flash_attention(*self.inputs(name, 6000 + i),
+                                            causal=causal, window=window)
+        torch.cuda.synchronize()
+        launches = fa.flash_attention.launches
+        if launches <= 0:
+            raise SystemExit("attention: flash_attention never launched")
+        errs = {}
+        for i, (name, out) in enumerate(outs.items()):
+            b, t, h, kvh, hd, causal, window, dtype, (atol, rtol) = \
+                ATTENTION_CASES[name]
+            want = fa.flash_attention_plain(*self.inputs(name, 6000 + i),
+                                            causal=causal, window=window)
+            got, want = out.float(), want.float()
+            if out.shape != (b, t, h, hd) or not torch.isfinite(got).all():
+                raise SystemExit(f"attention {name}: output not finite or of "
+                                 "the wrong shape")
+            err = (got - want).abs()
+            errs[name] = float(err.max())
+            if bool((err > atol + rtol * want.abs()).any()):
+                raise SystemExit(f"attention {name}: differs from the plain "
+                                 f"version (max abs err {errs[name]})")
+        return launches, errs
+
+    def timing(self, name, seed):
+        torch, fa, s = self.torch, self.fa, self.s
+        b, t, h, kvh, hd, causal, window, dtype, _ = ATTENTION_CASES[name]
+        q, k, v = self.inputs(name, seed)
+        row = {
+            "ms": s.device_ms(lambda: fa.flash_attention(
+                q, k, v, causal=causal, window=window), reps=10),
+            "plain_ms": s.time_ms(lambda: fa.flash_attention_plain(
+                q, k, v, causal=causal, window=window), reps=3, warmup=1)}
+        # the library yardstick: SDPA on [b, h, t, hd] views, with a mask
+        # where there is a window
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = None
+        if window > 0:
+            pos = torch.arange(t, device=self.dev)
+            mask = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - window)
+        try:                          # a yardstick, not part of the port
+            row["library_ms"] = s.device_ms(lambda: sdpa(
+                qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True), reps=10)
+        except RuntimeError as err:
+            row["library_ms"] = None
+            row["library_error"] = f"not measured: {err!r}"[:300]
+        nbytes = fa.hbm_bytes_model(b, t, h, kvh, hd,
+                                    dtype_bytes=q.element_size(), train=False)
+        flops = 4 * b * h * hd * live_pairs(t, causal, window)
+        peak = BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS
+        row.update(bytes=nbytes, flops=flops,
+                   bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   flops_ms=flops / peak * 1e3)
+        row["bound_ms"] = max(row["bytes_ms"], row["flops_ms"])
+        row["bound_by"] = "bytes" if row["bytes_ms"] > row["flops_ms"] \
+            else "operations"
+        return row
+
+
 def main() -> int:
     try:
         import torch
@@ -949,11 +1338,14 @@ def main() -> int:
               "root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch import atomics, convert
-    from repro_torch.core import engine
+    from repro_torch import atomics, convert, guard, runtime
+    from repro_torch.core import engine, layout
     from repro_torch import kernels as tk
+    from repro_torch.guard import inject
     from repro_torch.kernels import _build, llsc_commit, ops, ref
     from repro_torch.kernels import engine_round as er
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import scrub_digest
 
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} card {torch.cuda.get_device_name(0)}")
@@ -1065,6 +1457,77 @@ def main() -> int:
     worst_ms = smoke.device_ms(lambda: er.slow_round(d, v, *args), reps=5)
     log(f"[timing] slow_round all_same (one cell, p={P}): {worst_ms:.4f} ms")
 
+    del d, v, args
+    torch.cuda.empty_cache()
+
+    # -- 5. guard ----------------------------------------------------------------
+    gp = GuardPhase(smoke, guard, inject, runtime, scrub_digest)
+    t0 = time.perf_counter()
+    n_cases = gp.kernel_vs_plain()
+    log(f"[guard] digest_rows bit-identical to its plain version in "
+        f"{n_cases} cases (k = 1, 3, 4, 5, 16 at n = 1003; full width, also "
+        f"to numpy) in {time.perf_counter() - t0:.1f} s")
+    guard_ops, guard_timing = {}, {}
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    for si, strategy in enumerate(STRATEGIES):
+        guard_ops[strategy] = gp.layout(strategy, seed=7000 + si)
+        rep = guard_ops[strategy]["report"]
+        log(f"[guard] {strategy}: {GUARD_FAULTS} faults, detected "
+            f"{len(rep['detected'])},"
+            f" repaired {len(rep['repaired'])}, quarantined "
+            f"{len(rep['quarantined'])}, invariants "
+            f"{ {k: len(v) for k, v in rep['invariant_violations'].items()} }"
+            f"; mask_ops batch oracle-equal; second scrub clean")
+    guard_wall = time.perf_counter() - t0
+    guard_launches = tk.launch_counts()
+    launches_main["digest_rows"] = guard_launches["digest_rows"]
+    if guard_launches["digest_rows"] <= 0:
+        raise SystemExit("guard: digest_rows never launched on the path")
+    log(f"[guard] path in {guard_wall:.2f} s, launches {guard_launches}")
+    for strategy in STRATEGIES:
+        op = guard_ops.pop(strategy)
+        row = gp.timing(op)
+        row["report"], row["second"] = op["report"], op["second"]
+        guard_timing[strategy] = row
+        prof = row["scrub_faulted_profile"]
+        log(f"[guard-timing] {strategy:9s} cell_digest "
+            f"{row['cell_digest_ms']:.4f} ms, digest kernel "
+            f"{row['digest_kernel_ms'] * 1e3:.2f} us device (bound "
+            f"{row['digest_bound_ms'] * 1e3:.2f} us), plain "
+            f"{row['digest_plain_ms']:.4f} ms, check_invariants "
+            f"{row['check_invariants_ms']:.4f} ms, Scrubber.scrub clean "
+            f"{row['scrub_clean_ms']:.3f} ms / 64 faults "
+            f"{row['scrub_faulted_ms']:.3f} ms, device busy "
+            f"{prof.get('device_busy_share', prof.get('error'))}")
+        del op
+        torch.cuda.empty_cache()
+    row_gather = gp.row_gather(layout)
+    for name, row in row_gather.items():
+        log(f"[guard-timing] row gather of {N} x {K * 4} B rows, {name} "
+            f"index: table[idx] {row['index_ms'] * 1e3:.1f} us, gather_rows "
+            f"{row['gather_rows_ms'] * 1e3:.1f} us device")
+    torch.cuda.empty_cache()
+
+    # -- 6. attention -------------------------------------------------------------
+    ap = AttentionPhase(smoke, fa)
+    t0 = time.perf_counter()
+    attn_launches, attn_err = ap.path()
+    launches_main["flash_attention"] = attn_launches
+    smoke.max_err["flash_attention"] = max(attn_err.values())
+    log(f"[attention] {len(ATTENTION_CASES)} cases within tolerance of the "
+        f"plain version in {time.perf_counter() - t0:.1f} s, launches "
+        f"{attn_launches}, max abs err {attn_err}")
+    attn_timing = {}
+    for i, name in enumerate(ATTENTION_CASES):
+        attn_timing[name] = row = ap.timing(name, 6000 + i)
+        log(f"[attention-timing] {name:26s} kernel {row['ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}: bytes "
+            f"{row['bytes_ms']:.4f} / FLOPs {row['flops_ms']:.4f} ms), plain "
+            f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']}")
+        torch.cuda.empty_cache()
+
     # -- report ----------------------------------------------------------------
     ref = timings["cached_me"]
     rows = []
@@ -1085,6 +1548,25 @@ def main() -> int:
             "max_abs_err": smoke.max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None})
+    g = guard_timing["seqlock"]
+    rows.append({
+        "name": "digest_rows", "route": "cuda",
+        "source": KERNELS["digest_rows"][0],
+        "replaces": KERNELS["digest_rows"][1],
+        "launches": launches_main["digest_rows"],
+        "max_abs_err": smoke.max_err["digest_rows"],
+        "ms": g["digest_kernel_ms"], "plain_ms": g["digest_plain_ms"],
+        "bound_ms": g["digest_bound_ms"], "bound_by": "bytes",
+        "library_ms": None})
+    a = attn_timing["glm4_9b_t4096"]
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": KERNELS["flash_attention"][0],
+        "replaces": KERNELS["flash_attention"][1],
+        "launches": launches_main["flash_attention"],
+        "max_abs_err": smoke.max_err["flash_attention"], "ms": a["ms"],
+        "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+        "bound_by": a["bound_by"], "library_ms": a["library_ms"]})
     details = {"card": card, "build_s": build_s, "n": N, "k": K, "p": P,
                "launches_main_path": launches_main, "timing": timings,
                "slow_round_all_same_ms": worst_ms,
@@ -1093,6 +1575,12 @@ def main() -> int:
                              "fast_round_under_commit_round": fast_in_commit,
                              "entry_points": table_entries,
                              "kernels": table_kernels},
+               "guard": {"path_wall_s": guard_wall,
+                         "launches": guard_launches, "timing": guard_timing,
+                         "row_gather": row_gather},
+               "attention": {"cases": ATTENTION_CASES,
+                             "launches": attn_launches,
+                             "max_abs_err": attn_err, "timing": attn_timing},
                "kernels": rows}
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     log(card)

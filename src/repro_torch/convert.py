@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import ApplyResult, ApplyStats, LinkCtx, OpBatch
-from repro_torch.core.layout import TableState, Traffic
+from repro_torch.core.layout import (TableState, Traffic, as_words,
+                                     resolve_device)
 
 # Which fields hold 32-bit words (uint32 in numpy), per NamedTuple type.
 _WORD_FIELDS = {
@@ -73,6 +74,15 @@ def cachehash_tables(cells, chain_pool, device="cuda"
     reference's uint32 arrays."""
     return (tensor(cells, device, word=True),
             tensor(chain_pool, device, word=True))
+
+
+def snapshot(snap, device="cuda") -> dict:
+    """A `{"logical", "versions"}` table snapshot (numpy uint32, as the
+    reference's targets give it, or port tensors) as word tensors on
+    `device`."""
+    dev = resolve_device(device)
+    return {"logical": as_words(snap["logical"], dev),
+            "versions": as_words(snap["versions"], dev)}
 
 
 def table_state(fields, device="cuda") -> TableState:

@@ -78,6 +78,28 @@ def scatter_set(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     dst.index_add_(0, safe, delta)
 
 
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """`table[idx]` for a contiguous [m, k] table and int64 row indices in
+    [0, m).
+
+    Rows that are a multiple of 16 bytes gather as 16-byte elements of a
+    flat view (bits are copied, never computed on): on an H100, PyTorch's
+    row gather for such rows (`vectorized_gather_kernel<16>`) runs far
+    below the memory rate and the flat form near it.  `chip_smoke.py`
+    times both at 2^22 rows (PERF.md, Findings: the row gather)."""
+    k = table.shape[1]
+    row_bytes = k * table.element_size()
+    if (row_bytes % 16 or not table.is_contiguous()
+            or table.storage_offset() * table.element_size() % 16):
+        return table[idx]
+    per = row_bytes // 16
+    flat = table.view(-1).view(torch.complex128)
+    if per > 1:
+        idx = (idx[:, None] * per
+               + torch.arange(per, device=idx.device)).view(-1)
+    return flat[idx].view(table.dtype).view(-1, k)
+
+
 class TableState(NamedTuple):
     """Unified state; unused fields are size-0 tensors for lean strategies.
 

@@ -23,13 +23,23 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.layout import (NULL, TableState, Traffic, WORD_BYTES,
-                                     WORD_DTYPE, _empty, as_u64, ring_alloc,
-                                     ring_free, scatter_set, sim_alloc)
+                                     WORD_DTYPE, _empty, as_u64, gather_rows,
+                                     ring_alloc, ring_free, scatter_set,
+                                     sim_alloc)
 from repro_torch.core.registry import StrategyImpl, register_strategy
 
 
 def _i32(x, dev) -> torch.Tensor:
     return torch.as_tensor(x, device=dev).to(torch.int32)
+
+
+def _node_index(bptr: torch.Tensor, m: int) -> torch.Tensor:
+    """Node indices as the reference's gather reads `pool[bptr]`: a
+    negative pointer counts from the end, then the index is clamped into
+    [0, m).  At rest every pointer is in range; a corrupted one (the
+    integrity scrub's input) must still read in bounds on a card."""
+    idx = bptr.long()
+    return torch.where(idx < 0, idx + m, idx).clamp(0, m - 1)
 
 
 class _KernelLowering:
@@ -198,7 +208,8 @@ class Indirect(_KernelLowering, _NodePool):
     lock_free = True
 
     def logical(self, state):
-        return state.pool[state.bptr.long()]
+        return gather_rows(state.pool,
+                           _node_index(state.bptr, state.pool.shape[0]))
 
     def engine_view(self, state):
         # `commit` writes new_data into the shadow alongside the node swing,
@@ -232,7 +243,7 @@ class Indirect(_KernelLowering, _NodePool):
         out = super().check_invariants(spec, state)
         m = state.pool.shape[0]
         bad_ptr = (state.bptr < 0) | (state.bptr >= m)
-        node = state.pool[state.bptr.clamp(0, m - 1).long()]
+        node = gather_rows(state.pool, state.bptr.clamp(0, m - 1).long())
         out["pointer_range"] = bad_ptr
         # commit maintains data as an exact shadow of pool[bptr]
         out["shadow_agrees"] = ~bad_ptr & (node != state.data).any(1)
@@ -297,7 +308,7 @@ class CachedWF(_KernelLowering, _Cached):
         out = super().check_invariants(spec, state)
         m = state.pool.shape[0]
         bad_ptr = (state.bptr < 0) | (state.bptr >= m)
-        backup = state.pool[state.bptr.clamp(0, m - 1).long()]
+        backup = gather_rows(state.pool, state.bptr.clamp(0, m - 1).long())
         out["pointer_range"] = bad_ptr
         # every batch ends validated: cache == backup, marks clear
         out["cache_matches_backup"] = ~bad_ptr & (backup != state.data).any(1)

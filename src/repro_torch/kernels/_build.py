@@ -2,8 +2,9 @@
 
 Every source `csrc/<name>.cu` is compiled by `nvcc` for Hopper (`sm_90a`)
 into its own shared library with a plain C interface, which `ctypes`
-loads: `engine_round.cu` (the fused engine round) and `table_ops.cu` (the
-raw-table kernels).  A build happens at first use, into `build/kernels/`
+loads: `engine_round.cu` (the fused engine round), `table_ops.cu` (the
+raw-table kernels), `scrub_digest.cu` (the scrub's cell digest) and
+`flash_attention.cu` (forward attention).  A build happens at first use, into `build/kernels/`
 at the root of the checkout, under `<name>_<hash of the source>.so`, so an
 edited source rebuilds and an unchanged one loads at once.  A missing
 `nvcc` or a failed build raises: nothing falls back to the plain PyTorch
@@ -27,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ROUND = [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P]
 # C signatures of each library's entry points (all return a cudaError_t).
 SIGNATURES = {
@@ -40,6 +41,11 @@ SIGNATURES = {
                               _I, _P],
         "cachehash_probe": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                             _I, _P],
+    },
+    "scrub_digest": {"digest_rows": [_P, _P, _I, _I, _P, _I, _P]},
+    "flash_attention": {
+        "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                            _I, _I, _I, _P],
     },
 }
 

@@ -154,7 +154,8 @@ def _imported_modules(path: Path):
 def test_port_imports_neither_jax_nor_reference():
     """AST scan of every module of the port and `chip_smoke.py`, then a
     fresh interpreter that refuses to import `jax` or `repro` imports the
-    whole port and runs one apply on the CPU."""
+    whole port and runs one apply, one scrub of an injected fault and one
+    attention on the CPU."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
@@ -175,6 +176,10 @@ def test_port_imports_neither_jax_nor_reference():
         import numpy as np
         from repro_torch import atomics, convert
         from repro_torch.kernels import _build, engine_round, llsc_commit, ops
+        import repro_torch.guard, repro_torch.runtime
+        import repro_torch.kernels.flash_attention
+        from repro_torch.guard import inject
+        from repro_torch.kernels.flash_attention import flash_attention
         spec = atomics.AtomicSpec(8, 2, "cached_me", p_max=4)
         state = atomics.init(spec, device="cpu")
         batch = atomics.stores([1, 1, 2], np.ones((3, 2), np.uint32), k=2,
@@ -190,6 +195,17 @@ def test_port_imports_neither_jax_nor_reference():
         vals, ok = ops.bigatomic_load(data, meta, convert.tensor(
             np.arange(4, dtype=np.int32), "cpu"))
         assert bool(ok.all()) and int(ops.hash_keys(vals, 7)[0]) >= 0
+        target = repro_torch.runtime.LocalTarget(spec, device="cpu")
+        sc = repro_torch.guard.Scrubber(spec, device="cpu")
+        base = sc.digest_of(target)
+        target.state, _ = inject.inject_table_fault(
+            spec, target.state, repro_torch.runtime.Fault(1, "bit_flip",
+                                                          slot=2),
+            np.random.default_rng(0))
+        assert sc.scrub(target, round_idx=1, baseline=base).detected == [2]
+        import torch
+        x = torch.ones((1, 4, 2, 8))
+        assert flash_attention(x, x, x).shape == (1, 4, 2, 8)
         bad = [m for m in sys.modules if m.split(".")[0] in
                ("jax", "jaxlib", "repro")]
         assert not bad, bad

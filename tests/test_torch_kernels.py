@@ -576,7 +576,8 @@ def test_cpu_tensors_never_launch_and_counts_reset():
     tk.reset_launch_counts()
     assert set(tk.launch_counts()) == {
         "fast_round", "slow_round", "seqlock_gather", "cas_apply_round",
-        "llsc_commit_round", "cachehash_probe"}
+        "llsc_commit_round", "cachehash_probe", "digest_rows",
+        "flash_attention"}
     for _, call in _cpu_calls():
         call()
     assert not any(tk.launch_counts().values())
@@ -676,7 +677,8 @@ def test_every_library_needs_nvcc(monkeypatch, tmp_path):
 
 def test_library_paths_are_keyed_by_each_source():
     paths = {name: _build.library_path(name) for name in _build.SIGNATURES}
-    assert set(paths) == {"engine_round", "table_ops"}
+    assert set(paths) == {"engine_round", "table_ops", "scrub_digest",
+                          "flash_attention"}
     for name, path in paths.items():
         assert path.parent == _build.BUILD_DIR
         assert re.fullmatch(rf"{name}_[0-9a-f]{{16}}\.so", path.name)
@@ -693,8 +695,10 @@ def test_c_entry_points_match_declared_signatures():
         for fn, argtypes in fns.items():
             found = re.search(rf"\nint {fn}\(([^)]*)\)", c_part)
             assert found, f"{name}.cu has no entry point {fn}"
-            c_args = ["ptr" if "*" in a else "int"
+            c_args = ["ptr" if "*" in a else
+                      "float" if a.split()[0] == "float" else "int"
                       for a in found.group(1).split(",")]
-            py_args = ["ptr" if t is ctypes.c_void_p else "int"
+            py_args = ["ptr" if t is ctypes.c_void_p else
+                       "float" if t is ctypes.c_float else "int"
                        for t in argtypes]
             assert c_args == py_args, fn

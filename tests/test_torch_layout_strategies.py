@@ -187,3 +187,20 @@ def test_node_ring_stays_fifo_past_2p_allocations(strategy):
             assert len(free) == 2 * p and (live >= 0).all()
             assert sorted(np.concatenate([live, free]).tolist()) == \
                 list(range(n + 2 * p)), "a node was lost or duplicated"
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 8, 16])
+def test_gather_rows_equals_indexing(k):
+    """`layout.gather_rows` copies the same bits as `table[idx]`, through
+    its 16-byte flat view where the rows allow it and plain indexing
+    elsewhere (odd rows, an offset view)."""
+    rng = np.random.default_rng(k)
+    table = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (37, k),
+                                          dtype=np.int64).astype(np.int32))
+    idx = torch.from_numpy(rng.integers(0, 37, 50))
+    for t in (table, table[1:]):
+        i = idx.clamp(max=t.shape[0] - 1)
+        assert torch.equal(tlayout.gather_rows(t, i), t[i])
+    nan = torch.full((4, 4), 0x7FC00001, dtype=torch.int32)    # NaN bits
+    assert torch.equal(tlayout.gather_rows(nan, torch.tensor([2, 0])),
+                       nan[[2, 0]])
