@@ -58,11 +58,17 @@ package, and runs these phases:
              `layout.gather_rows`, 2**22 rows of 16 bytes).
   6. attention
              `flash_attention` against `flash_attention_plain` at the
-             attention widths of glm4_9b (t=4096, causal, bf16) and
-             mixtral_8x7b (t=8192, window 4096, bf16 and fp32), and a
-             ragged fp32 case (t=1000), with the counts reset (bf16 within
-             1e-3 + 1e-2 |want|, fp32 within 1e-4 + 1e-4 |want|); then the
-             kernel's time, its bound, the plain version's and
+             attention widths of glm4_9b (t=4096, causal, bf16),
+             mixtral_8x7b (t=8192, window 4096, bf16 and fp32),
+             hubert_xlarge (t=4096, hd=80, bidirectional, bf16) and
+             recurrentgemma_9b (t=4096, hd=256, kvh=1, window 2048, bf16),
+             a ragged fp32 case (t=1000), bf16 at hd=64 (t=4096), and
+             three ragged bf16 cases at b=2 (t=1000, and tq != tkv), with
+             the counts reset (bf16 within 1e-3 + 1e-2 |want|, fp32 within
+             1e-4 + 1e-4 |want|); each case must have launched the kernel
+             it names (the wgmma kernel for bf16 at hd 80 / 128 / 256, the
+             CUDA-core kernel for fp32 and bf16 at hd 64); then each
+             case's time, its bound, the plain version's and
              `scaled_dot_product_attention`'s.
 
 Exits non-zero on any failure, without the result line.  On success the
@@ -80,6 +86,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -104,6 +111,9 @@ KERNELS = {
                     "src/repro/guard/scrub.py:91"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:120"),
+    "flash_attention_wgmma": (
+        "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+        "src/repro/kernels/flash_attention.py:120"),
 }
 TABLE_KERNELS = ("seqlock_gather", "cas_apply_round", "llsc_commit_round",
                  "cachehash_probe")
@@ -1211,71 +1221,128 @@ BF16_FLOPS, FP32_FLOPS = 989e12, 67e12       # H100 SXM dense peaks
 # one bf16 ulp, at most 2^-7 of the value (rtol 1e-2), or by atol 1e-3 near
 # 0.  fp32: the summation order differs from the plain version's.
 BF16_TOL, FP32_TOL = (1e-3, 1e-2), (1e-4, 1e-4)
+WGMMA, CORES = "flash_attention_wgmma", "flash_attention"
+
+
+class AttnCase(NamedTuple):
+    b: int
+    tq: int
+    tkv: int
+    h: int
+    kvh: int
+    hd: int
+    causal: bool
+    window: int
+    dtype: str
+    tol: tuple            # (atol, rtol)
+    kernel: str           # the kernel the case must launch
+
+
 ATTENTION_CASES = {
-    # name: (b, t, h, kvh, hd, causal, window, dtype, (atol, rtol))
-    "glm4_9b_t4096": (1, 4096, 32, 2, 128, True, 0, "bfloat16", BF16_TOL),
-    "mixtral_8x7b_t8192_w4096": (1, 8192, 32, 8, 128, True, 4096,
-                                 "bfloat16", BF16_TOL),
-    "glm4_9b_t1000_fp32": (1, 1000, 32, 2, 128, True, 0, "float32",
-                           FP32_TOL),
+    "glm4_9b_t4096": AttnCase(1, 4096, 4096, 32, 2, 128, True, 0,
+                              "bfloat16", BF16_TOL, WGMMA),
+    "mixtral_8x7b_t8192_w4096": AttnCase(1, 8192, 8192, 32, 8, 128, True,
+                                         4096, "bfloat16", BF16_TOL, WGMMA),
+    "glm4_9b_t1000_fp32": AttnCase(1, 1000, 1000, 32, 2, 128, True, 0,
+                                   "float32", FP32_TOL, CORES),
     # the window mask and the tiles it skips, held at the fp32 tolerance
-    "mixtral_8x7b_t8192_w4096_fp32": (1, 8192, 32, 8, 128, True, 4096,
-                                      "float32", FP32_TOL),
+    "mixtral_8x7b_t8192_w4096_fp32": AttnCase(1, 8192, 8192, 32, 8, 128,
+                                              True, 4096, "float32",
+                                              FP32_TOL, CORES),
+    # the wgmma kernel's other head dims: an encoder (hd 80) and local
+    # attention with one kv head (hd 256)
+    "hubert_xlarge_t4096": AttnCase(1, 4096, 4096, 16, 16, 80, False, 0,
+                                    "bfloat16", BF16_TOL, WGMMA),
+    "recurrentgemma_9b_t4096_w2048": AttnCase(1, 4096, 4096, 16, 1, 256,
+                                              True, 2048, "bfloat16",
+                                              BF16_TOL, WGMMA),
+    # the CUDA-core kernel's bf16 instance: no model of the repo has a bf16
+    # head dim off the wgmma kernel, so mixtral_8x7b's heads at hd 64
+    "hd64_h32_kv8_t4096": AttnCase(1, 4096, 4096, 32, 8, 64, True, 0,
+                                   "bfloat16", BF16_TOL, CORES),
+    # b = 2 and ends that are no multiple of a tile, one per wgmma head
+    # dim: the kernel's ragged-key mask, its store cut-off at tq and the
+    # batch coordinate of its TMA maps; tq != tkv in the last two, and in
+    # the last one rows 899-999 have no live key (`fill_dead_rows`)
+    "glm4_9b_b2_t1000": AttnCase(2, 1000, 1000, 32, 2, 128, True, 0,
+                                 "bfloat16", BF16_TOL, WGMMA),
+    "hubert_xlarge_b2_q1000_kv1200": AttnCase(2, 1000, 1200, 16, 16, 80,
+                                              False, 0, "bfloat16",
+                                              BF16_TOL, WGMMA),
+    "recurrentgemma_9b_b2_q1000_kv700_w200": AttnCase(
+        2, 1000, 700, 16, 1, 256, True, 200, "bfloat16", BF16_TOL, WGMMA),
 }
+# the case each attention kernel's entry in the kernels line reports
+ATTENTION_ROW = {WGMMA: "glm4_9b_t4096",
+                 CORES: "mixtral_8x7b_t8192_w4096_fp32"}
 
 
-def live_pairs(t, causal, window):
-    """(query, key) pairs the masks leave live, for t queries and keys."""
-    q = np.arange(t, dtype=np.int64)
-    hi = q + 1 if causal else np.full(t, t)
-    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(t, int)
+def live_pairs(tq, tkv, causal, window):
+    """(query, key) pairs the masks leave live, for tq queries and tkv
+    keys."""
+    q = np.arange(tq, dtype=np.int64)
+    hi = np.minimum(q + 1, tkv) if causal else np.full(tq, tkv)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(tq, int)
     return int(np.maximum(hi - lo, 0).sum())
 
 
 class AttentionPhase:
     """Phase 6: `flash_attention` against `flash_attention_plain` on the
-    card at the attention widths of glm4_9b and mixtral_8x7b, plus a ragged
-    fp32 case; then the kernel's, the plain version's and
-    `scaled_dot_product_attention`'s times."""
+    card at the attention widths of the cases in `ATTENTION_CASES`; then
+    the kernel's, the plain version's and `scaled_dot_product_attention`'s
+    times."""
 
     def __init__(self, smoke, fa):
         self.s, self.torch, self.dev, self.fa = smoke, smoke.torch, \
             smoke.dev, fa
 
     def inputs(self, name, seed):
-        b, t, h, kvh, hd, _, _, dtype, _ = ATTENTION_CASES[name]
+        c = ATTENTION_CASES[name]
         torch = self.torch
         gen = torch.Generator(device=self.dev).manual_seed(seed)
-        dt = getattr(torch, dtype)
+        dt = getattr(torch, c.dtype)
         return tuple(torch.randn(shape, generator=gen, device=self.dev,
                                  dtype=torch.float32).to(dt)
-                     for shape in ((b, t, h, hd), (b, t, kvh, hd),
-                                   (b, t, kvh, hd)))
+                     for shape in ((c.b, c.tq, c.h, c.hd),
+                                   (c.b, c.tkv, c.kvh, c.hd),
+                                   (c.b, c.tkv, c.kvh, c.hd)))
 
     def path(self):
-        """Every case once through `flash_attention`, with the launch count
-        reset just before; each output finite and within tolerance of the
-        plain version.  Returns the launches and the largest errors."""
-        torch, fa = self.torch, self.fa
-        outs = {}
+        """Every case once through `flash_attention`, with the launch counts
+        reset just before; each case must launch one kernel, the one it
+        names, and its output be finite and within tolerance of the plain
+        version.  Returns the
+        launches per kernel, the kernel of each case and the largest
+        errors."""
+        torch, fa, tk = self.torch, self.fa, self.s.tk
+        outs, ran = {}, {}
         torch.cuda.synchronize()
-        self.s.tk.reset_launch_counts()
-        for i, name in enumerate(ATTENTION_CASES):
-            *_, causal, window, _, _ = ATTENTION_CASES[name]
+        tk.reset_launch_counts()
+        for i, (name, c) in enumerate(ATTENTION_CASES.items()):
+            before = tk.launch_counts()
             outs[name] = fa.flash_attention(*self.inputs(name, 6000 + i),
-                                            causal=causal, window=window)
+                                            causal=c.causal, window=c.window)
+            after = tk.launch_counts()
+            ran[name] = [k for k in fa.KERNELS if after[k] != before[k]]
         torch.cuda.synchronize()
-        launches = fa.flash_attention.launches
-        if launches <= 0:
-            raise SystemExit("attention: flash_attention never launched")
+        launches = {k: tk.launch_counts()[k] for k in fa.KERNELS}
+        for name, kernels in ran.items():
+            want = ATTENTION_CASES[name].kernel
+            if kernels != [want]:
+                raise SystemExit(f"attention {name}: launched {kernels}, "
+                                 f"expected [{want}]")
+        if any(n <= 0 for n in launches.values()):
+            raise SystemExit(f"attention: a kernel never launched "
+                             f"({launches})")
         errs = {}
         for i, (name, out) in enumerate(outs.items()):
-            b, t, h, kvh, hd, causal, window, dtype, (atol, rtol) = \
-                ATTENTION_CASES[name]
+            c = ATTENTION_CASES[name]
+            atol, rtol = c.tol
             want = fa.flash_attention_plain(*self.inputs(name, 6000 + i),
-                                            causal=causal, window=window)
+                                            causal=c.causal, window=c.window)
             got, want = out.float(), want.float()
-            if out.shape != (b, t, h, hd) or not torch.isfinite(got).all():
+            if out.shape != (c.b, c.tq, c.h, c.hd) or \
+                    not torch.isfinite(got).all():
                 raise SystemExit(f"attention {name}: output not finite or of "
                                  "the wrong shape")
             err = (got - want).abs()
@@ -1283,13 +1350,14 @@ class AttentionPhase:
             if bool((err > atol + rtol * want.abs()).any()):
                 raise SystemExit(f"attention {name}: differs from the plain "
                                  f"version (max abs err {errs[name]})")
-        return launches, errs
+        return launches, {n: k[0] for n, k in ran.items()}, errs
 
     def timing(self, name, seed):
         torch, fa, s = self.torch, self.fa, self.s
-        b, t, h, kvh, hd, causal, window, dtype, _ = ATTENTION_CASES[name]
+        c = ATTENTION_CASES[name]
+        causal, window = c.causal, c.window
         q, k, v = self.inputs(name, seed)
-        row = {
+        row = {"kernel": fa.kernel_for(q.dtype, c.hd),
             "ms": s.device_ms(lambda: fa.flash_attention(
                 q, k, v, causal=causal, window=window), reps=10),
             "plain_ms": s.time_ms(lambda: fa.flash_attention_plain(
@@ -1300,9 +1368,9 @@ class AttentionPhase:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         mask = None
         if window > 0:
-            pos = torch.arange(t, device=self.dev)
-            mask = (pos[None, :] <= pos[:, None]) & \
-                (pos[None, :] > pos[:, None] - window)
+            qpos = torch.arange(c.tq, device=self.dev)[:, None]
+            kpos = torch.arange(c.tkv, device=self.dev)[None, :]
+            mask = (kpos <= qpos) & (kpos > qpos - window)
         try:                          # a yardstick, not part of the port
             row["library_ms"] = s.device_ms(lambda: sdpa(
                 qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
@@ -1310,10 +1378,11 @@ class AttentionPhase:
         except RuntimeError as err:
             row["library_ms"] = None
             row["library_error"] = f"not measured: {err!r}"[:300]
-        nbytes = fa.hbm_bytes_model(b, t, h, kvh, hd,
-                                    dtype_bytes=q.element_size(), train=False)
-        flops = 4 * b * h * hd * live_pairs(t, causal, window)
-        peak = BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS
+        # read q, k and v once, write o once
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = 4 * c.b * c.h * c.hd * live_pairs(c.tq, c.tkv, causal,
+                                                  window)
+        peak = BF16_FLOPS if c.dtype == "bfloat16" else FP32_FLOPS
         row.update(bytes=nbytes, flops=flops,
                    bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                    flops_ms=flops / peak * 1e3)
@@ -1513,19 +1582,22 @@ def main() -> int:
     # -- 6. attention -------------------------------------------------------------
     ap = AttentionPhase(smoke, fa)
     t0 = time.perf_counter()
-    attn_launches, attn_err = ap.path()
-    launches_main["flash_attention"] = attn_launches
-    smoke.max_err["flash_attention"] = max(attn_err.values())
+    attn_launches, attn_kernel, attn_err = ap.path()
+    launches_main.update(attn_launches)
+    for name in attn_launches:
+        smoke.max_err[name] = max(err for case, err in attn_err.items()
+                                  if attn_kernel[case] == name)
     log(f"[attention] {len(ATTENTION_CASES)} cases within tolerance of the "
         f"plain version in {time.perf_counter() - t0:.1f} s, launches "
-        f"{attn_launches}, max abs err {attn_err}")
+        f"{attn_launches}, kernels {attn_kernel}, max abs err {attn_err}")
     attn_timing = {}
     for i, name in enumerate(ATTENTION_CASES):
         attn_timing[name] = row = ap.timing(name, 6000 + i)
-        log(f"[attention-timing] {name:26s} kernel {row['ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}: bytes "
-            f"{row['bytes_ms']:.4f} / FLOPs {row['flops_ms']:.4f} ms), plain "
-            f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']}")
+        log(f"[attention-timing] {name:30s} {row['kernel']:22s} "
+            f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}: bytes {row['bytes_ms']:.4f} / FLOPs "
+            f"{row['flops_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, "
+            f"sdpa {row['library_ms']}")
         torch.cuda.empty_cache()
 
     # -- report ----------------------------------------------------------------
@@ -1558,15 +1630,14 @@ def main() -> int:
         "ms": g["digest_kernel_ms"], "plain_ms": g["digest_plain_ms"],
         "bound_ms": g["digest_bound_ms"], "bound_by": "bytes",
         "library_ms": None})
-    a = attn_timing["glm4_9b_t4096"]
-    rows.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": KERNELS["flash_attention"][0],
-        "replaces": KERNELS["flash_attention"][1],
-        "launches": launches_main["flash_attention"],
-        "max_abs_err": smoke.max_err["flash_attention"], "ms": a["ms"],
-        "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
-        "bound_by": a["bound_by"], "library_ms": a["library_ms"]})
+    for name, case in ATTENTION_ROW.items():
+        a = attn_timing[case]
+        rows.append({
+            "name": name, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1], "launches": launches_main[name],
+            "max_abs_err": smoke.max_err[name], "ms": a["ms"],
+            "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+            "bound_by": a["bound_by"], "library_ms": a["library_ms"]})
     details = {"card": card, "build_s": build_s, "n": N, "k": K, "p": P,
                "launches_main_path": launches_main, "timing": timings,
                "slow_round_all_same_ms": worst_ms,
@@ -1578,8 +1649,10 @@ def main() -> int:
                "guard": {"path_wall_s": guard_wall,
                          "launches": guard_launches, "timing": guard_timing,
                          "row_gather": row_gather},
-               "attention": {"cases": ATTENTION_CASES,
+               "attention": {"cases": {n: c._asdict() for n, c in
+                                       ATTENTION_CASES.items()},
                              "launches": attn_launches,
+                             "kernel": attn_kernel,
                              "max_abs_err": attn_err, "timing": attn_timing},
                "kernels": rows}
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))

@@ -3,9 +3,11 @@
 Every source `csrc/<name>.cu` is compiled by `nvcc` for Hopper (`sm_90a`)
 into its own shared library with a plain C interface, which `ctypes`
 loads: `engine_round.cu` (the fused engine round), `table_ops.cu` (the
-raw-table kernels), `scrub_digest.cu` (the scrub's cell digest) and
-`flash_attention.cu` (forward attention).  A build happens at first use, into `build/kernels/`
-at the root of the checkout, under `<name>_<hash of the source>.so`, so an
+raw-table kernels), `scrub_digest.cu` (the scrub's cell digest),
+`flash_attention.cu` (forward attention on the CUDA cores) and
+`flash_attention_wgmma.cu` (forward attention on the tensor cores, bf16).
+A build happens at first use, into `build/kernels/` at the root of the
+checkout, under `<name>_<hash of the source>.so`, so an
 edited source rebuilds and an unchanged one loads at once.  A missing
 `nvcc` or a failed build raises: nothing falls back to the plain PyTorch
 versions.
@@ -46,6 +48,10 @@ SIGNATURES = {
     "flash_attention": {
         "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                             _I, _I, _I, _P],
+    },
+    "flash_attention_wgmma": {
+        "flash_attention_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                  _I, _I, _I, _P],
     },
 }
 

@@ -2,7 +2,9 @@
 // (src/repro_torch/kernels/flash_attention.py::flash_attention).
 //
 //   flash_attention_kernel   replaces src/repro/kernels/flash_attention.py::
-//                            flash_attention_tpu
+//                            flash_attention_tpu for fp32, and for bf16 at
+//                            head dims other than 80, 128 and 256 (those run
+//                            on the tensor cores, flash_attention_wgmma.cu)
 //
 // q [b, tq, h, hd], k and v [b, tkv, kvh, hd] (the model's layout, read
 // directly), fp32 or bf16, hd <= 256 -> o [b, tq, h, hd] in q's type.  Query
@@ -11,14 +13,13 @@
 // of the keys (key < tkv); ragged ends of q and kv are masked here, with no
 // padding copies.  Arithmetic is fp32: the running max starts at the finite
 // NEG_INF = -1e30, masked scores contribute p = 0, and the output is
-// acc / max(l, 1e-30), so a row with no live key gives zeros and never NaN.
-// That departs from the Pallas kernel on purpose: it gives masked scores
-// exp(0) terms while a row has seen no live key, so its rows with none hold
-// a mean of masked v rows that depends on its tiling.
+// acc / max(l, 1e-30), so a row with no live key gives zeros here and never
+// NaN; the wrapper then gives such rows the Pallas kernel's value, a mean of
+// v over the kv tiles it visits (flash_attention.py::fill_dead_rows).
 // The plain PyTorch version is flash_attention.py::flash_attention_plain.
 //
-// Design (simple and right; tensor cores, TMA and a fast design are later
-// work).  One block of 8 warps per (64-query tile, head, batch); each warp
+// Design (simple and right; the tensor-core design is
+// flash_attention_wgmma.cu).  One block of 8 warps per (64-query tile, head, batch); each warp
 // owns 8 consecutive query rows.  The block stages its Q tile once, then
 // walks the kv tiles of 32 keys that the causal and window masks leave
 // live for the tile (the Pallas kernel's block skip), staging K and V in
@@ -36,9 +37,8 @@
 // products are 1.37e11 FLOP, 139 us at the 989 TFLOP/s bf16 tensor-core
 // rate, against 71 MB of HBM traffic (21 us at 3.35 TB/s).  This kernel
 // runs them on the CUDA cores in fp32 (67 TFLOP/s peak), with about one
-// shared-memory load per FMA, so it sits well above that bound; the
-// tensor-core version (wgmma on bf16 tiles) is the redesign that closes
-// the gap.
+// shared-memory load per FMA, so it sits well above that bound; bf16 at
+// those widths runs on the tensor-core kernel instead.
 
 #include <cstddef>
 #include <cstdint>

@@ -1,21 +1,32 @@
 """Forward attention with an online softmax (flash attention).
 
-`flash_attention(q, k, v, causal=, window=)` replaces the reference's
-Pallas kernel `kernels/flash_attention.py::flash_attention_tpu` with the
-CUDA kernel `flash_attention_kernel` (`csrc/flash_attention.cu`).  It reads
-the model's `[b, t, h, hd]` layout directly (the Pallas wrapper's
-transposes and padding do not carry over), handles causal, sliding-window
-(`key > query - window`) and ragged-length masks and GQA (query head i
-reads kv head `i // (h // kvh)`), accumulates in fp32 and returns q's
-type.  The Pallas `q_block` / `kv_block` tiling hints do not carry over
-either: the kernel picks its own tile, and the output does not depend on
-it.  A query row with no live key (a window that ends before the keys do)
-gives zeros; the Pallas kernel gives there a mean of masked value rows that
-depends on its tiling, which the port does not copy.
+`flash_attention(q, k, v, causal=, window=, q_block=, kv_block=)` replaces
+the reference's Pallas kernel `kernels/flash_attention.py::
+flash_attention_tpu` with one of two CUDA kernels, chosen by a static rule
+on (dtype, head dim) (`kernel_for`):
+
+  flash_attention_wgmma   bf16 at a head dim in `WGMMA_HEAD_DIMS` (80,
+                          128, 256): tensor cores (wgmma), K/V through TMA
+                          (`csrc/flash_attention_wgmma.cu`)
+  flash_attention         fp32, and bf16 at any other head dim: fp32 FMAs
+                          on the CUDA cores (`csrc/flash_attention.cu`)
+
+Both read the model's `[b, t, h, hd]` layout directly (the Pallas
+wrapper's transposes and padding do not carry over), handle causal,
+sliding-window (`key > query - window`) and ragged-length masks and GQA
+(query head i reads kv head `i // (h // kvh)`), keep the softmax
+statistics in fp32 and return q's type.  The kernels pick their own tiles;
+`q_block` / `kv_block` name the reference's, and matter only for a query
+row with no live key (a window that ends before the keys do,
+`qpos >= tkv + window - 1`): the Pallas kernel gives such a row the mean of
+v over the kv tiles it visits for the row's q block, zero-padded positions
+counted, and `fill_dead_rows` gives it the same value on both the plain
+and the kernel path.
 
 `flash_attention_plain` is the same online-softmax recurrence in plain
-PyTorch, over query and key blocks of 512, so its memory stays bounded at
-long sequences.  `hbm_bytes_model` is the reference's traffic model.
+PyTorch, over query and key blocks of 512 in fp32, so its memory stays
+bounded at long sequences.  `hbm_bytes_model` is the reference's traffic
+model.
 """
 
 from __future__ import annotations
@@ -28,6 +39,16 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 BLOCK = 512                  # the plain version's query and key block
+WGMMA_HEAD_DIMS = (80, 128, 256)
+
+
+def kernel_for(dtype: torch.dtype, hd: int) -> str:
+    """Name of the CUDA kernel that a call with this dtype and head dim
+    launches on the card: the wgmma kernel for bf16 at a head dim it is
+    built for, the CUDA-core kernel for the rest."""
+    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+        return "flash_attention_wgmma"
+    return "flash_attention"
 
 
 def _live(qpos, kpos, tkv: int, causal: bool, window: int):
@@ -39,10 +60,54 @@ def _live(qpos, kpos, tkv: int, causal: bool, window: int):
     return mask
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
+def first_dead_row(tq: int, tkv: int, window: int) -> int:
+    """The first query row with no live key (tq if there is none): with a
+    window, rows at or past tkv + window - 1, whose window ends before the
+    keys do."""
+    if window <= 0:
+        return tq
+    return min(tq, max(0, tkv + window - 1))
+
+
+def fill_dead_rows(out, v, *, causal: bool, window: int, q_block: int,
+                   kv_block: int):
+    """Give the rows of `out` [b, tq, h, hd] that have no live key the
+    value of `flash_attention_tpu` at blocks `q_block` / `kv_block`, in
+    place: every score it visits there is the finite NEG_INF, so p = 1 at
+    every position of the kv tiles it visits for the row's q block, and the
+    row is the mean of v (its kv head) over them, zero-padded positions past
+    tkv counted (0 where it visits none).  Returns `out`."""
+    b, tq, h, hd = out.shape
+    tkv, kvh = v.shape[1], v.shape[2]
+    first = first_dead_row(tq, tkv, window)
+    if first >= tq or tkv == 0:
+        return out
+    qb, kvb = min(q_block, tq), min(kv_block, tkv)
+    nkv = -(-tkv // kvb)
+    # [b, nkv, kvh, hd]: v summed over each kv tile, in fp32
+    tiles = torch.zeros((b, nkv * kvb, kvh, hd), dtype=torch.float32,
+                        device=v.device)
+    tiles[:, :tkv] = v.float()
+    tiles = tiles.view(b, nkv, kvb, kvh, hd).sum(2)
+    for qi in range(first // qb, -(-tq // qb)):
+        q_lo = qi * qb
+        # the reference's block skip: tiles [lo, hi) are visited
+        hi = min(nkv, (q_lo + qb - 1) // kvb + 1) if causal else nkv
+        lo = max(0, (q_lo - window - kvb + 1) // kvb + 1)
+        val = tiles[:, lo:max(lo, hi)].sum(1) / max(1, (hi - lo) * kvb)
+        rows = slice(max(q_lo, first), min(q_lo + qb, tq))
+        out[:, rows] = val.repeat_interleave(h // kvh, dim=1)[:, None].to(
+            out.dtype)
+    return out
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          q_block: int = 512, kv_block: int = 512):
     """q: [b, tq, h, hd]; k, v: [b, tkv, kvh, hd].  Returns [b, tq, h, hd]
     in q's dtype, computed in fp32.  Key blocks masked for a whole query
-    block are skipped; masked scores contribute p = 0."""
+    block are skipped; masked scores contribute p = 0; rows with no live
+    key get the reference's value at `q_block` / `kv_block`
+    (`fill_dead_rows`)."""
     b, tq, h, hd = q.shape
     tkv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -78,15 +143,19 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
             acc = acc * corr[..., None] + torch.matmul(p, vf[:, :, k_lo:k_hi])
             m = m_new
         out[:, :, q_lo:q_hi] = acc / l.clamp(min=1e-30)[..., None]
-    return out.permute(0, 2, 1, 3).to(q.dtype).contiguous()
+    out = out.permute(0, 2, 1, 3).to(q.dtype).contiguous()
+    return fill_dead_rows(out, v, causal=causal, window=window,
+                          q_block=q_block, kv_block=kv_block)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_block: int = 512, kv_block: int = 512):
     """q: [b, tq, h, hd]; k, v: [b, tkv, kvh, hd]; fp32 or bf16, one dtype,
-    h % kvh == 0, 1 <= hd <= 256.  Returns [b, tq, h, hd] in q's dtype.
+    h % kvh == 0, 1 <= hd <= 256, q_block, kv_block >= 1.  Returns
+    [b, tq, h, hd] in q's dtype.
 
     CPU tensors run `flash_attention_plain`; CUDA tensors launch the kernel
-    or raise."""
+    that `kernel_for(dtype, hd)` names, or raise."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be [b, t, heads, hd]")
     b, tq, h, hd = q.shape
@@ -99,24 +168,54 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if kvh == 0 or h % kvh:
         raise ValueError(f"flash_attention: {h} query heads are not a "
                          f"multiple of {kvh} kv heads")
+    if q_block < 1 or kv_block < 1:
+        raise ValueError(f"flash_attention: blocks {q_block}, {kv_block} "
+                         "must be positive")
     dev = q.device
     _build.check(dev, ("q", q, q.dtype, (b, tq, h, hd)),
                  ("k", k, q.dtype, (b, tkv, kvh, hd)),
                  ("v", v, q.dtype, (b, tkv, kvh, hd)))
     if _build.runs_plain(dev, "flash_attention"):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_block=q_block, kv_block=kv_block)
     out = torch.empty_like(q)
     if q.numel():
-        _build.launch("flash_attention", "flash_attention", dev,
-                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), b, tq, tkv, h, kvh, hd,
-                      1.0 / math.sqrt(hd), int(causal), int(window),
-                      int(q.dtype == torch.bfloat16))
-        flash_attention.launches += 1
-    return out
+        KERNELS[kernel_for(q.dtype, hd)](q, k, v, out, causal, window)
+    return fill_dead_rows(out, v, causal=causal, window=window,
+                          q_block=q_block, kv_block=kv_block)
 
 
-flash_attention.launches = 0
+def _cuda_core_kernel(q, k, v, out, causal, window):
+    """Launch `flash_attention_kernel` (`csrc/flash_attention.cu`)."""
+    b, tq, h, hd = q.shape
+    _build.launch("flash_attention", "flash_attention", q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  b, tq, k.shape[1], h, k.shape[2], hd, 1.0 / math.sqrt(hd),
+                  int(causal), int(window), int(q.dtype == torch.bfloat16))
+    _cuda_core_kernel.launches += 1
+
+
+def _wgmma_kernel(q, k, v, out, causal, window):
+    """Launch `flash_attention_wgmma_kernel`
+    (`csrc/flash_attention_wgmma.cu`); its TMA maps need 16-byte aligned
+    tensors."""
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             "aligned")
+    b, tq, h, hd = q.shape
+    _build.launch("flash_attention_wgmma", "flash_attention_wgmma", q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  b, tq, k.shape[1], h, k.shape[2], hd, 1.0 / math.sqrt(hd),
+                  int(causal), int(window))
+    _wgmma_kernel.launches += 1
+
+
+_cuda_core_kernel.launches = 0
+_wgmma_kernel.launches = 0
+# Each CUDA kernel's launcher, by the name its launches are counted under.
+KERNELS = {"flash_attention": _cuda_core_kernel,
+           "flash_attention_wgmma": _wgmma_kernel}
 
 
 def hbm_bytes_model(b, t, h, kvh, hd, *, dtype_bytes=2, train=True) -> float:

@@ -7,9 +7,11 @@ The same seeded numpy inputs go through `flash_attention` on CPU tensors
 alias the Pallas kernel needs on this jax and runs
 `flash_attention_tpu(..., interpret=True)` on every case.  The cases and
 tolerances are those of `tests/test_flash_kernel.py`: fp32 rtol = atol =
-2e-5, bf16 2e-2.  Two ragged cases with rows that have no live key also go
-through the Pallas kernel: there the port returns 0 where the reference
-returns a mean that depends on its tiling.
+2e-5, bf16 2e-2.  Three ragged cases with rows that have no live key also
+go through the Pallas kernel, and every row, those included, equals it.
+Which CUDA kernel a call on the card launches is a pure function of
+(dtype, head dim), `kernel_for`, tested here; the kernels themselves run
+only on the card (`chip_smoke.py`).
 """
 
 import math
@@ -28,9 +30,12 @@ import torch
 from repro.models.attention import flash_attention as flash_ref
 
 from repro_torch import kernels as tk
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (WGMMA_HEAD_DIMS,
+                                                 fill_dead_rows,
+                                                 first_dead_row,
+                                                 flash_attention,
                                                  flash_attention_plain,
-                                                 hbm_bytes_model)
+                                                 hbm_bytes_model, kernel_for)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -44,12 +49,17 @@ CASES = [
     (1, 64, 8, 2, 64, True, 0, 64, 16),       # tall kv blocks
 ]
 BF16 = (2, 64, 4, 2, 32, True, 0, 32, 32)
+# bf16 at a head dim the card serves with the wgmma kernel, with a window
+BF16_HD80 = (2, 64, 4, 2, 80, True, 20, 32, 32)
 DENSE = (1, 48, 2, 2, 16, True, 0, 16, 16)
 RAGGED = {
     # b, tq, tkv, h, kvh, hd, causal, window, qb, kvb: rows 60-69 have no
     # live key (a window that ends before the keys do)
     "ragged_causal_w16": (1, 70, 45, 4, 2, 24, True, 16, 32, 32),
     "ragged_bidir_w16": (1, 70, 45, 4, 2, 24, False, 16, 32, 32),
+    # rows 84-99, in two q blocks that visit different kv tiles; tkv is not
+    # a multiple of kvb, and the window spans two q blocks
+    "ragged_causal_w40": (1, 100, 45, 4, 2, 24, True, 40, 32, 32),
 }
 
 
@@ -130,6 +140,7 @@ _TPU_SCRIPT = textwrap.dedent("""
 
 ALL = {f"case{i}": c for i, c in enumerate(CASES)}
 ALL["bf16"] = BF16
+ALL["bf16_hd80"] = BF16_HD80
 ALL["dense"] = DENSE
 
 
@@ -167,16 +178,18 @@ def tpu_out(tmp_path_factory):
 def test_flash_matches_pallas_kernel(tpu_out, name):
     _, _, _, _, _, causal, window, _, _ = ALL[name]
     q, k, v = case_inputs(name)
-    tol = 2e-2 if name == "bf16" else 2e-5
-    dtype = torch.bfloat16 if name == "bf16" else torch.float32
+    bf16 = name.startswith("bf16")
+    tol = 2e-2 if bf16 else 2e-5
+    dtype = torch.bfloat16 if bf16 else torch.float32
     got = port(q, k, v, dtype, causal=causal, window=window)
     np.testing.assert_allclose(got, tpu_out[name], rtol=tol, atol=tol)
 
 
 def test_ragged_lengths_and_fully_masked_rows():
     """tq != tkv with ragged ends against a dense reference; a row with no
-    live key (a window that ends before the keys do) gives zeros, never
-    NaN."""
+    live key (a window that ends before the keys do) gives the reference's
+    value at the default blocks of 512: one q block and one kv tile of all
+    45 keys, so the mean of v over them."""
     rng = np.random.default_rng(11)
     b, tq, tkv, h, kvh, hd = 1, 70, 45, 4, 2, 24
     q = torch.from_numpy(rng.standard_normal((b, tq, h, hd)).astype(np.float32))
@@ -198,11 +211,11 @@ def test_ragged_lengths_and_fully_masked_rows():
         p = torch.where(live, torch.softmax(s.masked_fill(~live, -1e30), -1),
                         0.0)
         want = torch.einsum("bhqk,bkhd->bqhd", p, vv)
-        assert torch.isfinite(got).all()
-        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
         dead = ~live.any(1)
         assert bool(dead.any()) == bool(window)   # rows past tkv + window
-        assert not got[:, dead].any()
+        want[:, dead] = vv.mean(1, keepdim=True)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 def test_plain_blocks_cover_long_sequences():
@@ -243,6 +256,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                         kv)
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
+    with pytest.raises(ValueError, match="blocks"):
+        flash_attention(q, kv, kv, q_block=0)
 
 
 def test_hbm_bytes_model_is_the_reference_model(tpu_out):
@@ -255,23 +270,54 @@ def test_hbm_bytes_model_is_the_reference_model(tpu_out):
 
 
 @pytest.mark.parametrize("name", list(RAGGED))
-def test_dead_rows_depart_from_pallas_kernel(tpu_out, name):
-    """tq != tkv, ragged, with a window: every row with a live key equals
-    the Pallas kernel.  A row with no live key is 0 in the port; the Pallas
-    kernel returns there the mean of the masked (and zero-padded) v rows of
-    the kv tiles it visited, a result of its tiling (ROADMAP.md, Queue 3),
-    which the port does not copy."""
-    b, tq, tkv, h, kvh, hd, causal, window, _, _ = RAGGED[name]
+def test_dead_rows_match_pallas_kernel(tpu_out, name):
+    """tq != tkv, ragged, with a window: every row equals the Pallas kernel
+    at the same blocks, the rows with no live key included (there it
+    returns the mean of the masked and zero-padded v rows of the kv tiles
+    it visits, which `fill_dead_rows` computes)."""
+    b, tq, tkv, h, kvh, hd, causal, window, qb, kvb = RAGGED[name]
     q, k, v = make(b, tq, tkv, h, kvh, hd, seed=11)
-    got = port(q, k, v, causal=causal, window=window)
+    got = port(q, k, v, causal=causal, window=window, q_block=qb,
+               kv_block=kvb)
     want = tpu_out[name]
     qpos, kpos = np.arange(tq)[:, None], np.arange(tkv)[None, :]
     live = kpos > qpos - window
     if causal:
         live &= kpos <= qpos
     dead = ~live.any(1)
-    assert dead.sum() == 10
-    np.testing.assert_allclose(got[:, ~dead], want[:, ~dead], rtol=2e-5,
-                               atol=2e-5)
-    assert not got[:, dead].any()
+    assert dead.sum() == tq - first_dead_row(tq, tkv, window) > 0
     assert np.isfinite(want).all() and want[:, dead].any()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_kernel_for_names_each_route():
+    """bf16 at a head dim the wgmma kernel is built for goes to it; fp32,
+    and bf16 at any other head dim, to the CUDA-core kernel."""
+    assert WGMMA_HEAD_DIMS == (80, 128, 256)
+    for hd in (1, 16, 64, 80, 96, 128, 255, 256):
+        wgmma = hd in WGMMA_HEAD_DIMS
+        assert kernel_for(torch.bfloat16, hd) == (
+            "flash_attention_wgmma" if wgmma else "flash_attention")
+        assert kernel_for(torch.float32, hd) == "flash_attention"
+
+
+def test_fill_dead_rows_touches_only_dead_rows():
+    """`fill_dead_rows` writes the rows with no live key and no other, with
+    each q block's mean over the kv tiles the reference visits."""
+    rng = np.random.default_rng(4)
+    b, tq, tkv, h, kvh, hd, window = 2, 100, 45, 4, 2, 8, 40
+    v = torch.from_numpy(rng.standard_normal((b, tkv, kvh, hd)).astype(
+        np.float32))
+    out = torch.full((b, tq, h, hd), 7.0)
+    fill_dead_rows(out, v, causal=True, window=window, q_block=32,
+                   kv_block=32)
+    assert first_dead_row(tq, tkv, window) == 84
+    assert (out[:, :84] == 7.0).all()
+    vv = v.repeat_interleave(h // kvh, dim=2)
+    # q block 2 (rows 64-95) visits kv tiles 0-1, block 3 (96-99) tile 1
+    torch.testing.assert_close(out[:, 84:96],
+                               (vv.sum(1) / 64)[:, None].expand(b, 12, h, hd))
+    torch.testing.assert_close(out[:, 96:],
+                               (vv[:, 32:].sum(1) / 32)[:, None].expand(
+                                   b, 4, h, hd))
+    assert first_dead_row(tq, tkv, 0) == tq

@@ -577,7 +577,7 @@ def test_cpu_tensors_never_launch_and_counts_reset():
     assert set(tk.launch_counts()) == {
         "fast_round", "slow_round", "seqlock_gather", "cas_apply_round",
         "llsc_commit_round", "cachehash_probe", "digest_rows",
-        "flash_attention"}
+        "flash_attention", "flash_attention_wgmma"}
     for _, call in _cpu_calls():
         call()
     assert not any(tk.launch_counts().values())
@@ -678,7 +678,7 @@ def test_every_library_needs_nvcc(monkeypatch, tmp_path):
 def test_library_paths_are_keyed_by_each_source():
     paths = {name: _build.library_path(name) for name in _build.SIGNATURES}
     assert set(paths) == {"engine_round", "table_ops", "scrub_digest",
-                          "flash_attention"}
+                          "flash_attention", "flash_attention_wgmma"}
     for name, path in paths.items():
         assert path.parent == _build.BUILD_DIR
         assert re.fullmatch(rf"{name}_[0-9a-f]{{16}}\.so", path.name)
