@@ -13,8 +13,10 @@ package, and runs these phases:
   2. kernel vs plain
              the engine-round kernels against their plain PyTorch versions
              on the card, bit for bit on every output and on the updated
-             table: spectra none / low / all_same, all seven op kinds,
-             several k (odd included), and the main path's shapes.
+             table: spectra none / low / all_same, a long segment with
+             chained CAS lanes and later links (k = 3, 5, 20), all seven op
+             kinds, several k (odd included), and the main path's shapes
+             (Zipf 0.99 and the long segment too).
   3. main path
              `atomics.apply` at n=2**22, k=4, p=16384 for seqlock, indirect,
              cached_wf and cached_me: (a) distinct slots, all kinds; (b)
@@ -26,19 +28,25 @@ package, and runs these phases:
              results, links, logical values, versions and `read()` must
              agree exactly.
   3b. table ops
-             the raw-table layer (`kernels/ops.py`, `llsc_commit`): its four
+             the raw-table layer (`kernels/ops.py`, `llsc_commit`): its five
              kernels against their plain versions (k = 1, 3, 4, 5, 16,
-             CacheHash kw/vw = 1/1, 2/2, 4/2, and full width), then, with
-             the counts reset, `bigatomic_load`, `bigatomic_update_rounds`
-             (uniform and Zipf 0.99), `llsc_commit_round`, `commit_round`
-             on cached_me and `cachehash_find` at n = m = 2**22,
-             p = q = 16384, each equal to a numpy oracle; all four kernels
-             (and `fast_round` under `commit_round`) must have run.  Then
-             each entry point's and kernel's time, the plain versions' and
-             the device-busy share.
+             CacheHash kw/vw = 1/1, 2/2, 4/2, and full width;
+             `cas_apply_rounds` against the round loop on uniform, Zipf
+             0.99, one hot cell, LOAD lanes, truncated rounds and negative
+             ranks), then, with the counts reset, `bigatomic_load`,
+             `bigatomic_update_rounds` (uniform, Zipf 0.99, one hot cell:
+             one `cas_apply_rounds` launch each, no `cas_apply_round`),
+             `llsc_commit_round`, `commit_round` on cached_me and
+             `cachehash_find` at n = m = 2**22, p = q = 16384, each equal to
+             a numpy oracle; the path's four kernels (and `fast_round`
+             under `commit_round`) must have run.  Then each entry point's
+             and kernel's time, the plain versions', the round loop's it
+             replaced, and the device-busy share.
   4. timing  median time per `apply` by tier (CUDA events), the kernels
              alone, their plain versions, and the host-side steps around
-             them.
+             them; then `slow_round` alone on one cell, a long segment,
+             Zipf 0.99, and Zipf 0.99 at k = 20, each beside its longest
+             segment.
   5. guard   the integrity scrub (`guard`, `runtime.LocalTarget`): the
              digest kernel bit for bit against its plain version (k = 1,
              3, 4, 5, 16 at n = 1003; full width, also against numpy);
@@ -103,6 +111,7 @@ KERNELS = {
                    "src/repro/kernels/engine_round.py:506"),
     "seqlock_gather": (TABLE_OPS_CU, "src/repro/kernels/seqlock_gather.py:105"),
     "cas_apply_round": (TABLE_OPS_CU, "src/repro/kernels/cas_apply.py:154"),
+    "cas_apply_rounds": (TABLE_OPS_CU, "src/repro/kernels/cas_apply.py:154"),
     "llsc_commit_round": (TABLE_OPS_CU,
                           "src/repro/kernels/llsc_commit.py:77"),
     "cachehash_probe": (TABLE_OPS_CU,
@@ -115,8 +124,10 @@ KERNELS = {
         "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "src/repro/kernels/flash_attention.py:120"),
 }
-TABLE_KERNELS = ("seqlock_gather", "cas_apply_round", "llsc_commit_round",
-                 "cachehash_probe")
+TABLE_KERNELS = ("seqlock_gather", "cas_apply_round", "cas_apply_rounds",
+                 "llsc_commit_round", "cachehash_probe")
+TABLE_PATH_KERNELS = ("seqlock_gather", "cas_apply_rounds",
+                      "llsc_commit_round", "cachehash_probe")
 GUARD_STORES, GUARD_FAULTS = 4096, 64      # the scrub path's batch, faults
 M, KW, VW, MAX_CHAIN = 2 ** 22, 2, 2, 8     # CacheHash: buckets, key/value
 STORE, CAS, FULL = 1, 2, 1                  # words, chain depth; constants
@@ -246,11 +257,20 @@ class Smoke:
 
     @staticmethod
     def spectrum_batch(rng, n, k, p, spectrum, current, ver):
+        """All seven kinds over slots: none (distinct), low (n / 8 slots),
+        all_same (one cell), zipf (Zipf 0.99, as bench_atomics), long (60 %
+        of the lanes on one cell, whose CAS lanes often expect the row an
+        earlier lane wrote and whose links often match a later version)."""
         kind = rng.integers(0, 7, p).astype(np.int32)
         if spectrum == "none":
             slot = rng.choice(n, p, replace=False).astype(np.int32)
         elif spectrum == "low":
             slot = rng.integers(0, max(n // 8, 2), p).astype(np.int32)
+        elif spectrum == "zipf":
+            slot = ((rng.zipf(1.01, p) - 1) % n).astype(np.int32)
+        elif spectrum == "long":
+            slot = rng.integers(0, n, p).astype(np.int32)
+            slot[rng.random(p) < 0.6] = rng.integers(0, n)
         else:
             slot = np.full(p, rng.integers(0, n), np.int32)
         expected = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
@@ -261,6 +281,12 @@ class Smoke:
                          rng.integers(-1, n, p)).astype(np.int32)
         vnow = ver[np.clip(cslot, 0, n - 1)]
         cver = np.where(rng.random(p) < 0.8, vnow, vnow + 2).astype(np.uint32)
+        if spectrum == "long":
+            hot = np.flatnonzero(slot == np.bincount(slot).argmax())
+            later = rng.random(len(hot)) < 0.4
+            expected[hot[1:][later[1:]]] = desired[hot[:-1][later[1:]]]
+            cver[hot] += (2 * rng.integers(0, len(hot) // 4 + 1,
+                                           len(hot))).astype(np.uint32)
         ctx = (cslot, cver, np.zeros((p, k), np.uint32), rng.random(p) < 0.8)
         return (kind, slot, expected, desired), ctx
 
@@ -485,6 +511,7 @@ class Smoke:
             row["host_steps_ms"] = {k: self.time_ms(fn, reps=10)
                                     for k, fn in steps.items()}
             row["host_side_ms"] = row["apply_ms"] - row["kernel_ms"]
+            row["longest_segment"] = longest_segment(torch, args[0], N)
             row["bytes"] = self.round_bytes(N, K, args, tier, d, v)
             row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
             trace = (ROOT / "chiprun_out" / f"apply_trace_{strategy}_{name}"
@@ -492,6 +519,31 @@ class Smoke:
             row["profile"] = self.device_busy(run, trace=trace)
             out[name] = row
         return state, out
+
+    def slow_spectra(self):
+        """`slow_round` alone on one cell, a long segment (60 % of the
+        lanes on one cell), Zipf 0.99, and Zipf 0.99 at k = 20 (a thread
+        per segment): device ms (each rep on a fresh copy of the table),
+        bound and longest segment."""
+        torch, er = self.torch, self.er
+        out = {}
+        for i, (spectrum, k) in enumerate((("all_same", K), ("long", K),
+                                           ("zipf", K), ("zipf", 20))):
+            rng = np.random.default_rng(7 + i)
+            data = rng.integers(0, 2 ** 32, (N, k), dtype=np.uint32)
+            ver = np.zeros(N, np.uint32)
+            ops, ctx = self.spectrum_batch(rng, N, k, P, spectrum, data, ver)
+            args = self.round_inputs(N, ops, ctx, "slow")
+            d, v = self.words(data), self.words(ver)
+            row = {"k": k,
+                   "longest_segment": longest_segment(torch, args[0], N),
+                   "ms": self.device_ms(
+                       lambda dd, vv: er.slow_round(dd, vv, *args), reps=5,
+                       setup=lambda: (d.clone(), v.clone())),
+                   "bytes": self.round_bytes(N, k, args, "slow", d, v)}
+            row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+            out[f"{spectrum}_k{k}"] = row
+        return out
 
     def round_bytes(self, n, k, args, tier, data, version):
         """Bytes the round must move on these inputs: every lane operand
@@ -524,6 +576,13 @@ def np_hash(keys, m):
     return (h % np.uint32(m)).astype(np.int32)
 
 
+def longest_segment(torch, slot, n):
+    """The most lanes on one cell among the lanes with a slot in [0, n)."""
+    live = slot[(slot >= 0) & (slot < n)]
+    return int(torch.unique(live, return_counts=True)[1].max()) \
+        if live.numel() else 0
+
+
 def clone(tensors):
     """A copy of a tuple (or named tuple) of tensors."""
     copies = [x.clone() for x in tensors]
@@ -539,20 +598,53 @@ def seg_rank(sorted_ids):
         np.int32)
 
 
-def update_batch(rng, p, n, k, zipf, current):
-    """All-update STORE/CAS batch as the reference's `random_batch`
-    (update_frac=1.0), half the comparands current; sorted by slot, with
-    each op's round (its rank on its cell)."""
-    slot = (rng.zipf(1.01, p) - 1) % n if zipf else rng.integers(0, n, p)
+def update_batch(rng, p, n, k, slots, current, update_frac=1.0, chain=0.0):
+    """A STORE/CAS batch as the reference's `random_batch` (LOAD lanes where
+    update_frac < 1), half the comparands current and a share `chain` of
+    the lanes expecting the row the lane before on their cell wrote; sorted
+    by slot, with each op's round (its rank on its cell).  slots: uniform,
+    zipf (Zipf 0.99, as bench_atomics) or hot (one cell)."""
+    if slots == "zipf":
+        slot = (rng.zipf(1.01, p) - 1) % n
+    elif slots == "hot":
+        slot = np.full(p, rng.integers(0, n))
+    else:
+        slot = rng.integers(0, n, p)
     kind = np.where(rng.random(p) < 0.5, CAS, STORE).astype(np.int32)
+    if update_frac < 1.0:
+        kind[rng.random(p) >= update_frac] = 0
     desired = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
     expected = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
     use_cur = rng.random(p) < 0.5
     expected = np.where(use_cur[:, None], current[slot], expected)
     order = np.argsort(slot, kind="stable")
     s_slot = slot[order].astype(np.int32)
-    return (kind[order], s_slot, expected[order], desired[order]), \
-        seg_rank(s_slot)
+    kind, expected, desired = kind[order], expected[order], desired[order]
+    if chain:
+        follow = np.flatnonzero((rng.random(p - 1) < chain)
+                                & (s_slot[1:] == s_slot[:-1])) + 1
+        expected[follow] = desired[follow - 1]
+    return (kind, s_slot, expected, desired), seg_rank(s_slot)
+
+
+def rounds_loop(tk, data, meta, slot, kind, expected, desired, rounds,
+                upd_rank):
+    """`ops.bigatomic_update_rounds` as it was before `cas_apply_rounds`:
+    the `cas_apply_round` kernel once per round, as the reference drives its
+    Pallas kernel; timed here beside the one-launch kernel."""
+    import torch
+    n1 = data.shape[0]
+    p, k = expected.shape
+    success = torch.zeros((p,), dtype=torch.int32, device=data.device)
+    witness = torch.zeros((p, k), dtype=data.dtype, device=data.device)
+    for t in range(rounds):
+        live = upd_rank == t
+        data, meta, succ, wit = tk.cas_apply_round(
+            data, meta, torch.where(live, slot, n1 - 1),
+            torch.where(live, kind, 0), expected, desired)
+        success = torch.where(live, succ[:, 0], success)
+        witness = torch.where(live[:, None], wit, witness)
+    return data, meta, success, witness
 
 
 def build_cachehash(rng, m, n_keys):
@@ -706,6 +798,48 @@ class TableOps:
         self.torch.cuda.synchronize()
         return cases
 
+    # (n, k, p, slots, update_frac, chain, share of the rounds run,
+    #  negative ranks)
+    ROUNDS_CASES = [(4096, k, 1003, "zipf", 0.8, 0.3, 1.0, False)
+                    for k in (1, 3, 4, 5, 16)] + [
+        (4096, 3, 1003, "hot", 0.9, 0.3, 0.6, False),
+        (4096, 5, 1003, "zipf", 1.0, 0.3, 1.0, True),
+        (N, K, P, "uniform", 1.0, 0.0, 1.0, False),
+        (N, K, P, "zipf", 1.0, 0.0, 1.0, False),
+        (N, K, P, "hot", 1.0, 0.3, 1.0, False),
+        (N, K, P, "zipf", 0.8, 0.3, 1.0, False),
+        (N, K, P, "zipf", 1.0, 0.3, 0.7, False)]
+
+    def rounds_vs_plain(self):
+        """`cas_apply_rounds` against its plain version (the round loop),
+        bit for bit on success, witness, table and meta: k = 1, 3, 4, 5, 16
+        at p = 1003 (Zipf, LOAD lanes, CAS lanes expecting an earlier
+        lane's row), truncated rounds, negative ranks, and at full width
+        uniform, Zipf 0.99, one hot cell, LOAD lanes and truncated rounds.
+        Returns each case's (name, longest segment, rounds)."""
+        tk, ref, w, ints = self.tk, self.ref, self.w, self.ints
+        rng = np.random.default_rng(2500)
+        out = []
+        for n, k, p, slots, frac, chain, share, neg in self.ROUNDS_CASES:
+            data, meta = self.table(rng, n + 1, k)
+            batch, rank = update_batch(rng, p, n, k, slots, data[:n], frac,
+                                       chain)
+            longest = int(rank.max()) + 1
+            rounds = max(1, int(longest * share))
+            if neg:
+                rank[rng.random(p) < 0.2] = -1
+            kind, slot, expected, desired = batch
+            args = (ints(slot), ints(kind), w(expected), w(desired), rounds,
+                    ints(rank))
+            d, m = w(data), w(meta)
+            got = tk.cas_apply_rounds(d.clone(), m.clone(), *args)
+            want = ref.cas_apply_rounds_ref(d.clone(), m.clone(), *args)
+            self.s.compare("cas_apply_rounds", got, want)
+            out.append((f"n={n} k={k} {slots} u={frac} chain={chain}"
+                         + (" neg" if neg else ""), longest, rounds))
+        self.torch.cuda.synchronize()
+        return out
+
     # -- the path through the ops layer ------------------------------------------
 
     def main_path(self, atomics, engine, convert):
@@ -733,18 +867,25 @@ class TableOps:
         self.same("bigatomic_load ok", ok, (meta[idx, 0] % 2 == 0)
                   & (meta[idx, 1] == 0))
 
-        # bigatomic_update_rounds: uniform, then Zipf 0.99 slots
+        # bigatomic_update_rounds: uniform, Zipf 0.99 and one hot cell; one
+        # cas_apply_rounds launch per call, whatever the rounds
         ctx0 = (np.full(p, -1, np.int32), np.zeros(p, np.uint32),
                 np.zeros((p, k), np.uint32), np.zeros(p, bool))
         op["rounds"] = {}
-        for name, zipf in (("uniform", False), ("zipf099", True)):
-            batch, rank = update_batch(rng, p, n, k, zipf, data[:n])
+        for name in ("uniform", "zipf099", "hot"):
+            slots = "zipf" if name == "zipf099" else name
+            batch, rank = update_batch(rng, p, n, k, slots, data[:n])
             rounds = int(rank.max()) + 1
             kind, slot, expected, desired = batch
             args = (ints(slot), ints(kind), w(expected), w(desired), rounds,
                     ints(rank))
             op["pre_update_" + name] = (d.clone(), m.clone())
+            before = tk.cas_apply_rounds.launches
             _, _, succ, wit = ops.bigatomic_update_rounds(d, m, *args)
+            if tk.cas_apply_rounds.launches - before != 1:
+                self.fail(f"update rounds ({name}): "
+                          f"{tk.cas_apply_rounds.launches - before} "
+                          "cas_apply_rounds launches, expected 1")
             new_data, new_ver, _, res = engine.apply_ops_reference(
                 data[:n], meta[:n, 0], ctx0, batch)
             data[:n], meta[:n, 0] = new_data, new_ver
@@ -754,7 +895,7 @@ class TableOps:
             self.same(f"update rounds ({name}) table", d, data)
             self.same(f"update rounds ({name}) meta", m, meta)
             op["update_" + name] = args
-            op["rounds"][name] = rounds
+            op["rounds"][name] = rounds       # = the longest segment
             if name == "uniform":                  # round 0, for the kernel
                 live = rank == 0
                 op["cas_round0"] = (
@@ -847,9 +988,11 @@ class TableOps:
 
         torch.cuda.synchronize()
         counts = tk.launch_counts()
-        for name in TABLE_KERNELS:
+        for name in TABLE_PATH_KERNELS:
             if counts[name] <= 0:
                 self.fail(f"{name} never launched on the table-ops path")
+        if counts["cas_apply_round"] != 0:
+            self.fail("bigatomic_update_rounds launched cas_apply_round")
         if fast_in_commit <= 0:
             self.fail("commit_round did not run the fast_round kernel")
         return counts, fast_in_commit, op
@@ -883,6 +1026,10 @@ class TableOps:
                 lambda d, m: ops.bigatomic_update_rounds(
                     d, m, *op["update_zipf099"]),
                 fresh("pre_update_zipf099")),
+            "bigatomic_update_rounds_hot": (
+                lambda d, m: ops.bigatomic_update_rounds(
+                    d, m, *op["update_hot"]),
+                fresh("pre_update_hot")),
             "llsc_commit_round": (
                 lambda d, m: tk.llsc_commit_round(d, m, *op["llsc"]),
                 fresh("pre_llsc")),
@@ -901,35 +1048,51 @@ class TableOps:
                 torch.cuda.synchronize()
             entries[name] = {"ms": s.time_ms(fn, setup=setup),
                              "profile": s.device_busy(run, setup=setup)}
+        # `bigatomic_update_rounds` as it was (a launch per round), for the
+        # comparison in this run; the hot cell's 16384 rounds once
+        for name, reps in (("uniform", 20), ("zipf099", 5), ("hot", 1)):
+            entries["rounds_loop_" + name] = {"ms": s.time_ms(
+                lambda d, m, a=op["update_" + name]: rounds_loop(
+                    tk, d, m, *a), reps=reps, warmup=1,
+                setup=fresh("pre_update_" + name))}
         # every kernel rep, read-only ones too, gets its own copy of the
         # table: rows left in L2 by the rep before would halve its time
         kernels = {
             "seqlock_gather": (
                 lambda d, m: tk.seqlock_gather(d, m, op["idx"]),
                 lambda d, m: ref.seqlock_gather_ref(d, m, op["idx"]),
-                fresh("pre_update_uniform")),
+                fresh("pre_update_uniform"), 5),
             "cas_apply_round": (
                 lambda d, m: tk.cas_apply_round(d, m, *op["cas_round0"]),
                 lambda d, m: ref.cas_apply_round_ref(d, m, *op["cas_round0"]),
-                fresh("pre_update_uniform")),
+                fresh("pre_update_uniform"), 5),
             "llsc_commit_round": (
                 lambda d, m: tk.llsc_commit_round(d, m, *op["llsc"]),
                 lambda d, m: ref.llsc_commit_round_ref(d, m, *op["llsc"]),
-                fresh("pre_llsc")),
+                fresh("pre_llsc"), 5),
             "cachehash_probe": (
                 lambda cells: tk.cachehash_probe(cells, *op["probe"][1:],
                                                  kw=KW, vw=VW),
                 lambda cells: ref.cachehash_probe_ref(cells, *op["probe"][1:],
                                                       kw=KW, vw=VW),
-                lambda: (op["probe"][0].clone(),)),
+                lambda: (op["probe"][0].clone(),), 5),
         }
+        for key, name, reps in (("zipf099", "cas_apply_rounds", 5),
+                                ("uniform", "cas_apply_rounds_uniform", 5),
+                                ("hot", "cas_apply_rounds_hot", 1)):
+            kernels[name] = (
+                lambda d, m, a=op["update_" + key]: tk.cas_apply_rounds(
+                    d, m, *a),
+                lambda d, m, a=op["update_" + key]: ref.cas_apply_rounds_ref(
+                    d, m, *a),
+                fresh("pre_update_" + key), reps)
         rows = {}
-        for name, (fn, plain, setup) in kernels.items():
+        for name, (fn, plain, setup, reps) in kernels.items():
             nbytes, written = self.kernel_bytes(name, op)
             rows[name] = {
                 "ms": s.device_ms(fn, setup=setup),
                 "with_launch_ms": s.time_ms(fn, setup=setup),
-                "plain_ms": s.time_ms(plain, reps=5, warmup=1, setup=setup),
+                "plain_ms": s.time_ms(plain, reps=reps, warmup=1, setup=setup),
                 "bytes": nbytes, "written_rows": written,
                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
         idx64 = op["idx"].to(torch.int64)
@@ -958,6 +1121,22 @@ class TableOps:
             q = bidx.shape[0]
             return (q * (4 + 4 * KW) + q * (12 + 4 * VW)
                     + distinct(bidx) * 4 * (KW + VW + 2)), 0
+        if name.startswith("cas_apply_rounds"):
+            key = {"cas_apply_rounds": "zipf099"}.get(
+                name, name.rsplit("_", 1)[-1])
+            args, table = op["update_" + key], op["pre_update_" + key]
+            slot, rounds, rank = args[0], args[4], args[5]
+            p = slot.shape[0]
+            d, m = clone(table)
+            tk.cas_apply_rounds(d, m, *args)
+            written = int(((d != table[0]).any(1) | (m != table[1]).any(1))
+                          .sum())
+            live = (rank >= 0) & (rank < rounds)
+            # slot, kind, rank, expected, desired; success, witness; each
+            # row a live lane reads (data and version) once; each row written
+            return (p * (12 + 8 * k) + p * (4 + 4 * k)
+                    + distinct(slot[live]) * (4 * k + 4)
+                    + written * (4 * k + 4)), written
         if name == "cas_apply_round":
             args, table = op["cas_round0"], op["pre_update_uniform"]
         else:
@@ -1438,11 +1617,14 @@ def main() -> int:
     t0 = time.perf_counter()
     cases = [(4096, k, 2048, s) for k in (1, 3, 4, 5, 16, 20)
              for s in ("none", "low", "all_same")]
-    cases += [(N, K, P, s) for s in ("none", "low", "all_same")]
+    cases += [(4096, k, 2048, "long") for k in (3, 5, 20)]
+    cases += [(N, K, P, s) for s in ("none", "low", "all_same", "zipf",
+                                     "long")]
     for i, (n, k, p, spectrum) in enumerate(cases):
         smoke.kernel_vs_plain(n, k, p, spectrum, seed=1000 + i)
     log(f"[kernel-vs-plain] {len(cases)} cases x 2 kernels bit-identical "
-        f"in {time.perf_counter() - t0:.1f} s")
+        f"in {time.perf_counter() - t0:.1f} s (spectra none / low / "
+        f"all_same / zipf / long; k = 1, 3, 4, 5, 16, 20)")
 
     # -- 3. main path --------------------------------------------------------
     totals = {"fast_round": 0, "slow_round": 0}
@@ -1468,27 +1650,35 @@ def main() -> int:
     log(f"[table-ops] {n_cases} cases x 4 kernels bit-identical to their "
         f"plain versions in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    rounds_cases = table.rounds_vs_plain()
+    log(f"[table-ops] cas_apply_rounds bit-identical to the round loop in "
+        f"{len(rounds_cases)} cases in {time.perf_counter() - t0:.1f} s "
+        "(longest segment / rounds): " + "; ".join(
+            f"{name} {longest}/{rounds}"
+            for name, longest, rounds in rounds_cases))
+    t0 = time.perf_counter()
     counts, fast_in_commit, op = table.main_path(atomics, engine, convert)
     table_wall = time.perf_counter() - t0
     for name in TABLE_KERNELS:
         launches_main[name] = counts[name]
     log(f"[table-ops] path in {table_wall:.2f} s (CacheHash build "
         f"{op['build_cachehash_s']:.2f} s, chains <= {op['max_depth']}, "
-        f"queries hit/miss {op['find_mix']}), update rounds "
-        f"{op['rounds']}, launches {counts}, fast_round under commit_round "
-        f"{fast_in_commit}; oracle-equal")
+        f"queries hit/miss {op['find_mix']}), update rounds (= longest "
+        f"segment) {op['rounds']}, launches {counts}, fast_round under "
+        f"commit_round {fast_in_commit}; oracle-equal")
     table_entries, table_kernels = table.timing(op)
     for name, row in table_entries.items():
-        prof = row["profile"]
+        prof = row.get("profile", {})
         log(f"[table-timing] {name:32s} {row['ms']:.4f} ms, device busy "
             f"{prof.get('device_busy_share', prof.get('error'))}")
     for name, row in table_kernels.items():
-        log(f"[table-timing] kernel {name:18s} {row['ms']:.5f} ms device / "
+        log(f"[table-timing] kernel {name:24s} {row['ms']:.5f} ms device / "
             f"{row['with_launch_ms']:.4f} ms with launch, plain "
             f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
             f"({row['bytes']} B, {row['written_rows']} rows written)")
     log(f"[table-timing] note: data.index_select(0, idx) "
         f"{table_kernels['seqlock_gather']['index_select_ms']:.5f} ms device")
+    log(f"[table-timing] longest segment: {op['rounds']}")
     del op, table
     torch.cuda.empty_cache()
 
@@ -1498,7 +1688,8 @@ def main() -> int:
         spec, state = states.pop(strategy)
         _, timings[strategy] = smoke.timing(strategy, spec, state, rng)
         for name, row in timings[strategy].items():
-            log(f"[timing] {strategy:9s} {name:20s} {row['tier']}: apply "
+            log(f"[timing] {strategy:9s} {name:20s} {row['tier']} (longest "
+                f"segment {row['longest_segment']}): apply "
                 f"{row['apply_ms']:.4f} ms ({row['ops_per_s']:.4g} ops/s), "
                 f"kernel {row['kernel_ms']:.4f} ms device / "
                 f"{row['kernel_with_launch_ms']:.4f} ms with launch, plain "
@@ -1516,17 +1707,11 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
 
-    # worst case of the slow kernel: every lane on one cell
-    rng = np.random.default_rng(7)
-    data = rng.integers(0, 2 ** 32, (N, K), dtype=np.uint32)
-    ver = np.zeros(N, np.uint32)
-    ops, ctx = smoke.spectrum_batch(rng, N, K, P, "all_same", data, ver)
-    args = smoke.round_inputs(N, ops, ctx, "slow")
-    d, v = smoke.words(data), smoke.words(ver)
-    worst_ms = smoke.device_ms(lambda: er.slow_round(d, v, *args), reps=5)
-    log(f"[timing] slow_round all_same (one cell, p={P}): {worst_ms:.4f} ms")
-
-    del d, v, args
+    slow_cases = smoke.slow_spectra()
+    for name, row in slow_cases.items():
+        log(f"[timing] slow_round {name} (p={P}, longest segment "
+            f"{row['longest_segment']}): {row['ms']:.4f} ms device, bound "
+            f"{row['bound_ms']:.6f} ms")
     torch.cuda.empty_cache()
 
     # -- 5. guard ----------------------------------------------------------------
@@ -1640,7 +1825,7 @@ def main() -> int:
             "bound_by": a["bound_by"], "library_ms": a["library_ms"]})
     details = {"card": card, "build_s": build_s, "n": N, "k": K, "p": P,
                "launches_main_path": launches_main, "timing": timings,
-               "slow_round_all_same_ms": worst_ms,
+               "slow_round_cases": slow_cases,
                "table_ops": {"m": M, "kw": KW, "vw": VW,
                              "path_wall_s": table_wall,
                              "fast_round_under_commit_round": fast_in_commit,

@@ -4,7 +4,10 @@
                    batches, `slow_round` for sorted contended batches
                    (`csrc/engine_round.cu`)
   seqlock_gather   version-validated k-word cell gather (the fast path)
-  cas_apply        one conflict-free combining round of STORE/CAS
+  cas_apply        one conflict-free combining round of STORE/CAS, and
+                   all the rounds of a sorted op list in one launch
+                   (`cas_apply_rounds`, the segment replay it shares with
+                   `slow_round`: `csrc/segment_replay.cuh`)
   llsc_commit      fused validate + commit SC round, and the spec-routed
                    `commit_round` over the engine round
   cachehash_probe  CacheHash bucket probe with the inlined first link
@@ -24,7 +27,9 @@ names `fast_round_pallas` / `slow_round_pallas` stand for `fast_round` /
 """
 
 from repro_torch.kernels.cachehash_probe import cachehash_probe  # noqa: F401
-from repro_torch.kernels.cas_apply import cas_apply_round  # noqa: F401
+from repro_torch.kernels.cas_apply import (  # noqa: F401
+    cas_apply_round, cas_apply_rounds,
+)
 from repro_torch.kernels.engine_round import (  # noqa: F401
     fast_path_ok, fast_round, make_round, slow_round,
 )
@@ -40,7 +45,8 @@ slow_round_pallas = slow_round
 # under: the wrapper itself, or for attention one launcher per kernel.
 WRAPPERS = {fn.__name__: fn for fn in (
     fast_round, slow_round, seqlock_gather, cas_apply_round,
-    llsc_commit_round, cachehash_probe, digest_rows)} | _ATTENTION
+    cas_apply_rounds, llsc_commit_round, cachehash_probe, digest_rows)} \
+    | _ATTENTION
 
 
 def launch_counts() -> dict[str, int]:

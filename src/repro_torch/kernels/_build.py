@@ -3,12 +3,14 @@
 Every source `csrc/<name>.cu` is compiled by `nvcc` for Hopper (`sm_90a`)
 into its own shared library with a plain C interface, which `ctypes`
 loads: `engine_round.cu` (the fused engine round), `table_ops.cu` (the
-raw-table kernels), `scrub_digest.cu` (the scrub's cell digest),
+raw-table kernels; both include `segment_replay.cuh`, the segment
+replay), `scrub_digest.cu` (the scrub's cell digest),
 `flash_attention.cu` (forward attention on the CUDA cores) and
 `flash_attention_wgmma.cu` (forward attention on the tensor cores, bf16).
 A build happens at first use, into `build/kernels/` at the root of the
-checkout, under `<name>_<hash of the source>.so`, so an
-edited source rebuilds and an unchanged one loads at once.  A missing
+checkout, under `<name>_<hash of the source and the headers it
+includes>.so`, so an edited source or header rebuilds and an unchanged one
+loads at once.  A missing
 `nvcc` or a failed build raises: nothing falls back to the plain PyTorch
 versions.
 """
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -39,6 +42,8 @@ SIGNATURES = {
         "seqlock_gather": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _P],
         "cas_apply_round": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I,
                             _P],
+        "cas_apply_rounds": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P,
+                             _P, _I, _P],
         "llsc_commit_round": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P,
                               _I, _P],
         "cachehash_probe": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
@@ -55,6 +60,7 @@ SIGNATURES = {
     },
 }
 
+_INCLUDE = re.compile(r'^#include "([^"]+)"', re.M)
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -79,9 +85,17 @@ def source(name: str) -> Path:
     return CSRC / f"{name}.cu"
 
 
+def sources(name: str) -> list[Path]:
+    """The library's source, then the `csrc/` headers it includes."""
+    main = source(name)
+    return [main, *(CSRC / h for h in _INCLUDE.findall(main.read_text()))]
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source(name).read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{digest}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -6,12 +6,17 @@
 //                             seqlock_gather (validated k-word gather)
 //   cas_apply_round_kernel    replaces src/repro/kernels/cas_apply.py::
 //                             cas_apply_round (one STORE/CAS round)
+//   cas_apply_rounds          (`RoundsOp` over the segment replay kernels of
+//                             segment_replay.cuh) replaces the same kernel
+//                             as driven R times by src/repro/kernels/ops.py::
+//                             bigatomic_update_rounds: every round in one
+//                             launch
 //   llsc_commit_round_kernel  replaces src/repro/kernels/llsc_commit.py::
 //                             llsc_commit_round (one SC commit round)
 //   cachehash_probe_kernel    replaces src/repro/kernels/cachehash_probe.py::
 //                             cachehash_probe (inlined first-link probe)
 //
-// Plain PyTorch versions of all four sit in src/repro_torch/kernels/ref.py;
+// Plain PyTorch versions of all five sit in src/repro_torch/kernels/ref.py;
 // the wrappers (seqlock_gather.py, cas_apply.py, llsc_commit.py,
 // cachehash_probe.py) validate every operand, allocate the outputs and
 // launch these functions through a plain C interface (kernels/_build.py).
@@ -39,11 +44,28 @@
 // Every lane reads its row before any write of its own; live lanes target
 // distinct rows other than n (the caller's contract), so no lane reads a row
 // that another lane writes.
+//
+// cas_apply_rounds takes the op list of `bigatomic_update_rounds`: lanes
+// sorted by slot, upd_rank[i] = op i's round.  A lane is live iff
+// 0 <= upd_rank < rounds and 0 <= slot < n + 1; the caller's contract is
+// that within a round the live slots are distinct, so within a segment
+// (a run of equal slots) the live lanes' rounds rise in lane order.  The
+// R rounds are then the same as replaying each segment's live lanes in
+// lane order, which the segment replay does in one launch: a lane's
+// witness is the row before its turn; STORE writes desired; CAS writes iff
+// the row equals expected; any other kind reads its witness and fails;
+// each write adds 2 to meta[s, 0] (wrapping), the mark is never touched;
+// a dirty row is written back once; a lane never live gets success 0 and a
+// zero witness.  What bounds it: as the rounds, one row read per segment
+// and the lane words, under a microsecond at p = 16384; a hot cell adds
+// its walk, a few instructions per op.
 
 #include <cstddef>
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "segment_replay.cuh"
 
 namespace {
 
@@ -174,6 +196,44 @@ __global__ void __launch_bounds__(kThreads) llsc_commit_round_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// cas_apply_rounds: the segment replay; `aux` is a lane's round.
+// ---------------------------------------------------------------------------
+
+struct RoundsOp {
+  static constexpr bool kLink = false;
+  uint32_t* data;
+  uint32_t* meta;
+  int n1;
+  const int* slot;
+  const int* kind;
+  const int* rank;
+  int rounds;
+  const uint32_t* expected;
+  const uint32_t* desired;
+  uint32_t* out;
+  int* succ;
+
+  __device__ bool in_table(int s) const { return s >= 0 && s < n1; }
+  __device__ uint32_t aux(int g) const { return (uint32_t)rank[g]; }
+  __device__ bool live(uint32_t r) const {
+    return (int)r >= 0 && (int)r < rounds;
+  }
+  __device__ uint32_t flags(int kd) const {
+    using namespace replay;
+    if (kd == kStore) return kWriteAlways | kSuccIfWrote;
+    if (kd == kCas) return kWriteIfMatch | kSuccIfWrote;
+    return kSuccIfWrote;              // reads its witness and fails
+  }
+  __device__ uint32_t ver(int s) const { return meta[2 * (size_t)s]; }
+  __device__ void set_ver(int s, uint32_t v) const {
+    meta[2 * (size_t)s] = v;          // the mark is untouched
+  }
+  __device__ void out_meta(int g, uint32_t, bool ok) const {
+    succ[g] = ok ? 1 : 0;
+  }
+};
+
+// ---------------------------------------------------------------------------
 // cachehash_probe: one bucket row [key kw | value vw | next | flags | ...]
 // per query.  hit = flags == FULL && key == query; empty = flags != FULL;
 // value = the inlined value; next = the next word as int32 (-1 ends).
@@ -273,6 +333,34 @@ int cas_apply_round(void* data, void* meta, int n1, int k, const void* slot,
                     int device, void* stream) {
   return commit_round<false>(data, meta, n1, k, slot, kind, expected, desired,
                              p, succ, wit, device, stream);
+}
+
+// All `rounds` rounds of sorted lanes in one launch: data[n1, k],
+// meta[n1, 2] updated in place; slot[p], kind[p], expected[p, k],
+// desired[p, k], rank[p] -> succ[p], wit[p, k].
+int cas_apply_rounds(void* data, void* meta, int n1, int k, const void* slot,
+                     const void* kind, const void* expected,
+                     const void* desired, const void* rank, int rounds,
+                     int p, void* succ, void* wit, int device,
+                     void* stream) {
+  cudaError_t err = begin(device);
+  if (err != cudaSuccess) return (int)err;
+  if (p <= 0) return 0;
+  const RoundsOp op{static_cast<uint32_t*>(data),
+                    static_cast<uint32_t*>(meta),
+                    n1,
+                    static_cast<const int*>(slot),
+                    static_cast<const int*>(kind),
+                    static_cast<const int*>(rank),
+                    rounds,
+                    static_cast<const uint32_t*>(expected),
+                    static_cast<const uint32_t*>(desired),
+                    static_cast<uint32_t*>(wit),
+                    static_cast<int*>(succ)};
+  const bool vec = aligned16(data) && aligned16(expected) &&
+                   aligned16(desired) && aligned16(wit);
+  replay::launch(op, p, k, vec, static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
 }
 
 // As cas_apply_round, with live[p] and link_ver[p] for kind and expected.

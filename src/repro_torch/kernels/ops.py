@@ -2,7 +2,8 @@
 
 Plain tensor code around the kernels, structured as the reference's
 `kernels/ops.py`: a batched load (`seqlock_gather`), multi-round STORE/CAS
-(`cas_apply_round` once per round), the CacheHash hash and lookup
+(`cas_apply_rounds`: every round in one kernel launch, where the reference
+launches its Pallas kernel once per round), the CacheHash hash and lookup
 (`cachehash_probe`, then a bounded chain walk).  The tensors' device picks
 the kernel (CUDA) or its plain version (CPU); the reference's
 `interpret=` arguments, `on_cpu()` and the 128-lane `pad_cells` do not
@@ -13,9 +14,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.layout import WORD_DTYPE, as_u64
+from repro_torch.core.layout import as_u64
 from repro_torch.kernels.cachehash_probe import cachehash_probe
-from repro_torch.kernels.cas_apply import cas_apply_round
+from repro_torch.kernels.cas_apply import cas_apply_rounds
 from repro_torch.kernels.seqlock_gather import seqlock_gather
 
 _GOLDEN = 0x9E3779B1
@@ -30,26 +31,18 @@ def bigatomic_load(data, meta, idx):
 
 def bigatomic_update_rounds(data, meta, slot, kind, expected, desired,
                             rounds: int, upd_rank):
-    """Apply `rounds` combining rounds with the cas_apply kernel.
+    """Apply `rounds` combining rounds of STORE/CAS with `cas_apply_rounds`
+    (one kernel launch on a card).
 
-    slot/kind/expected/desired are the SORTED op list; upd_rank[i] is op
-    i's serialization round.  Lanes not in round t point at the dummy row n
-    with kind 0 (a LOAD lane in its own round keeps its slot, reads its
-    witness and fails, as in the reference).  Updates `data` and `meta` in
-    place; returns (data, meta, success int32[p], witness word[p, k])."""
-    n1 = data.shape[0]
-    p, k = expected.shape
-    success = torch.zeros((p,), dtype=torch.int32, device=data.device)
-    witness = torch.zeros((p, k), dtype=WORD_DTYPE, device=data.device)
-    for t in range(rounds):
-        live = upd_rank == t
-        slot_t = torch.where(live, slot, n1 - 1)
-        kind_t = torch.where(live, kind, 0)
-        data, meta, succ, wit = cas_apply_round(data, meta, slot_t, kind_t,
-                                                expected, desired)
-        success = torch.where(live, succ[:, 0], success)
-        witness = torch.where(live[:, None], wit, witness)
-    return data, meta, success, witness
+    slot/kind/expected/desired are the SORTED op list (lanes sorted by
+    slot); upd_rank[i] is op i's serialization round, and within a round
+    the live slots are distinct (so a cell's live ops rise in round with
+    lane order).  A lane in round t < rounds is live; a LOAD lane reads its
+    witness and fails, as in the reference; a lane in no round gets zeros.
+    Updates `data` and `meta` in place; returns (data, meta, success
+    int32[p], witness word[p, k])."""
+    return cas_apply_rounds(data, meta, slot, kind, expected, desired,
+                            rounds, upd_rank)
 
 
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:

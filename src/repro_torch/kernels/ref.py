@@ -4,7 +4,8 @@ correctness).
 Each function computes exactly what the corresponding CUDA kernel in
 `csrc/table_ops.cu` computes, with vectorised gathers and `where`: within a
 round the live slots are distinct, so gathering every lane's pre-round row
-at once is the sequential order.  The wrappers run these on CPU tensors,
+at once is the sequential order.  `cas_apply_rounds_ref` is the round loop
+that the one-launch `cas_apply_rounds` kernel replays per segment.  The wrappers run these on CPU tensors,
 and the tests hold them bit for bit against the reference's Pallas kernels
 and numpy oracles.  Words are int32 bits (see `core/layout.py`).
 
@@ -67,6 +68,27 @@ def cas_apply_round_ref(data, meta, slot, kind, expected, desired):
     ok = live & ((kind == STORE) | (cur == expected).all(1))
     _commit(data, meta, safe, ok, desired)
     return data, meta, ok.to(torch.int32)[:, None], cur
+
+
+def cas_apply_rounds_ref(data, meta, slot, kind, expected, desired,
+                         rounds: int, upd_rank):
+    """`rounds` rounds of `cas_apply_round_ref`: round t takes the lanes
+    with upd_rank == t; the others point at the dummy row n with kind 0.
+    Returns (data, meta, success int32[p], witness word[p, k]), zero for a
+    lane in no round."""
+    n1 = data.shape[0]
+    p, k = expected.shape
+    success = torch.zeros((p,), dtype=torch.int32, device=data.device)
+    witness = torch.zeros((p, k), dtype=data.dtype, device=data.device)
+    for t in range(rounds):
+        live = upd_rank == t
+        slot_t = torch.where(live, slot, n1 - 1)
+        kind_t = torch.where(live, kind, 0)
+        data, meta, succ, wit = cas_apply_round_ref(data, meta, slot_t,
+                                                    kind_t, expected, desired)
+        success = torch.where(live, succ[:, 0], success)
+        witness = torch.where(live[:, None], wit, witness)
+    return data, meta, success, witness
 
 
 def llsc_commit_round_ref(data, meta, slot, live, link_ver, desired):

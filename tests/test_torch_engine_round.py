@@ -250,6 +250,66 @@ def test_plain_rounds_match_pallas_kernels_interpret(tmp_path):
     assert (ter.fast_round.launches, ter.slow_round.launches) == launches
 
 
+def _long_segment_case(k, p=230, n=24, seed=0):
+    """One cell segment of p - 12 lanes (all seven kinds; a share of CAS
+    lanes expecting the row the lane before wrote, of links a later
+    version) between a few lanes on other cells, two dead slots and IDLE
+    lanes on n: the sorted inputs of the slow kernel."""
+    rng = np.random.default_rng(seed)
+    data, ver = make_table(n, k, seed=seed)
+    kind = rng.choice(np.asarray(ALL_KINDS), p).astype(np.int32)
+    slot = np.full(p, 7, np.int32)
+    slot[:6] = [-2, -1, 1, 3, 3, 5]
+    slot[-6:] = [9, 9, 12, 20, 23, 23]
+    slot = np.where(kind != tengine.IDLE, slot, n)
+    order = np.argsort(slot, kind="stable")
+    kind, slot = kind[order], slot[order]
+    expected = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
+    desired = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
+    take = rng.random(p) < 0.3
+    expected[take] = data[np.clip(slot[take], 0, n - 1)]
+    chain = np.flatnonzero((rng.random(p - 1) < 0.4)
+                           & (slot[1:] == slot[:-1])) + 1
+    expected[chain] = desired[chain - 1]
+    link_ver = (ver[np.clip(slot, 0, n - 1)]
+                + 2 * rng.integers(0, 12, p)).astype(np.uint32)
+    link_ver[rng.random(p) < 0.2] = 1                  # poisoned links
+    return dict(data=data, version=ver, slot=slot, kind=kind,
+                link_ver=link_ver, expected=expected, desired=desired)
+
+
+@pytest.mark.parametrize("k", [3, 4])
+def test_slow_round_long_segment_matches_pallas(tmp_path, k):
+    """`slow_round` (its plain version on the CPU) on one 218-lane cell
+    segment with all seven kinds, chained CAS lanes and links to later
+    versions, against `slow_round_pallas` in interpret mode: every output
+    and the table, bit for bit; CAS and SC lanes both win and lose."""
+    case = _long_segment_case(k, seed=k)
+    np.savez(tmp_path / "in.npz", **{f"slow{k}/{f}": x
+                                     for f, x in case.items()})
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _PALLAS_SCRIPT, str(tmp_path / "in.npz"),
+         str(tmp_path / "out.npz")],
+        env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ref = np.load(tmp_path / "out.npz")
+    args = [convert.tensor(case[f], "cpu", word=f not in ("slot", "kind"))
+            for f in ("data", "version", "slot", "kind", "link_ver",
+                      "expected", "desired")]
+    out = ter.slow_round(*args)
+    for i, x in enumerate(out):
+        want = ref[f"slow{k}/{i}"]
+        np.testing.assert_array_equal(
+            convert.array(x, word=i != 4), want.view(np.uint32)
+            if i != 4 else want, err_msg=f"k={k}: output {i} differs")
+    succ = out[4].numpy() != 0
+    for kd in (tengine.CAS, tengine.SC):
+        lanes = (case["kind"] == kd) & (case["slot"] == 7)
+        assert succ[lanes].any() and not succ[lanes].all()
+
+
 # ---------------------------------------------------------------------------
 # The fast-path predicate: false positives are impossible.
 # ---------------------------------------------------------------------------

@@ -152,11 +152,16 @@ def build_cachehash(rng, m, kw, vw, n_keys, max_chain=8):
     return cells, pool, keys, vals, depth
 
 
-def update_case(rng, n, k, p, zipf, update_frac):
+def update_case(rng, n, k, p, zipf, update_frac, one_cell=False,
+                chain=0.0):
     """A random_batch-style STORE/CAS/LOAD batch, sorted by slot and ranked
-    into rounds as the reference's tests do."""
+    into rounds as the reference's tests do.  one_cell: every lane on one
+    slot; chain: the share of lanes whose comparand is the desired row of
+    the lane before on their cell."""
     data0, meta = make_table(rng, n + 1, k)
     slot = ((rng.zipf(1.5, p) - 1) % n if zipf else rng.integers(0, n, p))
+    if one_cell:
+        slot = np.full(p, slot[0])
     u = rng.random(p) < update_frac
     kind = np.where(u, np.where(rng.random(p) < 0.5, CAS, STORE), 0)
     expected = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
@@ -165,12 +170,15 @@ def update_case(rng, n, k, p, zipf, update_frac):
     desired = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
     order = np.argsort(slot, kind="stable")
     s_slot = slot[order].astype(np.int32)
+    expected, desired = expected[order], desired[order]
     idx = np.arange(p)
     start = np.r_[True, s_slot[1:] != s_slot[:-1]]
     rank = (idx - np.maximum.accumulate(np.where(start, idx, 0)))
+    follow = np.flatnonzero((rng.random(p) < chain)[1:] & ~start[1:]) + 1
+    expected[follow] = desired[follow - 1]
     return dict(data=data0, meta=meta, slot=s_slot,
-                kind=kind[order].astype(np.int32), expected=expected[order],
-                desired=desired[order], upd_rank=rank.astype(np.int32)), \
+                kind=kind[order].astype(np.int32), expected=expected,
+                desired=desired, upd_rank=rank.astype(np.int32)), \
         int(rank.max()) + 1
 
 
@@ -185,6 +193,20 @@ def commit_case(rng, n, k, p):
                 c_val=rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32),
                 c_linked=rng.random(p) < 0.8, slots=slot,
                 desired=rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32))
+
+
+# The inputs the one-launch replay of `bigatomic_update_rounds` finds hard:
+# {name: (update_case arguments, rounds left out)}.
+UPDATE_HARD = {
+    "one-cell": ((10, 4, 40, False, 0.8, True, 0.4), 0),
+    "loads-in-long-segments": ((4, 3, 36, True, 0.5, False, 0.3), 0),
+    "truncated": ((6, 4, 30, True, 1.0, False, 0.3), 3),
+    "one-cell-truncated": ((9, 2, 33, False, 0.9, True, 0.5), 12),
+    "k1": ((8, 1, 33, True, 0.8, False, 0.4), 0),
+    "k3": ((8, 3, 35, True, 0.8, False, 0.4), 0),
+    "k5-loads": ((8, 5, 35, True, 0.7, False, 0.4), 0),
+    "k16": ((8, 16, 34, True, 0.8, False, 0.4), 0),
+}
 
 
 def _cases():
@@ -218,6 +240,10 @@ def _cases():
         arrays, rounds = update_case(rng, *args)
         cases[f"bigatomic_update_rounds-{name}"] = (
             "bigatomic_update_rounds", dict(rounds=rounds), arrays)
+    for name, (args, cut) in UPDATE_HARD.items():
+        arrays, rounds = update_case(rng, *args)
+        cases[f"bigatomic_update_rounds-{name}"] = (
+            "bigatomic_update_rounds", dict(rounds=rounds - cut), arrays)
     for m, kw in [(1000, 2), (97, 1), (2 ** 20 + 7, 4), (2 ** 22, 2), (1, 3)]:
         keys = rng.integers(0, 2 ** 32, (40, kw), dtype=np.uint32)
         keys[0] = 2 ** 32 - 1
@@ -509,6 +535,47 @@ def test_update_rounds_vs_sequential_oracle(n, k, p, zipf, seed):
     assert_bits(wit, res.value, "witness")
 
 
+@pytest.mark.parametrize("name", [*UPDATE_HARD, "negative-ranks",
+                                  "out-of-table-slots"])
+def test_update_rounds_hard_cases_vs_sequential_oracle(name):
+    """`bigatomic_update_rounds` on the inputs its one-launch replay finds
+    hard (every lane on one cell, LOAD lanes inside long segments, fewer
+    rounds than the longest segment, k = 1 ... 16, lanes of no round,
+    slots outside the table) against the sequential oracle run on the live
+    lanes alone: table, versions, marks, dummy row, success (STORE/CAS
+    lanes; LOAD lanes read and fail) and witnesses; a lane in no round
+    gets zeros."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    args, cut = UPDATE_HARD.get(name, ((12, 4, 40, True, 0.8, False, 0.3), 0))
+    a, rounds = update_case(rng, *args)
+    rounds -= cut
+    n, k, p = args[0], args[1], args[2]
+    if name == "negative-ranks":
+        a["upd_rank"][rng.random(p) < 0.3] = -1
+    if name == "out-of-table-slots":                # sorted: first and last
+        a["slot"][0], a["slot"][-1] = -1, n + 1
+    live = (a["upd_rank"] >= 0) & (a["upd_rank"] < rounds) \
+        & (a["slot"] >= 0) & (a["slot"] <= n)
+    d, m, succ, wit = port_call(ops.bigatomic_update_rounds, a,
+                                rounds=rounds)
+    ctx = (np.full(p, -1, np.int32), np.zeros(p, np.uint32),
+           np.zeros((p, k), np.uint32), np.zeros(p, bool))
+    sorted_ops = (np.where(live, a["kind"], tengine.IDLE), a["slot"],
+                  a["expected"], a["desired"])
+    data, ver, _, res = tengine.apply_ops_reference(
+        a["data"][:n], a["meta"][:n, 0], ctx, sorted_ops)
+    writes = np.isin(a["kind"], [STORE, CAS])
+    assert_bits(d[:n], data, "data")
+    assert_bits(m[:n, 0], ver, "versions")
+    assert_bits(m[:, 1], a["meta"][:, 1], "marks")
+    assert_bits(d[n], a["data"][n], "dummy row")
+    assert_bits(succ, (res.success & writes).astype(np.int32), "success")
+    assert_bits(wit, res.value, "witness")
+    assert live.any()
+    if cut or name in ("negative-ranks", "out-of-table-slots"):
+        assert not live.all()
+
+
 @settings(max_examples=30, deadline=None)
 @given(m=st.integers(1, 2 ** 31 - 1), kw=st.integers(1, 4),
        q=st.integers(1, 30), seed=st.integers(0, 2 ** 31))
@@ -561,11 +628,14 @@ def _cpu_calls():
     a = cas_case(rng, 8, 4, 6)
     b = llsc_case(rng, 8, 4, 6)
     c = probe_case(rng, 16, 2, 2, 5)
+    u, rounds = update_case(rng, 8, 4, 12, True, 0.8)
     return [
         ("seqlock_gather", lambda: port_call(
             tk.seqlock_gather, dict(data=a["data"], meta=a["meta"],
                                     idx=a["slot"]))),
         ("cas_apply_round", lambda: port_call(tk.cas_apply_round, a)),
+        ("cas_apply_rounds", lambda: port_call(tk.cas_apply_rounds, u,
+                                               rounds=rounds)),
         ("llsc_commit_round", lambda: port_call(tk.llsc_commit_round, b)),
         ("cachehash_probe", lambda: port_call(tk.cachehash_probe, c, kw=2,
                                               vw=2)),
@@ -576,8 +646,8 @@ def test_cpu_tensors_never_launch_and_counts_reset():
     tk.reset_launch_counts()
     assert set(tk.launch_counts()) == {
         "fast_round", "slow_round", "seqlock_gather", "cas_apply_round",
-        "llsc_commit_round", "cachehash_probe", "digest_rows",
-        "flash_attention", "flash_attention_wgmma"}
+        "cas_apply_rounds", "llsc_commit_round", "cachehash_probe",
+        "digest_rows", "flash_attention", "flash_attention_wgmma"}
     for _, call in _cpu_calls():
         call()
     assert not any(tk.launch_counts().values())
@@ -596,20 +666,25 @@ def _meta_args(name, device_of):
     if name == "cachehash_probe":
         return (t("cells", (4, 7)), t("bucket_idx", (3,)),
                 t("query_keys", (3, 2)))
+    rounds = (t("upd_rank", (3,)),) if name == "cas_apply_rounds" else ()
     return (t("data", (5, 2)), t("meta", (5, 2)), t("slot", (3,)),
-            t("flag", (3,)), t("operand", (3, 2) if name == "cas_apply_round"
-                               else (3,)), t("desired", (3, 2)))
+            t("flag", (3,)), t("operand", (3, 2) if name.startswith(
+                "cas_apply_round") else (3,)), t("desired", (3, 2)), *rounds)
 
 
 @pytest.mark.parametrize("name", ["seqlock_gather", "cas_apply_round",
-                                  "llsc_commit_round", "cachehash_probe"])
+                                  "cas_apply_rounds", "llsc_commit_round",
+                                  "cachehash_probe"])
 def test_wrappers_reject_meta_and_mixed_devices(name):
     fn = getattr(tk, name)
+    if name == "cas_apply_rounds":           # rounds between the tensors
+        def fn(*args):
+            return tk.cas_apply_rounds(*args[:6], 2, args[6])
     static = dict(kw=2, vw=2) if name == "cachehash_probe" else {}
     before = tk.launch_counts()
     with pytest.raises(ValueError, match="unsupported device"):
         fn(*_meta_args(name, lambda _: "meta"), **static)
-    for odd in ("idx", "slot", "desired", "query_keys", "meta"):
+    for odd in ("idx", "slot", "desired", "query_keys", "meta", "upd_rank"):
         args = _meta_args(name, lambda arg: "meta" if arg == odd else "cpu")
         if all(a.device.type == "cpu" for a in args):
             continue
@@ -630,6 +705,18 @@ def test_wrappers_reject_bad_shapes_and_dtypes():
                            torch.zeros(2, dtype=torch.int32),
                            torch.zeros((2, 3), dtype=torch.int32),
                            torch.zeros((2, 4), dtype=torch.int32))
+    lanes = [torch.zeros(2, dtype=torch.int32) for _ in range(2)]
+    words = [torch.zeros((2, 4), dtype=torch.int32) for _ in range(2)]
+    with pytest.raises(ValueError, match="upd_rank"):
+        tk.cas_apply_rounds(d, m, *lanes, *words, 1,
+                            torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="desired"):
+        tk.cas_apply_rounds(d, m, *lanes, words[0],
+                            torch.zeros((2, 3), dtype=torch.int32), 1,
+                            torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="meta"):
+        tk.cas_apply_rounds(d, m.T.contiguous(), *lanes, *words, 1,
+                            torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="cannot hold"):
         tk.cachehash_probe(torch.zeros((4, 5), dtype=torch.int32),
                            torch.zeros(2, dtype=torch.int32),
@@ -673,6 +760,24 @@ def test_every_library_needs_nvcc(monkeypatch, tmp_path):
                 build(name)
     with pytest.raises(ValueError, match="no kernel library"):
         _build.library_path("bogus")
+
+
+def test_library_path_hashes_the_included_header(monkeypatch, tmp_path):
+    """Editing `segment_replay.cuh` renames the libraries that include it
+    (so a stale build is never loaded) and no other."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for path in _build.CSRC.iterdir():
+        (csrc / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert _build.sources("table_ops") == [csrc / "table_ops.cu",
+                                           csrc / "segment_replay.cuh"]
+    before = {name: _build.library_path(name) for name in _build.SIGNATURES}
+    with open(csrc / "segment_replay.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {name: _build.library_path(name) for name in _build.SIGNATURES}
+    changed = {name for name in before if before[name] != after[name]}
+    assert changed == {"engine_round", "table_ops"}
 
 
 def test_library_paths_are_keyed_by_each_source():
