@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""The attention kernels alone on one NVIDIA card: a quicker look than
+`chip_smoke.py` while a kernel is being changed.
+
+    python3 attention_probe.py [CASE ...]
+
+Run from the root of a checkout on a machine with a CUDA card and `nvcc`.
+It builds the three attention libraries (`kernels/csrc/flash_attention*.cu`)
+and prints what `ptxas -v` said of each kernel (registers, spills), then
+runs each case of `chip_smoke.ATTENTION_CASES` (all, or those named):
+which kernel it launched, its largest error against
+`flash_attention_plain` and that error over the case's tolerance, and the
+times `chip_smoke.AttentionPhase.timing` takes (kernel, bound, SDPA).
+A case that fails is reported and the next one runs; the exit code is 1
+if any failed.  Details go to `chiprun_out/attention_probe.json`.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+LIBS = ("flash_attention_tf32x3", "flash_attention_wgmma", "flash_attention")
+
+
+def main(names) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("attention_probe: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import chip_smoke as cs
+    from repro_torch import atomics, convert
+    from repro_torch import kernels as tk
+    from repro_torch.core import engine
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import engine_round as er
+    from repro_torch.kernels import flash_attention as fa
+
+    print(cs.card_line(), flush=True)
+    t0 = time.perf_counter()
+    for lib in LIBS:
+        _build.build(lib)
+        print(f"[build] {lib} {time.perf_counter() - t0:.1f} s", flush=True)
+        log = _build.library_path(lib).with_suffix(".log").read_text()
+        for line in log.splitlines():
+            if "Compiling entry" in line:    # <name>_kernelI<args>EEv...
+                end = line.index("_kernelI")
+                start = line.rfind("flash_attention", 0, end)
+                args = line[end + 8:line.index("EEv", end)]
+                print(f"  {line[start:end]}_kernel<{args}>")
+            elif "registers" in line or "spill" in line:
+                print("    " + line.strip())
+    phase = cs.AttentionPhase(cs.Smoke(torch, atomics, engine, er, convert,
+                                       tk), fa)
+    results, failed = {}, 0
+    for i, (name, c) in enumerate(cs.ATTENTION_CASES.items()):
+        if names and name not in names:
+            continue
+        try:
+            tk.reset_launch_counts()
+            q, k, v = phase.inputs(name, 6000 + i)
+            out = fa.flash_attention(q, k, v, causal=c.causal,
+                                     window=c.window)
+            torch.cuda.synchronize()
+            ran = [n for n, count in tk.launch_counts().items() if count]
+            want = fa.flash_attention_plain(q, k, v, causal=c.causal,
+                                            window=c.window).float()
+            err = (out.float() - want).abs()
+            atol, rtol = c.tol
+            over = float((err / (atol + rtol * want.abs())).max())
+            row = {"ran": ran, "max_abs_err": float(err.max()),
+                   "err_over_tol": over,
+                   "finite": bool(torch.isfinite(out).all())}
+            row.update({key: val for key, val in
+                        phase.timing(name, 6000 + i).items()
+                        if key in ("ms", "bound_ms", "library_ms")})
+            ok = ran == [c.kernel] and over <= 1 and row["finite"]
+        except Exception:                  # report it, go on to the next
+            row, ok = {"error": traceback.format_exc()[-2000:]}, False
+            torch.cuda.synchronize()
+        failed += not ok
+        results[name] = row
+        print(f"{'ok  ' if ok else 'FAIL'} {name} {json.dumps(row)}",
+              flush=True)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "attention_probe.json").write_text(json.dumps(results,
+                                                             indent=1))
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

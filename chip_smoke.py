@@ -70,13 +70,17 @@ package, and runs these phases:
              mixtral_8x7b (t=8192, window 4096, bf16 and fp32),
              hubert_xlarge (t=4096, hd=80, bidirectional, bf16) and
              recurrentgemma_9b (t=4096, hd=256, kvh=1, window 2048, bf16),
-             a ragged fp32 case (t=1000), bf16 at hd=64 (t=4096), and
-             three ragged bf16 cases at b=2 (t=1000, and tq != tkv), with
-             the counts reset (bf16 within 1e-3 + 1e-2 |want|, fp32 within
-             1e-4 + 1e-4 |want|); each case must have launched the kernel
-             it names (the wgmma kernel for bf16 at hd 80 / 128 / 256, the
-             CUDA-core kernel for fp32 and bf16 at hd 64); then each
-             case's time, its bound, the plain version's and
+             a ragged fp32 case (t=1000), bf16 at hd=64 (t=4096), three
+             ragged bf16 cases at b=2 (t=1000, and tq != tkv), hd=16 at
+             b=2 (tq 1000, tkv 1200) in bf16 and fp32, and bf16 at hd=100
+             (t=1000), with the counts reset (bf16 within 1e-3 + 1e-2
+             |want|, fp32 within 1e-4 + 1e-4 |want|); each case must have
+             launched the kernel it names (`kernel_for`: the wgmma kernel
+             for bf16 at hd 16 / 32 / 64 / 80 / 128 / 256, the 3xTF32
+             kernel for fp32 at hd 16 / 32 / 64 / 80 / 128, the CUDA-core
+             kernel for the rest, here hd 100); then each case's time, its
+             bound (operations over the peak of the kernel's type, three
+             passes on the 3xTF32 kernel), the plain version's and
              `scaled_dot_product_attention`'s.
 
 Exits non-zero on any failure, without the result line.  On success the
@@ -122,6 +126,9 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:120"),
     "flash_attention_wgmma": (
         "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+        "src/repro/kernels/flash_attention.py:120"),
+    "flash_attention_tf32x3": (
+        "src/repro_torch/kernels/csrc/flash_attention_tf32x3.cu",
         "src/repro/kernels/flash_attention.py:120"),
 }
 TABLE_KERNELS = ("seqlock_gather", "cas_apply_round", "cas_apply_rounds",
@@ -1395,12 +1402,18 @@ class GuardPhase:
 # Phase 6: attention (kernels/flash_attention.py).
 # ---------------------------------------------------------------------------
 
-BF16_FLOPS, FP32_FLOPS = 989e12, 67e12       # H100 SXM dense peaks
+# H100 SXM dense peaks: bf16 and TF32 tensor cores, fp32 on the CUDA cores
+BF16_FLOPS, TF32_FLOPS, FP32_FLOPS = 989e12, 495e12, 67e12
 # bf16: both sides compute in fp32 and round to bf16, so they may differ by
 # one bf16 ulp, at most 2^-7 of the value (rtol 1e-2), or by atol 1e-3 near
 # 0.  fp32: the summation order differs from the plain version's.
 BF16_TOL, FP32_TOL = (1e-3, 1e-2), (1e-4, 1e-4)
-WGMMA, CORES = "flash_attention_wgmma", "flash_attention"
+WGMMA, TF32X3, CORES = ("flash_attention_wgmma", "flash_attention_tf32x3",
+                        "flash_attention")
+# (peak, passes) of each kernel's bound: the 3xTF32 kernel runs every
+# product three times on the TF32 tensor cores
+KERNEL_PEAK = {WGMMA: (BF16_FLOPS, 1), TF32X3: (TF32_FLOPS, 3),
+               CORES: (FP32_FLOPS, 1)}
 
 
 class AttnCase(NamedTuple):
@@ -1423,11 +1436,11 @@ ATTENTION_CASES = {
     "mixtral_8x7b_t8192_w4096": AttnCase(1, 8192, 8192, 32, 8, 128, True,
                                          4096, "bfloat16", BF16_TOL, WGMMA),
     "glm4_9b_t1000_fp32": AttnCase(1, 1000, 1000, 32, 2, 128, True, 0,
-                                   "float32", FP32_TOL, CORES),
+                                   "float32", FP32_TOL, TF32X3),
     # the window mask and the tiles it skips, held at the fp32 tolerance
     "mixtral_8x7b_t8192_w4096_fp32": AttnCase(1, 8192, 8192, 32, 8, 128,
                                               True, 4096, "float32",
-                                              FP32_TOL, CORES),
+                                              FP32_TOL, TF32X3),
     # the wgmma kernel's other head dims: an encoder (hd 80) and local
     # attention with one kv head (hd 256)
     "hubert_xlarge_t4096": AttnCase(1, 4096, 4096, 16, 16, 80, False, 0,
@@ -1435,10 +1448,20 @@ ATTENTION_CASES = {
     "recurrentgemma_9b_t4096_w2048": AttnCase(1, 4096, 4096, 16, 1, 256,
                                               True, 2048, "bfloat16",
                                               BF16_TOL, WGMMA),
-    # the CUDA-core kernel's bf16 instance: no model of the repo has a bf16
-    # head dim off the wgmma kernel, so mixtral_8x7b's heads at hd 64
+    # mixtral_8x7b's heads at hd 64, the wgmma kernel's single-chunk width
     "hd64_h32_kv8_t4096": AttnCase(1, 4096, 4096, 32, 8, 64, True, 0,
-                                   "bfloat16", BF16_TOL, CORES),
+                                   "bfloat16", BF16_TOL, WGMMA),
+    # the tiny configs' head dim (d_model 64, 4 heads) at b = 2 and ragged
+    # ends, in each dtype: hd 16 reads 48 (bf16) or 16 (fp32) zero columns
+    # past hd through TMA's out-of-bounds fill
+    "hd16_b2_q1000_kv1200": AttnCase(2, 1000, 1200, 32, 8, 16, True, 0,
+                                     "bfloat16", BF16_TOL, WGMMA),
+    "hd16_b2_q1000_kv1200_fp32": AttnCase(2, 1000, 1200, 32, 8, 16, True, 0,
+                                          "float32", FP32_TOL, TF32X3),
+    # a head dim no tensor-core kernel is built for (not a multiple of 16
+    # or 32 columns) stays on the CUDA cores
+    "hd100_t1000": AttnCase(1, 1000, 1000, 32, 8, 100, True, 0, "bfloat16",
+                            BF16_TOL, CORES),
     # b = 2 and ends that are no multiple of a tile, one per wgmma head
     # dim: the kernel's ragged-key mask, its store cut-off at tq and the
     # batch coordinate of its TMA maps; tq != tkv in the last two, and in
@@ -1453,7 +1476,8 @@ ATTENTION_CASES = {
 }
 # the case each attention kernel's entry in the kernels line reports
 ATTENTION_ROW = {WGMMA: "glm4_9b_t4096",
-                 CORES: "mixtral_8x7b_t8192_w4096_fp32"}
+                 TF32X3: "mixtral_8x7b_t8192_w4096_fp32",
+                 CORES: "hd100_t1000"}
 
 
 def live_pairs(tq, tkv, causal, window):
@@ -1561,10 +1585,10 @@ class AttentionPhase:
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         flops = 4 * c.b * c.h * c.hd * live_pairs(c.tq, c.tkv, causal,
                                                   window)
-        peak = BF16_FLOPS if c.dtype == "bfloat16" else FP32_FLOPS
-        row.update(bytes=nbytes, flops=flops,
+        peak, passes = KERNEL_PEAK[row["kernel"]]
+        row.update(bytes=nbytes, flops=flops, passes=passes,
                    bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                   flops_ms=flops / peak * 1e3)
+                   flops_ms=passes * flops / peak * 1e3)
         row["bound_ms"] = max(row["bytes_ms"], row["flops_ms"])
         row["bound_by"] = "bytes" if row["bytes_ms"] > row["flops_ms"] \
             else "operations"

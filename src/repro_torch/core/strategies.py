@@ -218,7 +218,7 @@ class Indirect(_KernelLowering, _NodePool):
         return state.data
 
     def read(self, state, slots):
-        node = state.bptr[slots].long()
+        node = _node_index(state.bptr[slots], state.pool.shape[0])
         return state.pool[node], torch.ones(
             (slots.shape[0],), dtype=torch.bool, device=slots.device)
 
@@ -283,7 +283,8 @@ class CachedWF(_KernelLowering, _Cached):
         marked = state.mark[slots]
         v2 = state.version[slots]
         fastok = (~marked) & (v1 == v2) & ((v1 & 1) == 0)
-        backup = state.pool[state.bptr[slots].long()]   # slow path (protected)
+        backup = state.pool[_node_index(state.bptr[slots],
+                                        state.pool.shape[0])]  # slow path
         return (torch.where(fastok[:, None], val, backup),
                 torch.ones((slots.shape[0],), dtype=torch.bool,
                            device=slots.device))
@@ -364,7 +365,8 @@ class CachedME(_KernelLowering, _Cached):
         is_null = bp < 0
         v2 = state.version[slots]
         fastok = is_null & (v1 == v2) & ((v1 & 1) == 0)
-        backup = state.pool[bp.clamp(min=0).long()]     # slow path: live node
+        # slow path: live node; the reference's gather clamps above
+        backup = state.pool[bp.clamp(0, state.pool.shape[0] - 1).long()]
         # If bptr is a real node, the node holds the live value (invariant);
         # either way the reader makes progress -> ok is always True.
         return (torch.where(fastok[:, None], val, backup),

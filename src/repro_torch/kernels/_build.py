@@ -5,8 +5,10 @@ into its own shared library with a plain C interface, which `ctypes`
 loads: `engine_round.cu` (the fused engine round), `table_ops.cu` (the
 raw-table kernels; both include `segment_replay.cuh`, the segment
 replay), `scrub_digest.cu` (the scrub's cell digest),
-`flash_attention.cu` (forward attention on the CUDA cores) and
-`flash_attention_wgmma.cu` (forward attention on the tensor cores, bf16).
+`flash_attention.cu` (forward attention on the CUDA cores),
+`flash_attention_wgmma.cu` (forward attention on the tensor cores, bf16)
+and `flash_attention_tf32x3.cu` (the same, fp32 as three TF32 products;
+both include `tma_wgmma.cuh`, their TMA and wgmma building blocks).
 A build happens at first use, into `build/kernels/` at the root of the
 checkout, under `<name>_<hash of the source and the headers it
 includes>.so`, so an edited source or header rebuilds and an unchanged one
@@ -57,6 +59,10 @@ SIGNATURES = {
     "flash_attention_wgmma": {
         "flash_attention_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                   _I, _I, _I, _P],
+    },
+    "flash_attention_tf32x3": {
+        "flash_attention_tf32x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _F, _I, _I, _I, _P],
     },
 }
 

@@ -2,9 +2,11 @@
 // (src/repro_torch/kernels/flash_attention.py::flash_attention).
 //
 //   flash_attention_kernel   replaces src/repro/kernels/flash_attention.py::
-//                            flash_attention_tpu for fp32, and for bf16 at
-//                            head dims other than 80, 128 and 256 (those run
-//                            on the tensor cores, flash_attention_wgmma.cu)
+//                            flash_attention_tpu at the head dims the
+//                            tensor-core kernels are not built for: bf16
+//                            outside 16, 32, 64, 80, 128 and 256
+//                            (flash_attention_wgmma.cu), fp32 outside 16,
+//                            32, 64, 80 and 128 (flash_attention_tf32x3.cu)
 //
 // q [b, tq, h, hd], k and v [b, tkv, kvh, hd] (the model's layout, read
 // directly), fp32 or bf16, hd <= 256 -> o [b, tq, h, hd] in q's type.  Query
@@ -18,8 +20,8 @@
 // v over the kv tiles it visits (flash_attention.py::fill_dead_rows).
 // The plain PyTorch version is flash_attention.py::flash_attention_plain.
 //
-// Design (simple and right; the tensor-core design is
-// flash_attention_wgmma.cu).  One block of 8 warps per (64-query tile, head, batch); each warp
+// Design (simple and right; the tensor-core designs are
+// flash_attention_wgmma.cu and flash_attention_tf32x3.cu).  One block of 8 warps per (64-query tile, head, batch); each warp
 // owns 8 consecutive query rows.  The block stages its Q tile once, then
 // walks the kv tiles of 32 keys that the causal and window masks leave
 // live for the tile (the Pallas kernel's block skip), staging K and V in
@@ -37,8 +39,8 @@
 // products are 1.37e11 FLOP, 139 us at the 989 TFLOP/s bf16 tensor-core
 // rate, against 71 MB of HBM traffic (21 us at 3.35 TB/s).  This kernel
 // runs them on the CUDA cores in fp32 (67 TFLOP/s peak), with about one
-// shared-memory load per FMA, so it sits well above that bound; bf16 at
-// those widths runs on the tensor-core kernel instead.
+// shared-memory load per FMA, so it sits well above that bound; bf16 and
+// fp32 at those widths run on the tensor-core kernels instead.
 
 #include <cstddef>
 #include <cstdint>

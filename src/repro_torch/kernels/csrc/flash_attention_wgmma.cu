@@ -3,7 +3,8 @@
 //
 //   flash_attention_wgmma_kernel   replaces src/repro/kernels/
 //                                  flash_attention.py::flash_attention_tpu
-//                                  for bf16 at head dims 80, 128 and 256
+//                                  for bf16 at head dims 16, 32, 64, 80,
+//                                  128 and 256
 //
 // q [b, tq, h, hd], k and v [b, tkv, kvh, hd] bf16 (the model's layout, read
 // directly) -> o [b, tq, h, hd] bf16.  Query head i reads kv head
@@ -12,9 +13,9 @@
 // softmax statistics are fp32: the running max starts at the finite
 // NEG_INF = -1e30, a masked score is -inf and contributes p = 0, and the
 // output is O / max(l, 1e-30), so a row with no live key gives zeros here
-// (the wrapper then gives such rows the Pallas kernel's value).  fp32 and
-// other head dims go to flash_attention.cu.  The plain PyTorch version is
-// flash_attention.py::flash_attention_plain.
+// (the wrapper then gives such rows the Pallas kernel's value).  fp32 goes
+// to flash_attention_tf32x3.cu, other head dims to flash_attention.cu.  The
+// plain PyTorch version is flash_attention.py::flash_attention_plain.
 //
 // What bounds it on an H100: operations.  At glm4_9b's widths (h = 32,
 // kvh = 2, hd = 128, t = 4096, causal) the live score and value products
@@ -50,9 +51,10 @@
 // row, the swizzle's width): Q [chunks][128 rows], each stage K and V
 // [chunks][kKeys rows].  Tiles: 128 keys at hd <= 128 (Q 32 KB + 2 stages
 // of 64 KB), 64 keys at hd = 256 (Q 64 KB + 2 stages of 64 KB).  hd = 80
-// is stored as 128 with the dims past 80 read as zeros (TMA's out-of-bounds
-// fill); Q K^T runs 5 k-steps and P V 80 columns (m64n80, which reads the
-// second 64-column chunk of V in part).  TMA maps are 4-D (hd, heads, t, b), so
+// is stored as 128 and hd 16 / 32 as 64, with the dims past hd read as
+// zeros (TMA's out-of-bounds fill); Q K^T runs hd / 16 k-steps and P V hd
+// columns (m64n80 reads the second 64-column chunk of V in part, m64n16 /
+// m64n32 the first).  TMA maps are 4-D (hd, heads, t, b), so
 // rows past t read as zeros and no tile reads the next batch's rows.  The
 // epilogue stages O through the consumer's own Q rows and writes 16-byte
 // pieces of the rows below tq.  Blocks run head-major with the heaviest
@@ -67,6 +69,8 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+#include "tma_wgmma.cuh"
 
 constexpr int kConsumers = 2;                      // consumer warpgroups
 constexpr int kThreads = 128 * (1 + kConsumers);
@@ -91,92 +95,6 @@ struct Tile {
   // + 1024 to align the base to the swizzle's 1024-byte pattern
   static constexpr uint32_t kSmem = 1024 + kBarriers + 8 * (1 + 2 * kStages);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.  A wait of more
-// than 2^34 cycles (about 10 s) traps, so a lost phase faults the launch
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long start = clock64();
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > (1ll << 34)) __trap();
-  }
-}
-
-// TMA: the box of `map` at (c0, c1, c2, c3) into shared memory at `dst`,
-// completing `bar`'s transaction bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor with the 128-byte swizzle: start address,
-// leading and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving an accumulator across wgmma issue / wait.
-template <int N>
-__device__ __forceinline__ void keep(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -249,6 +167,63 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 16] (+)= A[64 x 16] B[16 x 16]: A in registers (bf16 pairs), B
+// MN-major in shared memory (the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32]: A in registers (bf16 pairs), B
+// MN-major in shared memory (the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A in registers (bf16 pairs), B
+// MN-major in shared memory (the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
 // D[64 x 80] (+)= A[64 x 16] B[16 x 80]: A in registers (bf16 pairs), B
@@ -584,62 +559,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// The 4-D map (hd, heads, t, b) of a contiguous bf16 [b, t, heads, hd]
-// tensor, boxes of (64, 1, rows, 1) with the 128-byte swizzle.
-int make_map(CUtensorMap* map, const void* ptr, int b, int t, int heads,
-             int hd, int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
-                              (cuuint64_t)t, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
-                                 (cuuint64_t)heads * hd * 2,
-                                 (cuuint64_t)t * heads * hd * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult res = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int tq, int tkv, int h, int kvh, float scale, int causal,
            int window, cudaStream_t stream) {
   using T = Tile<HD>;
   CUtensorMap map_q, map_k, map_v;
-  int err = make_map(&map_q, q, b, tq, h, HD, kTileQ);
-  if (err == 0) err = make_map(&map_k, k, b, tkv, kvh, HD, T::kKeys);
-  if (err == 0) err = make_map(&map_v, v, b, tkv, kvh, HD, T::kKeys);
+  constexpr auto kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  int err = make_map(&map_q, kBf16, 2, q, b, tq, h, HD, 64, kTileQ);
+  if (err == 0)
+    err = make_map(&map_k, kBf16, 2, k, b, tkv, kvh, HD, 64, T::kKeys);
+  if (err == 0)
+    err = make_map(&map_v, kBf16, 2, v, b, tkv, kvh, HD, 64, T::kKeys);
   if (err != 0) return err;
   auto kern = flash_attention_wgmma_kernel<HD>;
   const cudaError_t attr = cudaFuncSetAttribute(
@@ -657,8 +588,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 extern "C" {
 
 // q[b, tq, h, hd], k and v[b, tkv, kvh, hd] bf16 -> o[b, tq, h, hd] bf16,
-// for hd in {80, 128, 256}; h % kvh == 0 and 16-byte aligned, contiguous
-// tensors (the wrapper checks).  Launches on `stream` of `device` and
+// for hd in {16, 32, 64, 80, 128, 256}; h % kvh == 0 and 16-byte aligned,
+// contiguous tensors (the wrapper checks).  Launches on `stream` of `device` and
 // returns the cudaError_t of the launch (0 = queued).
 int flash_attention_wgmma(const void* q, const void* k, const void* v,
                           void* o, int b, int tq, int tkv, int h, int kvh,
@@ -672,6 +603,15 @@ int flash_attention_wgmma(const void* q, const void* k, const void* v,
   if (tkv <= 0)
     return (int)cudaMemsetAsync(o, 0, (size_t)b * tq * h * hd * 2, s);
   switch (hd) {
+    case 16:
+      return launch<16>(q, k, v, o, b, tq, tkv, h, kvh, scale, causal, window,
+                        s);
+    case 32:
+      return launch<32>(q, k, v, o, b, tq, tkv, h, kvh, scale, causal, window,
+                        s);
+    case 64:
+      return launch<64>(q, k, v, o, b, tq, tkv, h, kvh, scale, causal, window,
+                        s);
     case 80:
       return launch<80>(q, k, v, o, b, tq, tkv, h, kvh, scale, causal, window,
                         s);

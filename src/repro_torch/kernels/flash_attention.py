@@ -2,16 +2,20 @@
 
 `flash_attention(q, k, v, causal=, window=, q_block=, kv_block=)` replaces
 the reference's Pallas kernel `kernels/flash_attention.py::
-flash_attention_tpu` with one of two CUDA kernels, chosen by a static rule
-on (dtype, head dim) (`kernel_for`):
+flash_attention_tpu` with one of three CUDA kernels, chosen by a static
+rule on (dtype, head dim) (`kernel_for`):
 
-  flash_attention_wgmma   bf16 at a head dim in `WGMMA_HEAD_DIMS` (80,
-                          128, 256): tensor cores (wgmma), K/V through TMA
-                          (`csrc/flash_attention_wgmma.cu`)
-  flash_attention         fp32, and bf16 at any other head dim: fp32 FMAs
+  flash_attention_wgmma   bf16 at a head dim in `WGMMA_HEAD_DIMS` (16, 32,
+                          64, 80, 128, 256): tensor cores (wgmma), K/V
+                          through TMA (`csrc/flash_attention_wgmma.cu`)
+  flash_attention_tf32x3  fp32 at a head dim in `TF32_HEAD_DIMS` (16, 32,
+                          64, 80, 128): tensor cores, each product as three
+                          TF32 products (hi/lo split), K/V through TMA
+                          (`csrc/flash_attention_tf32x3.cu`)
+  flash_attention         every other head dim, in either dtype: fp32 FMAs
                           on the CUDA cores (`csrc/flash_attention.cu`)
 
-Both read the model's `[b, t, h, hd]` layout directly (the Pallas
+All three read the model's `[b, t, h, hd]` layout directly (the Pallas
 wrapper's transposes and padding do not carry over), handle causal,
 sliding-window (`key > query - window`) and ragged-length masks and GQA
 (query head i reads kv head `i // (h // kvh)`), keep the softmax
@@ -39,15 +43,20 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 BLOCK = 512                  # the plain version's query and key block
-WGMMA_HEAD_DIMS = (80, 128, 256)
+WGMMA_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+# hd 256 does not fit the fp32 kernel's shared memory and registers
+TF32_HEAD_DIMS = (16, 32, 64, 80, 128)
 
 
 def kernel_for(dtype: torch.dtype, hd: int) -> str:
     """Name of the CUDA kernel that a call with this dtype and head dim
-    launches on the card: the wgmma kernel for bf16 at a head dim it is
-    built for, the CUDA-core kernel for the rest."""
+    launches on the card: a tensor-core kernel where one is built for the
+    pair (the wgmma kernel for bf16, the 3xTF32 kernel for fp32), the
+    CUDA-core kernel for the rest."""
     if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
         return "flash_attention_wgmma"
+    if dtype == torch.float32 and hd in TF32_HEAD_DIMS:
+        return "flash_attention_tf32x3"
     return "flash_attention"
 
 
@@ -195,27 +204,41 @@ def _cuda_core_kernel(q, k, v, out, causal, window):
     _cuda_core_kernel.launches += 1
 
 
-def _wgmma_kernel(q, k, v, out, causal, window):
-    """Launch `flash_attention_wgmma_kernel`
-    (`csrc/flash_attention_wgmma.cu`); its TMA maps need 16-byte aligned
-    tensors."""
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+def _tma_launch(name, q, k, v, out, causal, window):
+    """Launch the TMA kernel `name` (`csrc/<name>.cu`); its TMA maps need
+    16-byte aligned tensors."""
+    for arg, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} is not 16-byte "
+            raise ValueError(f"flash_attention: {arg} is not 16-byte "
                              "aligned")
     b, tq, h, hd = q.shape
-    _build.launch("flash_attention_wgmma", "flash_attention_wgmma", q.device,
+    _build.launch(name, name, q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b, tq, k.shape[1], h, k.shape[2], hd, 1.0 / math.sqrt(hd),
                   int(causal), int(window))
+
+
+def _wgmma_kernel(q, k, v, out, causal, window):
+    """Launch `flash_attention_wgmma_kernel`
+    (`csrc/flash_attention_wgmma.cu`)."""
+    _tma_launch("flash_attention_wgmma", q, k, v, out, causal, window)
     _wgmma_kernel.launches += 1
+
+
+def _tf32x3_kernel(q, k, v, out, causal, window):
+    """Launch `flash_attention_tf32x3_kernel`
+    (`csrc/flash_attention_tf32x3.cu`)."""
+    _tma_launch("flash_attention_tf32x3", q, k, v, out, causal, window)
+    _tf32x3_kernel.launches += 1
 
 
 _cuda_core_kernel.launches = 0
 _wgmma_kernel.launches = 0
+_tf32x3_kernel.launches = 0
 # Each CUDA kernel's launcher, by the name its launches are counted under.
 KERNELS = {"flash_attention": _cuda_core_kernel,
-           "flash_attention_wgmma": _wgmma_kernel}
+           "flash_attention_wgmma": _wgmma_kernel,
+           "flash_attention_tf32x3": _tf32x3_kernel}
 
 
 def hbm_bytes_model(b, t, h, kvh, hd, *, dtype_bytes=2, train=True) -> float:

@@ -11,7 +11,9 @@ tolerances are those of `tests/test_flash_kernel.py`: fp32 rtol = atol =
 go through the Pallas kernel, and every row, those included, equals it.
 Which CUDA kernel a call on the card launches is a pure function of
 (dtype, head dim), `kernel_for`, tested here; the kernels themselves run
-only on the card (`chip_smoke.py`).
+only on the card (`chip_smoke.py`).  The 3xTF32 kernel's arithmetic
+(operands cut to TF32, three products) is emulated in plain PyTorch and
+held to the fp32 tolerance the card's run uses.
 """
 
 import math
@@ -30,7 +32,8 @@ import torch
 from repro.models.attention import flash_attention as flash_ref
 
 from repro_torch import kernels as tk
-from repro_torch.kernels.flash_attention import (WGMMA_HEAD_DIMS,
+from repro_torch.kernels.flash_attention import (KERNELS, TF32_HEAD_DIMS,
+                                                 WGMMA_HEAD_DIMS,
                                                  fill_dead_rows,
                                                  first_dead_row,
                                                  flash_attention,
@@ -291,14 +294,20 @@ def test_dead_rows_match_pallas_kernel(tpu_out, name):
 
 
 def test_kernel_for_names_each_route():
-    """bf16 at a head dim the wgmma kernel is built for goes to it; fp32,
-    and bf16 at any other head dim, to the CUDA-core kernel."""
-    assert WGMMA_HEAD_DIMS == (80, 128, 256)
-    for hd in (1, 16, 64, 80, 96, 128, 255, 256):
-        wgmma = hd in WGMMA_HEAD_DIMS
+    """bf16 at a head dim the wgmma kernel is built for goes to it, fp32 at
+    one the 3xTF32 kernel is built for to that one; every other head dim,
+    in either dtype, to the CUDA-core kernel."""
+    assert WGMMA_HEAD_DIMS == (16, 32, 64, 80, 128, 256)
+    assert TF32_HEAD_DIMS == (16, 32, 64, 80, 128)
+    for hd in (1, 8, 16, 24, 32, 64, 80, 96, 100, 128, 255, 256):
         assert kernel_for(torch.bfloat16, hd) == (
-            "flash_attention_wgmma" if wgmma else "flash_attention")
-        assert kernel_for(torch.float32, hd) == "flash_attention"
+            "flash_attention_wgmma" if hd in WGMMA_HEAD_DIMS
+            else "flash_attention")
+        assert kernel_for(torch.float32, hd) == (
+            "flash_attention_tf32x3" if hd in TF32_HEAD_DIMS
+            else "flash_attention")
+    assert sorted(KERNELS) == ["flash_attention", "flash_attention_tf32x3",
+                               "flash_attention_wgmma"]
 
 
 def test_fill_dead_rows_touches_only_dead_rows():
@@ -321,3 +330,100 @@ def test_fill_dead_rows_touches_only_dead_rows():
                                (vv[:, 32:].sum(1) / 32)[:, None].expand(
                                    b, 4, h, hd))
     assert first_dead_row(tq, tkv, 0) == tq
+
+
+# The tensor-core kernels' head dims below 80: the tiny configs' hd 16 and
+# hd 64, in both dtypes, with ragged ends (tq != tkv, neither a multiple of
+# a tile) and windows; no row is left without a live key.
+SMALL_HD = {
+    # b, tq, tkv, h, kvh, causal, window
+    "ragged_causal": (2, 100, 120, 4, 2, True, 0),
+    "ragged_causal_w24": (1, 90, 70, 4, 1, True, 24),
+    "bidir_w16": (1, 77, 77, 4, 4, False, 16),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("name", list(SMALL_HD))
+def test_small_head_dims_match_jax_oracle(name, hd, dtype):
+    b, tq, tkv, h, kvh, causal, window = SMALL_HD[name]
+    assert first_dead_row(tq, tkv, window) == tq
+    q, k, v = make(b, tq, tkv, h, kvh, hd, seed=hd)
+    bf16 = dtype == "bfloat16"
+    got = port(q, k, v, getattr(torch, dtype), causal=causal, window=window)
+    want = jax_ref(q, k, v, jnp.bfloat16 if bf16 else jnp.float32,
+                   causal=causal, window=window)
+    tol = 2e-2 if bf16 else 2e-5
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+# chip_smoke.py holds the fp32 kernels to atol + rtol |want| of the plain
+# version with these values, unchanged for the 3xTF32 kernel.
+FP32_TOL = (1e-4, 1e-4)
+# The fp32 chip cases' widths, t cut down: glm4_9b (t 1000 on the card),
+# mixtral_8x7b (t 8192, window 4096) and the tiny configs' hd 16 at b = 2
+# (tq 1000, tkv 1200).
+TF32_CASES = {
+    # b, tq, tkv, h, kvh, hd, causal, window
+    "glm4_9b": (1, 256, 256, 32, 2, 128, True, 0),
+    "mixtral_8x7b_w": (1, 320, 320, 32, 8, 128, True, 96),
+    "hd16_b2_ragged": (2, 100, 120, 32, 8, 16, True, 0),
+}
+
+
+def tf32(x):
+    """x with the low 13 mantissa bits cleared: what a TF32 operand of the
+    tensor cores keeps."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_tf32x3(a, b):
+    """a @ b as the 3xTF32 kernel forms it: a_hi b_hi + a_hi b_lo +
+    a_lo b_hi, x_hi = tf32(x), x_lo = x - x_hi (exact), each term of TF32
+    operands (exact products) summed in fp32."""
+    a_hi, b_hi = tf32(a), tf32(b)
+    a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
+    return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
+
+
+def matmul_tf32(a, b):
+    return tf32(a) @ tf32(b)
+
+
+def attention_with(matmul, q, k, v, causal, window):
+    """Dense softmax attention in fp32 with both products through
+    `matmul`; q [b, tq, h, hd], k / v [b, tkv, kvh, hd]."""
+    h, kvh, hd = q.shape[2], k.shape[2], q.shape[3]
+    qf = q.permute(0, 2, 1, 3)
+    kf = k.repeat_interleave(h // kvh, dim=2).permute(0, 2, 1, 3)
+    vf = v.repeat_interleave(h // kvh, dim=2).permute(0, 2, 1, 3)
+    s = matmul(qf, kf.transpose(-1, -2)) / math.sqrt(hd)
+    qpos = torch.arange(q.shape[1])[:, None]
+    kpos = torch.arange(k.shape[1])[None, :]
+    live = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool)
+    if causal:
+        live &= kpos <= qpos
+    if window:
+        live &= kpos > qpos - window
+    s = s.masked_fill(~live, -1e30)
+    p = torch.where(live, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    out = matmul(p, vf) / p.sum(-1, keepdim=True)
+    return out.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("name", list(TF32_CASES))
+def test_tf32x3_split_meets_the_fp32_tolerance(name):
+    """The 3xTF32 kernel's arithmetic, emulated on the CPU, stays within the
+    fp32 tolerance of `flash_attention_plain`; one TF32 pass does not, so
+    the tolerance tells the two apart."""
+    b, tq, tkv, h, kvh, hd, causal, window = TF32_CASES[name]
+    q, k, v = (torch.from_numpy(x) for x in make(b, tq, tkv, h, kvh, hd,
+                                                 seed=21))
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    atol, rtol = FP32_TOL
+    bound = atol + rtol * want.abs()
+    got = attention_with(matmul_tf32x3, q, k, v, causal, window)
+    assert float(((got - want).abs() - bound).max()) <= 0
+    one = attention_with(matmul_tf32, q, k, v, causal, window)
+    assert bool(((one - want).abs() > bound).any())

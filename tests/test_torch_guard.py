@@ -516,3 +516,102 @@ def test_entry_points_default_to_cuda():
                                            "versions": np.zeros(4)})):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
+
+
+# ---------------------------------------------------------------------------
+# `read` on a corrupt `bptr`.
+# ---------------------------------------------------------------------------
+
+# (layout, bit of bptr[5] flipped): indirect / cached_wf pointers past the
+# pool (bit 20) or negative below -m (bit 31); cached_me's tagged null made
+# a huge node index (bit 31) or another negative tag (bit 3)
+BPTR_FAULTS = [("indirect", 20), ("indirect", 31), ("cached_wf", 20),
+               ("cached_wf", 31), ("cached_me", 31), ("cached_me", 3)]
+READ_N, READ_K, READ_P = 16, 2, 4
+
+_READ_SCRIPT = textwrap.dedent("""
+    import json, sys
+    import numpy as np
+    from jax.experimental.pallas import tpu as pltpu
+    if not hasattr(pltpu, "TPUMemorySpace"):   # renamed in newer jax
+        pltpu.TPUMemorySpace = pltpu.MemorySpace
+    import jax.numpy as jnp
+    from repro.core import engine
+    from repro.core.layout import TableState
+    from repro.core.specs import AtomicSpec
+    from repro.guard.inject import inject_table_fault
+    from repro.runtime.faults import Fault
+
+    arrays = np.load(sys.argv[1])
+    out = {}
+    for name in sorted({key.split("/")[0] for key in arrays}):
+        strategy, bit = name.split(":")[:2]
+        spec = AtomicSpec(%(n)d, %(k)d, strategy, %(p)d)
+        state = TableState(*(jnp.asarray(arrays[f"{name}/{f}"])
+                             for f in TableState._fields))
+        bad, _ = inject_table_fault(
+            spec, state, Fault(round=0, kind="bit_flip", slot=5,
+                               field="bptr", bit=int(bit)),
+            np.random.default_rng(0))
+        vals, ok = engine.read(spec, bad, jnp.arange(%(n)d))
+        out[name] = {"vals": np.asarray(vals, np.uint32).tolist(),
+                     "ok": np.asarray(ok, bool).tolist(),
+                     "bptr5": int(bad.bptr[5])}
+    print(json.dumps(out))
+""" % dict(n=READ_N, k=READ_K, p=READ_P))
+
+
+def read_states():
+    """For each fault: the state of ROADMAP's report (`init` from seeded
+    data), and the same state with the node pool filled with seeded words,
+    so that every node index reads a different row."""
+    out = {}
+    for i, (strategy, bit) in enumerate(BPTR_FAULTS):
+        spec = atomics.AtomicSpec(READ_N, READ_K, strategy, p_max=READ_P)
+        rng = np.random.default_rng(40 + i)
+        init = rng.integers(0, 2 ** 32, (READ_N, READ_K), dtype=np.uint32)
+        arrays = list(convert.to_numpy(atomics.init(spec, init,
+                                                    device="cpu")))
+        out[f"{strategy}:{bit}:init"] = arrays
+        pool = JTableState._fields.index("pool")
+        arrays = list(arrays)
+        arrays[pool] = rng.integers(0, 2 ** 32, arrays[pool].shape,
+                                    dtype=np.uint32)
+        out[f"{strategy}:{bit}:pool"] = arrays
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_reads(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("jax_read")
+    np.savez(tmp / "in.npz", **{
+        f"{name}/{f}": a for name, arrays in read_states().items()
+        for f, a in zip(JTableState._fields, arrays)})
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _READ_SCRIPT, str(tmp / "in.npz")],
+        env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("variant", ["init", "pool"])
+@pytest.mark.parametrize("strategy,bit", BPTR_FAULTS)
+def test_read_of_corrupt_bptr_matches_reference(jax_reads, strategy, bit,
+                                                variant):
+    """`read` after a `bptr` bit flip on slot 5 reads the node the
+    reference's gather reads (a negative pointer counts from the end on
+    indirect / cached_wf, cached_me takes max(bptr, 0), and every index
+    is clamped into the pool), bit for bit, and raises nothing."""
+    name = f"{strategy}:{bit}:{variant}"
+    spec = atomics.AtomicSpec(READ_N, READ_K, strategy, p_max=READ_P)
+    state = convert.table_state(read_states()[name], "cpu")
+    bad, _ = inject.inject_table_fault(
+        spec, state, Fault(round=0, kind="bit_flip", slot=5, field="bptr",
+                           bit=bit), np.random.default_rng(0))
+    want = jax_reads[name]
+    assert int(bad.bptr[5]) == want["bptr5"]
+    vals, ok = atomics.read(spec, bad, torch.arange(READ_N))
+    np.testing.assert_array_equal(convert.array(vals, word=True),
+                                  np.asarray(want["vals"], np.uint32))
+    assert ok.tolist() == want["ok"]
