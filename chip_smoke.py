@@ -11,9 +11,12 @@ package, and runs these phases:
              nvcc per source, started together) for sm_90a; print the build
              time, the card's name and power limit.
   2. kernel vs plain
-             the engine-round kernels against their plain PyTorch versions
-             on the card, bit for bit on every output and on the updated
-             table: spectra none / low / all_same, a long segment with
+             the four engine-round kernels (`round_prologue`,
+             `fast_round`, `slow_round`, `round_epilogue`) against their
+             plain PyTorch versions on the card, bit for bit on every output
+             and on the updated table, the last three with their branch
+             taken and not taken (then nothing may change): spectra none /
+             low / all_same, a long segment with
              chained CAS lanes and later links (k = 3, 5, 20), all seven op
              kinds, several k (odd included), and the main path's shapes
              (Zipf 0.99 and the long segment too).
@@ -23,10 +26,11 @@ package, and runs these phases:
              read-only with duplicate slots; (c) uniform slots, 20 %
              updates; (d) Zipf 0.99 slots, 20 % updates; (e) an LL batch,
              then SC/VALIDATE on the linked slots.  Launch counts are reset
-             just before and read just after; both kernels must have run.
-             The same batches replay through the numpy sequential oracle:
-             results, links, logical values, versions and `read()` must
-             agree exactly.
+             just before and read just after; the four kernels must have
+             run, and each batch must have taken the branch its predicate
+             (read after the batch) names.  The same batches replay through
+             the numpy sequential oracle: results, links, logical values,
+             versions and `read()` must agree exactly.
   3b. table ops
              the raw-table layer (`kernels/ops.py`, `llsc_commit`): its five
              kernels against their plain versions (k = 1, 3, 4, 5, 16,
@@ -38,11 +42,18 @@ package, and runs these phases:
              one `cas_apply_rounds` launch each, no `cas_apply_round`),
              `llsc_commit_round`, `commit_round` on cached_me and
              `cachehash_find` at n = m = 2**22, p = q = 16384, each equal to
-             a numpy oracle; the path's four kernels (and `fast_round`
-             under `commit_round`) must have run.  Then each entry point's
+             a numpy oracle; the path's four kernels must have run, and
+             `commit_round` must have taken the fast branch.  Then each
+             entry point's
              and kernel's time, the plain versions', the round loop's it
              replaced, and the device-busy share.
-  4. timing  median time per `apply` by tier (CUDA events), the kernels
+  4. timing  per layout and batch (a), (c), (d): one `apply` (donate)
+             captured in a CUDA graph and replayed once, which must equal
+             the eager `apply` and the numpy oracle (a capture that fails
+             fails the phase); then the median time per `apply`, eager and
+             replayed (CUDA events), the device operations and device time
+             of each (torch.profiler), the branch the batch took (its
+             predicate, read after the timed window), the four kernels
              alone, their plain versions, and the host-side steps around
              them; then `slow_round` alone on one cell, a long segment,
              Zipf 0.99, and Zipf 0.99 at k = 20, each beside its longest
@@ -98,6 +109,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -113,6 +125,13 @@ KERNELS = {
                    "src/repro/kernels/engine_round.py:340"),
     "slow_round": ("src/repro_torch/kernels/csrc/engine_round.cu",
                    "src/repro/kernels/engine_round.py:506"),
+    # the host code around the two Pallas rounds: the predicate
+    # (`fast_path_ok`) and the gathers into the sorted order before them,
+    # the rebuild and stats after them (`_slow_pallas`, `_assemble_fast`)
+    "round_prologue": ("src/repro_torch/kernels/csrc/engine_round.cu",
+                       "src/repro/kernels/engine_round.py:103"),
+    "round_epilogue": ("src/repro_torch/kernels/csrc/engine_round.cu",
+                       "src/repro/kernels/engine_round.py:525"),
     "seqlock_gather": (TABLE_OPS_CU, "src/repro/kernels/seqlock_gather.py:105"),
     "cas_apply_round": (TABLE_OPS_CU, "src/repro/kernels/cas_apply.py:154"),
     "cas_apply_rounds": (TABLE_OPS_CU, "src/repro/kernels/cas_apply.py:154"),
@@ -131,6 +150,8 @@ KERNELS = {
         "src/repro_torch/kernels/csrc/flash_attention_tf32x3.cu",
         "src/repro/kernels/flash_attention.py:120"),
 }
+ROUND_KERNELS = ("round_prologue", "fast_round", "slow_round",
+                 "round_epilogue")
 TABLE_KERNELS = ("seqlock_gather", "cas_apply_round", "cas_apply_rounds",
                  "llsc_commit_round", "cachehash_probe")
 TABLE_PATH_KERNELS = ("seqlock_gather", "cas_apply_rounds",
@@ -297,23 +318,44 @@ class Smoke:
         ctx = (cslot, cver, np.zeros((p, k), np.uint32), rng.random(p) < 0.8)
         return (kind, slot, expected, desired), ctx
 
-    def round_inputs(self, n, ops, ctx, tier):
-        """The wrapper operands the round builds for `ops` (fast: lane
-        order, inactive lanes at n; slow: sorted by (slot, lane))."""
-        engine = self.engine
+    def round_args(self, n, ops, ctx):
+        """What the round hands its three kernels for `ops`: the batch and
+        links on the card, the sort, the predicate, and the replay's sorted
+        lane operands."""
+        er = self.er
         ops = self.convert.op_batch(ops, self.dev)
         ctx = self.convert.link_ctx(ctx, self.dev)
-        if tier == "fast":
-            slot = self.torch.where(ops.kind != engine.IDLE, ops.slot, n)
-            return (slot, ops.kind, engine.poisoned_link_ver(ctx, ops.slot),
-                    ops.expected, ops.desired)
-        lanes = engine.sort_lanes(n, ctx, ops)
-        return (lanes.slot, lanes.kind, lanes.link_ver, lanes.expected,
-                lanes.desired)
+        s_slot, order = er.sort_slots(n, ops)
+        pro = er.round_prologue_plain(n, ops, ctx, order, s_slot)
+        return SimpleNamespace(
+            ops=ops, ctx=ctx, s_slot=s_slot, order=order, s_kind=pro.s_kind,
+            fast=pro.fast, slow=(s_slot, *pro[1:]))
+
+    def round_out(self, p, k):
+        """A `RoundOut` filled with values no kernel writes."""
+        out = self.er.RoundOut.empty(p, k, self.dev)
+        for t in (out.value, out.ctx.slot, out.ctx.version, out.ctx.value,
+                  out.okw, out.stats, out.dirty):
+            t.fill_(-7)
+        out.success.fill_(True)
+        out.ctx.linked.fill_(True)
+        return out
+
+    @staticmethod
+    def out_tensors(out):
+        return (out.value, out.success, *out.ctx, out.okw, out.stats,
+                out.dirty)
+
+    def flag(self, value):
+        return self.torch.tensor(value, device=self.dev)
 
     # -- phase 2 -------------------------------------------------------------
 
     def kernel_vs_plain(self, n, k, p, spectrum, seed):
+        """Each kernel against its plain version: `round_prologue` on the
+        batch and on its collision-free or read-only form; with its branch
+        taken and not taken, `slow_round` on the batch, `fast_round` on the
+        other form, and `round_epilogue` after each."""
         er, torch = self.er, self.torch
         rng = np.random.default_rng(seed)
         data = rng.integers(0, 2 ** 32, (n, k), dtype=np.uint32)
@@ -325,15 +367,62 @@ class Smoke:
         read_only = np.where(np.isin(kind, [1, 2, 5]), 0, kind)
         fast_ops = ops if spectrum == "none" else \
             (read_only.astype(np.int32), *ops[1:])
-        for tier, batch in (("slow", ops), ("fast", fast_ops)):
-            args = self.round_inputs(n, batch, ctx, tier)
-            kern = er.fast_round if tier == "fast" else er.slow_round
-            plain = er.fast_round_plain if tier == "fast" \
-                else er.slow_round_plain
-            got = kern(d.clone(), v.clone(), *args)
-            want = plain(d.clone(), v.clone(), *args)
+
+        r = self.round_args(n, ops, ctx)
+        rf = self.round_args(n, fast_ops, ctx)
+        for rr in (r, rf):
+            got = er.round_prologue(n, rr.ops, rr.ctx, rr.order, rr.s_slot)
             torch.cuda.synchronize()
-            self.compare(f"{tier}_round", got, want)
+            self.compare("round_prologue", got, (rr.fast, rr.s_kind,
+                                                 *rr.slow[2:]))
+        for taken in (False, True):           # the slow branch taken
+            fast = self.flag(not taken)
+            got = er.slow_round(d.clone(), v.clone(), *r.slow, fast=fast)
+            want = er.slow_round_plain(d.clone(), v.clone(), *r.slow,
+                                       fast=fast)
+            torch.cuda.synchronize()
+            self.compare("slow_round", got if taken else got[:2],
+                         want if taken else (d, v))
+        slow_ver, slow_out = want[1], want[2:]
+
+        if not bool(rf.fast):
+            raise SystemExit(f"{spectrum}: the fast batch fails the predicate")
+        for taken in (False, True):
+            fast = self.flag(taken)
+            dk, vk, dp, vp = d.clone(), v.clone(), d.clone(), v.clone()
+            got = er.fast_round(fast, dk, vk, rf.ctx, rf.ops,
+                                self.round_out(p, k))
+            want = er.fast_round_plain(fast, dp, vp, rf.ctx, rf.ops,
+                                       self.round_out(p, k))
+            torch.cuda.synchronize()
+            self.compare("fast_round", (dk, vk, *self.out_tensors(got)),
+                         (dp, vp, *self.out_tensors(want)))
+            if not taken:
+                self.compare("fast_round", (dk, vk, *self.out_tensors(got)),
+                             (d, v, *self.out_tensors(self.round_out(p, k))))
+
+        # the epilogue after either branch; after the fast one it must
+        # leave the fast round's lane outputs alone
+        for rr, fast, out, version, outs in (
+                (r, self.flag(False), self.round_out(p, k), slow_ver,
+                 slow_out),
+                (rf, rf.fast, want, vp, None)):
+            if outs is None:
+                outs = er.slow_round(dp.clone(), vp.clone(), *rr.slow,
+                                     fast=fast)[2:]
+            got, mine = (er.RoundOut(*(clone(x) if isinstance(x, tuple)
+                                       else x.clone() for x in out))
+                         for _ in range(2))
+            args = (fast, n, rr.ctx, rr.order, rr.s_slot, rr.s_kind, *outs,
+                    version)
+            er.round_epilogue(*args, got)
+            er.round_epilogue_plain(*args, mine)
+            torch.cuda.synchronize()
+            self.compare("round_epilogue", self.out_tensors(got),
+                         self.out_tensors(mine))
+            if bool(fast):
+                self.compare("round_epilogue", self.out_tensors(got)[:7],
+                             self.out_tensors(out)[:7])
 
     # -- phase 3 -------------------------------------------------------------
 
@@ -372,10 +461,14 @@ class Smoke:
         kind = np.where(rng.random(p) < 0.7, 5, 6).astype(np.int32)
         return kind, ctx_slot.astype(np.int32), zeros, words
 
+    def branch(self, ops):
+        """The branch the round takes for `ops`: its predicate, read back."""
+        return "fast" if bool(self.er.fast_path_ok(N, ops)) else "slow"
+
     def main_path(self, strategy, seed):
         """Drive `atomics.apply` through batches (a)-(e); returns the
-        recorded batches and outputs, plus per-batch tiers."""
-        atomics, er, torch = self.atomics, self.er, self.torch
+        recorded batches and outputs, plus per-batch branches."""
+        atomics, torch = self.atomics, self.torch
         spec = atomics.AtomicSpec(N, K, strategy, p_max=P)
         rng = np.random.default_rng(seed)
         initial = rng.integers(0, 2 ** 32, (N, K), dtype=np.uint32)
@@ -391,19 +484,17 @@ class Smoke:
             current = self.np_words(atomics.logical(spec, state))
             ops = self.main_batch(name, rng, current,
                                   ctx.slot.cpu().numpy())
-            f0, s0 = er.fast_round.launches, er.slow_round.launches
+            batch = self.convert.op_batch(ops, self.dev)
             state, ctx, res, stats, traffic = atomics.apply(
-                spec, state, self.convert.op_batch(ops, self.dev), ctx,
-                donate=True)
-            tier = ("fast" if er.fast_round.launches > f0 else "") + \
-                ("slow" if er.slow_round.launches > s0 else "")
-            record.append((name, ops, tier, self.convert.to_numpy(res),
+                spec, state, batch, ctx, donate=True)
+            record.append((name, ops, self.branch(batch),
+                           self.convert.to_numpy(res),
                            self.convert.to_numpy(ctx),
                            {f: int(x) for f, x in zip(stats._fields, stats)}))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"fast_round": er.fast_round.launches,
-                    "slow_round": er.slow_round.launches}
+        launches = {name: self.tk.WRAPPERS[name].launches
+                    for name in ROUND_KERNELS}
         final = (self.np_words(atomics.logical(spec, state)),
                  self.np_words(state.version))
         vals, ok = atomics.read(spec, state, np.arange(N))
@@ -419,12 +510,18 @@ class Smoke:
         data, ver = initial.copy(), np.zeros(N, np.uint32)
         ctx = (np.full(P, -1, np.int32), np.zeros(P, np.uint32),
                np.zeros((P, K), np.uint32), np.zeros(P, bool))
-        for name, ops, tier, res, got_ctx, stats in record:
-            if name in expect and tier != expect[name]:
-                raise SystemExit(f"{strategy}/{name}: ran the {tier or 'no'} "
-                                 f"kernel, expected {expect[name]}")
-            data, ver, ctx, ref = engine.apply_ops_reference(data, ver, ctx,
-                                                             ops)
+        for name, ops, branch, res, got_ctx, stats in record:
+            if name in expect and branch != expect[name]:
+                raise SystemExit(f"{strategy}/{name}: took the {branch} "
+                                 f"branch, expected {expect[name]}")
+            moved = None
+            data, ver_next, ctx, ref = engine.apply_ops_reference(
+                data, ver, ctx, ops)
+            moved = int((ver_next != ver).sum())
+            ver = ver_next
+            if stats["n_dirty_cells"] != moved:
+                raise SystemExit(f"{strategy}/{name}: n_dirty_cells "
+                                 f"{stats['n_dirty_cells']}, oracle {moved}")
             for what, a, b in (("value", res[0], ref.value),
                                ("success", res[1], ref.success),
                                *((f"ctx.{f}", x, y) for f, x, y in zip(
@@ -445,21 +542,59 @@ class Smoke:
 
     # -- phase 4 -------------------------------------------------------------
 
+    def captured_apply(self, spec, state, ops, ctx, ops_np):
+        """One `apply` (donate) of `ops` captured in a CUDA graph on a copy
+        of `state` and replayed once: it must equal the eager `apply` on
+        another copy, field by field, and the numpy oracle.  Returns the
+        graph (replaying it again re-runs the batch on its copy)."""
+        atomics, torch, engine = self.atomics, self.torch, self.engine
+        eager = atomics.apply(spec, clone(state), ops, ctx, donate=True)
+        mine = clone(state)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                out = atomics.apply(spec, mine, ops, ctx, donate=True)
+            graph.replay()
+            torch.cuda.synchronize()
+        except Exception as err:           # a failed capture fails the phase
+            raise SystemExit(f"{spec.strategy}: capturing apply in a CUDA "
+                             f"graph failed: {err!r}") from err
+        for part, (a, b) in enumerate(zip(out, eager)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                if not torch.equal(x, y):
+                    raise SystemExit(f"{spec.strategy}: the replayed apply "
+                                     f"differs from the eager one (output "
+                                     f"{part}.{i})")
+        data, ver, o_ctx, ref = engine.apply_ops_reference(
+            self.np_words(atomics.logical(spec, state)),
+            self.np_words(state.version), self.convert.to_numpy(ctx), ops_np)
+        got = (self.np_words(atomics.logical(spec, out[0])),
+               self.np_words(out[0].version),
+               *self.convert.to_numpy(out[1]),
+               *self.convert.to_numpy(out[2]))
+        for i, (x, y) in enumerate(zip(got, (data, ver, *o_ctx, *ref))):
+            if not np.array_equal(x, y):
+                raise SystemExit(f"{spec.strategy}: the replayed apply "
+                                 f"differs from the oracle (output {i})")
+        return graph
+
     def timing(self, strategy, spec, state, rng):
-        """Median ms per apply by tier, the kernels alone, their plain
-        versions, and the host-side steps around them."""
+        """Per batch (a), (c), (d): the captured apply checked, then the
+        median ms per apply eager and replayed, their device operations and
+        time, the branch, the kernels alone, their plain versions, and the
+        host-side steps around them."""
         atomics, engine, er, torch = (self.atomics, self.engine, self.er,
                                       self.torch)
         impl = atomics.get_strategy(strategy)
-        current = self.np_words(atomics.logical(spec, state))
         ctx = atomics.init_ctx(P, K, device=self.dev)
         out = {}
-        for tier, name in (("fast", "a_distinct_all_kinds"),
-                           ("slow", "c_uniform_u20"),
-                           ("slow", "d_zipf099_u20")):
+        for name in ("a_distinct_all_kinds", "c_uniform_u20",
+                     "d_zipf099_u20"):
+            current = self.np_words(atomics.logical(spec, state))
             ops_np = self.main_batch(name, rng, current, None)
             ops = self.convert.op_batch(ops_np, self.dev)
-            row = {"tier": tier}
+            graph = self.captured_apply(spec, state, ops, ctx, ops_np)
+            row = {}
             host = []
             # the table the batch was made for, for the kernels alone
             d = impl.engine_view(state).clone()
@@ -472,59 +607,90 @@ class Smoke:
                 torch.cuda.synchronize()
                 host.append(time.perf_counter() - t)
 
+            def replay():
+                graph.replay()
+                torch.cuda.synchronize()
+
             row["apply_ms"] = self.time_ms(run)
             row["apply_host_clock_ms"] = statistics.median(host) * 1e3
             row["ops_per_s"] = P / (row["apply_ms"] * 1e-3)
-            ctx_np = self.convert.to_numpy(ctx)
-            args = self.round_inputs(N, ops_np, ctx_np, tier)
-            kern = er.fast_round if tier == "fast" else er.slow_round
-            plain = er.fast_round_plain if tier == "fast" \
-                else er.slow_round_plain
+            row["replay_ms"] = self.time_ms(graph.replay)
+            row["replay_device_ms"] = self.device_ms(graph.replay)
+            row["branch"] = self.branch(ops)
+            r = self.round_args(N, ops_np, self.convert.to_numpy(ctx))
+            fast = r.fast
 
             def fresh():
                 return d.clone(), v.clone()
 
-            row["kernel_ms"] = self.device_ms(
-                lambda dd, vv: kern(dd, vv, *args), setup=fresh)
-            row["kernel_with_launch_ms"] = self.time_ms(
-                lambda dd, vv: kern(dd, vv, *args), setup=fresh)
-            row["plain_ms"] = self.time_ms(
-                lambda dd, vv: plain(dd, vv, *args), reps=5, warmup=1,
-                setup=fresh)
+            def fast_kernel(dd, vv, plain=False):
+                fn = er.fast_round_plain if plain else er.fast_round
+                return fn(fast, dd, vv, r.ctx, r.ops, out_buf)
+
+            def slow_kernel(dd, vv, plain=False):
+                fn = er.slow_round_plain if plain else er.slow_round
+                return fn(dd, vv, *r.slow, fast=fast)
+
+            out_buf = self.round_out(P, K)
+            dd, vv = fresh()                 # the round's table, as it runs
+            fast_kernel(dd, vv)
+            slow_out = slow_kernel(dd, vv)[2:]
+
+            def epilogue(plain=False):
+                fn = er.round_epilogue_plain if plain else er.round_epilogue
+                return fn(fast, N, r.ctx, r.order, r.s_slot, r.s_kind,
+                          *slow_out, vv, out_buf)
+
+            def prologue(plain=False):
+                fn = er.round_prologue_plain if plain else er.round_prologue
+                return fn(N, r.ops, r.ctx, r.order, r.s_slot)
+
+            kernels = {}
+            for kname, call, setup in (("round_prologue", prologue, None),
+                                       ("fast_round", fast_kernel, fresh),
+                                       ("slow_round", slow_kernel, fresh),
+                                       ("round_epilogue", epilogue, None)):
+                kernels[kname] = {
+                    "ms": self.device_ms(call, setup=setup),
+                    "with_launch_ms": self.time_ms(call, setup=setup),
+                    "plain_ms": self.time_ms(
+                        lambda *a: call(*a, plain=True), reps=5, warmup=1,
+                        setup=setup)}
+            row["kernels"] = kernels
             steps = {
                 "check_kinds": lambda: engine.check_kinds(
                     ops.kind, engine.TABLE_KINDS, "table"),
-                "version_copy": lambda: state.version.clone(),
-                "predicate_readback": lambda: bool(
-                    er.fast_path_ok(N, ops)),
+                "sort": lambda: er.sort_slots(N, ops),
             }
-            if tier == "slow":
-                lanes = engine.sort_lanes(N, ctx, ops)
-                _, _, val, verpt, succ = er.slow_round(*fresh(), *args)
-                steps["sort_pre"] = lambda: engine.sort_lanes(N, ctx, ops)
-                steps["rebuild_stats_post"] = lambda: engine.rebuild(
-                    N, ctx, lanes, val, verpt, succ != 0)
-            else:
-                link_ver = engine.poisoned_link_ver(ctx, ops.slot)
-                _, _, wit, verpt, okw = er.fast_round(*fresh(), *args)
-                steps["assemble_post"] = lambda: er._assemble_fast(
-                    N, ctx, ops, link_ver, wit, verpt, okw != 0, d, v)
-            scratch = atomics.TableState(*(x.clone() for x in state))
-            new_version = scratch.version.clone()
-            new_version[:P] += 2
-            n_upd = torch.tensor(P, dtype=torch.int32, device=self.dev)
+            scratch = clone(state)
+            stats = engine.ApplyStats(*(torch.full(
+                (), P, dtype=torch.int32, device=self.dev) for _ in range(6)))
+            dirty = torch.arange(P, dtype=torch.int32, device=self.dev) * 7
             steps["commit"] = lambda: impl.commit(
-                scratch, scratch.data, new_version, n_upd, P)
+                scratch, scratch.data, scratch.version, stats, dirty, P)
+            steps["traffic"] = lambda: impl.traffic(stats, K, P)
             row["host_steps_ms"] = {k: self.time_ms(fn, reps=10)
                                     for k, fn in steps.items()}
-            row["host_side_ms"] = row["apply_ms"] - row["kernel_ms"]
-            row["longest_segment"] = longest_segment(torch, args[0], N)
-            row["bytes"] = self.round_bytes(N, K, args, tier, d, v)
-            row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+            row["host_side_ms"] = row["apply_ms"] - sum(
+                kern["ms"] for kern in kernels.values())
+            row["longest_segment"] = longest_segment(torch, r.s_slot, N)
+            for kname, tier in (("fast_round", "fast"),
+                                ("slow_round", "slow")):
+                # a kernel whose branch is not taken reads the flag alone
+                kernels[kname]["bytes"] = self.round_bytes(
+                    N, K, r, tier, d, v) if tier == row["branch"] else 1
+            kernels["round_prologue"]["bytes"] = self.prologue_bytes(K, P)
+            live = r.s_slot[(r.s_slot >= 0) & (r.s_slot < N)]
+            kernels["round_epilogue"]["bytes"] = self.epilogue_bytes(
+                K, P, row["branch"], int(torch.unique(live).numel()))
+            for kern in kernels.values():
+                kern["bound_ms"] = kern["bytes"] / HBM_BYTES_PER_S * 1e3
             trace = (ROOT / "chiprun_out" / f"apply_trace_{strategy}_{name}"
                      ".json") if strategy == "cached_me" else None
             row["profile"] = self.device_busy(run, trace=trace)
+            row["replay_profile"] = self.device_busy(replay)
             out[name] = row
+            del graph
         return state, out
 
     def slow_spectra(self):
@@ -540,34 +706,63 @@ class Smoke:
             data = rng.integers(0, 2 ** 32, (N, k), dtype=np.uint32)
             ver = np.zeros(N, np.uint32)
             ops, ctx = self.spectrum_batch(rng, N, k, P, spectrum, data, ver)
-            args = self.round_inputs(N, ops, ctx, "slow")
+            r = self.round_args(N, ops, ctx)
             d, v = self.words(data), self.words(ver)
             row = {"k": k,
-                   "longest_segment": longest_segment(torch, args[0], N),
+                   "longest_segment": longest_segment(torch, r.s_slot, N),
                    "ms": self.device_ms(
-                       lambda dd, vv: er.slow_round(dd, vv, *args), reps=5,
+                       lambda dd, vv: er.slow_round(dd, vv, *r.slow), reps=5,
                        setup=lambda: (d.clone(), v.clone())),
-                   "bytes": self.round_bytes(N, k, args, "slow", d, v)}
+                   "bytes": self.round_bytes(N, k, r, "slow", d, v)}
             row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
             out[f"{spectrum}_k{k}"] = row
         return out
 
-    def round_bytes(self, n, k, args, tier, data, version):
-        """Bytes the round must move on these inputs: every lane operand
-        read once, every output written once, each distinct live row (and
-        its version) read once, each written row written once."""
-        torch = self.torch
-        slot = args[0]
-        p = slot.shape[0]
-        live = (slot >= 0) & (slot < n)
-        rows = int(torch.unique(slot[live]).numel())
-        kern = self.er.fast_round if tier == "fast" else self.er.slow_round
+    def round_bytes(self, n, k, r, tier, data, version):
+        """Bytes the round's kernel of `tier` must move on these inputs
+        (its branch taken): every lane operand read once, every output
+        written once, each distinct live row (and its version) read once,
+        each written row written once."""
+        torch, er = self.torch, self.er
+        p = r.s_slot.shape[0]
+        live = r.s_slot[r.s_slot < n]
+        rows = int(torch.unique(live[live >= 0]).numel())
         d0, v0 = data.clone(), version.clone()
-        kern(d0, v0, *args)
+        if tier == "fast":
+            er.fast_round(self.flag(True), d0, v0, r.ctx, r.ops,
+                          self.round_out(p, k))
+            # slot, kind, expected, desired, the link; value, success, the
+            # new link, okw
+            lane_in = p * (4 + 4 + 8 * k + (4 + 4 + 4 * k + 1))
+            lane_out = p * (4 * k + 1 + (4 + 4 + 4 * k + 1) + 4)
+        else:
+            er.slow_round(d0, v0, *r.slow)
+            lane_in = p * (4 + 4 + 4 + 8 * k)
+            lane_out = p * (4 * k + 4 + 4)
         written = int(((d0 != data).any(1) | (v0 != version)).sum())
-        lane_in = p * (4 + 4 + 4 + 4 * k + 4 * k)
-        lane_out = p * (4 * k + 4 + 4)
         return lane_in + lane_out + (rows + written) * (4 * k + 4)
+
+    @staticmethod
+    def prologue_bytes(k, p):
+        """Bytes `round_prologue` must move: the sorted order and slots,
+        each lane's slot, kind, rows and link in, its kind, link version
+        and rows in the sorted order out (and the flag)."""
+        lane_in = p * (8 + 4 + 4 + 4 + 8 * k + (4 + 4 + 1))
+        lane_out = p * (4 + 4 + 8 * k)
+        return lane_in + lane_out + 2 * 4 + 1
+
+    @staticmethod
+    def epilogue_bytes(k, p, branch, cells):
+        """Bytes `round_epilogue` must move on `branch`: the sorted order,
+        slots and kinds and each lane's success in; on the slow branch the
+        replay's outputs, the links and the version of each of the `cells`
+        in, the lanes' results and new links out; the stats and the dirty
+        list out."""
+        sorted_in = p * (8 + 4 + 4 + 4)
+        link = p * (4 + 4 + 4 * k + 1)
+        lanes = (p * (4 * k + 4) + link + 4 * cells) \
+            + (p * (4 * k + 1) + link) if branch == "slow" else 0
+        return sorted_in + lanes + 6 * 4 + p * 4
 
 
 # ---------------------------------------------------------------------------
@@ -852,7 +1047,7 @@ class TableOps:
     def main_path(self, atomics, engine, convert):
         """Drive the layer's entry points once at full width, with the
         launch counts reset just before; check each against numpy.
-        Returns the launch counts, the launches of `fast_round` under
+        Returns the launch counts, the branch the engine round took under
         `commit_round`, and the operands for the timing: each call's
         inputs, with a copy (`pre_*`) of each table or state as it was
         before the call that updated it."""
@@ -945,10 +1140,13 @@ class TableOps:
         sc_des = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
         op["commit"] = (spec, ints(sc_slots), w(sc_des))
         op["pre_commit"] = (clone(state), clone(ctx))
-        f0 = tk.fast_round.launches
         state, ctx, succ, wit = llsc.commit_round(
             spec, state, ctx, *op["commit"][1:], donate=True)
-        fast_in_commit = tk.fast_round.launches - f0
+        # the branch the engine round took: its predicate on the batch
+        fast_in_commit = self.s.branch(engine.OpBatch(
+            torch.where(op["commit"][1] < n, engine.SC, engine.IDLE).to(
+                torch.int32), op["commit"][1], op["commit"][2],
+            op["commit"][2]))
         o_data, o_ver, o_ctx = initial, np.zeros(n, np.uint32), ctx0
         batches.append((np.where(sc_slots < n, engine.SC, engine.IDLE).astype(
             np.int32), sc_slots, zeros, sc_des))
@@ -1000,8 +1198,8 @@ class TableOps:
                 self.fail(f"{name} never launched on the table-ops path")
         if counts["cas_apply_round"] != 0:
             self.fail("bigatomic_update_rounds launched cas_apply_round")
-        if fast_in_commit <= 0:
-            self.fail("commit_round did not run the fast_round kernel")
+        if fast_in_commit != "fast":
+            self.fail("commit_round did not take the fast branch")
         return counts, fast_in_commit, op
 
     # -- timing ------------------------------------------------------------------
@@ -1646,12 +1844,13 @@ def main() -> int:
                                      "long")]
     for i, (n, k, p, spectrum) in enumerate(cases):
         smoke.kernel_vs_plain(n, k, p, spectrum, seed=1000 + i)
-    log(f"[kernel-vs-plain] {len(cases)} cases x 2 kernels bit-identical "
-        f"in {time.perf_counter() - t0:.1f} s (spectra none / low / "
-        f"all_same / zipf / long; k = 1, 3, 4, 5, 16, 20)")
+    log(f"[kernel-vs-plain] {len(cases)} cases x 4 kernels, each branch "
+        f"taken and not, bit-identical in {time.perf_counter() - t0:.1f} s "
+        f"(spectra none / low / all_same / zipf / long; k = 1, 3, 4, 5, 16, "
+        f"20)")
 
     # -- 3. main path --------------------------------------------------------
-    totals = {"fast_round": 0, "slow_round": 0}
+    totals = dict.fromkeys(ROUND_KERNELS, 0)
     timings = {}
     states = {}
     for si, strategy in enumerate(STRATEGIES):
@@ -1663,7 +1862,7 @@ def main() -> int:
                               read)
         tiers = " ".join(f"{name}:{tier}" for name, _, tier, *_ in record)
         log(f"[main-path] {strategy}: 6 batches in {wall:.3f} s, launches "
-            f"{launches}, tiers {tiers}; oracle-equal")
+            f"{launches}, branches {tiers}; oracle-equal")
         states[strategy] = (spec, state)
     launches_main = dict(totals)
 
@@ -1688,8 +1887,8 @@ def main() -> int:
     log(f"[table-ops] path in {table_wall:.2f} s (CacheHash build "
         f"{op['build_cachehash_s']:.2f} s, chains <= {op['max_depth']}, "
         f"queries hit/miss {op['find_mix']}), update rounds (= longest "
-        f"segment) {op['rounds']}, launches {counts}, fast_round under "
-        f"commit_round {fast_in_commit}; oracle-equal")
+        f"segment) {op['rounds']}, launches {counts}, commit_round's "
+        f"branch {fast_in_commit}; oracle-equal")
     table_entries, table_kernels = table.timing(op)
     for name, row in table_entries.items():
         prof = row.get("profile", {})
@@ -1712,22 +1911,28 @@ def main() -> int:
         spec, state = states.pop(strategy)
         _, timings[strategy] = smoke.timing(strategy, spec, state, rng)
         for name, row in timings[strategy].items():
-            log(f"[timing] {strategy:9s} {name:20s} {row['tier']} (longest "
+            log(f"[timing] {strategy:9s} {name:20s} {row['branch']} (longest "
                 f"segment {row['longest_segment']}): apply "
                 f"{row['apply_ms']:.4f} ms ({row['ops_per_s']:.4g} ops/s), "
-                f"kernel {row['kernel_ms']:.4f} ms device / "
-                f"{row['kernel_with_launch_ms']:.4f} ms with launch, plain "
-                f"{row['plain_ms']:.4f} ms, host side "
-                f"{row['host_side_ms']:.4f} ms, bound "
-                f"{row['bound_ms']:.6f} ms "
+                f"replayed graph {row['replay_ms']:.4f} ms "
+                f"({row['replay_device_ms']:.4f} ms device), host side "
+                f"{row['host_side_ms']:.4f} ms "
                 + json.dumps({k: round(v, 4)
                               for k, v in row['host_steps_ms'].items()}))
-            prof = row["profile"]
-            log(f"[profile] {strategy:9s} {name:20s} " + json.dumps(
-                {k: (round(v, 4) if isinstance(v, float) else v)
-                 for k, v in prof.items() if k != "top_device_us_per_apply"})
-                + " top " + json.dumps({k: round(v, 2) for k, v in prof.get(
-                    "top_device_us_per_apply", {}).items()}))
+            for kname, kern in row["kernels"].items():
+                log(f"[timing] {strategy:9s} {name:20s} {kname:14s} "
+                    f"{kern['ms']:.5f} ms device / {kern['with_launch_ms']:.4f}"
+                    f" ms with launch, plain {kern['plain_ms']:.4f} ms, bound "
+                    f"{kern['bound_ms']:.6f} ms")
+            for what in ("profile", "replay_profile"):
+                prof = row[what]
+                log(f"[{what}] {strategy:9s} {name:20s} " + json.dumps(
+                    {k: (round(v, 4) if isinstance(v, float) else v)
+                     for k, v in prof.items()
+                     if k != "top_device_us_per_apply"})
+                    + " top " + json.dumps({k: round(v, 2) for k, v in
+                                            prof.get("top_device_us_per_apply",
+                                                     {}).items()}))
         del state
         torch.cuda.empty_cache()
 
@@ -1812,13 +2017,15 @@ def main() -> int:
     # -- report ----------------------------------------------------------------
     ref = timings["cached_me"]
     rows = []
-    for name, bench in (("fast_round", "a_distinct_all_kinds"),
-                        ("slow_round", "c_uniform_u20")):
-        t = ref[bench]
+    for name, bench in (("round_prologue", "c_uniform_u20"),
+                        ("fast_round", "a_distinct_all_kinds"),
+                        ("slow_round", "c_uniform_u20"),
+                        ("round_epilogue", "c_uniform_u20")):
+        t = ref[bench]["kernels"][name]
         rows.append({
             "name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": KERNELS[name][1], "launches": launches_main[name],
-            "max_abs_err": smoke.max_err[name], "ms": t["kernel_ms"],
+            "max_abs_err": smoke.max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None})
     for name in TABLE_KERNELS:
@@ -1852,7 +2059,7 @@ def main() -> int:
                "slow_round_cases": slow_cases,
                "table_ops": {"m": M, "kw": KW, "vw": VW,
                              "path_wall_s": table_wall,
-                             "fast_round_under_commit_round": fast_in_commit,
+                             "commit_round_branch": fast_in_commit,
                              "entry_points": table_entries,
                              "kernels": table_kernels},
                "guard": {"path_wall_s": guard_wall,

@@ -13,11 +13,18 @@ round it runs comes from `round_for(spec)`: the strategy's lowered fused
 round (`repro_torch.kernels.engine_round`, the hand-written CUDA kernels on
 a card) when the layout provides one, else the plain `linearize`.
 
-Host syncs on this path (PyTorch runs eagerly, so each is a device-to-host
-read where the reference branched on the device):
-  * `check_kinds` reads the batch's distinct kinds back to validate them;
-  * `linearize` reads `any(STORE|CAS)` to pick its branch and, on the
-    general branch, the number of combining rounds L.
+Host syncs (device-to-host reads where the reference branched on the
+device):
+  * `check_kinds` copies kinds that are already on a card back to validate
+    them, as the reference's `np.asarray` does, except while the stream is
+    being captured into a CUDA graph (kinds given on the host are checked
+    there before the upload);
+  * `linearize` (the `xla` and `off` tiers) reads `any(STORE|CAS)` to pick
+    its branch and, on the general branch, the number of combining rounds
+    L.
+The kernel tier's round (`kernels/engine_round.py`) and the layouts'
+`commit` read nothing back, so a kernel-tier `apply` on kinds that are the
+caller's contract can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -142,6 +149,10 @@ def make_ops(kind, slot, expected=None, desired=None, *, k: int,
     Checks kind values are known and shapes line up with the batch width p
     and cell width k.  Word payloads (uint32 or int32 arrays/tensors) become
     int32 word tensors on `device` with the same bits."""
+    try:                        # on the host, before anything is uploaded
+        check_kinds(kind, tuple(range(DELETE + 1)), "known")
+    except ValueError as err:
+        raise ValueError(f"unknown op kinds: {err}") from None
     dev = resolve_device(device)
     kind = _as_i32(kind, dev)
     slot = _as_i32(slot, dev)
@@ -150,10 +161,6 @@ def make_ops(kind, slot, expected=None, desired=None, *, k: int,
     p = kind.shape[0]
     if tuple(slot.shape) != (p,):
         raise ValueError(f"slot shape {tuple(slot.shape)} != ({p},)")
-    try:
-        check_kinds(kind, tuple(range(DELETE + 1)), "known")
-    except ValueError as err:
-        raise ValueError(f"unknown op kinds: {err}") from None
     zeros = torch.zeros((p, k), dtype=WORD_DTYPE, device=dev)
     expected = zeros if expected is None else as_words(expected, dev)
     desired = zeros.clone() if desired is None else as_words(desired, dev)
@@ -300,11 +307,13 @@ def _i32sum(x) -> torch.Tensor:
 
 def stats_on_sorted(n: int, s_slot, s_kind, succ_s) -> ApplyStats:
     """`ApplyStats` from the (slot, lane)-sorted order — THE single
-    definition, shared by `linearize` and the fused kernel round.
+    definition: `linearize` and the kernel round's plain epilogue call it,
+    and `round_epilogue_kernel` (`kernels/csrc/engine_round.cu`) computes
+    the same on both of its branches.
 
     succ_s is per-lane success in sorted order (read only on STORE/CAS/SC
     lanes)."""
-    idx, seg_start, start_idx, end_idx = _segments(s_slot)
+    idx, _, start_idx, end_idx = _segments(s_slot)
     is_valcas = (s_kind == STORE) | (s_kind == CAS)
     is_sc = (s_kind == SC) & (s_slot < n)
     is_upd = is_valcas | is_sc
@@ -314,7 +323,6 @@ def stats_on_sorted(n: int, s_slot, s_kind, succ_s) -> ApplyStats:
                            torch.where(is_upd, upd_rank, -1).max() + 1, 0)
     wrote = is_valcas | (is_sc & succ_s)
     seg_any_wrote = _any_from_here(wrote, idx, end_idx)
-    seg_any_succ = _any_from_here(succ_s & is_upd, idx, end_idx)
     return ApplyStats(
         rounds=torch.where(is_valcas.any(), n_rounds,
                            torch.where(is_sc.any(), 1, 0)).to(torch.int32),
@@ -322,8 +330,32 @@ def stats_on_sorted(n: int, s_slot, s_kind, succ_s) -> ApplyStats:
         n_loads=_i32sum(is_read),
         n_cas_fail=_i32sum(((s_kind == CAS) | is_sc) & ~succ_s),
         n_raced_loads=_i32sum(is_read & seg_any_wrote),
-        n_dirty_cells=_i32sum(seg_start & seg_any_succ & (s_slot < n)),
+        n_dirty_cells=_i32sum(_dirty_starts(n, s_slot, s_kind, succ_s)),
     )
+
+
+def _dirty_starts(n: int, s_slot, s_kind, succ_s):
+    """Per sorted lane: does it start the segment of a cell (slot < n) that
+    a lane of the batch wrote (a successful STORE/CAS/SC)?"""
+    idx, seg_start, _, end_idx = _segments(s_slot)
+    is_upd = (s_kind == STORE) | (s_kind == CAS) | ((s_kind == SC)
+                                                     & (s_slot < n))
+    return (seg_start & _any_from_here(succ_s & is_upd, idx, end_idx)
+            & (s_slot < n))
+
+
+def dirty_slots(n: int, s_slot, s_kind, succ_s) -> torch.Tensor:
+    """The cells the batch wrote, from the (slot, lane)-sorted order: an
+    int32[p] list in ascending slot order, padded with n.  Its length up
+    to the padding is `stats_on_sorted(...).n_dirty_cells`.  The layouts'
+    `commit` hands out nodes in this order, as the reference's scan over
+    the whole table does."""
+    p = s_slot.shape[0]
+    flag = _dirty_starts(n, s_slot, s_kind, succ_s)
+    rank = torch.cumsum(flag, 0) - flag.to(torch.int64)
+    out = torch.full((p + 1,), n, dtype=torch.int32, device=s_slot.device)
+    out[torch.where(flag, rank, p)] = s_slot.to(torch.int32)
+    return out[:p]
 
 
 # ---------------------------------------------------------------------------
@@ -342,7 +374,7 @@ def lane_success(s_kind, live, s_link_ver, verpt_s, succ_upd):
 
 
 def slow_round_plain(data, version, s_slot, s_kind, s_link_ver, s_expected,
-                     s_desired):
+                     s_desired, *, fast=None):
     """Sequential replay over lanes sorted by (slot, lane), vectorised as L
     combining rounds: round t applies the t-th write of every cell segment
     in parallel (gather -> check -> masked scatter).  Reads the round count
@@ -350,10 +382,14 @@ def slow_round_plain(data, version, s_slot, s_kind, s_link_ver, s_expected,
 
     Updates `data` and `version` in place and returns (data, version,
     val_pt[p, k], ver_pt[p], success[p]) in the sorted order.  A lane whose
-    slot lies outside [0, n) is dead: zeros and success False."""
+    slot lies outside [0, n) is dead: zeros and success False.  Where the
+    0-d bool `fast` is True (the kernel round's fast branch) every lane is
+    dead: the table is left alone."""
     n = data.shape[0]
     idx, _, start_idx, _ = _segments(s_slot)
     live = (s_slot >= 0) & (s_slot < n)
+    if fast is not None:
+        live = live & ~fast
     safe = s_slot.clamp(0, n - 1).to(torch.int64)
     is_upd = live & ((s_kind == STORE) | (s_kind == CAS) | (s_kind == SC))
     upd_rank = _upd_rank(is_upd, start_idx)
@@ -466,7 +502,8 @@ def sort_lanes(n: int, ctx: LinkCtx, ops: OpBatch) -> SortedLanes:
 def rebuild(n: int, ctx: LinkCtx, lanes: SortedLanes, val_s, verpt_s,
             s_success):
     """The slow round's post-step: ctx, per-lane results (back in lane
-    order) and stats from the sorted replay's outputs."""
+    order), stats and the dirty-slot list from the sorted replay's
+    outputs."""
     order, inv = lanes.order, lanes.inv
     s_slot, s_kind = lanes.slot, lanes.kind
     is_ll = (s_kind == LL) & (s_slot < n)
@@ -478,7 +515,8 @@ def rebuild(n: int, ctx: LinkCtx, lanes: SortedLanes, val_s, verpt_s,
     new_ctx = LinkCtx(n_slot[inv], n_ver[inv], n_val[inv], n_lnk[inv])
     s_value = torch.where((s_kind != IDLE)[:, None], val_s, 0)
     result = ApplyResult(s_value[inv], s_success[inv])
-    return new_ctx, result, stats_on_sorted(n, s_slot, s_kind, s_success)
+    return (new_ctx, result, stats_on_sorted(n, s_slot, s_kind, s_success),
+            dirty_slots(n, s_slot, s_kind, s_success))
 
 
 def linearize(data, version, ctx: LinkCtx, ops: OpBatch):
@@ -486,9 +524,9 @@ def linearize(data, version, ctx: LinkCtx, ops: OpBatch):
 
     `data` is word[n, k] and `version` word[n] (bumped by 2 per successful
     write); both are updated in place.  Returns (data', version', ctx',
-    ApplyResult, ApplyStats).  Active lanes must name slots in [0, n): the
-    reference clamp-gathers an out-of-range slot, this port treats it as a
-    failed no-op, as the kernels do."""
+    ApplyResult, ApplyStats, dirty slots: `dirty_slots`).  Active lanes
+    must name slots in [0, n): the reference clamp-gathers an out-of-range
+    slot, this port treats it as a failed no-op, as the kernels do."""
     n = data.shape[0]
     lanes = sort_lanes(n, ctx, ops)
     is_valcas = (lanes.kind == STORE) | (lanes.kind == CAS)
@@ -500,8 +538,7 @@ def linearize(data, version, ctx: LinkCtx, ops: OpBatch):
         data, version, val_s, verpt_s, succ_s = _pure_sc_sorted(
             data, version, lanes.slot, lanes.kind, lanes.link_ver,
             lanes.desired)
-    new_ctx, result, stats = rebuild(n, ctx, lanes, val_s, verpt_s, succ_s)
-    return data, version, new_ctx, result, stats
+    return (data, version) + rebuild(n, ctx, lanes, val_s, verpt_s, succ_s)
 
 
 # ---------------------------------------------------------------------------
@@ -517,7 +554,7 @@ def round_for(spec: AtomicSpec, impl=None, mode: str | None = None):
     """The execution round for `spec`: the strategy's lowered kernel round
     when it provides one and the engine-kernel mode allows it, else the
     plain `linearize`.  The returned callable has the `linearize`
-    signature."""
+    signature and return values."""
     mode = _engine_round().resolved_mode(mode)
     if mode == "off":
         return linearize
@@ -549,15 +586,20 @@ def canonicalize_ctx(ctx: LinkCtx, device) -> LinkCtx:
 # ---------------------------------------------------------------------------
 
 def check_kinds(kind, allowed, what: str) -> None:
-    """Reject op kinds outside `allowed`.  On a device tensor this reads one
-    flag back to the host (a sync); the offending values only on error."""
-    if not isinstance(kind, torch.Tensor):
-        kind = torch.as_tensor(np.asarray(kind, np.int64))
-    bad = ~torch.isin(kind, torch.tensor(allowed, dtype=kind.dtype,
-                                         device=kind.device))
-    if bool(bad.any()):
-        raise ValueError(f"op kinds {torch.unique(kind[bad]).tolist()} are "
-                         f"not {what} ops (allowed: {sorted(allowed)})")
+    """Reject op kinds outside `allowed`, checked on the host.  Kinds on a
+    card are copied back first (one sync, as the reference's `np.asarray`
+    of a concrete array), except while the current stream is being
+    captured into a CUDA graph: there, as the reference's traced kinds,
+    they are the caller's contract."""
+    if isinstance(kind, torch.Tensor):
+        if kind.is_cuda and torch.cuda.is_current_stream_capturing():
+            return
+        kind = kind.cpu().numpy()
+    kind = np.asarray(kind)
+    bad = ~np.isin(kind, allowed)
+    if bad.any():
+        raise ValueError(f"op kinds {np.unique(kind[bad]).tolist()} are not "
+                         f"{what} ops (allowed: {sorted(allowed)})")
 
 
 def apply(spec: AtomicSpec, state: TableState, ops: OpBatch,
@@ -572,14 +614,15 @@ def apply(spec: AtomicSpec, state: TableState, ops: OpBatch,
     place.  By default `apply` first copies the state, so the caller's
     `state` stays valid (the reference's non-donated jit).  `donate=True`
     skips that copy and updates the passed state's buffers; the caller must
-    not reuse it afterwards.  Either way the pre-batch versions are copied
-    once, since `commit` diffs them against the new ones.
+    not reuse it afterwards.  With `donate=True`, on the kernel tier and
+    kinds that are the caller's contract (see `check_kinds`), `apply` reads
+    nothing back to the host and can be captured in a CUDA graph.
 
     The reference's telemetry path (`BIGATOMIC_OBS`) is not part of this
     port yet: `apply` takes no counters.
 
     Returns (state', ctx', ApplyResult, ApplyStats, Traffic)."""
-    check_kinds(ops.kind, TABLE_KINDS, "table")     # host sync
+    check_kinds(ops.kind, TABLE_KINDS, "table")
     device = state.data.device
     ops = canonicalize_ops(ops, device)
     ctx = (init_ctx(ops.p, spec.k, device=device) if ctx is None
@@ -595,12 +638,14 @@ def run_round(impl, round_fn, state: TableState, ctx: LinkCtx, ops: OpBatch,
               *, donate: bool):
     """Run `round_fn` on canonical `ops`/`ctx` and commit it to the layout,
     with `apply`'s ownership rule: copy the state first unless `donate`.
-    Returns (state', ctx', ApplyResult, ApplyStats)."""
+    The round updates the table in place and names the cells it wrote;
+    `commit` reconciles only those.  Returns (state', ctx', ApplyResult,
+    ApplyStats)."""
     if not donate:
         state = TableState(*(x.clone() for x in state))
-    new_data, new_version, new_ctx, result, stats = round_fn(
-        impl.engine_view(state), state.version.clone(), ctx, ops)
-    new_state = impl.commit(state, new_data, new_version, stats.n_updates,
+    new_data, new_version, new_ctx, result, stats, dirty = round_fn(
+        impl.engine_view(state), state.version, ctx, ops)
+    new_state = impl.commit(state, new_data, new_version, stats, dirty,
                             ops.p)
     return new_state, new_ctx, result, stats
 

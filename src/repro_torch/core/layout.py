@@ -150,47 +150,44 @@ def _ring_size(state: TableState, size: int | None) -> int:
     return state.free_ring.shape[0] if size is None else size
 
 
-def ring_alloc(state: TableState, want: torch.Tensor, max_want: int,
-               size: int | None = None):
-    """Pop up to `max_want` node slots from the FIFO free ring (masked by
-    rank < want).  Clears the consumed ring entries in place.
+def ring_take(state: TableState, max_want: int, size: int | None = None):
+    """The ring positions of the next `max_want` pops from the FIFO free
+    ring, and the node slots they hold: (pos int64[max_want],
+    slots int32[max_want]).  Reads only; `ring_return` completes the swap.
 
     `size` is the number of free entries the ring holds, positions
     [0, size) of `free_ring` (default: all of it).  The node-pool layouts
     keep 2p free nodes in a ring array of n + 2p entries and pass 2p; the
     reference takes positions modulo the whole array there, which pops its
-    NULL padding once 2p nodes have been allocated (ROADMAP.md, Queue 3).
-    Returns (slots[max_want], new_state)."""
+    NULL padding once 2p nodes have been allocated (ROADMAP.md, Queue 3)."""
     m = _ring_size(state, size)
-    dev = state.free_ring.device
-    want = as_u64(torch.as_tensor(want, device=dev))
-    ranks = torch.arange(max_want, dtype=torch.int64, device=dev)
-    pos = (as_u64(state.ring_head) + ranks) % m
-    slots = state.free_ring[pos]
-    live = ranks < want
-    # Consumed entries are cleared (debug hygiene; not required for safety).
-    scatter_set(state.free_ring, pos, torch.full_like(slots, NULL), live)
-    new_head = (as_u64(state.ring_head) + want) % m
-    return torch.where(live, slots, NULL), state._replace(
-        ring_head=to_word(new_head),
-        alloc_gen=to_word(as_u64(state.alloc_gen) + want))
+    ranks = torch.arange(max_want, dtype=torch.int64,
+                         device=state.free_ring.device)
+    pos = (state.ring_head + ranks) % m
+    return pos, state.free_ring[pos]
 
 
-def ring_free(state: TableState, slots: torch.Tensor, count: torch.Tensor,
-              live_total: int, size: int | None = None) -> TableState:
-    """Push retired node slots at the ring tail, in place.  The ring is
-    full at rest and every alloc is matched by one free in the same batch,
-    so the tail is the head before the alloc: `count` entries behind the
-    new head, the positions just consumed."""
+def ring_return(state: TableState, pos, retired, live, count,
+                size: int | None = None) -> TableState:
+    """Finish a batch's node swap, in place: `count` nodes were popped at
+    `pos` (`ring_take`) and the retired ones are pushed where they were
+    (the ring is full at rest and every pop is matched by a push in the
+    same batch, so the tail is the head before the pops).  `live` marks
+    the lanes of `pos` that were popped.  Bit-identical to the reference's
+    `ring_alloc` then `ring_free`, which clears the popped entries and
+    refills the same positions."""
+    state.free_ring[pos] = torch.where(live, retired.to(torch.int32),
+                                       state.free_ring[pos])
+    return ring_advance(state, count, size)
+
+
+def ring_advance(state: TableState, count, size: int | None = None):
+    """Move the ring head and the allocation count on by `count` (int32
+    0-d): a batch whose nodes all came back where they were taken."""
     m = _ring_size(state, size)
-    dev = state.free_ring.device
-    count = as_u64(torch.as_tensor(count, device=dev))
-    ranks = torch.arange(live_total, dtype=torch.int64, device=dev)
-    live = ranks < count
-    pos = (as_u64(state.ring_head) + m - count + ranks) % m
-    scatter_set(state.free_ring, pos,
-                torch.where(live, slots, NULL).to(torch.int32), live)
-    return state
+    return state._replace(
+        ring_head=((state.ring_head + count) % m).to(WORD_DTYPE),
+        alloc_gen=(state.alloc_gen + count).to(WORD_DTYPE))
 
 
 def sim_alloc(state: TableState, size: int | None = None):

@@ -66,13 +66,18 @@ class StrategyImpl:
         (and updates in place).  Defaults to `logical(state)`."""
         return self.logical(state)
 
-    def commit(self, state: TableState, new_data, new_version, n_updates,
-               p: int) -> TableState:
+    def commit(self, state: TableState, new_data, new_version, stats,
+               dirty, p: int) -> TableState:
         """Reconcile the layout after the logical values have advanced.
 
-        `state.version` holds the pre-batch versions; `new_data` /
-        `new_version` the post-batch ones; `n_updates` the number of update
-        writes performed (node-pool accounting); `p` the batch width."""
+        The round has updated the engine view and `state.version` in place;
+        `new_data` / `new_version` are the post-batch values.  `stats` is
+        the batch's `ApplyStats` (`n_updates`: update writes performed, for
+        node-pool accounting; `n_dirty_cells`: cells written); `dirty` the
+        cells written, int32[p] in ascending slot order padded with n
+        (`engine.dirty_slots`); `p` the batch width.  The built-in hooks
+        touch only those cells (but CACHED_WF, which clears every mark as
+        the reference does)."""
         return state._replace(data=new_data, version=new_version)
 
     def read(self, state: TableState, slots):

@@ -13,9 +13,11 @@ protocol and traffic profile:
   SIMPLOCK   data[n,k] + lock[n].           lock RMW on every op; blocks readers.
   PLAIN      data[n,k], no protocol.        negative control: returns torn data.
 
-Node reclamation uses a FIFO ring of free slots (`core.layout.ring_alloc`).
-`commit` hooks update the pool, pointers and ring in place; the engine hands
-them a private copy of the state unless the caller donates it.
+Node reclamation uses a FIFO ring of free slots (`core.layout.ring_take`,
+`ring_return`).  `commit` hooks update the pool, pointers and ring in
+place; the engine hands them a private copy of the state unless the caller
+donates it, and the list of the cells the batch wrote, so no hook passes
+over the whole table (but CACHED_WF's mark clear, as in the reference).
 """
 
 from __future__ import annotations
@@ -23,14 +25,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.layout import (NULL, TableState, Traffic, WORD_BYTES,
-                                     WORD_DTYPE, _empty, as_u64, gather_rows,
-                                     ring_alloc, ring_free, scatter_set,
+                                     WORD_DTYPE, _empty, gather_rows,
+                                     ring_advance, ring_return, ring_take,
                                      sim_alloc)
 from repro_torch.core.registry import StrategyImpl, register_strategy
 
 
 def _i32(x, dev) -> torch.Tensor:
-    return torch.as_tensor(x, device=dev).to(torch.int32)
+    """An int32 constant made on the device (a fill, which a CUDA graph can
+    capture; a copy from the host it cannot)."""
+    return torch.full((), x, dtype=torch.int32, device=dev)
 
 
 def _node_index(bptr: torch.Tensor, m: int) -> torch.Tensor:
@@ -168,31 +172,31 @@ class _NodePool(_Versioned):
                           free_ring, _empty(WORD_DTYPE, (), device=dev),
                           _empty(WORD_DTYPE, (), device=dev))
 
-    def commit(self, state, new_data, new_version, n_updates, p):
+    def commit(self, state, new_data, new_version, stats, dirty, p):
         # One fresh node per dirty cell holds the final value; the old node is
         # retired to the ring.  (Intermediate values of a CAS chain live and
-        # die inside the batch; they are counted in stats.n_updates.)
+        # die inside the batch; they are counted in stats.n_updates.)  The
+        # r-th dirty cell in slot order takes the r-th node popped, as the
+        # reference's scan over the table hands them out.
         n = state.version.shape[0]
-        dev = new_data.device
         max_d = min(n, p)
-        dirty = new_version != state.version
-        # Dirty slots in ascending order, without a host sync: the r-th
-        # dirty slot is where the running dirty count first reaches r + 1
-        # (n past the last one).
-        cum = torch.cumsum(dirty, 0)
-        d_count = cum[-1]
-        dslots = torch.searchsorted(
-            cum, torch.arange(1, max_d + 1, dtype=cum.dtype, device=dev))
-        live = dslots < n
-        safe = dslots.clamp(max=n - 1)
+        dslots = dirty[:max_d]
+        live = dslots < n                       # the list is padded with n
+        safe = dslots.clamp(max=n - 1).long()
         size = self.ring_size(state)
-        new_nodes, st2 = ring_alloc(state, d_count, max_d, size)
+        pos, new_nodes = ring_take(state, max_d, size)
+        nodes = new_nodes.long()
+        # Lanes past the dirty count write back the node rows they read, so
+        # the pool writes go to distinct rows with no mask of their own;
+        # their pointer lanes (cell n - 1) add nothing.
+        state.pool[nodes] = torch.where(live[:, None],
+                                        gather_rows(new_data, safe),
+                                        gather_rows(state.pool, nodes))
         old_nodes = state.bptr[safe]
-        scatter_set(st2.pool, new_nodes, new_data[safe], live)
-        scatter_set(st2.bptr, dslots, new_nodes, live)
-        st3 = st2._replace(data=new_data, version=new_version)
-        return ring_free(st3, torch.where(live, old_nodes, NULL), d_count,
-                         max_d, size)
+        state.bptr.index_add_(0, safe, (new_nodes - old_nodes) * live)
+        st = state._replace(data=new_data, version=new_version)
+        return ring_return(st, pos, old_nodes, live, stats.n_dirty_cells,
+                           size)
 
     def memory_bytes(self, n, k, p):
         w = WORD_BYTES
@@ -271,8 +275,9 @@ class CachedWF(_KernelLowering, _Cached):
     name = "cached_wf"
     lock_free = True
 
-    def commit(self, state, new_data, new_version, n_updates, p):
-        new_state = super().commit(state, new_data, new_version, n_updates, p)
+    def commit(self, state, new_data, new_version, stats, dirty, p):
+        new_state = super().commit(state, new_data, new_version, stats,
+                                   dirty, p)
         # Batch completes cleanly: every dirty cell ends validated (unmarked)
         # with cache == backup.
         return new_state._replace(mark=torch.zeros_like(state.mark))
@@ -342,21 +347,23 @@ class CachedME(_KernelLowering, _Cached):
                           ring_head=_empty(WORD_DTYPE, (), device=dev),
                           alloc_gen=_empty(WORD_DTYPE, (), device=dev))
 
-    def commit(self, state, new_data, new_version, n_updates, p):
+    def commit(self, state, new_data, new_version, stats, dirty, p):
         # Transient backups: installed during the update, uninstalled after
         # the cache copy (backup returns to tagged null carrying the version).
-        # Pool slots cycle through the 3p ring within the batch; the final
-        # layout has all-null bptr (paper §3.2 invariant).
-        dirty = new_version != state.version
+        # Pool slots cycle through the 3p ring within the batch and every one
+        # comes back where it was taken, so only the head and the count
+        # move; the final layout has all-null bptr (paper §3.2 invariant).
+        n = state.version.shape[0]
         ring_cap = state.free_ring.shape[0]
-        u_count = as_u64(torch.as_tensor(n_updates)).clamp(max=ring_cap)
-        max_u = min(p, ring_cap)
-        slots_alloc, st2 = ring_alloc(state, u_count, max_u)
-        # All transients are freed within the batch: push them straight back.
-        st3 = ring_free(st2, slots_alloc, u_count, max_u)
+        st = ring_advance(state, stats.n_updates.clamp(max=ring_cap))
         # Tagged null: encode low version bits so a stale CAS can't ABA.
-        bptr = torch.where(dirty, -(_tag(new_version) + 2), st3.bptr)
-        return st3._replace(data=new_data, version=new_version, bptr=bptr)
+        # Padding lanes (slot n) aim at cell 0 and add nothing.
+        dslots = dirty[:min(n, p)]
+        live = dslots < n
+        safe = dslots.clamp(max=n - 1).long()
+        tagged = -(_tag(new_version[safe]) + 2)
+        st.bptr.index_add_(0, safe, (tagged - st.bptr[safe]) * live)
+        return st._replace(data=new_data, version=new_version)
 
     def read(self, state, slots):
         v1 = state.version[slots]

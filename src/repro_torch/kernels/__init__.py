@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
-  engine_round     the fused engine round: `fast_round` for collision-free
-                   batches, `slow_round` for sorted contended batches
-                   (`csrc/engine_round.cu`)
+  engine_round     the fused engine round: `round_prologue` for the
+                   predicate and the sorted lanes, `fast_round` for
+                   collision-free batches, `slow_round` for sorted
+                   contended batches, `round_epilogue` for the results,
+                   stats and dirty cells of both (`csrc/engine_round.cu`)
   seqlock_gather   version-validated k-word cell gather (the fast path)
   cas_apply        one conflict-free combining round of STORE/CAS, and
                    all the rounds of a sorted op list in one launch
@@ -33,7 +35,8 @@ from repro_torch.kernels.cas_apply import (  # noqa: F401
     cas_apply_round, cas_apply_rounds,
 )
 from repro_torch.kernels.engine_round import (  # noqa: F401
-    fast_path_ok, fast_round, make_round, slow_round,
+    fast_path_ok, fast_round, make_round, round_epilogue, round_prologue,
+    slow_round,
 )
 from repro_torch.kernels.flash_attention import KERNELS as _ATTENTION
 from repro_torch.kernels.llsc_commit import llsc_commit_round  # noqa: F401
@@ -46,8 +49,9 @@ slow_round_pallas = slow_round
 # Every kernel's launcher, by the name its `.launches` count is reported
 # under: the wrapper itself, or for attention one launcher per kernel.
 WRAPPERS = {fn.__name__: fn for fn in (
-    fast_round, slow_round, seqlock_gather, cas_apply_round,
-    cas_apply_rounds, llsc_commit_round, cachehash_probe, digest_rows)} \
+    round_prologue, fast_round, slow_round, round_epilogue, seqlock_gather,
+    cas_apply_round, cas_apply_rounds, llsc_commit_round, cachehash_probe,
+    digest_rows)} \
     | _ATTENTION
 
 

@@ -36,10 +36,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ROUND = [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P]
 # C signatures of each library's entry points (all return a cudaError_t).
 SIGNATURES = {
-    "engine_round": {"fast_round": _ROUND, "slow_round": _ROUND},
+    "engine_round": {
+        "round_prologue": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _P, _P, _I, _P],
+        "fast_round": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+        "slow_round": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+                       _P, _I, _P],
+        "round_epilogue": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _I, _P],
+        # not a launch: the int32 words of scratch round_epilogue needs
+        "round_epilogue_scratch": [_I],
+    },
     "table_ops": {
         "seqlock_gather": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _P],
         "cas_apply_round": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I,

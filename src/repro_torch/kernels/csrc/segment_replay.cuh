@@ -52,6 +52,8 @@
 //
 // An Op provides:
 //   static constexpr bool kLink       lanes compare a link version (`aux`)
+//   bool taken()                      does the launch run at all (a flag
+//                                     the host left on the device)
 //   uint32_t* data                    the rows, k words each
 //   const int* slot, * kind           per sorted lane
 //   const uint32_t* expected, * desired   [p, k]
@@ -347,14 +349,14 @@ __device__ __forceinline__ void replay_thread(const Op& op, int p, int k) {
 template <int K, bool VEC, class Op>
 __global__ void __launch_bounds__(kThreads) replay_warp_kernel(Op op,
                                                                int p) {
-  replay_warp<K, VEC>(op, p);
+  if (op.taken()) replay_warp<K, VEC>(op, p);
 }
 
 template <class Op>
 __global__ void __launch_bounds__(kThreads) replay_thread_kernel(Op op,
                                                                  int p,
                                                                  int k) {
-  replay_thread(op, p, k);
+  if (op.taken()) replay_thread(op, p, k);
 }
 
 template <int K, class Op>

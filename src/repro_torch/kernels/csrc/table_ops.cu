@@ -213,6 +213,7 @@ struct RoundsOp {
   uint32_t* out;
   int* succ;
 
+  __device__ bool taken() const { return true; }
   __device__ bool in_table(int s) const { return s >= 0 && s < n1; }
   __device__ uint32_t aux(int g) const { return (uint32_t)rank[g]; }
   __device__ bool live(uint32_t r) const {

@@ -1,12 +1,15 @@
 // A stand-in for the CUDA runtime that lets g++ compile the port's kernel
-// sources for the CPU, for tests/test_torch_replay_emulated.py.  Each warp
-// runs as 32 std::threads that meet at every warp shuffle and ballot;
-// blocks, and the warps of a block, run one after another.  Launches
-// `kernel<<<grid, block, smem, stream>>>(args)` are rewritten by the test
-// into `EmuLaunch(grid, block, smem, stream)(kernel)(args)`.  Only what the
-// engine-round and table kernels use is here.
+// sources for the CPU, for tests/test_torch_replay_emulated.py.  A block
+// runs as one std::thread per CUDA thread: the 32 of a warp meet at every
+// warp shuffle and ballot, all of the block's at `__syncthreads()`; blocks
+// run one after another, so a `__shared__` variable (a static) is the
+// running block's.  Launches `kernel<<<grid, block, smem, stream>>>(args)`
+// are rewritten by the test into `EmuLaunch(grid, block, smem,
+// stream)(kernel)(args)`.  Only what the engine-round and table kernels
+// use is here.
 #pragma once
 
+#include <atomic>
 #include <barrier>
 #include <cstdint>
 #include <cstdlib>
@@ -20,6 +23,7 @@
 #define __forceinline__ inline
 #define __restrict__ __restrict
 #define __launch_bounds__(x)
+#define __shared__ static
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
@@ -43,9 +47,41 @@ struct EmuWarp {
   std::barrier<> bar{32};
   uint64_t slot[32];
 };
-inline thread_local dim3 threadIdx, blockIdx, blockDim;
+struct EmuBlock {
+  std::barrier<> bar;
+  std::atomic<int> acc{0};
+  explicit EmuBlock(std::ptrdiff_t threads) : bar(threads) {}
+};
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local EmuWarp* emu_warp;
+inline thread_local EmuBlock* emu_block;
 inline thread_local int emu_lane;
+
+inline void __syncthreads() { emu_block->bar.arrive_and_wait(); }
+inline int __syncthreads_or(int pred) {
+  if (pred) emu_block->acc.fetch_or(1);
+  emu_block->bar.arrive_and_wait();
+  const int r = emu_block->acc.load();
+  emu_block->bar.arrive_and_wait();
+  if (threadIdx.x == 0) emu_block->acc.store(0);
+  emu_block->bar.arrive_and_wait();
+  return r;
+}
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+template <class T>
+T atomicOr(T* p, T v) { return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST); }
+template <class T>
+T atomicAdd(T* p, T v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+template <class T>
+T atomicMax(T* p, T v) {
+  T old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (old < v && !__atomic_compare_exchange_n(p, &old, v, false,
+                                                 __ATOMIC_SEQ_CST,
+                                                 __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
+inline int min(int a, int b) { return a < b ? a : b; }
 
 // Every lane publishes `v`, then reads lane `src`'s.
 template <class T>
@@ -100,21 +136,26 @@ struct EmuLaunch {
   template <class F>
   auto operator()(F kernel) {
     return [g = grid, b = block, kernel](auto... args) {
-      for (unsigned bx = 0; bx < g.x; ++bx)
-        for (unsigned w0 = 0; w0 < b.x; w0 += 32) {
-          EmuWarp warp;
-          std::vector<std::thread> lanes;
-          for (int l = 0; l < 32; ++l)
-            lanes.emplace_back([&, l] {
-              blockIdx = dim3(bx);
-              blockDim = b;
-              threadIdx = dim3(w0 + l);
-              emu_warp = &warp;
-              emu_lane = l;
-              kernel(args...);
-            });
-          for (auto& t : lanes) t.join();
-        }
+      for (unsigned bx = 0; bx < g.x; ++bx) {
+        std::vector<EmuWarp> warps(b.x / 32);
+        EmuBlock block((std::ptrdiff_t)b.x);
+        std::vector<std::thread> threads;
+        for (unsigned t = 0; t < b.x; ++t)
+          threads.emplace_back([&, t] {
+            blockIdx = dim3(bx);
+            blockDim = b;
+            gridDim = g;
+            threadIdx = dim3(t);
+            emu_warp = &warps[t / 32];
+            emu_block = &block;
+            emu_lane = (int)(t % 32);
+            kernel(args...);
+            // a thread that returns early leaves the block's barrier
+            // phases to the rest, as on the card
+            block.bar.arrive_and_drop();
+          });
+        for (auto& t : threads) t.join();
+      }
     };
   }
 };

@@ -130,7 +130,8 @@ def test_apply_round_donate_and_fast_tier_counts():
     np.testing.assert_array_equal(state.data.numpy(), ref[0].data.numpy())
     assert int(handle.stats.rounds) == 1
     # CPU tensors run the plain versions: no kernel launch is counted
-    assert ter.fast_round.launches == 0 and ter.slow_round.launches == 0
+    assert ter.round_prologue.launches == ter.fast_round.launches == \
+        ter.slow_round.launches == ter.round_epilogue.launches == 0
 
 
 def test_init_without_device_raises_without_cuda(monkeypatch):

@@ -181,6 +181,19 @@ def test_make_ops_validates_and_coerces():
                              device="cpu").kind.tolist() == [4, 5]
 
 
+def test_host_kinds_are_checked_before_the_upload(monkeypatch):
+    """Kinds given on the host are checked there: a bad kind raises before
+    any device is touched (so before any host sync), and a CPU tensor of
+    kinds is read in place."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="unknown op kinds"):
+        tatomics.make_ops(np.array([0, 12]), [0, 1], k=2)
+    with pytest.raises(ValueError, match=r"\[7\] are not table ops"):
+        tengine.check_kinds(torch.tensor([0, 7, 3]), tengine.TABLE_KINDS,
+                            "table")
+    tengine.check_kinds(torch.arange(7), tengine.TABLE_KINDS, "table")
+
+
 def test_check_kinds_rejects_hash_kinds_in_apply():
     spec = tatomics.AtomicSpec(4, 2, "seqlock", p_max=2)
     state = tatomics.init(spec, device="cpu")

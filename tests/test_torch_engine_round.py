@@ -1,9 +1,11 @@
 """The port's fused engine round (`repro_torch.kernels.engine_round`) against
 the JAX reference: both tiers and `off` against JAX `engine.linearize` over
-the three collision spectra, the plain fast/slow rounds against the Pallas
-kernels run in interpret mode (one subprocess), the fast-path predicate's
-false-positive safety, ctx truncation and the wrappers' dispatch rules.
-Tolerance is zero: words compare as uint32 bit patterns."""
+the three collision spectra (and each round's dirty-slot list against the
+cells whose version moved), the kernel tier's fast path against the
+reference's Pallas fast path and the plain slow round against the Pallas
+slow kernel, run in interpret mode (one subprocess), the fast-path
+predicate's false-positive safety, ctx truncation and the wrappers'
+dispatch rules.  Tolerance is zero: words compare as uint32 bit patterns."""
 
 import os
 import subprocess
@@ -75,12 +77,22 @@ def jax_linearize(data, ver, ctx, ops):
 
 
 def port_round(round_fn, data, ver, ctx, ops):
-    d, v, c, r, s = round_fn(
+    """The round's outputs as numpy arrays in `NAMES` order; its dirty-slot
+    list must name exactly the cells whose version moved, ascending."""
+    d, v, c, r, s, dirty = round_fn(
         convert.tensor(data, "cpu", word=True),
         convert.tensor(ver, "cpu", word=True),
         convert.link_ctx(ctx, "cpu"), convert.op_batch(ops, "cpu"))
-    return [convert.array(d, word=True), convert.array(v, word=True),
-            *convert.to_numpy(c), *convert.to_numpy(r), *convert.to_numpy(s)]
+    out = [convert.array(d, word=True), convert.array(v, word=True),
+           *convert.to_numpy(c), *convert.to_numpy(r), *convert.to_numpy(s)]
+    n, p = data.shape[0], ops[0].shape[0]
+    moved = np.flatnonzero(out[1] != ver)
+    want = np.full(p, n, np.int32)
+    want[:len(moved)] = moved
+    np.testing.assert_array_equal(dirty.numpy(), want,
+                                  err_msg="dirty slots != cells written")
+    assert int(s.n_dirty_cells) == len(moved)
+    return out
 
 
 def assert_same(ref, out, label):
@@ -166,15 +178,28 @@ _PALLAS_SCRIPT = textwrap.dedent("""
     import jax.numpy as jnp
     from repro.kernels import engine_round as er
 
+    from repro.core import engine
+
     cases = np.load(sys.argv[1])
     out = {}
     for name in sorted({key.split("/")[0] for key in cases.files}):
-        a = [jnp.asarray(cases[f"{name}/{f}"]) for f in
-             ("data", "version", "slot", "kind", "link_ver", "expected",
-              "desired")]
-        fn = er.fast_round_pallas if name.startswith("fast") \\
-            else er.slow_round_pallas
-        for i, x in enumerate(fn(*a, interpret=True)):
+        def arr(*fields):
+            return [jnp.asarray(cases[f"{name}/{f}"]) for f in fields]
+        if name.startswith("fast"):         # the fast path, results too
+            data, version = arr("data", "version")
+            got = er._fast_pallas(
+                data.shape[0], data, version,
+                engine.LinkCtx(*arr("c_slot", "c_version", "c_value",
+                                    "c_linked")),
+                engine.OpBatch(*arr("kind", "ops_slot", "expected",
+                                    "desired")),
+                block=er.DEFAULT_BLOCK, interpret=True)
+            got = [got[0], got[1], *got[2], *got[3], *got[4]]
+        else:
+            got = er.slow_round_pallas(
+                *arr("data", "version", "slot", "kind", "link_ver",
+                     "expected", "desired"), interpret=True)
+        for i, x in enumerate(got):
             out[f"{name}/{i}"] = np.asarray(x)
     np.savez(sys.argv[2], **out)
 """)
@@ -209,16 +234,22 @@ def _pallas_cases():
             name = f"{tier}{ci}"
             for f, x in (("data", data), ("version", ver), ("slot", slot),
                          ("kind", kind), ("link_ver", link_ver),
-                         ("expected", expected), ("desired", desired)):
+                         ("expected", expected), ("desired", desired),
+                         ("ops_slot", ops[1]),
+                         *zip(("c_slot", "c_version", "c_value",
+                               "c_linked"), ctx)):
                 cases[f"{name}/{f}"] = x
     return cases
 
 
 def test_plain_rounds_match_pallas_kernels_interpret(tmp_path):
-    """One subprocess installs the jax alias the reference needs, runs
-    `fast_round_pallas` / `slow_round_pallas` with interpret=True on seeded
-    inputs, and the plain rounds (via the wrappers, which pick the plain
-    version for CPU tensors) must reproduce every output bit for bit."""
+    """One subprocess installs the jax alias the reference needs and runs,
+    with interpret=True on seeded inputs, the reference's fast path
+    (`fast_round_pallas` and its assembly: table, links, results, stats)
+    on collision-free or read-only batches and `slow_round_pallas` on
+    sorted ones.  The kernel tier's round (the wrappers pick the plain
+    versions for CPU tensors) must reproduce the first bit for bit,
+    `_assemble_fast`'s stats included, and `slow_round` the second."""
     cases = _pallas_cases()
     np.savez(tmp_path / "in.npz", **cases)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
@@ -231,15 +262,28 @@ def test_plain_rounds_match_pallas_kernels_interpret(tmp_path):
     ref = np.load(tmp_path / "out.npz")
     names = sorted({key.split("/")[0] for key in cases})
     assert len(names) == 12
-    launches = (ter.fast_round.launches, ter.slow_round.launches)
+    launches = (ter.fast_round.launches, ter.slow_round.launches,
+                ter.round_epilogue.launches)
     for name in names:
-        fn = ter.fast_round if name.startswith("fast") else ter.slow_round
+        def case(*fields):
+            return [cases[f"{name}/{f}"] for f in fields]
+        if name.startswith("fast"):
+            data, ver = case("data", "version")
+            ops = case("kind", "ops_slot", "expected", "desired")
+            assert bool(ter.fast_path_ok(data.shape[0],
+                                         convert.op_batch(ops, "cpu")))
+            out = port_round(ter.make_round(*data.shape, mode="pallas"),
+                             data, ver, case("c_slot", "c_version",
+                                             "c_value", "c_linked"), ops)
+            want = [ref[f"{name}/{i}"] for i in range(len(NAMES))]
+            assert_same(want, out, f"{name}: the fast path")
+            continue
         args = [convert.tensor(cases[f"{name}/{f}"], "cpu",
                                word=f in ("data", "version", "link_ver",
                                           "expected", "desired"))
                 for f in ("data", "version", "slot", "kind", "link_ver",
                           "expected", "desired")]
-        out = fn(*args)
+        out = ter.slow_round(*args)
         for i, x in enumerate(out):
             got = convert.array(x, word=i != 4)
             want = ref[f"{name}/{i}"]
@@ -247,7 +291,8 @@ def test_plain_rounds_match_pallas_kernels_interpret(tmp_path):
                 got, want.view(np.uint32) if i != 4 else want,
                 err_msg=f"{name}: output {i} differs from the Pallas kernel")
     # CPU tensors never launch a kernel.
-    assert (ter.fast_round.launches, ter.slow_round.launches) == launches
+    assert (ter.fast_round.launches, ter.slow_round.launches,
+            ter.round_epilogue.launches) == launches
 
 
 def _long_segment_case(k, p=230, n=24, seed=0):
@@ -415,10 +460,242 @@ def test_wrappers_reject_other_devices_and_missing_nvcc(monkeypatch,
                                                        tmp_path):
     meta = torch.zeros((4, 2), dtype=torch.int32, device="meta")
     lane = torch.zeros(2, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError):
-        ter.fast_round(meta, lane[:1].expand(4), lane, lane, lane,
-                       meta[:2], meta[:2])
+    flag = torch.ones((), dtype=torch.bool, device="meta")
+    ctx = tengine.LinkCtx(lane, lane, meta[:2], lane.bool())
+    ops = tengine.OpBatch(lane, lane, meta[:2], meta[:2])
+    out = ter.RoundOut.empty(2, 2, "meta")
+    for call in (lambda: ter.fast_round(flag, meta, lane[:1].expand(4), ctx,
+                                        ops, out),
+                 lambda: ter.slow_round(meta, lane[:1].expand(4), lane,
+                                        lane, lane, meta[:2], meta[:2]),
+                 lambda: ter.round_epilogue(flag, 4, ctx, lane.long(), lane,
+                                            lane, meta[:2], lane, lane,
+                                            lane[:1].expand(4), out)):
+        with pytest.raises(ValueError):
+            call()
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
+
+
+# ---------------------------------------------------------------------------
+# The kernel tier's apply: against the reference's, branch against branch,
+# and with every host read forbidden.
+# ---------------------------------------------------------------------------
+
+LOCK_FREE = ["seqlock", "indirect", "cached_wf", "cached_me"]
+APPLY_SPECTRA = ["none", "low", "all_same", "zipf", "long", "read_dup",
+                 "llsc"]
+
+
+def spectrum_ops(rng, spectrum, step, n, k, p, current, ctx_slot):
+    """Batch `step` of a sequence over `spectrum` (numpy, the reference's
+    field order): all seven kinds over distinct slots (none), n / 8 cells
+    (low), one cell (all_same), Zipf 0.99 slots (zipf), or 60 % of the
+    lanes on one cell with chained CAS lanes (long); read-only kinds on
+    four cells (read_dup); LL batches, each followed by SC / VALIDATE on
+    the lanes' links (llsc)."""
+    kind = rng.integers(0, 7, p).astype(np.int32)
+    if spectrum == "none":
+        slot = rng.choice(n, p, replace=False)
+    elif spectrum == "low":
+        slot = rng.integers(0, n // 8, p)
+    elif spectrum == "all_same":
+        slot = np.full(p, rng.integers(0, n))
+    elif spectrum == "zipf":
+        slot = (rng.zipf(1.01, p) - 1) % n
+    elif spectrum == "long":
+        slot = rng.integers(0, n, p)
+        slot[rng.random(p) < 0.6] = rng.integers(0, n)
+    elif spectrum == "read_dup":
+        kind = rng.choice(np.asarray(READ_KINDS), p).astype(np.int32)
+        slot = rng.integers(0, 4, p)
+    else:
+        ll = step % 2 == 0
+        kind = np.full(p, tengine.LL, np.int32) if ll else np.where(
+            rng.random(p) < 0.7, tengine.SC, tengine.VALIDATE).astype(
+                np.int32)
+        slot = rng.integers(0, n, p) if ll else np.clip(ctx_slot, 0, n - 1)
+    slot = slot.astype(np.int32)
+    expected = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
+    take = rng.random(p) < 0.5
+    expected[take] = current[slot[take]]
+    desired = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
+    if spectrum == "long":                 # CAS lanes expecting the row the
+        order = np.argsort(slot, kind="stable")      # lane before wrote
+        follow = order[1:][(slot[order[1:]] == slot[order[:-1]])
+                           & (rng.random(p - 1) < 0.4)]
+        before = order[:-1][np.isin(order[1:], follow)]
+        expected[follow] = desired[before]
+    return kind, slot, expected, desired
+
+
+def jax_apply(jspec, jstate, ops, ctx):
+    """The reference's `_apply_impl` with the round fixed to `linearize`
+    (bit-identical to its fused round, which this jax cannot import)."""
+    from repro import atomics as jatomics
+    impl = jatomics.get_strategy(jspec.strategy)
+    nd, nv, nctx, res, stats = jengine.linearize(
+        impl.engine_view(jstate), jstate.version,
+        jengine.LinkCtx(*map(jnp.asarray, ctx)),
+        jengine.OpBatch(*map(jnp.asarray, ops)))
+    new_state = impl.commit(jstate, nd, nv, stats.n_updates, ops[0].shape[0])
+    return (new_state, nctx, res, stats,
+            impl.traffic(stats, jspec.k, ops[0].shape[0]))
+
+
+@pytest.mark.parametrize("spectrum", APPLY_SPECTRA)
+@pytest.mark.parametrize("strategy", LOCK_FREE)
+def test_kernel_tier_apply_matches_jax(strategy, spectrum, monkeypatch):
+    """Four batches of `spectrum` through the kernel tier's `apply`
+    (`donate=True`; its kernels' plain versions on the CPU) and through
+    the reference's: every TableState leaf, link, result, stat and
+    Traffic field bit for bit, and each batch on the branch its predicate
+    names (none and read_dup fast, all_same and long slow)."""
+    from repro import atomics as jatomics
+    monkeypatch.setenv("BIGATOMIC_ENGINE_KERNEL", "pallas")
+    n, k, p = 48, 3, 16
+    rng = np.random.default_rng(LOCK_FREE.index(strategy) * 10
+                                + APPLY_SPECTRA.index(spectrum))
+    initial = rng.integers(0, 2 ** 32, (n, k), dtype=np.uint32)
+    jspec = jatomics.AtomicSpec(n, k, strategy, p)
+    tspec = tatomics.AtomicSpec(n, k, strategy, p)
+    jstate = jatomics.init(jspec, initial)
+    tstate = tatomics.init(tspec, initial, device="cpu")
+    ctx = tuple(np.asarray(x) for x in jatomics.init_ctx(p, k))
+    tctx = convert.link_ctx(ctx, "cpu")
+    for step in range(4):
+        current = np.asarray(jatomics.logical(jspec, jstate))
+        ops = spectrum_ops(rng, spectrum, step, n, k, p, current, ctx[0])
+        batch = convert.op_batch(ops, "cpu")
+        fast = bool(ter.fast_path_ok(n, batch))
+        assert fast == _np_fast_path_ok(n, ops[0], ops[1]), step
+        if spectrum in ("none", "read_dup", "all_same", "long"):
+            assert fast == (spectrum in ("none", "read_dup")), step
+        jout = jax_apply(jspec, jstate, ops, ctx)
+        tout = tatomics.apply(tspec, tstate, batch, tctx, donate=True)
+        ref = [np.asarray(x) for part in jout for x in part]
+        got = [x for part in tout for x in convert.to_numpy(part)]
+        assert len(ref) == len(got)
+        for i, (a, b) in enumerate(zip(ref, got)):
+            np.testing.assert_array_equal(
+                a, b, err_msg=f"{strategy}/{spectrum} step {step}: leaf {i}")
+        jstate, tstate, tctx = jout[0], tout[0], tout[1]
+        ctx = tuple(np.asarray(x) for x in jout[1])
+
+
+def test_out_of_range_active_slot_is_a_failed_noop():
+    """An active lane outside [0, n) in an otherwise collision-free batch:
+    the predicate fails, the slow path leaves the lane a failed no-op with
+    zero outputs, and the round equals `linearize` (the port's `off`
+    tier) on every output; the other lanes equal the sequential oracle."""
+    n, k, p = 32, 2, 12
+    rng = np.random.default_rng(23)
+    data, ver = make_table(n, k, seed=23)
+    ops, ctx = make_batch(rng, n, k, p, "none", data=data, ver=ver)
+    ops[0][[3, 7]] = [tengine.STORE, tengine.LOAD]
+    ops[1][[3, 7]] = [-4, n + 2]
+    assert not bool(ter.fast_path_ok(n, convert.op_batch(ops, "cpu")))
+    out = port_round(ter.make_round(n, k, mode="pallas"), data, ver, ctx,
+                     ops)
+    assert_same(port_round(tengine.linearize, data, ver, ctx, ops), out,
+                "out of range")
+    assert not out[7][[3, 7]].any() and not out[6][[3, 7]].any()
+    keep = np.ones(p, bool)
+    keep[[3, 7]] = False
+    odata, over, _, ores = tengine.apply_ops_reference(
+        data, ver, ctx, tuple(np.where(keep, x.T, x.T * 0).T if x.ndim > 1
+                              else np.where(keep, x, tengine.IDLE)
+                              if x is ops[0] else x for x in ops))
+    np.testing.assert_array_equal(out[0], odata)
+    np.testing.assert_array_equal(out[1], over)
+    np.testing.assert_array_equal(out[7][keep], ores.success[keep])
+
+
+@pytest.mark.parametrize("spectrum", ["none", "read_dup", "read_same"])
+@pytest.mark.parametrize("seed", range(3))
+def test_fast_and_slow_branch_agree_where_the_predicate_admits(
+        spectrum, seed, monkeypatch):
+    """On every batch the predicate admits (collision-free with writes,
+    read-only with duplicate slots, read-only on one cell), the slow branch
+    forced in its place gives the same table, links, results, stats and
+    dirty slots: `_assemble_fast`'s stats (which the Pallas test pins to
+    the fast branch) and `stats_on_sorted`'s agree."""
+    n, k, p = 40, 2, 24
+    rng = np.random.default_rng(seed)
+    data, ver = make_table(n, k, seed=seed)
+    kinds = ALL_KINDS if spectrum == "none" else READ_KINDS
+    ops, ctx = make_batch(rng, n, k, p,
+                          {"read_dup": "low", "read_same": "all_same"}.get(
+                              spectrum, spectrum),
+                          kinds=kinds, data=data, ver=ver)
+    assert bool(ter.fast_path_ok(n, convert.op_batch(ops, "cpu")))
+    round_fn = ter.make_round(n, k, mode="pallas")
+    fast_out = port_round(round_fn, data, ver, ctx, ops)
+    plain = ter.round_prologue_plain
+    monkeypatch.setattr(ter, "round_prologue_plain", lambda *a: plain(
+        *a)._replace(fast=torch.tensor(False)))
+    slow_out = port_round(round_fn, data, ver, ctx, ops)
+    assert_same(fast_out, slow_out, f"{spectrum} seed {seed}")
+
+
+def test_kernel_tier_reads_nothing_back(monkeypatch):
+    """The kernel tier's host code (the round and the layout's commit, as
+    `engine.run_round` runs them, and the traffic model) on a fast and a
+    slow batch per lock-free layout, with every way a tensor reaches the
+    host patched to raise.  Only the replay's plain version reads its
+    round count back (the kernel does not); it is replaced by its recorded
+    outputs.  The outputs equal an unpatched run's."""
+    n, k, p = 40, 2, 16
+    rng = np.random.default_rng(5)
+    for strategy in LOCK_FREE:
+        spec = tatomics.AtomicSpec(n, k, strategy, p)
+        impl = tatomics.get_strategy(strategy)
+        initial = rng.integers(0, 2 ** 32, (n, k), dtype=np.uint32)
+        base = tatomics.init(spec, initial, device="cpu")
+        for spectrum in ("none", "low"):
+            ops_np, ctx_np = make_batch(rng, n, k, p, spectrum,
+                                        data=initial,
+                                        ver=np.zeros(n, np.uint32))
+            ops = convert.op_batch(ops_np, "cpu")
+            ctx = convert.link_ctx(ctx_np, "cpu")
+            recorded = []
+            slow = ter.slow_round
+
+            def record(*a, **kw):
+                out = slow(*a, **kw)
+                recorded.append([x.clone() for x in out])
+                return out
+
+            def replay(data, version, *a, **kw):
+                d, v, *rest = recorded[0]
+                data.copy_(d)
+                version.copy_(v)
+                return (data, version, *rest)
+
+            def run(state):
+                round_fn = ter.make_round(n, k, mode="pallas")
+                new_state, new_ctx, res, stats = tengine.run_round(
+                    impl, round_fn, state, ctx, ops, donate=True)
+                return [*new_state, *new_ctx, *res, *stats,
+                        *impl.traffic(stats, k, p)]
+
+            with monkeypatch.context() as m:
+                m.setattr(ter, "slow_round", record)
+                want = run(tatomics.TableState(*(x.clone() for x in base)))
+            with monkeypatch.context() as m:
+                m.setattr(ter, "slow_round", replay)
+                for name in ("__bool__", "__int__", "__index__", "__float__",
+                             "item", "tolist", "numpy"):
+                    m.setattr(torch.Tensor, name, _no_host_read(name))
+                got = run(tatomics.TableState(*(x.clone() for x in base)))
+            for i, (a, b) in enumerate(zip(got, want)):
+                assert torch.equal(a, b), f"{strategy}/{spectrum}: {i}"
+
+
+def _no_host_read(name):
+    def read(self, *args, **kwargs):
+        raise AssertionError(f"Tensor.{name}: the kernel tier read a "
+                             f"tensor back to the host")
+    return read

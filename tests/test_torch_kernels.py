@@ -645,7 +645,8 @@ def _cpu_calls():
 def test_cpu_tensors_never_launch_and_counts_reset():
     tk.reset_launch_counts()
     assert set(tk.launch_counts()) == {
-        "fast_round", "slow_round", "seqlock_gather", "cas_apply_round",
+        "round_prologue", "fast_round", "slow_round", "round_epilogue",
+        "seqlock_gather", "cas_apply_round",
         "cas_apply_rounds", "llsc_commit_round", "cachehash_probe",
         "digest_rows", "flash_attention", "flash_attention_wgmma",
         "flash_attention_tf32x3"}

@@ -95,23 +95,28 @@ def test_begin_update_torn_reads_match(strategy):
 
 
 def test_ring_alloc_free_and_sim_alloc_match():
-    """The FIFO free ring: alloc (with the head wrapping past the end),
-    free at the tail, and the simulator's single pop."""
+    """The FIFO free ring: a batch's pops (with the head wrapping past the
+    end) and its pushes of the retired nodes, `ring_take` then
+    `ring_return` against the reference's `ring_alloc` then `ring_free`,
+    and the simulator's single pop."""
     n, k, p = 6, 2, 3
     jspec = jatomics.AtomicSpec(n, k, "indirect", p)
     jstate = jatomics.init(jspec)
     tstate = tatomics.init(tatomics.AtomicSpec(n, k, "indirect", p),
                            device="cpu")
     m = jstate.free_ring.shape[0]
-    for want in (3, 2, 3, 1, 3):
+    for want in (3, 2, 3, 1, 3, 0):
         jslots, jstate = jlayout.ring_alloc(jstate, jnp.uint32(want), p)
-        tslots, tstate = tlayout.ring_alloc(tstate, torch.tensor(want), p)
-        np.testing.assert_array_equal(np.asarray(jslots), tslots.numpy())
+        pos, tslots = tlayout.ring_take(tstate, p)
+        live = torch.arange(p) < want
+        np.testing.assert_array_equal(
+            np.asarray(jslots), torch.where(live, tslots, -1).numpy())
         retired = (np.arange(p) + want * 5) % m
         jstate = jlayout.ring_free(jstate, jnp.asarray(retired, jnp.int32),
                                    jnp.uint32(want), p)
-        tstate = tlayout.ring_free(tstate, torch.from_numpy(
-            retired.astype(np.int32)), torch.tensor(want), p)
+        tstate = tlayout.ring_return(
+            tstate, pos, torch.from_numpy(retired.astype(np.int32)), live,
+            torch.tensor(want, dtype=torch.int32))
         assert_state_equal(jstate, tstate, f"ring want={want}")
     jslot, jstate = jlayout.sim_alloc(jstate)
     tslot, tstate = tlayout.sim_alloc(tstate)
@@ -204,3 +209,69 @@ def test_gather_rows_equals_indexing(k):
     nan = torch.full((4, 4), 0x7FC00001, dtype=torch.int32)    # NaN bits
     assert torch.equal(tlayout.gather_rows(nan, torch.tensor([2, 0])),
                        nan[[2, 0]])
+
+
+def _chain_batch(rng, n, k, p, current):
+    """STOREs, CASes and loads over a few cells, one of them a CAS chain
+    that ends at the value it started from (A -> B -> A): dirty only by
+    its version."""
+    cells = rng.choice(n, 5, replace=False)
+    kind = rng.choice([0, 1, 2, 4], p).astype(np.int32)
+    slot = rng.choice(cells[1:], p).astype(np.int32)
+    expected = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
+    take = rng.random(p) < 0.5
+    expected[take] = current[slot[take]]
+    desired = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
+    a, b = current[cells[0]], rng.integers(0, 2 ** 32, k, dtype=np.uint32)
+    kind[:2], slot[:2] = tatomics.CAS, cells[0]
+    expected[0], desired[0], expected[1], desired[1] = a, b, b, a
+    return kind, slot, expected, desired
+
+
+@pytest.mark.parametrize("strategy", ["seqlock", "indirect", "cached_wf",
+                                      "cached_me"])
+@pytest.mark.parametrize("seed", range(3))
+def test_dirty_slot_commit_matches_reference_commit(strategy, seed):
+    """The layouts' commit from the round's dirty-slot list against the
+    reference's commit, which diffs the versions over the whole table, on
+    the same pre-batch state and the same post-batch table, over batches
+    that stay below 2p node allocations: a CAS chain that ends at its
+    starting value (dirty by version), STOREs, failing CASes and loads on
+    shared cells, and a collision-free batch; cached_me's tagged nulls
+    included.  Every TableState leaf bit for bit."""
+    from repro.core import engine as jengine
+    n, k, p = 40, 2, 8
+    rng = np.random.default_rng(seed)
+    jspec, jstate, tspec, tstate = _pair(strategy, n, k, p, seed)
+    jimpl = jatomics.get_strategy(strategy)
+    timpl = tatomics.get_strategy(strategy)
+    ctx = convert.to_numpy(tatomics.init_ctx(p, k, device="cpu"))
+    allocated = 0
+    for step in range(3):
+        current = np.asarray(jatomics.logical(jspec, jstate))
+        if step == 2:
+            slot = rng.choice(n, p, replace=False).astype(np.int32)
+            ops = (np.full(p, tatomics.STORE, np.int32), slot,
+                   np.zeros((p, k), np.uint32),
+                   rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32))
+        else:
+            ops = _chain_batch(rng, n, k, p, current)
+        nd, nv, _, _, jstats = jengine.linearize(
+            jimpl.engine_view(jstate), jstate.version,
+            jengine.LinkCtx(*map(jnp.asarray, ctx)),
+            jengine.OpBatch(*map(jnp.asarray, ops)))
+        want = jimpl.commit(jstate, nd, nv, jstats.n_updates, p)
+        round_fn = tatomics.get_strategy(strategy).lower_round(
+            tspec, mode="pallas")
+        d, v, _, _, tstats, dirty = round_fn(
+            timpl.engine_view(tstate), tstate.version,
+            convert.link_ctx(ctx, "cpu"), convert.op_batch(ops, "cpu"))
+        got = timpl.commit(tstate, d, v, tstats, dirty, p)
+        assert_state_equal(want, got, f"{strategy} step {step}")
+        moved = np.asarray(nv) != np.asarray(jstate.version)
+        if step == 0:
+            assert moved[ops[1][0]] and \
+                (np.asarray(nd)[ops[1][0]] == current[ops[1][0]]).all()
+        allocated += int(moved.sum())
+        jstate, tstate = want, got
+    assert allocated < 2 * p

@@ -1,16 +1,23 @@
-"""The segment-replay kernels (`kernels/csrc/segment_replay.cuh`, behind
-`slow_round` in `engine_round.cu` and `cas_apply_rounds` in `table_ops.cu`)
-compiled for the CPU and held bit for bit against their plain versions.
+"""The engine-round and table kernels compiled for the CPU and held bit for
+bit against their plain versions: the segment replay
+(`kernels/csrc/segment_replay.cuh`, behind `slow_round` in
+`engine_round.cu` and `cas_apply_rounds` in `table_ops.cu`), and the
+round's prologue, fast round and epilogue (`engine_round.cu`).
 
 There is no CUDA compiler or card here, so `tests/cuda_emu/cuda_runtime.h`
-stands in for the CUDA runtime: each warp runs as 32 threads that meet at
-every shuffle and ballot.  g++ compiles the two sources as they are, apart
-from their `kernel<<<...>>>(args)` launches, which become calls of the
-emulator, and the tests call the C entry points with CPU tensors.  This
-checks the kernels' logic: windows and segment ownership, the write-mask
-fixed point, the row carried across chunks, dead lanes, the thread per
-segment at other widths.  Their speed, and what nvcc makes of them, only a
-card can show (`chip_smoke.py`).  Tolerance is zero."""
+stands in for the CUDA runtime: a block runs as one thread per CUDA thread,
+meeting at every warp shuffle and ballot and at `__syncthreads()`.  g++
+compiles the two sources as they are, apart from their `kernel<<<...>>>`
+launches, which become calls of the emulator, and the tests call the C
+entry points with CPU tensors.  This checks the kernels' logic: windows
+and segment ownership, the write-mask fixed point, the row carried across
+chunks, dead lanes, the thread per segment at other widths; the prologue's
+gathers and its predicate, reduced across blocks by atomics; the fast
+round's results and links; the epilogue's lanes put back, its block-wide
+scans and the look-back between its scan blocks, its stats and dirty-slot
+list; and that every kernel leaves everything alone when the predicate
+says its branch is not taken.  Their speed, and what nvcc makes of them,
+only a card can show (`chip_smoke.py`).  Tolerance is zero."""
 
 import ctypes
 import re
@@ -129,10 +136,18 @@ def test_slow_round_matches_plain(libs, k, spectrum):
     verpt = torch.full((p,), 7, dtype=torch.int32)
     succ = torch.full((p,), 7, dtype=torch.int32)
     assert libs["engine_round"].slow_round(
-        got_d.data_ptr(), got_v.data_ptr(), n, k, *(a.data_ptr()
-                                                    for a in args),
-        p, val.data_ptr(), verpt.data_ptr(), succ.data_ptr(), 0, None) == 0
+        None, got_d.data_ptr(), got_v.data_ptr(), n, k,
+        *(a.data_ptr() for a in args), p, val.data_ptr(), verpt.data_ptr(),
+        succ.data_ptr(), 0, None) == 0
     same((got_d, got_v, val, verpt, succ), want, f"k={k} {spectrum}")
+    # the fast branch taken: the replay returns at once
+    fast = torch.ones((), dtype=torch.bool)
+    before = [x.clone() for x in (got_d, got_v, val, verpt, succ)]
+    assert libs["engine_round"].slow_round(
+        fast.data_ptr(), got_d.data_ptr(), got_v.data_ptr(), n, k,
+        *(a.data_ptr() for a in args), p, val.data_ptr(), verpt.data_ptr(),
+        succ.data_ptr(), 0, None) == 0
+    same((got_d, got_v, val, verpt, succ), before, "fast branch")
 
 
 @pytest.mark.parametrize("case", ["uniform", "zipf-loads", "hot",
@@ -184,3 +199,199 @@ def test_cas_apply_rounds_matches_round_loop(libs, k, case):
         wit.data_ptr(), 0, None) == 0
     same((got_d, got_m, succ, wit), want, f"k={k} {case}")
     assert want[2].any() and not want[2].all()
+
+
+# ---------------------------------------------------------------------------
+# The fast round and the epilogue.
+# ---------------------------------------------------------------------------
+
+def round_case(seed, n, k, p, spectrum):
+    """A batch of all seven kinds over `spectrum` slots (none: distinct;
+    low: n / 8 cells; hot: one cell; read: low, read-only kinds) with
+    links live, stale, on other cells and dead, as numpy arrays; the table
+    (data, version) it runs on."""
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 2 ** 32, (n, k), dtype=np.uint32)
+    ver = (rng.integers(0, 8, n) * 2).astype(np.uint32)
+    kinds = [0, 3, 4, 6] if spectrum == "read" else range(7)
+    kind = rng.choice(np.asarray(kinds), p).astype(np.int32)
+    if spectrum == "none":
+        slot = rng.choice(n, p, replace=False)
+    elif spectrum == "hot":
+        slot = np.full(p, rng.integers(0, n))
+    else:
+        slot = rng.integers(0, max(n // 8, 2), p)
+    slot = slot.astype(np.int32)
+    expected = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
+    take = rng.random(p) < 0.5
+    expected[take] = data[slot[take]]
+    desired = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
+    chain(rng, slot, expected, desired)
+    cslot = np.where(rng.random(p) < 0.7, slot,
+                     rng.integers(-1, n, p)).astype(np.int32)
+    cver = ver[np.clip(cslot, 0, n - 1)] + 2 * (rng.random(p) < 0.3)
+    ctx = (cslot, cver.astype(np.uint32),
+           rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32),
+           rng.random(p) < 0.8)
+    return data, ver, (kind, slot, expected, desired), ctx
+
+
+def out_sentinel(p, k):
+    """`RoundOut` filled with values no kernel writes."""
+    out = ter.RoundOut.empty(p, k, "cpu")
+    for t in (out.value, out.ctx.slot, out.ctx.version, out.ctx.value,
+              out.okw, out.stats, out.dirty):
+        t.fill_(-7)
+    out.success.fill_(True)
+    out.ctx.linked.fill_(True)
+    return out
+
+
+def out_tensors(out):
+    return (out.value, out.success, *out.ctx, out.okw, out.stats, out.dirty)
+
+
+def call_fast(lib, fast, d, v, ctx, ops, out):
+    n, k = d.shape
+    assert lib.fast_round(
+        fast.data_ptr(), d.data_ptr(), v.data_ptr(), n, k,
+        ops.slot.data_ptr(), ops.kind.data_ptr(), ops.expected.data_ptr(),
+        ops.desired.data_ptr(), *(x.data_ptr() for x in ctx), ops.p,
+        out.value.data_ptr(), out.success.data_ptr(),
+        *(x.data_ptr() for x in out.ctx), out.okw.data_ptr(), 0, None) == 0
+
+
+def call_prologue(lib, n, ops, ctx, order, s_slot):
+    p, k = ops.p, ops.k
+    def fill(*shape):
+        return torch.full(shape, -7, dtype=torch.int32)
+    out = ter.Prologue(torch.tensor(False), fill(p), fill(p), fill(p, k),
+                       fill(p, k))
+    scratch = torch.zeros(2, dtype=torch.int32)
+    assert lib.round_prologue(
+        n, k, p, order.data_ptr(), s_slot.data_ptr(), ops.slot.data_ptr(),
+        ops.kind.data_ptr(), ops.expected.data_ptr(), ops.desired.data_ptr(),
+        ctx.slot.data_ptr(), ctx.version.data_ptr(), ctx.linked.data_ptr(),
+        *(x.data_ptr() for x in out[1:]), scratch.data_ptr(),
+        out.fast.data_ptr(), 0, None) == 0
+    return out
+
+
+@pytest.mark.parametrize("case", ["none", "read", "low", "hot", "dead",
+                                  "empty"])
+@pytest.mark.parametrize("k", [1, 4, 20])
+@pytest.mark.parametrize("p", [150, 700])
+def test_round_prologue_matches_plain(libs, p, k, case):
+    """The prologue's sorted lane operands and predicate on one block and
+    on three (the predicate's facts then meet through the atomics):
+    collision-free (fast), read-only with duplicates (fast), colliding
+    with writes (slow), one hot cell (slow), an active lane outside [0, n)
+    in an otherwise collision-free batch (slow), and no lane at all."""
+    n = 4 * p
+    spectrum = {"dead": "none", "empty": "none"}.get(case, case)
+    data, ver, ops_np, ctx_np = round_case(p + k, n, k, p, spectrum)
+    if case == "dead":
+        ops_np[0][p // 2] = tengine.LOAD
+        ops_np[1][p // 2] = n + 3
+    if case == "empty":
+        ops_np = tuple(x[:0] for x in ops_np)
+        ctx_np = tuple(x[:0] for x in ctx_np)
+    ops = convert.op_batch(ops_np, "cpu")
+    ctx = convert.link_ctx(ctx_np, "cpu")
+    s_slot, order = ter.sort_slots(n, ops)
+    got = call_prologue(libs["engine_round"], n, ops, ctx, order, s_slot)
+    want = ter.round_prologue_plain(n, ops, ctx, order, s_slot)
+    same(got, want, f"p={p} k={k} {case}")
+    assert bool(got.fast) == (case in ("none", "read", "empty"))
+
+
+@pytest.mark.parametrize("spectrum", ["none", "read", "low"])
+@pytest.mark.parametrize("k", [1, 3, 4, 20])
+def test_fast_round_matches_plain(libs, k, spectrum):
+    """The fast round on 200 lanes (seven warps, the last partial): a
+    collision-free batch of all seven kinds or a read-only one with
+    duplicate slots, IDLE lanes and three dead slots, links of every sort;
+    table, values, success, links and okw bit for bit.  With the predicate
+    False (a colliding batch with writes), both leave the table and every
+    output alone."""
+    n, p = 256, 200
+    data, ver, ops_np, ctx_np = round_case(k + len(spectrum), n, k, p,
+                                           spectrum)
+    ops_np[0][:3] = tengine.IDLE         # dead slots on IDLE lanes: the
+    ops_np[1][:3] = [-1, n, n + 5]       # predicate holds
+    ops = convert.op_batch(ops_np, "cpu")
+    ctx = convert.link_ctx(ctx_np, "cpu")
+    s_slot = ter.sort_slots(n, ops)[0]
+    assert bool(ter.fast_flag(n, ops, s_slot)) == (spectrum != "low")
+    for fast in ((False,) if spectrum == "low" else (True, False)):
+        flag = torch.tensor(fast)
+        d, v = words(data), words(ver)
+        want = ter.fast_round_plain(flag, d.clone(), v.clone(), ctx, ops,
+                                    out_sentinel(p, k))
+        got_d, got_v = d.clone(), v.clone()
+        got = out_sentinel(p, k)
+        call_fast(libs["engine_round"], flag, got_d, got_v, ctx, ops, got)
+        want_d, want_v = d.clone(), v.clone()
+        ter.fast_round_plain(flag, want_d, want_v, ctx, ops,
+                             out_sentinel(p, k))
+        same((got_d, got_v, *out_tensors(got)),
+             (want_d, want_v, *out_tensors(want)),
+             f"k={k} {spectrum} fast={fast}")
+        if not fast:
+            same((got_d, got_v), (d, v), "not taken")
+    assert want.okw.any() or spectrum == "read"
+
+
+@pytest.mark.parametrize("case", ["slow-low", "slow-hot", "slow-none",
+                                  "fast-none", "fast-read"])
+@pytest.mark.parametrize("k,p", [(k, p) for k in (1, 4, 20)
+                                 for p in (150, 2500)] + [(4, 9000)])
+def test_round_epilogue_matches_plain(libs, p, k, case):
+    """The epilogue after the plain fast or slow round of a batch: on the
+    slow branch over contended slots (n / 8 cells; one hot cell; distinct)
+    and on the fast branch (distinct slots; read-only duplicates), with
+    IDLE lanes and, on the slow branch, two dead slots.  p = 2500 gives
+    three lane blocks and two scan blocks (tiles of 2048 lanes), p = 9000
+    five, whose scans meet through the look-back.  Lane outputs, stats and
+    the dirty-slot list bit for bit; on the fast branch the fast round's
+    outputs are left as they were."""
+    branch, spectrum = case.split("-")
+    n = 4 * p
+    data, ver, ops_np, ctx_np = round_case(p + k + len(case), n, k, p,
+                                           spectrum)
+    if branch == "slow":
+        ops_np[1][:2] = [-2, n + 1]
+    ops = convert.op_batch(ops_np, "cpu")
+    ctx = convert.link_ctx(ctx_np, "cpu")
+    fast = torch.tensor(branch == "fast")
+    d, v = words(data), words(ver)
+    s_slot, order = ter.sort_slots(n, ops)
+    s_kind = ops.kind[order]
+    assert bool(ter.fast_flag(n, ops, s_slot)) == (branch == "fast")
+    out = out_sentinel(p, k)
+    ter.fast_round_plain(fast, d, v, ctx, ops, out)
+    _, _, val_s, verpt_s, succ_s = ter.slow_round_plain(
+        d, v, s_slot, s_kind, tengine.poisoned_link_ver(ctx, ops.slot)[order],
+        ops.expected[order], ops.desired[order], fast=fast)
+    want = ter.RoundOut(*(x.clone() for x in out[:2]),
+                        tengine.LinkCtx(*(x.clone() for x in out.ctx)),
+                        *(x.clone() for x in out[3:]))
+    got = ter.RoundOut(*(x.clone() for x in out[:2]),
+                       tengine.LinkCtx(*(x.clone() for x in out.ctx)),
+                       *(x.clone() for x in out[3:]))
+    ter.round_epilogue_plain(fast, n, ctx, order, s_slot, s_kind, val_s,
+                             verpt_s, succ_s, v, want)
+    lib = libs["engine_round"]
+    scratch = torch.zeros(lib.round_epilogue_scratch(p), dtype=torch.int32)
+    assert lib.round_epilogue(
+        fast.data_ptr(), n, k, p, order.data_ptr(), s_slot.data_ptr(),
+        s_kind.data_ptr(), val_s.data_ptr(), verpt_s.data_ptr(),
+        succ_s.data_ptr(), v.data_ptr(), *(x.data_ptr() for x in ctx),
+        got.value.data_ptr(), got.success.data_ptr(),
+        *(x.data_ptr() for x in got.ctx), got.okw.data_ptr(),
+        got.stats.data_ptr(), got.dirty.data_ptr(), scratch.data_ptr(), 0,
+        None) == 0
+    same(out_tensors(got), out_tensors(want), f"p={p} k={k} {case}")
+    if branch == "fast":
+        same(out_tensors(got)[:7], out_tensors(out)[:7], "fast lanes")
+    assert int(want.stats[5]) > 0 or spectrum == "read"
