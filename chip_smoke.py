@@ -11,15 +11,23 @@ package, and runs these phases:
              nvcc per source, started together) for sm_90a; print the build
              time, the card's name and power limit.
   2. kernel vs plain
-             the four engine-round kernels (`round_prologue`,
-             `fast_round`, `slow_round`, `round_epilogue`) against their
-             plain PyTorch versions on the card, bit for bit on every output
-             and on the updated table, the last three with their branch
-             taken and not taken (then nothing may change): spectra none /
-             low / all_same, a long segment with
-             chained CAS lanes and later links (k = 3, 5, 20), all seven op
-             kinds, several k (odd included), and the main path's shapes
-             (Zipf 0.99 and the long segment too).
+             the prologue's radix sort against `torch.sort(stable=True)`
+             (order and sorted slots bit for bit) at n=2**22, p=16384 on
+             uniform, Zipf 0.99, all_same, all-IDLE, out-of-range and any
+             int32 slots, and at p = 1, 700, 3000 and 2**20 (512 tiles);
+             the passes it ran (3 at n=2**22); then the four engine-round
+             kernels (`round_prologue`, `fast_round`, `slow_round`,
+             `round_epilogue`) against their plain PyTorch versions on the
+             card, bit for bit on every output and on the updated table,
+             the last three with their branch taken and not taken (then
+             nothing may change): spectra none / low / all_same, a long
+             segment with chained CAS lanes and later links (k = 3, 5, 20),
+             all seven op kinds, several k (odd included), and the main
+             path's shapes (Zipf 0.99 and the long segment too); then the
+             four kernels as `make_round` runs them against the plain round
+             (`make_round(mode="xla")`) at n=2**22, k=4, p=2**20 on both
+             branches (1024 epilogue tiles, more than the card holds at
+             once: the epilogue's blocks take tickets).
   3. main path
              `atomics.apply` at n=2**22, k=4, p=16384 for seqlock, indirect,
              cached_wf and cached_me: (a) distinct slots, all kinds; (b)
@@ -54,8 +62,13 @@ package, and runs these phases:
              replayed (CUDA events), the device operations and device time
              of each (torch.profiler), the branch the batch took (its
              predicate, read after the timed window), the four kernels
-             alone, their plain versions, and the host-side steps around
-             them; then `slow_round` alone on one cell, a long segment,
+             alone, their plain versions, `torch.sort` alone (the
+             prologue's library yardstick), and the host-side steps around
+             them; the run fails if a layout's device operations per eager
+             `apply` exceed `DEVICE_OPS_LIMIT`, if a device operation of
+             `torch.sort` or the sort key's `masked_fill` shows in the
+             profiled `apply`, or if a memset runs right before a round
+             kernel; then `slow_round` alone on one cell, a long segment,
              Zipf 0.99, and Zipf 0.99 at k = 20, each beside its longest
              segment.
   5. guard   the integrity scrub (`guard`, `runtime.LocalTarget`): the
@@ -125,7 +138,7 @@ KERNELS = {
                    "src/repro/kernels/engine_round.py:340"),
     "slow_round": ("src/repro_torch/kernels/csrc/engine_round.cu",
                    "src/repro/kernels/engine_round.py:506"),
-    # the host code around the two Pallas rounds: the predicate
+    # the host code around the two Pallas rounds: the sort, the predicate
     # (`fast_path_ok`) and the gathers into the sorted order before them,
     # the rebuild and stats after them (`_slow_pallas`, `_assemble_fast`)
     "round_prologue": ("src/repro_torch/kernels/csrc/engine_round.cu",
@@ -160,10 +173,66 @@ GUARD_STORES, GUARD_FAULTS = 4096, 64      # the scrub path's batch, faults
 M, KW, VW, MAX_CHAIN = 2 ** 22, 2, 2, 8     # CacheHash: buckets, key/value
 STORE, CAS, FULL = 1, 2, 1                  # words, chain depth; constants
 NEXT_END = 2 ** 32 - 1                      # next word of a chain's end
+# Device operations per eager `apply` at the timing phase's shapes: with
+# the sort as `torch.sort` and a memset before each of the prologue and the
+# epilogue (the round before the sort moved into the prologue), and the
+# most this version may take, its own count.  The count is exact, not a
+# mean: the host launches the same operations on every call (it reads
+# nothing back), and it is taken from a call whose every launch left its
+# device operation in the trace.
+TORCH_SORT_DEVICE_OPS = {"seqlock": 37, "indirect": 55, "cached_wf": 62,
+                         "cached_me": 55}
+DEVICE_OPS_LIMIT = {"seqlock": 18, "indirect": 36, "cached_wf": 43,
+                    "cached_me": 36}
+# Device operations an `apply` no longer runs: `torch.sort`'s kernels and
+# the sort key's masked fill.
+OLD_SORT_OPS = ("RadixSort", "radix_sort", "masked_fill", "sort_postprocess",
+                "segmented_sort", "fill_index")
+# The CUDA API calls that put an operation on the device.
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy",
+                "cudaMemset", "cuMemset", "cudaGraphLaunch", "cuGraphLaunch")
+# The first kernel each round-kernel wrapper launches.
+ROUND_FIRST_KERNELS = ("round_prologue_kernel", "round_epilogue_kernel")
+SORT_SPECTRA = ("uniform", "zipf", "all_same", "all_idle", "out_of_range",
+                "int32")
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def ops_by_call(events, device, reps):
+    """The device operations of each of `reps` annotated calls
+    (`smoke_call_<i>`) in a profiler trace's `events`, each operation in
+    `device` found by its launch's correlation id, each launch by the
+    host-side annotation around it; and the counts of the calls whose
+    every launch left its operation in the trace."""
+    spans = {ev["name"]: (ev["ts"], ev["ts"] + ev["dur"]) for ev in events
+             if ev.get("cat") == "user_annotation" and
+             ev.get("name", "").startswith("smoke_call_")}
+    spans = [spans.get(f"smoke_call_{i}") for i in range(reps)]
+    launch_call = {}                        # correlation id -> call
+    for ev in events:
+        corr = ev.get("args", {}).get("correlation")
+        if corr is None or not ev.get("name", "").startswith(LAUNCH_CALLS):
+            continue
+        for i, span in enumerate(spans):
+            if span and span[0] <= ev["ts"] <= span[1]:
+                launch_call[corr] = i
+    missing = [0] * reps                    # launches with no operation
+    for i in launch_call.values():
+        missing[i] += 1
+    ops = [0] * reps
+    seen = set()
+    for ev in device:
+        corr = ev.get("args", {}).get("correlation")
+        if corr in launch_call:
+            ops[launch_call[corr]] += 1
+            if corr not in seen:
+                seen.add(corr)
+                missing[launch_call[corr]] -= 1
+    return ops, [ops[i] for i in range(reps)
+                 if ops[i] and missing[i] == 0]
 
 
 def card_line() -> str:
@@ -234,9 +303,14 @@ class Smoke:
     def device_busy(self, run, reps=5, trace=None, setup=None):
         """Share of the wall time of `run` (which ends synchronised) that
         the card spends in kernels, memcpys and memsets, from a
-        torch.profiler trace; plus the kernels' device time by name.  With
-        `setup`, each call is `run(*setup())`, made before the trace."""
-        from torch.profiler import ProfilerActivity, profile
+        torch.profiler trace; plus the kernels' device time by name, and
+        the device operations of each call (each operation found by its
+        launch's correlation id, each launch by the call's annotation):
+        `device_ops_per_apply` is the most among the calls whose every
+        launch left its operation in the trace (the profiler can drop the
+        first call's), None if none did.  With `setup`, each call is
+        `run(*setup())`, made before the trace."""
+        from torch.profiler import ProfilerActivity, profile, record_function
         torch = self.torch
         fresh = [setup() if setup is not None else () for _ in range(reps)]
         torch.cuda.synchronize()
@@ -244,8 +318,9 @@ class Smoke:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t = time.perf_counter()
-                for args in fresh:
-                    run(*args)
+                for i, args in enumerate(fresh):
+                    with record_function(f"smoke_call_{i}"):
+                        run(*args)
                 wall_us = (time.perf_counter() - t) * 1e6
             path = trace or (ROOT / "chiprun_out" / "apply_trace.tmp.json")
             prof.export_chrome_trace(str(path))
@@ -255,17 +330,21 @@ class Smoke:
         finally:
             torch.cuda.synchronize()
         busy, by_name = 0.0, {}
-        for ev in events:
-            if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
-                busy += ev.get("dur", 0.0)
-                name = ev.get("name", "?")[:60]
-                by_name[name] = by_name.get(name, 0.0) + ev.get("dur", 0.0)
+        device = sorted((ev for ev in events if ev.get("cat") in
+                         ("kernel", "gpu_memcpy", "gpu_memset")),
+                        key=lambda ev: ev.get("ts", 0.0))
+        for ev in device:
+            busy += ev.get("dur", 0.0)
+            name = ev.get("name", "?")[:60]
+            by_name[name] = by_name.get(name, 0.0) + ev.get("dur", 0.0)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        ops, whole = ops_by_call(events, device, reps)
         return {"device_busy_share": busy / wall_us,
+                "device_ops": [(ev.get("cat"), ev.get("name", "?"))
+                               for ev in device],
                 "device_us_per_apply": busy / reps,
-                "device_ops_per_apply": sum(
-                    1 for ev in events if ev.get("cat") in
-                    ("kernel", "gpu_memcpy", "gpu_memset")) / reps,
+                "device_ops_per_apply": max(whole) if whole else None,
+                "device_ops_by_call": ops,
                 "top_device_us_per_apply": {k: v / reps for k, v in top}}
 
     def compare(self, name, got, want):
@@ -325,11 +404,10 @@ class Smoke:
         er = self.er
         ops = self.convert.op_batch(ops, self.dev)
         ctx = self.convert.link_ctx(ctx, self.dev)
-        s_slot, order = er.sort_slots(n, ops)
-        pro = er.round_prologue_plain(n, ops, ctx, order, s_slot)
+        pro = er.round_prologue_plain(n, ops, ctx)
         return SimpleNamespace(
-            ops=ops, ctx=ctx, s_slot=s_slot, order=order, s_kind=pro.s_kind,
-            fast=pro.fast, slow=(s_slot, *pro[1:]))
+            ops=ops, ctx=ctx, s_slot=pro.s_slot, order=pro.order,
+            s_kind=pro.s_kind, fast=pro.fast, slow=pro[2:7], prologue=pro)
 
     def round_out(self, p, k):
         """A `RoundOut` filled with values no kernel writes."""
@@ -351,6 +429,48 @@ class Smoke:
 
     # -- phase 2 -------------------------------------------------------------
 
+    @staticmethod
+    def sort_batch(rng, n, p, spectrum):
+        """(kind, slot) of p lanes for the sort: uniform slots in [0, n),
+        Zipf 0.99, one slot, every lane IDLE, active lanes on negative
+        slots and slots >= n among uniform ones, or any int32; a quarter
+        of the lanes IDLE (all_idle: all)."""
+        kind = rng.integers(0, 7, p).astype(np.int32)
+        kind[rng.random(p) < 0.25] = 3
+        if spectrum == "zipf":
+            slot = (rng.zipf(1.01, p) - 1) % n
+        elif spectrum == "all_same":
+            slot = np.full(p, rng.integers(0, n))
+        elif spectrum == "int32":
+            slot = rng.integers(-2 ** 31, 2 ** 31, p)
+        else:
+            slot = rng.integers(0, n, p)
+        if spectrum == "all_idle":
+            kind[:] = 3
+        if spectrum == "out_of_range":
+            bad = rng.random(p) < 0.2
+            slot[bad] = rng.choice(np.array([-1, -2 ** 31, n, n + 1,
+                                             2 ** 31 - 1]), int(bad.sum()))
+            kind[bad] = rng.integers(0, 7, int(bad.sum()))
+        return kind, slot.astype(np.int32)
+
+    def sort_vs_torch(self, n, p, spectrum, seed):
+        """The prologue's sort against `torch.sort(stable=True)` of the same
+        keys (`sort_slots`), order and sorted slots bit for bit; returns the
+        passes it ran (the digits that vary, left in its scratch)."""
+        er, torch = self.er, self.torch
+        rng = np.random.default_rng(seed)
+        kind, slot = self.sort_batch(rng, n, p, spectrum)
+        zeros = np.zeros((p, K), np.uint32)
+        ops = self.convert.op_batch((kind, slot, zeros, zeros), self.dev)
+        ctx = self.convert.link_ctx((slot, np.zeros(p, np.uint32), zeros,
+                                     np.ones(p, bool)), self.dev)
+        got = er.round_prologue(n, ops, ctx)
+        want = er.sort_slots(n, ops)
+        torch.cuda.synchronize()
+        self.compare("round_prologue", (got.s_slot, got.order), want)
+        return bin(int(got.scratch[1])).count("1")
+
     def kernel_vs_plain(self, n, k, p, spectrum, seed):
         """Each kernel against its plain version: `round_prologue` on the
         batch and on its collision-free or read-only form; with its branch
@@ -371,10 +491,9 @@ class Smoke:
         r = self.round_args(n, ops, ctx)
         rf = self.round_args(n, fast_ops, ctx)
         for rr in (r, rf):
-            got = er.round_prologue(n, rr.ops, rr.ctx, rr.order, rr.s_slot)
+            got = er.round_prologue(n, rr.ops, rr.ctx)
             torch.cuda.synchronize()
-            self.compare("round_prologue", got, (rr.fast, rr.s_kind,
-                                                 *rr.slow[2:]))
+            self.compare("round_prologue", got[:7], rr.prologue[:7])
         for taken in (False, True):           # the slow branch taken
             fast = self.flag(not taken)
             got = er.slow_round(d.clone(), v.clone(), *r.slow, fast=fast)
@@ -415,7 +534,7 @@ class Smoke:
                          for _ in range(2))
             args = (fast, n, rr.ctx, rr.order, rr.s_slot, rr.s_kind, *outs,
                     version)
-            er.round_epilogue(*args, got)
+            er.round_epilogue(*args, got, er.round_scratch(p, self.dev))
             er.round_epilogue_plain(*args, mine)
             torch.cuda.synchronize()
             self.compare("round_epilogue", self.out_tensors(got),
@@ -423,6 +542,32 @@ class Smoke:
             if bool(fast):
                 self.compare("round_epilogue", self.out_tensors(got)[:7],
                              self.out_tensors(out)[:7])
+
+    def round_vs_plain_round(self, n, k, p, spectrum, seed):
+        """The round's four kernels as `make_round` runs them against the
+        plain round (`make_round(mode="xla")`) on the same table and batch:
+        table, links, results, stats and dirty list bit for bit.  Returns
+        the branch taken."""
+        er, torch = self.er, self.torch
+        rng = np.random.default_rng(seed)
+        data = rng.integers(0, 2 ** 32, (n, k), dtype=np.uint32)
+        ver = (rng.integers(0, 8, n) * 2).astype(np.uint32)
+        ops_np, ctx_np = self.spectrum_batch(rng, n, k, p, spectrum, data,
+                                             ver)
+        ops = self.convert.op_batch(ops_np, self.dev)
+        ctx = self.convert.link_ctx(ctx_np, self.dev)
+        d, v = self.words(data), self.words(ver)
+        got, want = (er.make_round(n, k, mode=mode)(d.clone(), v.clone(),
+                                                    ctx, ops)
+                     for mode in ("pallas", "xla"))
+        torch.cuda.synchronize()
+
+        def flat(out):
+            return [x for part in out for x in
+                    (part if isinstance(part, tuple) else (part,))]
+
+        self.compare("round_epilogue", flat(got), flat(want))
+        return self.branch(ops)
 
     # -- phase 3 -------------------------------------------------------------
 
@@ -636,20 +781,24 @@ class Smoke:
             fast_kernel(dd, vv)
             slow_out = slow_kernel(dd, vv)[2:]
 
-            def epilogue(plain=False):
+            def epilogue(scratch, plain=False):
                 fn = er.round_epilogue_plain if plain else er.round_epilogue
                 return fn(fast, N, r.ctx, r.order, r.s_slot, r.s_kind,
-                          *slow_out, vv, out_buf)
+                          *slow_out, vv, out_buf, scratch)
 
             def prologue(plain=False):
                 fn = er.round_prologue_plain if plain else er.round_prologue
-                return fn(N, r.ops, r.ctx, r.order, r.s_slot)
+                return fn(N, r.ops, r.ctx)
+
+            def scratch():                   # as a prologue leaves it
+                return (er.round_scratch(P, self.dev),)
 
             kernels = {}
             for kname, call, setup in (("round_prologue", prologue, None),
                                        ("fast_round", fast_kernel, fresh),
                                        ("slow_round", slow_kernel, fresh),
-                                       ("round_epilogue", epilogue, None)):
+                                       ("round_epilogue", epilogue,
+                                        scratch)):
                 kernels[kname] = {
                     "ms": self.device_ms(call, setup=setup),
                     "with_launch_ms": self.time_ms(call, setup=setup),
@@ -657,6 +806,9 @@ class Smoke:
                         lambda *a: call(*a, plain=True), reps=5, warmup=1,
                         setup=setup)}
             row["kernels"] = kernels
+            key = er.sort_key(N, r.ops)
+            kernels["round_prologue"]["library_ms"] = self.device_ms(
+                lambda: torch.sort(key, stable=True))
             steps = {
                 "check_kinds": lambda: engine.check_kinds(
                     ops.kind, engine.TABLE_KINDS, "table"),
@@ -689,9 +841,36 @@ class Smoke:
                      ".json") if strategy == "cached_me" else None
             row["profile"] = self.device_busy(run, trace=trace)
             row["replay_profile"] = self.device_busy(replay)
+            self.check_device_ops(strategy, name, row["profile"])
             out[name] = row
             del graph
         return state, out
+
+    @staticmethod
+    def check_device_ops(strategy, name, prof):
+        """Fail unless the profiled eager `apply` ran at most
+        DEVICE_OPS_LIMIT device operations, none of the old sort's, and no
+        memset right before a round kernel."""
+        where = f"{strategy}/{name}"
+        if "device_ops" not in prof:
+            raise SystemExit(f"{where}: device operations not measured "
+                             f"({prof.get('error')})")
+        count = prof["device_ops_per_apply"]
+        if count is None:
+            raise SystemExit(f"{where}: no call left all its device "
+                             f"operations in the trace "
+                             f"({prof['device_ops_by_call']})")
+        if count > DEVICE_OPS_LIMIT[strategy]:
+            raise SystemExit(f"{where}: {count} device operations per apply,"
+                             f" more than {DEVICE_OPS_LIMIT[strategy]}")
+        ops = prof["device_ops"]
+        old = [nm for _, nm in ops if any(o in nm for o in OLD_SORT_OPS)]
+        if old:
+            raise SystemExit(f"{where}: the apply still runs {old[0]}")
+        for (cat, _), (_, nm) in zip(ops, ops[1:]):
+            if cat == "gpu_memset" and any(k in nm for k in
+                                           ROUND_FIRST_KERNELS):
+                raise SystemExit(f"{where}: a memset runs before {nm}")
 
     def slow_spectra(self):
         """`slow_round` alone on one cell, a long segment (60 % of the
@@ -744,12 +923,12 @@ class Smoke:
 
     @staticmethod
     def prologue_bytes(k, p):
-        """Bytes `round_prologue` must move: the sorted order and slots,
-        each lane's slot, kind, rows and link in, its kind, link version
-        and rows in the sorted order out (and the flag)."""
-        lane_in = p * (8 + 4 + 4 + 4 + 8 * k + (4 + 4 + 1))
-        lane_out = p * (4 + 4 + 8 * k)
-        return lane_in + lane_out + 2 * 4 + 1
+        """Bytes `round_prologue` must move: each lane's slot, kind, rows
+        and link in; the sorted order and slots, and each lane's kind, link
+        version and rows in the sorted order out (and the flag)."""
+        lane_in = p * (4 + 4 + 8 * k + (4 + 4 + 1))
+        lane_out = p * (4 + 4 + 4 + 4 + 8 * k)
+        return lane_in + lane_out + 1
 
     @staticmethod
     def epilogue_bytes(k, p, branch, cells):
@@ -758,7 +937,7 @@ class Smoke:
         replay's outputs, the links and the version of each of the `cells`
         in, the lanes' results and new links out; the stats and the dirty
         list out."""
-        sorted_in = p * (8 + 4 + 4 + 4)
+        sorted_in = p * (4 + 4 + 4 + 4)
         link = p * (4 + 4 + 4 * k + 1)
         lanes = (p * (4 * k + 4) + link + 4 * cells) \
             + (p * (4 * k + 1) + link) if branch == "slow" else 0
@@ -1837,6 +2016,19 @@ def main() -> int:
 
     # -- 2. kernel vs plain ----------------------------------------------------
     t0 = time.perf_counter()
+    sort_cases = [(N, P, s) for s in SORT_SPECTRA]
+    sort_cases += [(N, p, "uniform") for p in (1, 700, 3000, 2 ** 20)]
+    passes = {}
+    for i, (n, p, spectrum) in enumerate(sort_cases):
+        passes[f"{spectrum}_p{p}"] = smoke.sort_vs_torch(n, p, spectrum,
+                                                         seed=500 + i)
+    if passes[f"uniform_p{P}"] != 3:
+        raise SystemExit(f"the sort ran {passes[f'uniform_p{P}']} passes "
+                         "on 23-bit keys, not 3")
+    log(f"[kernel-vs-plain] the prologue's sort equals torch.sort(stable="
+        f"True) in {len(sort_cases)} cases (n = 2**22) in "
+        f"{time.perf_counter() - t0:.1f} s; passes run {passes}")
+    t0 = time.perf_counter()
     cases = [(4096, k, 2048, s) for k in (1, 3, 4, 5, 16, 20)
              for s in ("none", "low", "all_same")]
     cases += [(4096, k, 2048, "long") for k in (3, 5, 20)]
@@ -1848,6 +2040,17 @@ def main() -> int:
         f"taken and not, bit-identical in {time.perf_counter() - t0:.1f} s "
         f"(spectra none / low / all_same / zipf / long; k = 1, 3, 4, 5, 16, "
         f"20)")
+    # p = 2**20: 1024 epilogue tiles of 512 threads, more than the card
+    # holds at once, so the epilogue's blocks take tickets
+    t0 = time.perf_counter()
+    branches = [smoke.round_vs_plain_round(N, K, 2 ** 20, spectrum,
+                                           seed=1500 + i)
+                for i, spectrum in enumerate(("none", "low"))]
+    if branches != ["fast", "slow"]:
+        raise SystemExit(f"p = 2**20: branches {branches}, not fast, slow")
+    log(f"[kernel-vs-plain] the round's kernels equal the plain round "
+        f"(make_round mode xla) at n = 2**22, p = 2**20 on both branches in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # -- 3. main path --------------------------------------------------------
     totals = dict.fromkeys(ROUND_KERNELS, 0)
@@ -1924,12 +2127,18 @@ def main() -> int:
                     f"{kern['ms']:.5f} ms device / {kern['with_launch_ms']:.4f}"
                     f" ms with launch, plain {kern['plain_ms']:.4f} ms, bound "
                     f"{kern['bound_ms']:.6f} ms")
+            log(f"[timing] {strategy:9s} {name:20s} torch.sort alone "
+                f"{row['kernels']['round_prologue']['library_ms']:.5f} ms; "
+                f"device operations per eager apply "
+                f"{row['profile']['device_ops_per_apply']} (with torch.sort "
+                f"{TORCH_SORT_DEVICE_OPS[strategy]}, limit "
+                f"{DEVICE_OPS_LIMIT[strategy]})")
             for what in ("profile", "replay_profile"):
                 prof = row[what]
                 log(f"[{what}] {strategy:9s} {name:20s} " + json.dumps(
                     {k: (round(v, 4) if isinstance(v, float) else v)
                      for k, v in prof.items()
-                     if k != "top_device_us_per_apply"})
+                     if k not in ("top_device_us_per_apply", "device_ops")})
                     + " top " + json.dumps({k: round(v, 2) for k, v in
                                             prof.get("top_device_us_per_apply",
                                                      {}).items()}))
@@ -2027,7 +2236,7 @@ def main() -> int:
             "replaces": KERNELS[name][1], "launches": launches_main[name],
             "max_abs_err": smoke.max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": "bytes", "library_ms": None})
+            "bound_by": "bytes", "library_ms": t.get("library_ms")})
     for name in TABLE_KERNELS:
         t = table_kernels[name]
         rows.append({
@@ -2055,6 +2264,7 @@ def main() -> int:
             "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
             "bound_by": a["bound_by"], "library_ms": a["library_ms"]})
     details = {"card": card, "build_s": build_s, "n": N, "k": K, "p": P,
+               "sort_passes": passes,
                "launches_main_path": launches_main, "timing": timings,
                "slow_round_cases": slow_cases,
                "table_ops": {"m": M, "kw": KW, "vw": VW,

@@ -319,8 +319,10 @@ def stats_on_sorted(n: int, s_slot, s_kind, succ_s) -> ApplyStats:
     is_upd = is_valcas | is_sc
     is_read = (s_kind == LOAD) | (s_kind == LL)
     upd_rank = _upd_rank(is_upd, start_idx)
-    n_rounds = torch.where(is_upd.any(),
-                           torch.where(is_upd, upd_rank, -1).max() + 1, 0)
+    # the rank of the last update of its segment; -1 pads an empty batch
+    last = torch.nn.functional.pad(torch.where(is_upd, upd_rank, -1), (0, 1),
+                                   value=-1)
+    n_rounds = torch.where(is_upd.any(), last.max() + 1, 0)
     wrote = is_valcas | (is_sc & succ_s)
     seg_any_wrote = _any_from_here(wrote, idx, end_idx)
     return ApplyStats(

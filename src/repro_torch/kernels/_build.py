@@ -48,8 +48,8 @@ SIGNATURES = {
         "round_epilogue": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _I, _P],
-        # not a launch: the int32 words of scratch round_epilogue needs
-        "round_epilogue_scratch": [_I],
+        # not a launch: the int32 words of the round's scratch
+        "round_scratch": [_I],
     },
     "table_ops": {
         "seqlock_gather": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _P],

@@ -5,8 +5,9 @@
 // results (_assemble_fast); the slow round (`SlowOp` over the segment
 // replay kernels of segment_replay.cuh) replaces slow_round_pallas (body
 // _slow_kernel); round_prologue_kernel replaces the host code before both
-// (fast_path_ok and its n-sized count array, the gathers into the sorted
-// order); round_epilogue_kernel the host code after both (engine.rebuild,
+// (the batch's stable argsort by slot, engine_round.py:533, fast_path_ok
+// and its n-sized count array, the gathers into the sorted order);
+// round_epilogue_kernel the host code after both (engine.rebuild,
 // stats_on_sorted) and the layouts' whole-table diff of the versions.
 // Plain PyTorch versions of all four sit in
 // src/repro_torch/kernels/engine_round.py and core/engine.py; the wrappers
@@ -30,13 +31,42 @@
 // back only where it wrote.  At p = 16384 that is a few MB, a microsecond
 // or two at 3.35 TB/s, so the launch and the host work around the round
 // set the pace; in the slow round a long segment adds its 32-lane chunks,
-// resolved one after another; in the epilogue, the one block that walks
-// the whole sorted order.
+// resolved one after another; in the prologue and the epilogue, the round
+// trips through L2 by which their blocks meet.
 //
-// Design, prologue: one thread per sorted lane gathers its lane's operands
-// into the sorted order and finds the predicate's three facts; a block ORs
-// them (__syncthreads_or), one atomic a block meets the others, and the
-// last block to finish decodes them into the flag.
+// The round's scratch (`Scratch`, int32[round_scratch(p)]) needs no memset:
+// the prologue writes every word a later kernel of the round reads before
+// it is read (the look-back words of the sort passes and of the epilogue,
+// the epilogue's ticket, the predicate's bits).
+//
+// Design, prologue: one cooperative launch (every block resident at once,
+// grid-wide barriers between phases), at most as many blocks as the card
+// holds.  The sort is a stable LSD radix sort of the 32-bit key (the slot,
+// n on an IDLE lane) with its sign bit flipped, so any int32 slot, in
+// contract or not, sorts as `torch.sort(stable=True)` sorts it; 8-bit
+// digits, the lane index as the value, tiles of 1024 keys.  Phases: the
+// histograms of all four digits and the OR and AND of the keys, one read;
+// then a pass a digit that is not the same in every key (a digit every key
+// shares would be the identity: at n = 2^22 the keys take 23 bits, so
+// three passes sort and none is launched for the fourth), each a read and a
+// scatter ("onesweep"): a tile's keys ranked stably by digit (a warp per
+// 128 keys in order, eight ballots for the lanes of a digit, counts per
+// warp in shared memory), the tiles meeting per digit by a decoupled
+// look-back (a tile waits only on the counts of the tiles before it, which
+// each publishes before it waits), the scatter staged through shared
+// memory so that it is written in runs; last, a thread per sorted lane:
+// `order`, `s_slot`, the gathers into the sorted order, and the
+// predicate's three facts (an active lane outside [0, n), a write, two
+// equal adjacent sorted slots below n), which a block ORs into the scratch
+// with one atomic, clearing `fast` if what it gets back with its own fails
+// the predicate (the facts only grow, so the last block to OR sees them
+// all: no done counter).  The sort reads 8 bytes a lane and moves 8 a
+// pass, a few hundred KB at p = 16384: its time is the barriers and the
+// L2 round trips inside each pass (the look-back), not bytes.  (Earlier
+// designs on the H100: a histogram kernel, four pass kernels and a
+// finishing kernel, six launches, 39 us at p = 16384; the same with
+// programmatic dependent launch, 31 us; this one, 24-25 us.  PERF.md has
+// the times.)
 //
 // Design, fast round: one thread per lane, the row in registers (at k = 4 a
 // row is one 16-byte vector load).  No atomics: the predicate guarantees
@@ -57,50 +87,169 @@
 // in VMEM, relying on the TPU grid running in order; here a segment never
 // leaves its warp, so nothing carries between blocks.
 //
-// Design, epilogue: one launch: ceil(p / 1024) lane blocks, then one scan
-// block (1024 threads) per tile of 2048 sorted lanes.  A lane block (slow
-// branch only) puts each sorted lane's replay outputs back at its lane
-// (order[i]) with its new link.  A scan block stages its tile in shared
-// memory with coalesced loads, summarises each thread's two lanes (the
-// updates since the segment's start, the loads since the last write, the
-// dirty cells), scans the summaries over the block, and meets the tiles
-// before it by a decoupled look-back (it publishes its aggregate at once
-// and combines the published ones back to the first inclusive prefix, so
-// the tiles wait on each other for a few L2 round trips, not in a chain).
-// That gives every lane its running state: the stats follow, and each
-// dirty cell's rank, so the dirty cells come out in ascending slot order.
-// A cell is dirty where a lane wrote it, known at its segment's first lane
-// from the fast round's okw or the version the replay moved.  The stats
-// meet by atomics, and the last scan block to finish writes them and pads
-// the list.  (One block walking all 16384 lanes staged 8192 at a time
-// took 25 us on the H100, bound by one SM's instruction rate; these
-// blocks take 14-23 us, a chain of global round trips and fences.)
+// Design, epilogue: one launch, programmatic (it may be scheduled while
+// the slow round finishes), a block of 512 threads per tile of 1024 sorted
+// lanes, then (slow branch) a block per 128 sorted lanes that puts their
+// replay outputs back at their lanes (order[i]) with the new links: a
+// scattered write costs a transaction a lane, and one SM's rate of them
+// bounds a block, so they are spread over many.  A tile block stages its
+// tile in shared memory with coalesced loads, summarises each thread's two
+// lanes (the updates since the segment's start, the loads since the last
+// write, the dirty cells), scans
+// the summaries over the block, and sums the tile's share of the stats as
+// a function of what comes before it: only the updates and loads carried
+// into its first segment change them, so a tile's share is a few words
+// beside its scan aggregate (`Part`).  The tiles meet by one decoupled
+// look-back over those records, which gives every tile its running state
+// (each dirty cell's rank, so the list comes out in ascending slot order)
+// and the last tile the whole batch's stats, which it writes, then pads
+// the list with n.  A tile waits on the tiles before it, so their blocks
+// must be running: where the card holds every tile's block at once (p up
+// to a few hundred thousand lanes on an H100), tile = blockIdx.x, since a
+// block that waits then holds no place another tile's block needs; beyond
+// that a block takes its tile from a ticket, the one atomic on global
+// memory, so that a tile waits only on blocks that took their tickets
+// before it and run (blocks are not promised to start in blockIdx order).
+// No other atomic on global memory, no done counter.  A cell is dirty
+// where a lane wrote it, known at its segment's first lane from the fast
+// round's okw or the version the replay moved.
+// (Earlier designs on the H100: one block walking all 16384 lanes, 25 us,
+// one SM's instruction rate; scan blocks meeting through a tile ticket,
+// global atomics and a last block, 14-23 us, a chain of global round
+// trips.)
 
 #include <cstddef>
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "segment_replay.cuh"
+
+// A kernel's dynamic shared memory (the tests' CPU emulator, which runs the
+// blocks of a cooperative launch at once, gives each block its own).
+#ifndef SHARED_BLOCK_MEMORY
+#define SHARED_BLOCK_MEMORY(name) \
+  extern __shared__ __align__(16) unsigned char name[]
+#endif
 
 namespace {
 
 using replay::ld;
 using replay::st;
 
+
 constexpr int kLoad = 0, kStore = 1, kCas = 2, kIdle = 3, kLl = 4, kSc = 5,
               kValidate = 6;
 constexpr int kThreads = 256;
-constexpr int kEpilogueThreads = 1024;
+
+// The sort: 8-bit digits of a 32-bit key, tiles of kSortTile keys, a warp
+// per kWarpRun keys of a tile, in order.
+constexpr int kSortThreads = 256, kSortPerThread = 4;
+constexpr int kSortWarps = kSortThreads / 32;
+constexpr int kSortTile = kSortThreads * kSortPerThread;
+constexpr int kWarpRun = 32 * kSortPerThread;
+constexpr int kRadix = 256, kDigits = 4;
+static_assert(kSortThreads == kRadix, "a digit value a thread of a tile");
+constexpr uint32_t kFlip = 0x80000000u;     // int32 order as unsigned order
+// A sort pass's look-back word for one (tile, digit): the count of the
+// digit in that tile (kAgg) or in all tiles up to it (kInc); 0: not yet.
+constexpr uint32_t kAgg = 1u << 30, kInc = 2u << 30, kCount = kAgg - 1u;
+
+// The epilogue: a block of kEpilogueThreads per tile of kTile sorted lanes,
+// then (slow branch) a block per kLaneRun lanes put back in lane order; a
+// look-back record a tile of kRecord words: its flag (1: its aggregate is
+// there, 2: its inclusive prefix too), then the two `Part`s.
+constexpr int kEpilogueThreads = 512, kPerThread = 2;
+constexpr int kTile = kEpilogueThreads * kPerThread;
+constexpr int kLaneRun = 128;
+constexpr int kRecord = 32, kAggregate = 1, kInclusive = 16;
+
+// Where the parts of the round's scratch lie (int32 words) at batch width
+// p: the predicate's bits and the varying-digit mask; the sort blocks'
+// histograms and ORs / ANDs; the sort passes' look-back words; two key and
+// value buffers; the epilogue's tile ticket and look-back records.
+struct Scratch {
+  int tiles, etiles;
+  size_t facts, hist, orand, status, keys[2], vals[2], ticket, records,
+      words;
+
+  __host__ __device__ explicit Scratch(int p) {
+    tiles = p > 0 ? (p + kSortTile - 1) / kSortTile : 1;
+    etiles = p > 0 ? (p + kTile - 1) / kTile : 1;
+    size_t at = 0;
+    facts = at;
+    at += 2;
+    hist = at;                        // a block at most a tile
+    at += (size_t)tiles * kDigits * kRadix;
+    orand = at;
+    at += 2 * (size_t)tiles;
+    status = at;
+    at += (size_t)kDigits * tiles * kRadix;
+    for (int b = 0; b < 2; ++b) {
+      keys[b] = at;
+      at += (size_t)p;
+      vals[b] = at;
+      at += (size_t)p;
+    }
+    ticket = at;
+    at += 1;
+    records = at;
+    at += (size_t)etiles * kRecord;
+    words = at;
+  }
+};
+
+__device__ __forceinline__ uint32_t ld_volatile(const uint32_t* q) {
+  return *reinterpret_cast<const volatile uint32_t*>(q);
+}
+
+__device__ __forceinline__ unsigned lanes_below() {
+  return (1u << (threadIdx.x & 31)) - 1u;
+}
+
+// Hopper's programmatic dependent launch: a kernel launched by
+// `launch_after` may be scheduled while the kernel before it on the stream
+// is still running, and must call `wait_prior` before it reads anything
+// (the wait returns once that kernel has finished and its writes are
+// visible).
+__device__ __forceinline__ void wait_prior() {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+#endif
+}
+
+// Launches `kernel` with one launch attribute (`attr`: programmatic
+// dependent launch, or a cooperative launch).
+template <class... Args>
+cudaError_t launch_with(cudaLaunchAttribute attr, void (*kernel)(Args...),
+                        int grid, int block, size_t smem, cudaStream_t stream,
+                        Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(block);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <class... Args>
+cudaError_t launch_after(void (*kernel)(Args...), int grid, int block,
+                         cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  return launch_with(attr, kernel, grid, block, 0, stream, args...);
+}
 
 // ---------------------------------------------------------------------------
-// Prologue: the predicate and the replay's sorted lane operands.
+// Prologue: the sort, the predicate and the replay's sorted lane operands.
 // ---------------------------------------------------------------------------
 
 struct PrologueArgs {
   int n, k, p;
-  const int64_t* order;
-  const int* s_slot;
   const int* slot;
   const int* kind;
   const uint32_t* expected;
@@ -108,16 +257,77 @@ struct PrologueArgs {
   const int* c_slot;
   const uint32_t* c_ver;
   const bool* c_linked;
+  int* order;
+  int* s_slot;
   int* s_kind;
   uint32_t* s_link_ver;
   uint32_t* s_expected;
   uint32_t* s_desired;
-  int* scratch;      // [predicate bits, blocks done], zero on entry
   bool* fast;
+  uint32_t* scratch;
   bool vec;          // rows of k % 4 == 0 words, 16-byte aligned
 };
 
 constexpr int kOutOfRange = 1, kWrites = 2, kDup = 4;
+
+// Lane i's sort key: its slot (n on an IDLE lane), sign bit flipped.  Both
+// words are loaded, so that the slot's load does not wait on the kind's.
+__device__ __forceinline__ uint32_t sort_key(const PrologueArgs& a, int i) {
+  const int kd = a.kind[i], s = a.slot[i];
+  return (uint32_t)(kd == kIdle ? a.n : s) ^ kFlip;
+}
+
+// The lanes of the warp in `live` whose 8-bit digit equals this lane's
+// `d` (for a lane in `live`): eight ballots, one a bit (cheaper on the H100
+// than __match_any_sync, measured).
+__device__ __forceinline__ unsigned match_digit(uint32_t d, unsigned live) {
+  unsigned peers = live;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const unsigned m = __ballot_sync(replay::kFull, (d >> b) & 1u);
+    peers &= ((d >> b) & 1u) ? m : ~m;
+  }
+  return peers;
+}
+
+// Adds to count[d] one for each lane of the warp in `live` whose digit is
+// d: a shared-memory atomic a lane, or one for the warp where every lane
+// has the same digit (a digit no key varies in, one hot slot), which would
+// otherwise serialise it.
+__device__ __forceinline__ void warp_count(uint32_t* count, uint32_t d,
+                                           unsigned live) {
+  const bool in = (live >> (threadIdx.x & 31)) & 1u;
+  if (live == replay::kFull && __all_sync(replay::kFull,
+                                          d == __shfl_sync(replay::kFull,
+                                                           d, 0))) {
+    if ((threadIdx.x & 31) == 0) atomicAdd(&count[d], 32u);
+  } else if (in) {
+    atomicAdd(&count[d], 1u);
+  }
+}
+
+// The count of `digit` in the tiles before `tile` (thread of that digit):
+// the published words of the nearest tiles, eight at a time, back to the
+// first inclusive one.  Every tile publishes its own count before it looks
+// back, so a tile waits only on tiles before it, all of them resident.
+__device__ uint32_t look_back_count(const uint32_t* st, int tile, int digit) {
+  uint32_t excl = 0u;
+  for (int j = tile - 1; j >= 0; j -= 8) {
+    uint32_t w[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      w[e] = j - e >= 0 ? ld_volatile(st + (size_t)(j - e) * kRadix + digit)
+                        : kInc;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      while (w[e] == 0u)
+        w[e] = ld_volatile(st + (size_t)(j - e) * kRadix + digit);
+      excl += w[e] & kCount;
+      if (w[e] & kInc) return excl;
+    }
+  }
+  return excl;
+}
 
 __device__ __forceinline__ void copy_row(uint32_t* dst, const uint32_t* src,
                                          int k, bool vec) {
@@ -130,43 +340,297 @@ __device__ __forceinline__ void copy_row(uint32_t* dst, const uint32_t* src,
   }
 }
 
-// A thread per sorted lane i: gathers lane order[i]'s kind, link version
-// (odd-poisoned unless its link names its cell) and rows, and finds the
-// predicate's three facts: an active lane outside [0, n), a write, two
-// equal adjacent sorted slots below n.  Each block ORs its facts into
-// scratch[0] with one atomic; the last block to count itself done in
-// scratch[1] decodes them into *fast (the threadfence pattern), so the
-// flag is written by one launch with no host involvement.
-__global__ void __launch_bounds__(kThreads) round_prologue_kernel(
-    PrologueArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int bits = 0;
-  if (i < a.p) {
-    const int j = (int)a.order[i];
-    const int kd = a.kind[j], s = a.slot[j];
-    a.s_kind[i] = kd;
-    const bool linked = a.c_linked[j] && a.c_slot[j] == s;
-    a.s_link_ver[i] = linked ? a.c_ver[j] : 1u;
+// Sorted lane i: its lane j = order[i] and key from the last pass (`keys`,
+// `vals`; none ran: the lanes as they are), the lane's kind, link version
+// (odd-poisoned unless its link names its cell) and rows gathered into the
+// sorted order; returns the predicate's facts it shows: an active lane
+// outside [0, n), a write, two equal adjacent sorted slots below n.
+__device__ __forceinline__ int finish_lane(const PrologueArgs& a,
+                                           const uint32_t* keys,
+                                           const uint32_t* vals, bool sorted,
+                                           int i) {
+  // every load first (the stores could alias them for all the compiler
+  // knows, and would hold each one back)
+  const int j = sorted ? (int)vals[i] : i;
+  const int ss = (int)((sorted ? keys[i] : sort_key(a, i)) ^ kFlip);
+  const int prev = i > 0 ? (int)((sorted ? keys[i - 1] : sort_key(a, i - 1))
+                                 ^ kFlip)
+                         : ss + 1;
+  const int kd = a.kind[j], s = a.slot[j];
+  const bool linked = a.c_linked[j] && a.c_slot[j] == s;
+  const uint32_t link_ver = linked ? a.c_ver[j] : 1u;
+  if (a.vec && a.k == 4) {
+    const uint4 e = reinterpret_cast<const uint4*>(a.expected)[j];
+    const uint4 d = reinterpret_cast<const uint4*>(a.desired)[j];
+    reinterpret_cast<uint4*>(a.s_expected)[i] = e;
+    reinterpret_cast<uint4*>(a.s_desired)[i] = d;
+  } else {
     copy_row(a.s_expected + (size_t)i * a.k, a.expected + (size_t)j * a.k,
              a.k, a.vec);
     copy_row(a.s_desired + (size_t)i * a.k, a.desired + (size_t)j * a.k,
              a.k, a.vec);
-    if (kd != kIdle && (s < 0 || s >= a.n)) bits |= kOutOfRange;
-    if (kd == kStore || kd == kCas || kd == kSc) bits |= kWrites;
-    const int ss = a.s_slot[i];
-    if (i > 0 && ss < a.n && a.s_slot[i - 1] == ss) bits |= kDup;
   }
+  a.order[i] = j;
+  a.s_slot[i] = ss;
+  a.s_kind[i] = kd;
+  a.s_link_ver[i] = link_ver;
+  int bits = 0;
+  if (kd != kIdle && (s < 0 || s >= a.n)) bits |= kOutOfRange;
+  if (kd == kStore || kd == kCas || kd == kSc) bits |= kWrites;
+  if (ss < a.n && prev == ss) bits |= kDup;
+  return bits;
+}
+
+// The prologue kernel's shared memory (dynamic, so that each block of a
+// cooperative launch has its own in the tests' CPU emulator too).
+struct SortShared {
+  uint32_t hist[kDigits * kRadix];
+  uint32_t count[kSortWarps * kRadix];   // a row a warp
+  uint32_t start[kRadix];        // where the digit's keys of the tile go
+  uint32_t tile_start[kRadix];   // the same within the tile
+  uint32_t global_start[kRadix];   // the digit's first place in the batch
+  uint32_t staged_key[kSortTile], staged_val[kSortTile];
+  uint32_t warp_sum[kRadix / 32];
+  uint32_t key_or, key_and;
+};
+
+// One sort pass over one tile: its keys and values (pass 0: the lanes' keys
+// and indices; else what the pass before wrote) ranked stably by the digit
+// at `shift`, then scattered to buffer pass % 2.
+__device__ void sort_tile(const PrologueArgs& a, const Scratch& sc,
+                          SortShared& sh, int pass, int shift, int tile) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const uint32_t* kin = a.scratch + sc.keys[(pass + 1) & 1];
+  const uint32_t* vin = a.scratch + sc.vals[(pass + 1) & 1];
+  const int first = tile * kSortTile + warp * kWarpRun;
+  uint32_t key[kSortPerThread], val[kSortPerThread], rank[kSortPerThread];
+#pragma unroll
+  for (int r = 0; r < kSortPerThread; ++r) {
+    const int q = first + r * 32 + lane;
+    const bool valid = q < a.p;
+    key[r] = !valid ? 0u : pass == 0 ? sort_key(a, q) : kin[q];
+    val[r] = !valid ? 0u : pass == 0 ? (uint32_t)q : vin[q];
+  }
+  uint32_t* wc = sh.count + warp * kRadix;
+  for (int q = lane; q < kRadix; q += 32) wc[q] = 0u;
+  __syncwarp();
+
+  // This warp's run, ranked within the warp in order.
+#pragma unroll
+  for (int r = 0; r < kSortPerThread; ++r) {
+    const bool valid = first + r * 32 + lane < a.p;
+    const uint32_t d = (key[r] >> shift) & 0xffu;
+    const unsigned peers = match_digit(d, __ballot_sync(replay::kFull, valid));
+    const unsigned below = peers & lanes_below();
+    if (valid) rank[r] = wc[d] + (uint32_t)__popc(below);
+    __syncwarp();
+    if (valid && below == 0u) wc[d] += (uint32_t)__popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // A digit a thread: the warps' exclusive prefix within the tile, the
+  // digit's start within the tile, then the tiles before this one by the
+  // look-back.
+  if (t < kRadix) {
+    uint32_t run = 0u;
+    for (int w = 0; w < kSortWarps; ++w) {
+      const uint32_t c = sh.count[w * kRadix + t];
+      sh.count[w * kRadix + t] = run;
+      run += c;
+    }
+    uint32_t x = run;
+    for (unsigned d = 1; d < 32; d <<= 1) {
+      const uint32_t y = __shfl_up_sync(replay::kFull, x, d);
+      if (lane >= (int)d) x += y;
+    }
+    if (lane == 31) sh.warp_sum[warp] = x;
+    sh.tile_start[t] = x - run;
+    uint32_t* st = a.scratch + sc.status + (size_t)pass * sc.tiles * kRadix;
+    volatile uint32_t* word = st + (size_t)tile * kRadix + t;
+    uint32_t excl = 0u;
+    if (tile == 0) {
+      *word = kInc | run;
+    } else {
+      *word = kAgg | run;
+      excl = look_back_count(st, tile, t);
+      *word = kInc | (excl + run);
+    }
+    sh.start[t] = sh.global_start[t] + excl;
+  }
+  __syncthreads();
+  if (t < kRadix)
+    for (int w = 0; w < warp; ++w) sh.tile_start[t] += sh.warp_sum[w];
+  __syncthreads();
+
+  // The scatter, staged: each key to its place in the tile's sorted order
+  // in shared memory, then out in that order, so that consecutive threads
+  // write the consecutive places of one digit (a scatter straight from
+  // the ranks costs a transaction a key).
+#pragma unroll
+  for (int r = 0; r < kSortPerThread; ++r) {
+    if (first + r * 32 + lane >= a.p) break;
+    const uint32_t d = (key[r] >> shift) & 0xffu;
+    const uint32_t at = sh.tile_start[d] + wc[d] + rank[r];
+    sh.staged_key[at] = key[r];
+    sh.staged_val[at] = val[r];
+  }
+  __syncthreads();
+  uint32_t* kout = a.scratch + sc.keys[pass & 1];
+  uint32_t* vout = a.scratch + sc.vals[pass & 1];
+  const int in_tile = a.p - tile * kSortTile < kSortTile
+                          ? a.p - tile * kSortTile : kSortTile;
+  for (int q = t; q < in_tile; q += kSortThreads) {
+    const uint32_t k = sh.staged_key[q];
+    const uint32_t d = (k >> shift) & 0xffu;
+    const uint32_t pos = sh.start[d] + (uint32_t)q - sh.tile_start[d];
+    kout[pos] = k;
+    vout[pos] = sh.staged_val[q];
+  }
+  __syncthreads();                  // before the next tile reuses `sh`
+}
+
+// The prologue, one cooperative launch of at most as many blocks as the
+// card holds at once, a tile of the sort each at most (block b takes tiles
+// b, b + gridDim.x, ...; the blocks past the last tile wait for the last
+// phase):
+//   1. each block's histograms of all four digits of its tiles' keys and
+//      their OR and AND; the words the rest of the round expects cleared,
+//      `fast` set; a grid barrier;
+//   2. every block: the digits that vary (the ORs and ANDs);
+//   3. a pass a varying digit, each followed by a grid barrier: the digit's
+//      start in the batch from the histograms, the tiles ranked and
+//      scattered (`sort_tile`), meeting per digit by the look-back;
+//   4. a thread per sorted lane (`finish_lane`); a block ORs its lanes'
+//      facts into the scratch with one atomic and clears `fast` if the
+//      facts it gets back with its own fail the predicate: the facts only
+//      grow, so the last block to OR sees them all.
+__global__ void __launch_bounds__(kSortThreads) round_prologue_kernel(
+    PrologueArgs a) {
+  SHARED_BLOCK_MEMORY(raw);
+  SortShared& sh = *reinterpret_cast<SortShared*>(raw);
+  const cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const Scratch sc(a.p);
+  const int t = threadIdx.x, blocks = gridDim.x;
+  const int sorters = blocks < sc.tiles ? blocks : sc.tiles;
+
+  for (int q = t; q < kDigits * kRadix; q += kSortThreads) sh.hist[q] = 0u;
+  if (t == 0) {
+    sh.key_or = 0u;
+    sh.key_and = ~0u;
+  }
+  __syncthreads();
+  uint32_t o = 0u, an = ~0u;
+  for (int tile = blockIdx.x; tile < sc.tiles; tile += blocks) {
+    uint32_t u[kSortPerThread];
+#pragma unroll
+    for (int r = 0; r < kSortPerThread; ++r) {
+      const int i = tile * kSortTile + r * kSortThreads + t;
+      u[r] = i < a.p ? sort_key(a, i) : 0u;
+    }
+#pragma unroll
+    for (int r = 0; r < kSortPerThread; ++r) {
+      const bool valid = tile * kSortTile + r * kSortThreads + t < a.p;
+      if (valid) {
+        o |= u[r];
+        an &= u[r];
+      }
+      const unsigned live = __ballot_sync(replay::kFull, valid);
+      for (int d = 0; d < kDigits; ++d)
+        warp_count(sh.hist + d * kRadix, (u[r] >> (8 * d)) & 0xffu, live);
+    }
+  }
+  for (unsigned d = 16; d > 0; d >>= 1) {
+    o |= __shfl_down_sync(replay::kFull, o, d);
+    an &= __shfl_down_sync(replay::kFull, an, d);
+  }
+  if ((t & 31) == 0) {
+    atomicOr(&sh.key_or, o);
+    atomicAnd(&sh.key_and, an);
+  }
+  __syncthreads();
+  if ((int)blockIdx.x < sorters) {
+    uint32_t* hist =
+        a.scratch + sc.hist + (size_t)blockIdx.x * kDigits * kRadix;
+    for (int q = t; q < kDigits * kRadix; q += kSortThreads)
+      hist[q] = sh.hist[q];
+    if (t == 0) {
+      a.scratch[sc.orand + 2 * blockIdx.x] = sh.key_or;
+      a.scratch[sc.orand + 2 * blockIdx.x + 1] = sh.key_and;
+    }
+  }
+  const size_t first = (size_t)blockIdx.x * kSortThreads + t;
+  const size_t stride = (size_t)blocks * kSortThreads;
+  const size_t status_words = (size_t)kDigits * sc.tiles * kRadix;
+  for (size_t q = first; q < status_words; q += stride)
+    a.scratch[sc.status + q] = 0u;
+  for (size_t q = first; q < (size_t)sc.etiles; q += stride)
+    a.scratch[sc.records + q * kRecord] = 0u;
+  if (blockIdx.x == 0 && t == 0) {
+    a.scratch[sc.facts] = 0u;
+    a.scratch[sc.ticket] = 0u;
+    *a.fast = true;
+  }
+  grid.sync();
+
+  // The digits that vary.
+  __syncthreads();
+  if (t == 0) {
+    sh.key_or = 0u;
+    sh.key_and = ~0u;
+  }
+  __syncthreads();
+  for (int h = t; h < sorters; h += kSortThreads) {
+    atomicOr(&sh.key_or, a.scratch[sc.orand + 2 * h]);
+    atomicAnd(&sh.key_and, a.scratch[sc.orand + 2 * h + 1]);
+  }
+  __syncthreads();
+  uint32_t vary = 0u;
+  for (int d = 0; d < kDigits; ++d)
+    if (((sh.key_or ^ sh.key_and) >> (8 * d)) & 0xffu) vary |= 1u << d;
+  if (a.p == 0) vary = 0u;
+  if (blockIdx.x == 0 && t == 0) a.scratch[sc.facts + 1] = vary;
+
+  int pass = 0;
+  for (uint32_t v = vary; v != 0u; v &= v - 1u, ++pass) {
+    const int digit = __ffs((int)v) - 1;
+    // the digit's first place in the batch: an exclusive scan of its
+    // counts summed over the blocks' histograms (a digit value a thread)
+    const int lane = t & 31, warp = t >> 5;
+    uint32_t mine = 0u;
+    for (int h = 0; h < sorters; ++h)
+      mine += a.scratch[sc.hist + ((size_t)h * kDigits + digit) * kRadix + t];
+    uint32_t x = mine;
+    for (unsigned d = 1; d < 32; d <<= 1) {
+      const uint32_t y = __shfl_up_sync(replay::kFull, x, d);
+      if (lane >= (int)d) x += y;
+    }
+    if (lane == 31) sh.warp_sum[warp] = x;
+    __syncthreads();
+    for (int w = 0; w < warp; ++w) x += sh.warp_sum[w];
+    sh.global_start[t] = x - mine;
+    __syncthreads();
+    for (int tile = blockIdx.x; tile < sc.tiles; tile += blocks)
+      sort_tile(a, sc, sh, pass, 8 * digit, tile);
+    grid.sync();
+  }
+
+  const uint32_t* keys = a.scratch + sc.keys[(pass + 1) & 1];
+  const uint32_t* vals = a.scratch + sc.vals[(pass + 1) & 1];
+  int bits = 0;
+  for (int i = blockIdx.x * kSortThreads + t; i < a.p;
+       i += blocks * kSortThreads)
+    bits |= finish_lane(a, keys, vals, pass > 0, i);
   const int block_bits = (__syncthreads_or(bits & kOutOfRange) ? kOutOfRange
                                                                : 0) |
                          (__syncthreads_or(bits & kWrites) ? kWrites : 0) |
                          (__syncthreads_or(bits & kDup) ? kDup : 0);
-  if (threadIdx.x == 0) {
-    if (block_bits) atomicOr(&a.scratch[0], block_bits);
-    __threadfence();
-    if (atomicAdd(&a.scratch[1], 1) == (int)gridDim.x - 1) {
-      const int all = atomicOr(&a.scratch[0], 0);
-      *a.fast = !(all & kOutOfRange) && !((all & kWrites) && (all & kDup));
-    }
+  if (t == 0 && block_bits) {
+    const int all =
+        atomicOr(reinterpret_cast<int*>(a.scratch + sc.facts), block_bits) |
+        block_bits;
+    if ((all & kOutOfRange) || ((all & kWrites) && (all & kDup)))
+      *a.fast = false;
   }
 }
 
@@ -343,7 +807,7 @@ struct SlowOp {
 struct EpilogueArgs {
   const bool* fast;
   int n, k, p;
-  const int64_t* order;
+  const int* order;
   const int* s_slot;
   const int* s_kind;
   const uint32_t* val_s;
@@ -363,8 +827,10 @@ struct EpilogueArgs {
   const int* okw;
   int* stats;
   int* dirty;
-  int* scratch;               // kScratchHead + kRecord * tiles, zeroed
-  int lane_blocks;            // blocks before the first scan block
+  uint32_t* records;          // kRecord words a tile, flag words zero
+  uint32_t* ticket;           // zero; null: tile = blockIdx.x
+  int tiles;                  // blocks before the first lane block
+  bool vec;                   // rows of k % 4 == 0 words, 16-byte aligned
 };
 
 // One sorted lane as the stats read it (`engine.stats_on_sorted`).
@@ -380,12 +846,10 @@ struct Lane {
   bool dirty;      // first lane of the segment of a cell the batch wrote
 };
 
-// The sorted lanes a scan block holds in shared memory: 2 a thread.  Each
+// The sorted lanes a block holds in shared memory: 2 a thread.  Each
 // lane's slot, and its kind (bits 0-3), success (bit 4) and whether it
 // starts the segment of a cell the batch wrote (bit 5); entry 0 is the lane
 // before the tile.
-constexpr int kPerThread = 2;
-constexpr int kTile = kEpilogueThreads * kPerThread;
 constexpr int kSucc = 16, kDirty = 32;
 
 struct Tile {
@@ -414,22 +878,76 @@ __device__ __forceinline__ bool lane_wrote(int n, int bits, int s) {
   return kd == kStore || kd == kCas || (kd == kSc && s < n && (bits & kSucc));
 }
 
-// Load the sorted lanes [base, base + kTile) (those below p) into `t`.
+// Load the sorted lanes [base, base + kTile) (those below p) into `t`:
+// every lane's loads first, then the shared-memory stores.
 __device__ void load_tile(const EpilogueArgs& a, bool fast, int base,
                           Tile& t) {
+  int slot[kPerThread];
+  uint8_t bits[kPerThread];
 #pragma unroll
   for (int r = 0; r < kPerThread; ++r) {
-    const int j = r * kEpilogueThreads + (int)threadIdx.x, i = base + j;
+    const int i = base + r * kEpilogueThreads + (int)threadIdx.x;
     if (i < a.p) {
-      t.slot[j + 1] = a.s_slot[i];
-      t.bits[j + 1] = lane_bits(a, fast, i);
+      slot[r] = a.s_slot[i];
+      bits[r] = lane_bits(a, fast, i);
     }
   }
   if (threadIdx.x == 0 && base > 0) {
     t.slot[0] = a.s_slot[base - 1];
     t.bits[0] = lane_bits(a, fast, base - 1);
   }
+#pragma unroll
+  for (int r = 0; r < kPerThread; ++r) {
+    const int j = r * kEpilogueThreads + (int)threadIdx.x;
+    if (base + j < a.p) {
+      t.slot[j + 1] = slot[r];
+      t.bits[j + 1] = bits[r];
+    }
+  }
   __syncthreads();
+}
+
+// The slow branch's outputs of sorted lane i back at its lane (order[i]),
+// with its new link: the loads of each group of four words before its
+// stores (the stores could alias them for all the compiler knows).
+__device__ __forceinline__ void lane_back(const EpilogueArgs& a, int i) {
+  const int j = a.order[i];
+  const int kd = a.s_kind[i], s = a.s_slot[i];
+  const bool is_ll = kd == kLl && s < a.n;
+  const bool succ = a.succ_s[i] != 0;
+  const int c_slot = a.c_slot[j];
+  const uint32_t ver = is_ll ? a.verpt_s[i] : a.c_ver[j];
+  const bool linked = is_ll || (kd != kSc && a.c_linked[j]);
+  const size_t si = (size_t)i * a.k, sj = (size_t)j * a.k;
+  for (int q = 0; a.vec && q < a.k / 4; ++q) {
+    const uint4 x = reinterpret_cast<const uint4*>(a.val_s + si)[q];
+    const uint4 c =
+        is_ll ? x : reinterpret_cast<const uint4*>(a.c_val + sj)[q];
+    reinterpret_cast<uint4*>(a.value + sj)[q] =
+        kd != kIdle ? x : make_uint4(0u, 0u, 0u, 0u);
+    reinterpret_cast<uint4*>(a.o_val + sj)[q] = c;
+  }
+  for (int w0 = 0; !a.vec && w0 < a.k; w0 += 4) {
+    uint32_t x[4], c[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (w0 + q < a.k) {
+        x[q] = a.val_s[si + w0 + q];
+        c[q] = is_ll ? x[q] : a.c_val[sj + w0 + q];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (w0 + q < a.k) {
+        a.value[sj + w0 + q] = kd != kIdle ? x[q] : 0u;
+        a.o_val[sj + w0 + q] = c[q];
+      }
+    }
+  }
+  a.success[j] = succ;
+  a.o_slot[j] = is_ll ? s : c_slot;
+  a.o_ver[j] = ver;
+  a.o_linked[j] = linked;
 }
 
 // Calls f(lane) for this thread's run of the tile, in order.
@@ -474,18 +992,81 @@ struct Seg {
                __shfl_up_sync(kFull, r, delta),
                __shfl_up_sync(kFull, d, delta)};
   }
-  __device__ Seg shfl(int src) const {
-    using replay::kFull;
-    return Seg{__shfl_sync(kFull, hs, src), __shfl_sync(kFull, u, src),
-               __shfl_sync(kFull, hh, src), __shfl_sync(kFull, r, src),
-               __shfl_sync(kFull, d, src)};
-  }
   // this run, then `b`
   __device__ Seg then(const Seg& b) const {
     return Seg{hs | b.hs, b.hs ? b.u : u + b.u, hh | b.hh,
                b.hh ? b.r : r + b.r, d + b.d};
   }
 };
+
+// A run of sorted lanes as the tiles meet: its Seg, and its share of the
+// stats as a function of the u and r carried into it.  Only the run's lanes
+// before its first segment start read the carried u, and only one lane,
+// the last before its first reset if it wrote, reads the carried r.
+struct Part {
+  Seg seg;
+  uint32_t rmax;     // the largest u of an update after the first start
+  uint32_t ufirst;   // the largest u, from the run's start, of an update
+                     // before the first start (0: none)
+  uint32_t raced;    // the raced loads, less the carried r
+  uint32_t pwrote;   // a lane before the first reset wrote: add carried r
+  uint32_t updates, loads, cas_fail, flags;
+  static constexpr int kWords = 13;
+
+  __device__ static Part identity() {
+    return Part{Seg::identity(), 0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+  }
+  template <class F>
+  __device__ void each(F&& f) {
+    f(seg.hs), f(seg.u), f(seg.hh), f(seg.r), f(seg.d), f(rmax), f(ufirst);
+    f(raced), f(pwrote), f(updates), f(loads), f(cas_fail), f(flags);
+  }
+  __device__ Part shfl(int src) const {
+    Part x = *this;
+    x.each([&](uint32_t& w) { w = __shfl_sync(replay::kFull, w, src); });
+    return x;
+  }
+  __device__ Part shfl_up(unsigned delta) const {
+    Part x = *this;
+    x.each([&](uint32_t& w) { w = __shfl_up_sync(replay::kFull, w, delta); });
+    return x;
+  }
+  __device__ void store(volatile uint32_t* rec) const {
+    Part x = *this;
+    int q = 0;
+    x.each([&](uint32_t& w) { rec[q++] = w; });
+  }
+  __device__ static Part load(const volatile uint32_t* rec) {
+    Part x;
+    int q = 0;
+    x.each([&](uint32_t& w) { w = rec[q++]; });
+    return x;
+  }
+  // this run, then `b`
+  __device__ Part then(const Part& b) const {
+    Part c;
+    c.seg = seg.then(b.seg);
+    // b's updates before its first start, counted on from this run's u
+    const uint32_t bu = b.ufirst ? seg.u + b.ufirst : 0u;
+    c.rmax = rmax > b.rmax ? rmax : b.rmax;
+    if (seg.hs) {
+      c.rmax = c.rmax > bu ? c.rmax : bu;
+      c.ufirst = ufirst;
+    } else {
+      c.ufirst = ufirst > bu ? ufirst : bu;
+    }
+    c.raced = raced + b.raced + (b.pwrote ? seg.r : 0u);
+    c.pwrote = pwrote | (seg.hh ? 0u : b.pwrote);
+    c.updates = updates + b.updates;
+    c.loads = loads + b.loads;
+    c.cas_fail = cas_fail + b.cas_fail;
+    c.flags = flags | b.flags;
+    return c;
+  }
+};
+static_assert(kAggregate + Part::kWords <= kInclusive &&
+                  kInclusive + Part::kWords <= kRecord,
+              "a look-back record holds two Parts");
 
 // Exclusive scan of one Seg a thread over the block (threads in order);
 // `*total` gets the whole block's.  `tmp` is 32 Segs of shared memory;
@@ -517,89 +1098,82 @@ __device__ Seg block_scan(Seg x, Seg* tmp, Seg* total) {
   return out;
 }
 
-// The epilogue's scratch: the next tile to take, the scan blocks done, the
-// stats' sums, then a record a tile for the look-back: its flag (1: its
-// aggregate is there, 2: its inclusive prefix too) and the two Segs.
-constexpr int kNextTile = 0, kDone = 1, kSums = 2, kScratchHead = 16;
-constexpr int kRecord = 16, kAggregate = 1, kInclusive = 6;
-enum { kRmax, kRaced, kUpdates, kLoads, kCasFail, kFlags, kDirtyCells };
-
-__device__ __forceinline__ void put_seg(int* rec, const Seg& s) {
-  rec[0] = (int)s.hs;
-  rec[1] = (int)s.u;
-  rec[2] = (int)s.hh;
-  rec[3] = (int)s.r;
-  rec[4] = (int)s.d;
-}
-
-__device__ __forceinline__ Seg get_seg(const volatile int* rec) {
-  return Seg{(uint32_t)rec[0], (uint32_t)rec[1], (uint32_t)rec[2],
-             (uint32_t)rec[3], (uint32_t)rec[4]};
-}
-
 // Warp 0 of tile `tile`: publish its aggregate, look back over the tiles
 // before it (decoupled look-back, 32 tiles a step, one a lane) for its
 // exclusive prefix, publish its inclusive prefix, and return the exclusive
-// one (to every lane).
-__device__ Seg look_back(const EpilogueArgs& a, int tile, const Seg& agg) {
+// one (to every lane).  A tile waits only on tiles before it, whose blocks
+// run (see the kernel).
+__device__ Part look_back(const EpilogueArgs& a, int tile, const Part& agg) {
   using replay::kFull;
   const int lane = threadIdx.x & 31;
-  volatile int* rec = a.scratch + kScratchHead + kRecord * tile;
+  volatile uint32_t* rec = a.records + (size_t)kRecord * tile;
   if (lane == 0) {
-    put_seg((int*)rec + kAggregate, agg);
+    agg.store(rec + (tile == 0 ? kInclusive : kAggregate));
     __threadfence();
-    rec[0] = 1;
+    rec[0] = tile == 0 ? 2u : 1u;
   }
-  Seg before = Seg::identity();
+  Part before = Part::identity();
   for (int top = tile - 1; top >= 0; top -= 32) {
     const int t = top - lane;           // lane 0: the nearest tile
-    int flag = 2;                       // past tile 0: an empty inclusive
-    Seg v = Seg::identity();
+    uint32_t flag = 2u;                 // past tile 0: an empty inclusive
+    Part v = Part::identity();
     if (t >= 0) {
-      const volatile int* prev = a.scratch + kScratchHead + kRecord * t;
-      while ((flag = prev[0]) == 0) {
+      const volatile uint32_t* prev = a.records + (size_t)kRecord * t;
+      while ((flag = prev[0]) == 0u) {
       }
       __threadfence();
-      v = get_seg(prev + (flag == 2 ? kInclusive : kAggregate));
+      v = Part::load(prev + (flag == 2u ? kInclusive : kAggregate));
     }
-    const unsigned inclusive = __ballot_sync(kFull, flag == 2);
+    const unsigned inclusive = __ballot_sync(kFull, flag == 2u);
     const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
     // the tiles from lane `stop` (farthest) down to lane 0, in order
-    Seg x = v.shfl(lane <= stop ? stop - lane : lane);
-    if (lane > stop) x = Seg::identity();
+    Part x = v.shfl(lane <= stop ? stop - lane : lane);
+    if (lane > stop) x = Part::identity();
     for (unsigned d = 1; d < 32; d <<= 1) {
-      const Seg up = x.shfl_up(d);
+      const Part up = x.shfl_up(d);
       if (lane >= (int)d) x = up.then(x);
     }
     before = x.shfl(stop).then(before);
     if (inclusive) break;
   }
-  if (lane == 0) {
-    put_seg((int*)rec + kInclusive, before.then(agg));
+  if (lane == 0 && tile > 0) {
+    before.then(agg).store(rec + kInclusive);
     __threadfence();
-    rec[0] = 2;
+    rec[0] = 2u;
   }
   return before;
 }
 
-// A scan block: one tile of the sorted order (kTile lanes, taken in the
-// order the blocks start, so every tile it waits on is held by a block
-// already running).  Its stats go to the sums by atomics; the last scan
-// block to finish writes the stats and pads the dirty list with n.
-__device__ void epilogue_scan(const EpilogueArgs& a, bool fast) {
+// Blocks [0, tiles): a tile of kTile sorted lanes each, tile = blockIdx.x,
+// or the block's ticket where the card may not hold every tile's block at
+// once; the last tile writes the stats and pads the dirty list with n.  The
+// blocks after them (slow branch): kLaneRun sorted lanes each put back in
+// lane order, a random write a lane, spread over many SMs (one SM's
+// transactions bound a scattered write).
+__global__ void __launch_bounds__(kEpilogueThreads) round_epilogue_kernel(
+    EpilogueArgs a) {
   __shared__ Tile tile;
   __shared__ Seg seg_tmp[32];
-  __shared__ Seg prefix;
-  __shared__ int tile_id, last;
-  __shared__ uint32_t sums[7];
-  const int n = a.n;
-  if (threadIdx.x == 0) tile_id = atomicAdd(&a.scratch[kNextTile], 1);
-  if (threadIdx.x < 7) sums[threadIdx.x] = 0u;
-  __syncthreads();
-  const int base = tile_id * kTile;
+  __shared__ Part prefix, share;
+  __shared__ uint32_t part[kEpilogueThreads / 32][8];
+  __shared__ int ticket;
+  wait_prior();
+  const bool fast = *a.fast;
+  if ((int)blockIdx.x >= a.tiles) {
+    const int i = ((int)blockIdx.x - a.tiles) * kLaneRun + (int)threadIdx.x;
+    if (!fast && (int)threadIdx.x < kLaneRun && i < a.p) lane_back(a, i);
+    return;
+  }
+  int me = blockIdx.x;
+  if (a.ticket != nullptr) {
+    if (threadIdx.x == 0) ticket = (int)atomicAdd(a.ticket, 1u);
+    __syncthreads();
+    me = ticket;
+  }
+  const int n = a.n, base = me * kTile;
   load_tile(a, fast, base, tile);
 
-  // This thread's run, summarised; the block's scan; the look-back.
+  // This thread's run, summarised; the block's scan.
   Seg run = Seg::identity();
   walk(a, tile, base, [&](const Lane& l) {
     if (l.start) {
@@ -616,104 +1190,104 @@ __device__ void epilogue_scan(const EpilogueArgs& a, bool fast) {
   });
   Seg tile_total;
   const Seg mine = block_scan(run, seg_tmp, &tile_total);
-  if (threadIdx.x < 32) {
-    const Seg b = look_back(a, tile_id, tile_total);
-    if (threadIdx.x == 0) prefix = b;
-  }
-  __syncthreads();
 
-  // The running state lane by lane: the stats, and the dirty cells in
-  // ascending slot order.
-  const Seg before = prefix.then(mine);
-  uint32_t u = before.u, r = before.r, rmax = 0u, raced = 0u, updates = 0u,
-           loads = 0u, cas_fail = 0u, flags = 0u;
-  int at = (int)before.d;
+  // The tile's share of the stats, its lanes' running state counted from
+  // the tile's start: an update before the tile's first segment start
+  // counts on from the carried u, the one wrote lane before its first
+  // reset from the carried r (`Part`).
+  uint32_t u = mine.u, r = mine.r, rmax = 0u, ufirst = 0u, raced = 0u,
+           pwrote = 0u, updates = 0u, loads = 0u, cas_fail = 0u, flags = 0u;
+  bool started = mine.hs != 0u, reset = mine.hh != 0u;
   walk(a, tile, base, [&](const Lane& l) {
-    if (l.start) u = 0u;
-    if (l.reset) r = 0u;
+    if (l.start) {
+      u = 0u;
+      started = true;
+    }
+    if (l.reset) {
+      r = 0u;
+      reset = true;
+    }
     u += l.upd;
-    if (l.upd && u > rmax) rmax = u;       // the lane's write rank + 1
-    if (l.wrote) raced += r;               // the loads since the last reset
+    if (l.upd) {                            // u: the lane's write rank + 1
+      uint32_t& top = started ? rmax : ufirst;
+      if (u > top) top = u;
+    }
+    if (l.wrote) {                          // the loads since the last reset
+      raced += r;
+      if (!reset) pwrote = 1u;
+    }
     r += l.read;
     updates += l.wrote;
     loads += l.read;
     cas_fail += l.cas_fail;
     flags |= (l.valcas ? 1u : 0u) | (l.sc ? 2u : 0u);
+  });
+  // the warp's share, then warp 0 sums the warps' (the shares' parts are
+  // maxima, sums and ORs, so any order of adding them up will do)
+  uint32_t v[8] = {rmax, ufirst, raced, pwrote, updates, loads, cas_fail,
+                   flags};
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int round = 0; round < 2; ++round) {
+    for (unsigned d = 16; d > 0; d >>= 1) {
+      uint32_t o[8];
+#pragma unroll
+      for (int f = 0; f < 8; ++f)
+        o[f] = __shfl_down_sync(replay::kFull, v[f], d);
+      v[0] = o[0] > v[0] ? o[0] : v[0];
+      v[1] = o[1] > v[1] ? o[1] : v[1];
+      v[2] += o[2];
+      v[3] |= o[3];
+      v[4] += o[4];
+      v[5] += o[5];
+      v[6] += o[6];
+      v[7] |= o[7];
+    }
+    if (round == 1) break;
+    if (lane == 0)
+      for (int f = 0; f < 8; ++f) part[warp][f] = v[f];
+    __syncthreads();
+    if (warp > 0) break;
+    for (int f = 0; f < 8; ++f)
+      v[f] = lane < kEpilogueThreads / 32 ? part[lane][f] : 0u;
+  }
+  if (threadIdx.x < 32) {
+    const Part agg{tile_total, v[0], v[1], v[2], v[3], v[4], v[5], v[6],
+                   v[7]};
+    const Part b = look_back(a, me, agg);
+    if (threadIdx.x == 0) {
+      prefix = b;
+      share = agg;
+    }
+  }
+  __syncthreads();
+
+  // The dirty cells in ascending slot order: each one's rank.
+  int at = (int)(prefix.seg.d + mine.d);
+  walk(a, tile, base, [&](const Lane& l) {
     if (l.dirty) a.dirty[at++] = l.slot;
   });
-  // the warp's sums first: one shared-memory atomic a warp, not a thread
-  for (unsigned d = 16; d > 0; d >>= 1) {
-    using replay::kFull;
-    const uint32_t m = __shfl_down_sync(kFull, rmax, d);
-    rmax = m > rmax ? m : rmax;
-    raced += __shfl_down_sync(kFull, raced, d);
-    updates += __shfl_down_sync(kFull, updates, d);
-    loads += __shfl_down_sync(kFull, loads, d);
-    cas_fail += __shfl_down_sync(kFull, cas_fail, d);
-    flags |= __shfl_down_sync(kFull, flags, d);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    atomicMax(&sums[kRmax], rmax);
-    atomicAdd(&sums[kRaced], raced);
-    atomicAdd(&sums[kUpdates], updates);
-    atomicAdd(&sums[kLoads], loads);
-    atomicAdd(&sums[kCasFail], cas_fail);
-    atomicOr(&sums[kFlags], flags);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int* g = a.scratch + kSums;
-    atomicMax(&g[kRmax], (int)sums[kRmax]);
-    atomicAdd(&g[kRaced], (int)sums[kRaced]);
-    atomicAdd(&g[kUpdates], (int)sums[kUpdates]);
-    atomicAdd(&g[kLoads], (int)sums[kLoads]);
-    atomicAdd(&g[kCasFail], (int)sums[kCasFail]);
-    atomicOr(&g[kFlags], (int)sums[kFlags]);
-    atomicAdd(&g[kDirtyCells], (int)tile_total.d);
-    __threadfence();
-    const int scan_blocks = (int)gridDim.x - a.lane_blocks;
-    last = atomicAdd(&a.scratch[kDone], 1) == scan_blocks - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  const volatile int* g = a.scratch + kSums;
-  const int dirty_cells = g[kDirtyCells];
-  for (int q = dirty_cells + threadIdx.x; q < a.p; q += blockDim.x)
+  if (me != a.tiles - 1) return;
+  const Part all = prefix.then(share);      // lane 0 starts a segment
+  // the padding: words up to a 16-byte boundary, then four at a time
+  const int from = (int)all.seg.d;
+  const int head = (int)((16u - ((uintptr_t)(a.dirty + from) & 15u)) & 15u) / 4;
+  const int body = from + head < a.p ? from + head : a.p;
+  if ((int)threadIdx.x < body - from) a.dirty[from + threadIdx.x] = n;
+  int4* quads = reinterpret_cast<int4*>(a.dirty + body);
+  for (int q = threadIdx.x; q < (a.p - body) / 4; q += kEpilogueThreads)
+    quads[q] = make_int4(n, n, n, n);
+  for (int q = body + (a.p - body) / 4 * 4 + (int)threadIdx.x; q < a.p;
+       q += kEpilogueThreads)
     a.dirty[q] = n;
   if (threadIdx.x == 0) {
-    const int fl = g[kFlags];
-    a.stats[0] = (fl & 1) ? g[kRmax] : ((fl & 2) ? 1 : 0);
-    a.stats[1] = g[kUpdates];
-    a.stats[2] = g[kLoads];
-    a.stats[3] = g[kCasFail];
-    a.stats[4] = g[kRaced];
-    a.stats[5] = dirty_cells;
+    const uint32_t rounds = all.rmax > all.ufirst ? all.rmax : all.ufirst;
+    a.stats[0] = (all.flags & 1u) ? (int)rounds : ((all.flags & 2u) ? 1 : 0);
+    a.stats[1] = (int)all.updates;
+    a.stats[2] = (int)all.loads;
+    a.stats[3] = (int)all.cas_fail;
+    a.stats[4] = (int)all.raced;
+    a.stats[5] = (int)all.seg.d;
   }
-}
-
-__global__ void __launch_bounds__(kEpilogueThreads) round_epilogue_kernel(
-    EpilogueArgs a) {
-  const bool fast = *a.fast;
-  if ((int)blockIdx.x >= a.lane_blocks) {
-    epilogue_scan(a, fast);
-    return;
-  }
-  if (fast) return;                 // the fast round wrote the lanes
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.p) return;
-  const int j = (int)a.order[i];
-  const int kd = a.s_kind[i], s = a.s_slot[i];
-  const bool is_ll = kd == kLl && s < a.n;
-  const size_t si = (size_t)i * a.k, sj = (size_t)j * a.k;
-  for (int w = 0; w < a.k; ++w) {
-    const uint32_t x = a.val_s[si + w];
-    a.value[sj + w] = kd != kIdle ? x : 0u;
-    a.o_val[sj + w] = is_ll ? x : a.c_val[sj + w];
-  }
-  a.success[j] = a.succ_s[i] != 0;
-  a.o_slot[j] = is_ll ? s : a.c_slot[j];
-  a.o_ver[j] = is_ll ? a.verpt_s[i] : a.c_ver[j];
-  a.o_linked[j] = is_ll || (kd != kSc && a.c_linked[j]);
 }
 
 // ---------------------------------------------------------------------------
@@ -752,6 +1326,24 @@ void launch_fast(const FastArgs& a, cudaStream_t st) {
   }
 }
 
+// The most blocks of `kernel` (`threads` threads, `smem` bytes of dynamic
+// shared memory) the card holds at once, known after the first call on
+// `device` (an instance of the template, and its cache, a kernel); 0 if
+// the runtime cannot say.
+template <class Kernel>
+int blocks_max(Kernel kernel, int threads, size_t smem, int device) {
+  static int known[64];
+  if (device >= 0 && device < 64 && known[device] > 0) return known[device];
+  int per_sm = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    smem) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess)
+    return 0;
+  if (device >= 0 && device < 64) known[device] = per_sm * sms;
+  return per_sm * sms;
+}
+
 // Common prologue of the entry points: clear any error left by an earlier
 // call and select the device.
 int begin(int device) {
@@ -763,16 +1355,19 @@ int begin(int device) {
 
 extern "C" {
 
-// The sorted order (order int64[p], s_slot) and the batch (slot, kind,
-// expected, desired, the links c_*) in; the replay's sorted operands
-// (s_kind, s_link_ver, s_expected, s_desired) and the predicate *fast out.
-// scratch: int32[2] of zeros.
-int round_prologue(int n, int k, int p, const void* order, const void* s_slot,
-                   const void* slot, const void* kind, const void* expected,
-                   const void* desired, const void* c_slot,
-                   const void* c_ver, const void* c_linked, void* s_kind,
-                   void* s_link_ver, void* s_expected, void* s_desired,
-                   void* scratch, void* fast, int device, void* stream) {
+// The batch (slot, kind, expected, desired, the links c_*) in; the sorted
+// order (order, s_slot: int32[p]), the replay's sorted operands (s_kind,
+// s_link_ver, s_expected, s_desired) and the predicate *fast out.  One
+// cooperative launch of round_prologue_kernel on `stream`.  scratch:
+// int32[round_scratch(p)], written before it is read; `round_epilogue` of
+// the same round takes it as the prologue leaves it.
+int round_prologue(int n, int k, int p, const void* slot, const void* kind,
+                   const void* expected, const void* desired,
+                   const void* c_slot, const void* c_ver,
+                   const void* c_linked, void* order, void* s_slot,
+                   void* s_kind, void* s_link_ver, void* s_expected,
+                   void* s_desired, void* fast, void* scratch, int device,
+                   void* stream) {
   int err = begin(device);
   if (err != 0) return err;
   const bool vec = k % 4 == 0 && aligned16(expected) && aligned16(desired) &&
@@ -780,8 +1375,6 @@ int round_prologue(int n, int k, int p, const void* order, const void* s_slot,
   const PrologueArgs a{n,
                        k,
                        p,
-                       static_cast<const int64_t*>(order),
-                       static_cast<const int*>(s_slot),
                        static_cast<const int*>(slot),
                        static_cast<const int*>(kind),
                        static_cast<const uint32_t*>(expected),
@@ -789,17 +1382,30 @@ int round_prologue(int n, int k, int p, const void* order, const void* s_slot,
                        static_cast<const int*>(c_slot),
                        static_cast<const uint32_t*>(c_ver),
                        static_cast<const bool*>(c_linked),
+                       static_cast<int*>(order),
+                       static_cast<int*>(s_slot),
                        static_cast<int*>(s_kind),
                        static_cast<uint32_t*>(s_link_ver),
                        static_cast<uint32_t*>(s_expected),
                        static_cast<uint32_t*>(s_desired),
-                       static_cast<int*>(scratch),
                        static_cast<bool*>(fast),
+                       static_cast<uint32_t*>(scratch),
                        vec};
-  const dim3 grid(p > 0 ? (p + kThreads - 1) / kThreads : 1);
-  round_prologue_kernel<<<grid, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  const Scratch sc(p);
+  const auto st = static_cast<cudaStream_t>(stream);
+  // a cooperative launch may not exceed what the card holds at once
+  const int most = blocks_max(round_prologue_kernel, kSortThreads,
+                              sizeof(SortShared), device);
+  if (most <= 0) return (int)cudaGetLastError();
+  // a tile each for the sort, a lane a thread for the last phase
+  int blocks = (p + kSortThreads - 1) / kSortThreads;
+  blocks = blocks > sc.tiles ? blocks : sc.tiles;
+  cudaLaunchAttribute coop;
+  coop.id = cudaLaunchAttributeCooperative;
+  coop.val.cooperative = 1;
+  return (int)launch_with(coop, round_prologue_kernel,
+                          blocks < most ? blocks : most, kSortThreads,
+                          sizeof(SortShared), st, a);
 }
 
 // Table (data[n, k], version[n]) updated in place where the fast branch is
@@ -867,11 +1473,12 @@ int slow_round(const void* fast, void* data, void* version, int n, int k,
   return (int)cudaGetLastError();
 }
 
-// The sorted order (order int64[p], s_slot, s_kind), the slow round's
+// The sorted order (order, s_slot, s_kind: int32[p]), the slow round's
 // outputs in it (val_s, verpt_s, succ_s) and the table's versions after the
 // round; the links in (c_*) and the round's lane outputs (value, success,
 // o_*); the fast round's okw; stats int32[6] and dirty int32[p] out.
-// scratch: int32[round_epilogue_scratch(p)] of zeros.
+// scratch: int32[round_scratch(p)] as this round's `round_prologue` left it
+// (or all zeros).
 int round_epilogue(const void* fast, int n, int k, int p, const void* order,
                    const void* s_slot, const void* s_kind, const void* val_s,
                    const void* verpt_s, const void* succ_s,
@@ -883,13 +1490,12 @@ int round_epilogue(const void* fast, int n, int k, int p, const void* order,
                    int device, void* stream) {
   int err = begin(device);
   if (err != 0) return err;
-  const int lane_blocks = (p + kEpilogueThreads - 1) / kEpilogueThreads;
-  const int scan_blocks = p > 0 ? (p + kTile - 1) / kTile : 1;
+  const Scratch sc(p);
   const EpilogueArgs a{static_cast<const bool*>(fast),
                        n,
                        k,
                        p,
-                       static_cast<const int64_t*>(order),
+                       static_cast<const int*>(order),
                        static_cast<const int*>(s_slot),
                        static_cast<const int*>(s_kind),
                        static_cast<const uint32_t*>(val_s),
@@ -909,17 +1515,24 @@ int round_epilogue(const void* fast, int n, int k, int p, const void* order,
                        static_cast<const int*>(okw),
                        static_cast<int*>(stats),
                        static_cast<int*>(dirty),
-                       static_cast<int*>(scratch),
-                       lane_blocks};
-  round_epilogue_kernel<<<lane_blocks + scan_blocks, kEpilogueThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+                       static_cast<uint32_t*>(scratch) + sc.records,
+                       // tiles in blockIdx order where every tile's block
+                       // fits on the card at once
+                       sc.etiles > blocks_max(round_epilogue_kernel,
+                                              kEpilogueThreads, 0, device)
+                           ? static_cast<uint32_t*>(scratch) + sc.ticket
+                           : nullptr,
+                       sc.etiles,
+                       k % 4 == 0 && aligned16(val_s) && aligned16(c_val) &&
+                           aligned16(value) && aligned16(o_val)};
+  return (int)launch_after(round_epilogue_kernel,
+                           sc.etiles + (p + kLaneRun - 1) / kLaneRun,
+                           kEpilogueThreads, static_cast<cudaStream_t>(stream),
+                           a);
 }
 
-// The int32 words of scratch `round_epilogue` needs at batch width p.
-int round_epilogue_scratch(int p) {
-  return kScratchHead + kRecord * (p > 0 ? (p + kTile - 1) / kTile : 1);
-}
+// The int32 words of the round's scratch at batch width p.
+int round_scratch(int p) { return (int)Scratch(p).words; }
 
 const char* engine_round_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,15 +1,16 @@
 """The fused engine round: a collision-free fast path and a sorted slow path,
 chosen on the device.
 
-  sort        Every batch is sorted by (slot, lane) once (`torch.sort`,
-              stable; inactive lanes at n).
-  prologue    `round_prologue`: the predicate (`fast_flag`), from the sorted
-              slots: every active slot lies in [0, n), AND the batch is
-              read-only (no STORE/CAS/SC) OR no two active lanes share a
-              slot; and the lanes' operands in the sorted order for the
-              slow path.  The predicate stays on the device as a bool
-              tensor; nothing reads it back.  It is conservative: a
-              colliding batch with a write can NEVER take the fast path.
+  prologue    `round_prologue`: every batch sorted by (slot, lane) once
+              (stable; inactive lanes at n; the kernel's radix sort gives
+              `torch.sort(stable=True)`'s order, `sort_slots`); the
+              predicate (`fast_flag`), from the sorted slots: every active
+              slot lies in [0, n), AND the batch is read-only (no
+              STORE/CAS/SC) OR no two active lanes share a slot; and the
+              lanes' operands in the sorted order for the slow path.  The
+              predicate stays on the device as a bool tensor; nothing
+              reads it back.  It is conservative: a colliding batch with a
+              write can NEVER take the fast path.
   fast path   `fast_round`: every lane is independent; one pass gathers each
               lane's row, evaluates LOAD/STORE/CAS/LL/SC/VALIDATE in
               registers, writes the row back where it wrote, and writes the
@@ -91,10 +92,16 @@ def resolved_mode(mode: str | None = None) -> str:
 # The sort and the fast-path predicate.
 # ---------------------------------------------------------------------------
 
+def sort_key(n: int, ops: OpBatch) -> torch.Tensor:
+    """The batch's slots with inactive lanes at n: what the round sorts."""
+    return ops.slot.masked_fill(ops.kind == IDLE, n)
+
+
 def sort_slots(n: int, ops: OpBatch):
-    """(s_slot, order): the batch's slots with inactive lanes at n, sorted
-    stably, and the permutation (int64) that sorts them."""
-    return torch.sort(ops.slot.masked_fill(ops.kind == IDLE, n), stable=True)
+    """(s_slot, order): `sort_key` sorted stably, and the permutation
+    (int32) that sorts it; the plain version of the prologue's sort."""
+    s_slot, order = torch.sort(sort_key(n, ops), stable=True)
+    return s_slot, order.to(torch.int32)
 
 
 def fast_flag(n: int, ops: OpBatch, s_slot) -> torch.Tensor:
@@ -166,30 +173,37 @@ def _put(fast, dst, src) -> None:
 
 
 class Prologue(NamedTuple):
-    """`round_prologue`'s outputs: the predicate (bool[]) and the slow
-    path's lane operands in the sorted order."""
+    """`round_prologue`'s outputs: the predicate (bool[]), the sorted order
+    (`order`: int32[p], the permutation; `s_slot`: the sorted keys), the
+    slow path's lane operands in it, and the round's scratch, which
+    `round_epilogue` reads as the prologue left it (size 0 from the plain
+    version)."""
 
     fast: torch.Tensor
+    order: torch.Tensor
+    s_slot: torch.Tensor
     s_kind: torch.Tensor
     s_link_ver: torch.Tensor
     s_expected: torch.Tensor
     s_desired: torch.Tensor
+    scratch: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
 # Plain versions of the four kernels.
 # ---------------------------------------------------------------------------
 
-def round_prologue_plain(n: int, ops: OpBatch, ctx: LinkCtx, order,
-                         s_slot) -> Prologue:
-    """Plain PyTorch prologue: `fast_flag`, and each lane's kind, link
-    version (odd-poisoned unless its link names its cell) and rows in the
-    sorted order (`order`, `s_slot`: `sort_slots`).  `ctx` is batch
-    width."""
-    return Prologue(fast_flag(n, ops, s_slot), ops.kind[order],
-                    poisoned_link_ver(ctx, ops.slot)[order],
+def round_prologue_plain(n: int, ops: OpBatch, ctx: LinkCtx) -> Prologue:
+    """Plain PyTorch prologue: the sort (`sort_slots`), `fast_flag`, and
+    each lane's kind, link version (odd-poisoned unless its link names its
+    cell) and rows in the sorted order.  `ctx` is batch width."""
+    s_slot, order = sort_slots(n, ops)
+    return Prologue(fast_flag(n, ops, s_slot), order, s_slot,
+                    ops.kind[order], poisoned_link_ver(ctx, ops.slot)[order],
                     gather_rows(ops.expected, order),
-                    gather_rows(ops.desired, order))
+                    gather_rows(ops.desired, order),
+                    torch.empty((0,), dtype=torch.int32,
+                                device=s_slot.device))
 
 
 def fast_round_plain(fast, data, version, ctx: LinkCtx, ops: OpBatch,
@@ -242,8 +256,8 @@ def slow_round_plain(data, version, s_slot, s_kind, s_link_ver, s_expected,
 
 
 def round_epilogue_plain(fast, n: int, ctx: LinkCtx, order, s_slot, s_kind,
-                         val_s, verpt_s, succ_s, version,
-                         out: RoundOut) -> RoundOut:
+                         val_s, verpt_s, succ_s, version, out: RoundOut,
+                         scratch=None) -> RoundOut:
     """Plain PyTorch epilogue over the sorted order.  On the slow branch
     (`fast` False) `engine.rebuild` puts the sorted replay's outputs
     (val_s, verpt_s, succ_s) back in lane order with the new links; on
@@ -252,7 +266,8 @@ def round_epilogue_plain(fast, n: int, ctx: LinkCtx, order, s_slot, s_kind,
     lanes, the only ones these read, it is the success).  `ctx` is batch
     width.  `version`, the table's versions after the round, is what the
     kernel tests a cell's dirtiness on; this version reads the successes,
-    which say the same.  Writes into `out`."""
+    which say the same.  Writes into `out`; `scratch` (the kernel's) is
+    not read."""
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.shape[0], dtype=order.dtype,
                               device=order.device)
@@ -313,20 +328,31 @@ def _check_lanes(device, p: int, k: int, ctx: LinkCtx,
                  ("okw", out.okw, torch.int32, (p,)))
 
 
-def round_prologue(n: int, ops: OpBatch, ctx: LinkCtx, order,
-                   s_slot) -> Prologue:
-    """The round's pre-step after the sort; replaces the reference's
-    `fast_path_ok` (its n-sized count array) and the gathers into the
-    sorted order around `slow_round_pallas`.
+def round_scratch(p: int, device) -> torch.Tensor:
+    """A fresh scratch for the kernels of a round of p lanes on a card
+    (int32, all zeros): what `round_epilogue` needs when no `round_prologue`
+    of the same round prepared it."""
+    from repro_torch.kernels import _build
+    return torch.zeros((_build.load("engine_round").round_scratch(p),),
+                       dtype=torch.int32, device=device)
 
-    ops: the batch (raw slots); ctx: the batch-width links; order: int64[p]
-    and s_slot: int32[p], `sort_slots(n, ops)`.  Returns a `Prologue`.
+
+def round_prologue(n: int, ops: OpBatch, ctx: LinkCtx) -> Prologue:
+    """The round's pre-step; replaces the reference's stable argsort of
+    the slots, `fast_path_ok` (its n-sized count array) and the gathers
+    into the sorted order around `slow_round_pallas`.
+
+    ops: the batch (raw slots); ctx: the batch-width links.  Returns a
+    `Prologue`: the sorted order as `sort_slots` gives it, the predicate,
+    the sorted operands and the round's scratch.
 
     CPU tensors run `round_prologue_plain`; CUDA tensors launch the CUDA
-    kernel `round_prologue_kernel` or raise."""
-    dev = s_slot.device
+    kernel `round_prologue_kernel` (`csrc/engine_round.cu`: the radix
+    sort, the gathers and the predicate in one cooperative launch) or
+    raise."""
+    dev = ops.slot.device
     if not _on_card(dev, "round_prologue"):
-        return round_prologue_plain(n, ops, ctx, order, s_slot)
+        return round_prologue_plain(n, ops, ctx)
     from repro_torch.kernels import _build
 
     p, k = ops.p, ops.k
@@ -336,23 +362,22 @@ def round_prologue(n: int, ops: OpBatch, ctx: LinkCtx, order,
                  ("desired", ops.desired, WORD_DTYPE, (p, k)),
                  ("ctx.slot", ctx.slot, torch.int32, (p,)),
                  ("ctx.version", ctx.version, WORD_DTYPE, (p,)),
-                 ("ctx.linked", ctx.linked, torch.bool, (p,)),
-                 ("order", order, torch.int64, (p,)),
-                 ("s_slot", s_slot, torch.int32, (p,)))
-    out = Prologue(torch.empty((), dtype=torch.bool, device=dev),
-                   torch.empty((p,), dtype=torch.int32, device=dev),
-                   torch.empty((p,), dtype=WORD_DTYPE, device=dev),
-                   torch.empty((p, k), dtype=WORD_DTYPE, device=dev),
-                   torch.empty((p, k), dtype=WORD_DTYPE, device=dev))
-    scratch = torch.zeros((2,), dtype=torch.int32, device=dev)
+                 ("ctx.linked", ctx.linked, torch.bool, (p,)))
+
+    def e(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = Prologue(e((), torch.bool), e((p,)), e((p,)), e((p,)),
+                   e((p,), WORD_DTYPE), e((p, k), WORD_DTYPE),
+                   e((p, k), WORD_DTYPE),
+                   e((_build.load("engine_round").round_scratch(p),)))
     _build.launch("engine_round", "round_prologue", dev, n, k, p,
-                  order.data_ptr(), s_slot.data_ptr(), ops.slot.data_ptr(),
-                  ops.kind.data_ptr(), ops.expected.data_ptr(),
-                  ops.desired.data_ptr(), ctx.slot.data_ptr(),
-                  ctx.version.data_ptr(), ctx.linked.data_ptr(),
-                  out.s_kind.data_ptr(), out.s_link_ver.data_ptr(),
-                  out.s_expected.data_ptr(), out.s_desired.data_ptr(),
-                  scratch.data_ptr(), out.fast.data_ptr())
+                  ops.slot.data_ptr(), ops.kind.data_ptr(),
+                  ops.expected.data_ptr(), ops.desired.data_ptr(),
+                  ctx.slot.data_ptr(), ctx.version.data_ptr(),
+                  ctx.linked.data_ptr(),
+                  *(x.data_ptr() for x in out[1:7]), out.fast.data_ptr(),
+                  out.scratch.data_ptr())
     round_prologue.launches += 1
     return out
 
@@ -439,18 +464,20 @@ def slow_round(data, version, s_slot, s_kind, s_link_ver, s_expected,
 
 
 def round_epilogue(fast, n: int, ctx: LinkCtx, order, s_slot, s_kind,
-                   val_s, verpt_s, succ_s, version,
-                   out: RoundOut) -> RoundOut:
+                   val_s, verpt_s, succ_s, version, out: RoundOut,
+                   scratch) -> RoundOut:
     """The round's post-step over the sorted order; replaces the host code
     around `slow_round_pallas` (`engine.rebuild`, `stats_on_sorted`) and
     the layouts' whole-table diff of the versions.
 
-    fast: bool[]; ctx: the batch-width links; order: int64[p], the sorting
+    fast: bool[]; ctx: the batch-width links; order: int32[p], the sorting
     permutation; s_slot / s_kind: int32[p] sorted (inactive lanes at n);
     val_s / verpt_s / succ_s: `slow_round`'s outputs; version: the table's
-    versions after the round.  On the slow branch it writes value, success
-    and ctx of `out` in lane order; on both, the stats and the dirty-slot
-    list (see `round_epilogue_plain`).
+    versions after the round; scratch: the round's, as its
+    `round_prologue` left it (`Prologue.scratch`), or `round_scratch(p)`.
+    On the slow branch it writes value, success and ctx of `out` in lane
+    order; on both, the stats and the dirty-slot list (see
+    `round_epilogue_plain`).
 
     CPU tensors run `round_epilogue_plain`; CUDA tensors launch the CUDA
     kernel `round_epilogue_kernel` or raise."""
@@ -462,7 +489,7 @@ def round_epilogue(fast, n: int, ctx: LinkCtx, order, s_slot, s_kind,
 
     p, k = val_s.shape
     _build.check(dev, ("fast", fast, torch.bool, ()),
-                 ("order", order, torch.int64, (p,)),
+                 ("order", order, torch.int32, (p,)),
                  ("s_slot", s_slot, torch.int32, (p,)),
                  ("s_kind", s_kind, torch.int32, (p,)),
                  ("val_s", val_s, WORD_DTYPE, (p, k)),
@@ -470,11 +497,10 @@ def round_epilogue(fast, n: int, ctx: LinkCtx, order, s_slot, s_kind,
                  ("succ_s", succ_s, torch.int32, (p,)),
                  ("version", version, WORD_DTYPE, (n,)),
                  ("stats", out.stats, torch.int32, (6,)),
-                 ("dirty", out.dirty, torch.int32, (p,)))
+                 ("dirty", out.dirty, torch.int32, (p,)),
+                 ("scratch", scratch, torch.int32,
+                  (_build.load("engine_round").round_scratch(p),)))
     _check_lanes(dev, p, k, ctx, out)
-    scratch = torch.zeros(
-        (_build.load("engine_round").round_epilogue_scratch(p),),
-        dtype=torch.int32, device=dev)
     _build.launch("engine_round", "round_epilogue", dev, fast.data_ptr(), n,
                   k, p, order.data_ptr(), s_slot.data_ptr(),
                   s_kind.data_ptr(), val_s.data_ptr(), verpt_s.data_ptr(),
@@ -527,14 +553,13 @@ def make_round(n: int, k: int, *, mode: str | None = None):
         p = ops.p
         if ctx.slot.shape[0] != p:
             ctx = LinkCtx(*(x[:p] for x in ctx))
-        s_slot, order = sort_slots(n, ops)
-        fast, s_kind, *s_lanes = prologue_fn(n, ops, ctx, order, s_slot)
+        pro = prologue_fn(n, ops, ctx)
         out = RoundOut.empty(p, k, data.device)
-        fast_fn(fast, data, version, ctx, ops, out)
+        fast_fn(pro.fast, data, version, ctx, ops, out)
         _, _, val_s, verpt_s, succ_s = slow_fn(
-            data, version, s_slot, s_kind, *s_lanes, fast=fast)
-        epilogue_fn(fast, n, ctx, order, s_slot, s_kind, val_s, verpt_s,
-                    succ_s, version, out)
+            data, version, *pro[2:7], fast=pro.fast)
+        epilogue_fn(pro.fast, n, ctx, pro.order, pro.s_slot, pro.s_kind,
+                    val_s, verpt_s, succ_s, version, out, pro.scratch)
         return (data, version, out.ctx, ApplyResult(out.value, out.success),
                 ApplyStats(*out.stats), out.dirty)
 

@@ -1,12 +1,19 @@
 // A stand-in for the CUDA runtime that lets g++ compile the port's kernel
 // sources for the CPU, for tests/test_torch_replay_emulated.py.  A block
 // runs as one std::thread per CUDA thread: the 32 of a warp meet at every
-// warp shuffle and ballot, all of the block's at `__syncthreads()`; blocks
-// run one after another, so a `__shared__` variable (a static) is the
-// running block's.  Launches `kernel<<<grid, block, smem, stream>>>(args)`
-// are rewritten by the test into `EmuLaunch(grid, block, smem,
-// stream)(kernel)(args)`.  Only what the engine-round and table kernels
-// use is here.
+// warp shuffle, ballot, match and `__syncwarp()`, all of the block's at
+// `__syncthreads()`.  Blocks run one after another, in blockIdx order (so a
+// block that waits on the blocks before it, as a look-back does, finds
+// them done), and a `__shared__` variable (a static) is the running
+// block's; but the blocks of a cooperative launch (`cudaLaunchKernelEx`
+// with cudaLaunchAttributeCooperative) run all at once, meet at
+// `this_grid().sync()`, and each has its own dynamic shared memory
+// (`SHARED_BLOCK_MEMORY`).  The card reported holds two blocks of any
+// kernel at once, so a cooperative kernel's blocks take several tiles each
+// in the tests, and the epilogue's blocks take tickets past two tiles.  Launches `kernel<<<grid, block, smem, stream>>>(args)` are
+// rewritten by the test into `EmuLaunch(grid, block, smem,
+// stream)(kernel)(args)`.  Only what the engine-round and table kernels use
+// is here.
 #pragma once
 
 #include <atomic>
@@ -14,6 +21,7 @@
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -25,16 +33,50 @@
 #define __launch_bounds__(x)
 #define __shared__ static
 
+#define __align__(n) alignas(n)
+
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = 2;
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F, int,
+                                                         size_t) {
+  *blocks = 1;
+  return cudaSuccess;
+}
 
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+// Programmatic dependent launch: kernels run one after another here, so
+// the attribute changes nothing.  A cooperative launch runs its blocks at
+// once.
+enum cudaLaunchAttributeID {
+  cudaLaunchAttributeCooperative = 2,
+  cudaLaunchAttributeProgrammaticStreamSerialization = 5
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  union {
+    int cooperative;
+    int programmaticStreamSerializationAllowed;
+  } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
 };
 struct uint4 {
   uint32_t x, y, z, w;
@@ -42,20 +84,37 @@ struct uint4 {
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
   return {a, b, c, d};
 }
+struct int4 {
+  int x, y, z, w;
+};
+inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 
+// A warp's lanes exchange values through two slot buffers used in turns,
+// so one barrier a call suffices: a buffer is written again only after
+// the next call's barrier, which every lane passes after its last read.
 struct EmuWarp {
   std::barrier<> bar{32};
-  uint64_t slot[32];
+  uint64_t slot[2][32];
 };
 struct EmuBlock {
   std::barrier<> bar;
   std::atomic<int> acc{0};
-  explicit EmuBlock(std::ptrdiff_t threads) : bar(threads) {}
+  std::vector<unsigned char> smem;
+  EmuBlock(std::ptrdiff_t threads, size_t smem_bytes)
+      : bar(threads), smem(smem_bytes) {}
+};
+struct EmuGrid {
+  std::barrier<> bar;
+  explicit EmuGrid(std::ptrdiff_t threads) : bar(threads) {}
 };
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local EmuWarp* emu_warp;
 inline thread_local EmuBlock* emu_block;
+inline thread_local EmuGrid* emu_grid;
 inline thread_local int emu_lane;
+inline thread_local unsigned emu_turn;
+
+#define SHARED_BLOCK_MEMORY(name) unsigned char* name = emu_block->smem.data()
 
 inline void __syncthreads() { emu_block->bar.arrive_and_wait(); }
 inline int __syncthreads_or(int pred) {
@@ -71,6 +130,8 @@ inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst
 template <class T>
 T atomicOr(T* p, T v) { return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST); }
 template <class T>
+T atomicAnd(T* p, T v) { return __atomic_fetch_and(p, v, __ATOMIC_SEQ_CST); }
+template <class T>
 T atomicAdd(T* p, T v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 template <class T>
 T atomicMax(T* p, T v) {
@@ -83,15 +144,18 @@ T atomicMax(T* p, T v) {
 }
 inline int min(int a, int b) { return a < b ? a : b; }
 
+// This lane's buffer for the warp's next exchange.
+inline uint64_t* emu_slots() { return emu_warp->slot[emu_turn ^= 1u]; }
+
 // Every lane publishes `v`, then reads lane `src`'s.
 template <class T>
 T emu_exchange(T v, int src) {
   uint64_t u = 0;
   std::memcpy(&u, &v, sizeof(T));
-  emu_warp->slot[emu_lane] = u;
+  uint64_t* slot = emu_slots();
+  slot[emu_lane] = u;
   emu_warp->bar.arrive_and_wait();
-  const uint64_t r = emu_warp->slot[src];
-  emu_warp->bar.arrive_and_wait();
+  const uint64_t r = slot[src];
   T out;
   std::memcpy(&out, &r, sizeof(T));
   return out;
@@ -118,12 +182,32 @@ T __shfl_down_sync(unsigned mask, T v, unsigned d) {
 }
 inline unsigned __ballot_sync(unsigned mask, int pred) {
   emu_full(mask);
-  emu_warp->slot[emu_lane] = pred != 0;
+  uint64_t* slot = emu_slots();
+  slot[emu_lane] = pred != 0;
   emu_warp->bar.arrive_and_wait();
   unsigned r = 0;
-  for (int i = 0; i < 32; ++i) r |= (unsigned)emu_warp->slot[i] << i;
-  emu_warp->bar.arrive_and_wait();
+  for (int i = 0; i < 32; ++i) r |= (unsigned)slot[i] << i;
   return r;
+}
+// The lanes whose `v` equals this lane's.
+template <class T>
+unsigned __match_any_sync(unsigned mask, T v) {
+  emu_full(mask);
+  uint64_t u = 0;
+  std::memcpy(&u, &v, sizeof(T));
+  uint64_t* slot = emu_slots();
+  slot[emu_lane] = u;
+  emu_warp->bar.arrive_and_wait();
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= (unsigned)(slot[i] == u) << i;
+  return r;
+}
+inline void __syncwarp(unsigned mask = 0xffffffffu) {
+  emu_full(mask);
+  emu_warp->bar.arrive_and_wait();
+}
+inline int __all_sync(unsigned mask, int pred) {
+  return __ballot_sync(mask, pred) == mask;
 }
 inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
@@ -131,31 +215,57 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 
 struct EmuLaunch {
   dim3 grid, block;
-  EmuLaunch(dim3 g, dim3 b, int = 0, cudaStream_t = nullptr)
-      : grid(g), block(b) {}
+  size_t smem;
+  bool together;             // every block at once (a cooperative launch)
+  EmuLaunch(dim3 g, dim3 b, size_t s = 0, cudaStream_t = nullptr,
+            bool all = false)
+      : grid(g), block(b), smem(s), together(all) {}
   template <class F>
   auto operator()(F kernel) {
-    return [g = grid, b = block, kernel](auto... args) {
-      for (unsigned bx = 0; bx < g.x; ++bx) {
-        std::vector<EmuWarp> warps(b.x / 32);
-        EmuBlock block((std::ptrdiff_t)b.x);
+    return [g = grid, b = block, smem = smem, together = together,
+            kernel](auto... args) {
+      const unsigned step = together ? g.x : 1;
+      for (unsigned b0 = 0; b0 < g.x; b0 += step) {
+        std::vector<std::vector<EmuWarp>> warps;
+        std::vector<std::unique_ptr<EmuBlock>> blocks;
+        for (unsigned bx = 0; bx < step; ++bx) {
+          warps.emplace_back(b.x / 32);
+          blocks.push_back(std::make_unique<EmuBlock>((std::ptrdiff_t)b.x,
+                                                      smem));
+        }
+        EmuGrid grid_bar((std::ptrdiff_t)(step * b.x));
         std::vector<std::thread> threads;
-        for (unsigned t = 0; t < b.x; ++t)
-          threads.emplace_back([&, t] {
-            blockIdx = dim3(bx);
-            blockDim = b;
-            gridDim = g;
-            threadIdx = dim3(t);
-            emu_warp = &warps[t / 32];
-            emu_block = &block;
-            emu_lane = (int)(t % 32);
-            kernel(args...);
-            // a thread that returns early leaves the block's barrier
-            // phases to the rest, as on the card
-            block.bar.arrive_and_drop();
-          });
+        for (unsigned bx = 0; bx < step; ++bx)
+          for (unsigned t = 0; t < b.x; ++t)
+            threads.emplace_back([&, bx, t] {
+              blockIdx = dim3(b0 + bx);
+              blockDim = b;
+              gridDim = g;
+              threadIdx = dim3(t);
+              emu_warp = &warps[bx][t / 32];
+              emu_block = blocks[bx].get();
+              emu_grid = &grid_bar;
+              emu_lane = (int)(t % 32);
+              kernel(args...);
+              // a thread that returns early leaves the barrier phases to
+              // the rest, as on the card
+              emu_block->bar.arrive_and_drop();
+              grid_bar.bar.arrive_and_drop();
+            });
         for (auto& t : threads) t.join();
       }
     };
   }
 };
+
+template <class... K, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                               void (*kernel)(K...), A... args) {
+  bool together = false;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    together |= cfg->attrs[i].id == cudaLaunchAttributeCooperative &&
+                cfg->attrs[i].val.cooperative;
+  EmuLaunch(cfg->gridDim, cfg->blockDim, cfg->dynamicSmemBytes, cfg->stream,
+            together)(kernel)(args...);
+  return cudaSuccess;
+}

@@ -468,9 +468,10 @@ def test_wrappers_reject_other_devices_and_missing_nvcc(monkeypatch,
                                         ops, out),
                  lambda: ter.slow_round(meta, lane[:1].expand(4), lane,
                                         lane, lane, meta[:2], meta[:2]),
-                 lambda: ter.round_epilogue(flag, 4, ctx, lane.long(), lane,
-                                            lane, meta[:2], lane, lane,
-                                            lane[:1].expand(4), out)):
+                 lambda: ter.round_epilogue(flag, 4, ctx, lane, lane, lane,
+                                            meta[:2], lane, lane,
+                                            lane[:1].expand(4), out, lane),
+                 lambda: ter.round_prologue(4, ops, ctx)):
         with pytest.raises(ValueError):
             call()
     monkeypatch.setenv("PATH", str(tmp_path))

@@ -2,21 +2,25 @@
 bit against their plain versions: the segment replay
 (`kernels/csrc/segment_replay.cuh`, behind `slow_round` in
 `engine_round.cu` and `cas_apply_rounds` in `table_ops.cu`), and the
-round's prologue, fast round and epilogue (`engine_round.cu`).
+round's prologue (its radix sort against `torch.sort(stable=True)`), fast
+round and epilogue (`engine_round.cu`).
 
 There is no CUDA compiler or card here, so `tests/cuda_emu/cuda_runtime.h`
 stands in for the CUDA runtime: a block runs as one thread per CUDA thread,
-meeting at every warp shuffle and ballot and at `__syncthreads()`.  g++
+meeting at every warp shuffle, ballot and match and at `__syncthreads()`;
+blocks run in blockIdx order.  g++
 compiles the two sources as they are, apart from their `kernel<<<...>>>`
 launches, which become calls of the emulator, and the tests call the C
 entry points with CPU tensors.  This checks the kernels' logic: windows
 and segment ownership, the write-mask fixed point, the row carried across
 chunks, dead lanes, the thread per segment at other widths; the prologue's
-gathers and its predicate, reduced across blocks by atomics; the fast
-round's results and links; the epilogue's lanes put back, its block-wide
-scans and the look-back between its scan blocks, its stats and dirty-slot
-list; and that every kernel leaves everything alone when the predicate
-says its branch is not taken.  Their speed, and what nvcc makes of them,
+sort (the digit histograms, the ranks within a tile, the look-back between
+tiles, the passes it skips), gathers and predicate; the fast round's
+results and links; the epilogue's lanes put back, its block-wide scans and
+the look-back between its tiles that carries the stats, its dirty-slot
+list; that the prologue leaves the epilogue's scratch ready; and that
+every kernel leaves everything alone when the predicate says its branch
+is not taken.  Their speed, and what nvcc makes of them,
 only a card can show (`chip_smoke.py`).  Tolerance is zero."""
 
 import ctypes
@@ -92,6 +96,8 @@ def sorted_slots(rng, n, p, spectrum):
 def chain(rng, slot, expected, desired, share=0.4):
     """A share of the lanes expect the row the lane before on their cell
     wrote."""
+    if len(slot) < 2:
+        return
     follow = np.flatnonzero((rng.random(len(slot) - 1) < share)
                             & (slot[1:] == slot[:-1])) + 1
     expected[follow] = desired[follow - 1]
@@ -261,32 +267,50 @@ def call_fast(lib, fast, d, v, ctx, ops, out):
         *(x.data_ptr() for x in out.ctx), out.okw.data_ptr(), 0, None) == 0
 
 
-def call_prologue(lib, n, ops, ctx, order, s_slot):
+def call_prologue(lib, n, ops, ctx):
+    """The prologue's entry point on `ops`: its outputs, the scratch (left
+    for the epilogue) filled with garbage before the call."""
     p, k = ops.p, ops.k
     def fill(*shape):
         return torch.full(shape, -7, dtype=torch.int32)
-    out = ter.Prologue(torch.tensor(False), fill(p), fill(p), fill(p, k),
-                       fill(p, k))
-    scratch = torch.zeros(2, dtype=torch.int32)
+    out = ter.Prologue(torch.tensor(False), fill(p), fill(p), fill(p),
+                       fill(p), fill(p, k), fill(p, k),
+                       fill(lib.round_scratch(p)))
     assert lib.round_prologue(
-        n, k, p, order.data_ptr(), s_slot.data_ptr(), ops.slot.data_ptr(),
-        ops.kind.data_ptr(), ops.expected.data_ptr(), ops.desired.data_ptr(),
+        n, k, p, ops.slot.data_ptr(), ops.kind.data_ptr(),
+        ops.expected.data_ptr(), ops.desired.data_ptr(),
         ctx.slot.data_ptr(), ctx.version.data_ptr(), ctx.linked.data_ptr(),
-        *(x.data_ptr() for x in out[1:]), scratch.data_ptr(),
-        out.fast.data_ptr(), 0, None) == 0
+        *(x.data_ptr() for x in out[1:7]), out.fast.data_ptr(),
+        out.scratch.data_ptr(), 0, None) == 0
     return out
+
+
+def call_epilogue(lib, fast, n, ctx, order, s_slot, s_kind, val_s, verpt_s,
+                  succ_s, version, out, scratch):
+    p, k = val_s.shape
+    assert lib.round_epilogue(
+        fast.data_ptr(), n, k, p, order.data_ptr(), s_slot.data_ptr(),
+        s_kind.data_ptr(), val_s.data_ptr(), verpt_s.data_ptr(),
+        succ_s.data_ptr(), version.data_ptr(), *(x.data_ptr() for x in ctx),
+        out.value.data_ptr(), out.success.data_ptr(),
+        *(x.data_ptr() for x in out.ctx), out.okw.data_ptr(),
+        out.stats.data_ptr(), out.dirty.data_ptr(), scratch.data_ptr(), 0,
+        None) == 0
 
 
 @pytest.mark.parametrize("case", ["none", "read", "low", "hot", "dead",
                                   "empty"])
 @pytest.mark.parametrize("k", [1, 4, 20])
-@pytest.mark.parametrize("p", [150, 700])
+@pytest.mark.parametrize("p", [150, 700, 2200])
 def test_round_prologue_matches_plain(libs, p, k, case):
-    """The prologue's sorted lane operands and predicate on one block and
-    on three (the predicate's facts then meet through the atomics):
-    collision-free (fast), read-only with duplicates (fast), colliding
-    with writes (slow), one hot cell (slow), an active lane outside [0, n)
-    in an otherwise collision-free batch (slow), and no lane at all."""
+    """The prologue's sorted order, sorted lane operands and predicate on
+    one sort tile and on three (the tiles meet by the look-back, the two
+    blocks the emulated card holds take turns over them, and the
+    predicate's facts meet through the blocks' atomics): collision-free
+    (fast), read-only with duplicates (fast),
+    colliding with writes (slow), one hot cell (slow), an active lane
+    outside [0, n) in an otherwise collision-free batch (slow), and no
+    lane at all."""
     n = 4 * p
     spectrum = {"dead": "none", "empty": "none"}.get(case, case)
     data, ver, ops_np, ctx_np = round_case(p + k, n, k, p, spectrum)
@@ -298,10 +322,9 @@ def test_round_prologue_matches_plain(libs, p, k, case):
         ctx_np = tuple(x[:0] for x in ctx_np)
     ops = convert.op_batch(ops_np, "cpu")
     ctx = convert.link_ctx(ctx_np, "cpu")
-    s_slot, order = ter.sort_slots(n, ops)
-    got = call_prologue(libs["engine_round"], n, ops, ctx, order, s_slot)
-    want = ter.round_prologue_plain(n, ops, ctx, order, s_slot)
-    same(got, want, f"p={p} k={k} {case}")
+    got = call_prologue(libs["engine_round"], n, ops, ctx)
+    want = ter.round_prologue_plain(n, ops, ctx)
+    same(got[:7], want[:7], f"p={p} k={k} {case}")
     assert bool(got.fast) == (case in ("none", "read", "empty"))
 
 
@@ -345,21 +368,25 @@ def test_fast_round_matches_plain(libs, k, spectrum):
 @pytest.mark.parametrize("case", ["slow-low", "slow-hot", "slow-none",
                                   "fast-none", "fast-read"])
 @pytest.mark.parametrize("k,p", [(k, p) for k in (1, 4, 20)
-                                 for p in (150, 2500)] + [(4, 9000)])
+                                 for p in (150, 2500)]
+                         + [(4, 9000), (3, 3100), (4, 2000), (4, 0)])
 def test_round_epilogue_matches_plain(libs, p, k, case):
     """The epilogue after the plain fast or slow round of a batch: on the
     slow branch over contended slots (n / 8 cells; one hot cell; distinct)
     and on the fast branch (distinct slots; read-only duplicates), with
-    IDLE lanes and, on the slow branch, two dead slots.  p = 2500 gives
-    three lane blocks and two scan blocks (tiles of 2048 lanes), p = 9000
-    five, whose scans meet through the look-back.  Lane outputs, stats and
-    the dirty-slot list bit for bit; on the fast branch the fast round's
-    outputs are left as they were."""
+    IDLE lanes and, on the slow branch, two dead slots.  p = 2000 gives
+    two tiles of 1024 lanes, which the emulated card holds at once (a
+    tile a block, by blockIdx); p = 2500 three, p = 3100 four and p = 9000
+    nine, more than it holds (a tile a block, by the block's ticket); the
+    tiles meet through the look-back (the last tile writes the stats);
+    p = 0 none.
+    Lane outputs, stats and the dirty-slot list bit for bit; on the fast
+    branch the fast round's outputs are left as they were."""
     branch, spectrum = case.split("-")
-    n = 4 * p
+    n = 4 * p or 64
     data, ver, ops_np, ctx_np = round_case(p + k + len(case), n, k, p,
                                            spectrum)
-    if branch == "slow":
+    if branch == "slow" and p:
         ops_np[1][:2] = [-2, n + 1]
     ops = convert.op_batch(ops_np, "cpu")
     ctx = convert.link_ctx(ctx_np, "cpu")
@@ -367,7 +394,7 @@ def test_round_epilogue_matches_plain(libs, p, k, case):
     d, v = words(data), words(ver)
     s_slot, order = ter.sort_slots(n, ops)
     s_kind = ops.kind[order]
-    assert bool(ter.fast_flag(n, ops, s_slot)) == (branch == "fast")
+    assert bool(ter.fast_flag(n, ops, s_slot)) == (branch == "fast" or p == 0)
     out = out_sentinel(p, k)
     ter.fast_round_plain(fast, d, v, ctx, ops, out)
     _, _, val_s, verpt_s, succ_s = ter.slow_round_plain(
@@ -382,16 +409,130 @@ def test_round_epilogue_matches_plain(libs, p, k, case):
     ter.round_epilogue_plain(fast, n, ctx, order, s_slot, s_kind, val_s,
                              verpt_s, succ_s, v, want)
     lib = libs["engine_round"]
-    scratch = torch.zeros(lib.round_epilogue_scratch(p), dtype=torch.int32)
-    assert lib.round_epilogue(
-        fast.data_ptr(), n, k, p, order.data_ptr(), s_slot.data_ptr(),
-        s_kind.data_ptr(), val_s.data_ptr(), verpt_s.data_ptr(),
-        succ_s.data_ptr(), v.data_ptr(), *(x.data_ptr() for x in ctx),
-        got.value.data_ptr(), got.success.data_ptr(),
-        *(x.data_ptr() for x in got.ctx), got.okw.data_ptr(),
-        got.stats.data_ptr(), got.dirty.data_ptr(), scratch.data_ptr(), 0,
-        None) == 0
+    scratch = torch.zeros(lib.round_scratch(p), dtype=torch.int32)
+    call_epilogue(lib, fast, n, ctx, order, s_slot, s_kind, val_s, verpt_s,
+                  succ_s, v, got, scratch)
     same(out_tensors(got), out_tensors(want), f"p={p} k={k} {case}")
     if branch == "fast":
         same(out_tensors(got)[:7], out_tensors(out)[:7], "fast lanes")
-    assert int(want.stats[5]) > 0 or spectrum == "read"
+    assert int(want.stats[5]) > 0 or spectrum == "read" or p == 0
+
+
+# ---------------------------------------------------------------------------
+# The prologue's sort, and the round's four kernels together.
+# ---------------------------------------------------------------------------
+
+SORT_SPECTRA = ["uniform", "zipf", "all_same", "all_idle", "out_of_range",
+                "int32"]
+
+
+def sort_batch(rng, n, p, spectrum):
+    """(kind, slot) of p lanes: uniform slots in [0, n), Zipf 0.99 slots,
+    one slot, every lane IDLE, active lanes on negative slots and slots
+    >= n among uniform ones, or any int32; a quarter of the lanes IDLE
+    (but all_idle: all)."""
+    kind = rng.integers(0, 7, p).astype(np.int32)
+    kind[rng.random(p) < 0.25] = tengine.IDLE
+    if spectrum == "zipf":
+        slot = (rng.zipf(1.01, p) - 1) % n
+    elif spectrum == "all_same":
+        slot = np.full(p, rng.integers(0, n))
+    elif spectrum == "int32":
+        slot = rng.integers(-2 ** 31, 2 ** 31, p)
+    else:
+        slot = rng.integers(0, n, p)
+    if spectrum == "all_idle":
+        kind[:] = tengine.IDLE
+    if spectrum == "out_of_range":
+        bad = rng.random(p) < 0.2
+        slot[bad] = rng.choice(np.array([-1, -2 ** 31, n, n + 1,
+                                         2 ** 31 - 1]), int(bad.sum()))
+        kind[bad] = rng.integers(0, 7, int(bad.sum()))
+    return kind, slot.astype(np.int32)
+
+
+def sorted_by_kernel(lib, n, kind, slot, k=1):
+    """The prologue's (order, s_slot, varying-digit mask) for the batch."""
+    p = len(kind)
+    rng = np.random.default_rng(p)
+    ops = convert.op_batch((kind, slot, rng.integers(0, 2 ** 32, (p, k),
+                                                     dtype=np.uint32),
+                            np.zeros((p, k), np.uint32)), "cpu")
+    ctx = convert.link_ctx((slot, np.zeros(p, np.uint32),
+                            np.zeros((p, k), np.uint32), np.ones(p, bool)),
+                           "cpu")
+    got = call_prologue(lib, n, ops, ctx)
+    want = ter.sort_slots(n, ops)
+    return got, want, int(got.scratch[1]) if p else 0
+
+
+@pytest.mark.parametrize("spectrum", SORT_SPECTRA)
+@pytest.mark.parametrize("p", [1, 700, 2500])
+def test_sort_matches_torch_sort(libs, p, spectrum):
+    """The prologue's radix sort against `torch.sort(stable=True)` of the
+    same keys (`sort_slots`), order and sorted slots bit for bit: one lane,
+    under one tile of 1024, and 2.4 tiles (not a multiple of the tile; the
+    two blocks the emulated card holds take turns over them); slots
+    uniform, Zipf 0.99, all the same, all lanes IDLE,
+    active lanes outside [0, n) (negative, n and beyond, the int32
+    extremes), and any int32 (every digit varies)."""
+    n = 5000
+    rng = np.random.default_rng(p * 7 + SORT_SPECTRA.index(spectrum))
+    got, want, _ = sorted_by_kernel(libs["engine_round"], n,
+                                    *sort_batch(rng, n, p, spectrum))
+    same((got.s_slot, got.order), want, f"p={p} {spectrum}")
+
+
+@pytest.mark.parametrize("spectrum,n,passes", [
+    ("uniform", 2 ** 22, 3), ("zipf", 2 ** 22, 3), ("all_same", 2 ** 22, 0),
+    ("all_idle", 2 ** 22, 0), ("uniform", 200, 1), ("int32", 2 ** 22, 4)])
+def test_sort_skips_the_digits_no_key_varies_in(libs, spectrum, n, passes):
+    """The passes the sort runs, from the mask of varying digits it leaves
+    in the scratch: at n = 2^22 the keys take 23 bits and the top digit is
+    the same in every key, so three passes sort; one slot or all lanes
+    IDLE, none (the lanes stay in order); slots below 200, one; any int32,
+    all four.  No lane is IDLE but in all_idle.  The order equals
+    `torch.sort`'s each time."""
+    rng = np.random.default_rng(n + passes)
+    kind, slot = sort_batch(rng, n, 1200, spectrum)
+    if spectrum != "all_idle":
+        kind[kind == tengine.IDLE] = tengine.LOAD
+    got, want, mask = sorted_by_kernel(libs["engine_round"], n, kind, slot)
+    same((got.s_slot, got.order), want, f"n={n} {spectrum}")
+    assert bin(mask).count("1") == passes, mask
+
+
+@pytest.mark.parametrize("spectrum", ["none", "read", "low", "hot"])
+@pytest.mark.parametrize("k,p", [(4, 150), (1, 1100), (3, 2200)])
+def test_kernel_round_matches_plain_round(libs, p, k, spectrum):
+    """The round's four kernels one after another, as `make_round` runs
+    them, the epilogue on the scratch the prologue left (filled with
+    garbage before it): table, lane outputs, links, stats and dirty list
+    equal the plain round's (`make_round(mode="xla")`) bit for bit, on
+    both branches."""
+    lib = libs["engine_round"]
+    n = 4 * p
+    data, ver, ops_np, ctx_np = round_case(3 * p + k, n, k, p, spectrum)
+    ops = convert.op_batch(ops_np, "cpu")
+    ctx = convert.link_ctx(ctx_np, "cpu")
+    d, v = words(data), words(ver)
+    want = ter.make_round(n, k, mode="xla")(d.clone(), v.clone(), ctx, ops)
+    got_d, got_v = d.clone(), v.clone()
+    pro = call_prologue(lib, n, ops, ctx)
+    out = out_sentinel(p, k)
+    call_fast(lib, pro.fast, got_d, got_v, ctx, ops, out)
+    val = torch.empty((p, k), dtype=torch.int32)
+    verpt = torch.empty((p,), dtype=torch.int32)
+    succ = torch.empty((p,), dtype=torch.int32)
+    assert lib.slow_round(
+        pro.fast.data_ptr(), got_d.data_ptr(), got_v.data_ptr(), n, k,
+        *(x.data_ptr() for x in pro[2:7]), p, val.data_ptr(),
+        verpt.data_ptr(), succ.data_ptr(), 0, None) == 0
+    call_epilogue(lib, pro.fast, n, ctx, pro.order, pro.s_slot, pro.s_kind,
+                  val, verpt, succ, got_v, out, pro.scratch)
+    got = (got_d, got_v, *out.ctx, out.value, out.success,
+           *(out.stats[i] for i in range(6)), out.dirty)
+    same(got, [x for part in want for x in
+               (part if isinstance(part, tuple) else (part,))],
+         f"p={p} k={k} {spectrum}")
+    assert bool(pro.fast) == (spectrum in ("none", "read"))
