@@ -106,6 +106,30 @@ package, and runs these phases:
              bound (operations over the peak of the kernel's type, three
              passes on the 3xTF32 kernel), the plain version's and
              `scaled_dot_product_attention`'s.
+  7. obs     with BIGATOMIC_OBS=counters set inside the phase, per layout:
+             `apply` of batches (a), (c), (d) at n=2**22, k=4, p=16384,
+             eager and as a captured CUDA graph replayed 5 times;
+             `obs.snapshot()` must equal a numpy recount of every batch
+             run (`NpTelemetry`, from the lanes' delivered success); then
+             eager and replayed ms and device operations per `apply`,
+             counters off (gated by `DEVICE_OPS_LIMIT` as before) and on.
+  8. sync    `llsc.ll` / `sc` / `validate` of 16384 lanes at n=2**22
+             against `apply_sync_reference`; `copy_batch` of 1024 random
+             and chained lanes against `copy_batch_reference` with its
+             wave count; `BigQueue(4096, k=2, p_max=64)` on seqlock and
+             cached_me under no and exponential backoff: `enqueue_batch`,
+             `dequeue_batch`, two `run_batch` of 32 ENQ + 32 DEQ lanes,
+             against a sequential FIFO replay of the commit log; ms per
+             call and rounds.
+  9. cachehash
+             `HashSpec(nb=2**22, vw=2, p_max=16384)` inline on the four
+             layouts and chaining on cached_me: 2**21 INSERTs in batches
+             of 16384 (load 0.5), then FIND-only uniform, 90/5/5
+             FIND/INSERT/DELETE uniform and Zipf 0.99 batches, each against
+             a Python-dict oracle and the final contents against it as
+             sorted arrays; ms, ops/s, rounds, chain steps, inline hits,
+             device operations per call and host syncs per `apply_hash`
+             (must be 1).  Its rounds launch no kernel.
 
 Exits non-zero on any failure, without the result line.  On success the
 last lines are the card (nvidia-smi), a JSON line with one entry per
@@ -116,10 +140,12 @@ kernel, and `{"ok": true, "device": {...}}`.  Details go to
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
@@ -704,6 +730,7 @@ class Smoke:
         except Exception as err:           # a failed capture fails the phase
             raise SystemExit(f"{spec.strategy}: capturing apply in a CUDA "
                              f"graph failed: {err!r}") from err
+        graph.operands = (mine, out)       # the replays read and write them
         for part, (a, b) in enumerate(zip(out, eager)):
             for i, (x, y) in enumerate(zip(a, b)):
                 if not torch.equal(x, y):
@@ -1972,6 +1999,567 @@ class AttentionPhase:
         return row
 
 
+# ---------------------------------------------------------------------------
+# Phases 7-9: the first clients of `atomics.apply` — telemetry counters,
+# LL/SC sync (llsc, atomic copy, the MPMC queue) and CacheHash.
+# ---------------------------------------------------------------------------
+
+OBS_BATCHES = ("a_distinct_all_kinds", "c_uniform_u20", "d_zipf099_u20")
+OBS_REPLAYS = 5
+N_KINDS, N_HIST = 10, 16
+KIND_NAMES = ("load", "store", "cas", "idle", "ll", "sc", "validate",
+              "find", "insert", "delete")
+QUEUE_CAPACITY, QUEUE_K, QUEUE_LANES = 4096, 2, 64
+COPY_Q = 1024
+HASH_NB, HASH_VW, HASH_Q = 2 ** 22, 2, 16384
+HASH_VARIANTS = (("seqlock", True), ("indirect", True), ("cached_wf", True),
+                 ("cached_me", True), ("cached_me", False))
+FIND, INSERT, DELETE, IDLE = 7, 8, 9, 3
+# A batch of more rounds is timed by its checked call alone and not
+# profiled: each round is several hundred device operations, and the Zipf
+# batch runs hundreds of rounds (PERF.md §5).
+HASH_TIMED_ROUNDS = 16
+
+
+def np_suffix_any(flags, seg_start):
+    """Per sorted lane: is any lane at or after it within its segment
+    flagged?"""
+    p = flags.shape[0]
+    idx = np.arange(p)
+    seg_end = np.ones(p, bool)
+    seg_end[:-1] = seg_start[1:]
+    end = np.minimum.accumulate(np.where(seg_end, idx, p)[::-1])[::-1]
+    nxt = np.minimum.accumulate(np.where(flags, idx, p)[::-1])[::-1]
+    return nxt <= end
+
+
+class NpTelemetry:
+    """A numpy recount of the engine counters from each batch and the
+    per-lane success it delivered: the counting rules of
+    `repro_torch.obs.telemetry` written out anew (kind counts, the
+    fast-path predicate, `ApplyStats`' rounds / raced loads / dirty cells
+    from the (slot, lane)-sorted order, failed CAS / SC lanes, the log2
+    contention histogram)."""
+
+    def __init__(self, n):
+        self.n = n
+        self.c = {}
+
+    def add(self, name, v):
+        self.c[name] = self.c.get(name, 0) + int(v)
+
+    def batch(self, ops, success, *, fused=True):
+        n = self.n
+        kind, slot = ops[0], ops[1]
+        p = kind.shape[0]
+        self.add("engine.batches", 1)
+        for j, name in enumerate(KIND_NAMES):
+            self.add(f"engine.ops.{name}", (kind == j).sum())
+        active = kind != 3
+        in_range = (slot >= 0) & (slot < n)
+        writes = active & np.isin(kind, (1, 2, 5))
+        cslot = np.where(active & in_range, slot, n).astype(np.int64)
+        counts = np.bincount(cslot, minlength=n + 1)[:n]
+        eligible = not (active & ~in_range).any() and (
+            not writes.any() or counts.max(initial=0) <= 1)
+        taken = eligible and fused
+        self.add("engine.fast.eligible", eligible)
+        self.add("engine.fast.taken", taken)
+        aslot = np.where(active, slot, n)
+        order = np.argsort(aslot, kind="stable")
+        s_slot, s_kind, succ = aslot[order], kind[order], success[order]
+        seg_start = np.ones(p, bool)
+        seg_start[1:] = s_slot[1:] != s_slot[:-1]
+        start = np.maximum.accumulate(np.where(seg_start, np.arange(p), 0))
+        is_valcas = (s_kind == 1) | (s_kind == 2)
+        is_sc = (s_kind == 5) & (s_slot < n)
+        is_upd = is_valcas | is_sc
+        excl = np.cumsum(is_upd) - is_upd
+        rank = excl - excl[start]
+        rounds = (int(rank[is_upd].max()) + 1 if is_valcas.any()
+                  else int(is_sc.any()))
+        self.add("engine.rounds.total", rounds)
+        self.add("engine.rounds.slow", 0 if taken else rounds)
+        self.add("engine.fail.cas", (active & (kind == 2) & ~success).sum())
+        self.add("engine.fail.sc", (active & (kind == 5) & ~success).sum())
+        is_read = (s_kind == 0) | (s_kind == 4)
+        wrote = is_valcas | (is_sc & succ)
+        self.add("engine.loads.raced",
+                 (is_read & np_suffix_any(wrote, seg_start)).sum())
+        self.add("engine.cells.dirty",
+                 (seg_start & np_suffix_any(succ & is_upd, seg_start)
+                  & (s_slot < n)).sum())
+        c = counts[counts > 0]
+        bucket = (c[:, None] >= 2 ** np.arange(1, N_HIST)[None, :]).sum(1)
+        hist = np.bincount(bucket, minlength=N_HIST)
+        for b in range(N_HIST):
+            self.add(f"engine.contention.log2_{b:02d}", hist[b])
+
+
+class ObsPhase:
+    """Telemetry counters on the main path: `apply` with BIGATOMIC_OBS=
+    counters on every layout and batch (a), (c), (d), eager and as a
+    captured graph replayed OBS_REPLAYS times, counted against the numpy
+    recount; device operations and times per `apply`, counters off and
+    on."""
+
+    def __init__(self, smoke, obs, tk):
+        self.smoke, self.obs, self.tk = smoke, obs, tk
+        self.torch, self.atomics = smoke.torch, smoke.atomics
+
+    def layout(self, strategy, seed):
+        smoke, torch, atomics = self.smoke, self.torch, self.atomics
+        rng = np.random.default_rng(seed)
+        spec = atomics.AtomicSpec(N, K, strategy, p_max=P)
+        initial = rng.integers(0, 2 ** 32, (N, K), dtype=np.uint32)
+        state = atomics.init(spec, initial, device=smoke.dev)
+        ctx = atomics.init_ctx(P, K, device=smoke.dev)
+        recount = NpTelemetry(N)
+        rows = {}
+        os.environ["BIGATOMIC_OBS"] = "counters"
+        try:
+            self.obs.reset()
+            torch.cuda.synchronize()
+            self.tk.reset_launch_counts()
+            for name in OBS_BATCHES:
+                current = smoke.np_words(atomics.logical(spec, state))
+                ops_np = smoke.main_batch(name, rng, current, None)
+                ops = smoke.convert.op_batch(ops_np, smoke.dev)
+                graph_state = clone(state)
+                state, _, res, _, _ = atomics.apply(spec, state, ops, ctx,
+                                                    donate=True)
+                recount.batch(ops_np, res.success.cpu().numpy())
+                graph = torch.cuda.CUDAGraph()
+                try:
+                    with torch.cuda.graph(graph):
+                        out = atomics.apply(spec, graph_state, ops, ctx,
+                                            donate=True)
+                except Exception as err:
+                    raise SystemExit(f"obs/{strategy}/{name}: capturing a "
+                                     f"counted apply failed: {err!r}")
+                graph.operands = (graph_state, out)   # kept for the replays
+                for _ in range(OBS_REPLAYS):      # each replay counts again
+                    graph.replay()
+                    torch.cuda.synchronize()
+                    recount.batch(ops_np, out[2].success.cpu().numpy())
+                rows[name] = {"graph": graph, "ops": ops}
+            snap = self.obs.snapshot()
+            want = {key: recount.c.get(key, 0) for key in snap}
+            if snap != want:
+                bad = {k: (snap[k], want[k]) for k in snap
+                       if snap[k] != want[k]}
+                raise SystemExit(f"obs/{strategy}: counters differ from the "
+                                 f"numpy recount (counter, recount): {bad}")
+            launches = {k: v for k, v in self.tk.launch_counts().items()
+                        if v}
+            batches = snap["engine.batches"]
+            if batches != len(OBS_BATCHES) * (1 + OBS_REPLAYS):
+                raise SystemExit(f"obs/{strategy}: {batches} batches counted")
+            for kname in ROUND_KERNELS:
+                if not launches.get(kname):
+                    raise SystemExit(f"obs/{strategy}: {kname} never "
+                                     "launched")
+            out = {"snapshot": snap, "launches": launches, "timing": {}}
+            for name, row in rows.items():
+                out["timing"][name] = self.timing(spec, state, ctx, row)
+            return out
+        finally:
+            os.environ.pop("BIGATOMIC_OBS", None)
+            self.obs.reset()
+
+    def timing(self, spec, state, ctx, row):
+        """Per batch: ms per eager `apply` and per replay, device
+        operations per eager `apply`, counters off and on (CUDA events,
+        torch.profiler), all on one table in turns."""
+        smoke, torch, atomics = self.smoke, self.torch, self.atomics
+        ops, graph = row["ops"], row["graph"]
+        holder = [state]
+
+        def run():
+            holder[0], *_ = atomics.apply(spec, holder[0], ops, ctx,
+                                          donate=True)
+            torch.cuda.synchronize()
+
+        out = {}
+        for mode in ("off", "counters", "off", "counters"):
+            os.environ["BIGATOMIC_OBS"] = mode
+            out.setdefault(mode, {"apply_ms": [], "replay_ms": []})
+            out[mode]["apply_ms"].append(smoke.time_ms(run, reps=10))
+            if mode == "counters":
+                out[mode]["replay_ms"].append(smoke.time_ms(graph.replay,
+                                                            reps=10))
+        for mode in ("off", "counters"):
+            os.environ["BIGATOMIC_OBS"] = mode
+            prof = smoke.device_busy(run)
+            out[mode]["device_ops_per_apply"] = prof.get(
+                "device_ops_per_apply")
+            out[mode]["device_us_per_apply"] = prof.get("device_us_per_apply")
+        os.environ["BIGATOMIC_OBS"] = "counters"
+        if out["off"]["device_ops_per_apply"] is None or \
+                out["counters"]["device_ops_per_apply"] is None:
+            raise SystemExit(f"obs/{spec.strategy}: device operations not "
+                             "measured")
+        if out["off"]["device_ops_per_apply"] > \
+                DEVICE_OPS_LIMIT[spec.strategy]:
+            raise SystemExit(f"obs/{spec.strategy}: counters off, "
+                             f"{out['off']['device_ops_per_apply']} device "
+                             f"operations per apply, more than "
+                             f"{DEVICE_OPS_LIMIT[spec.strategy]}")
+        return out
+
+
+class SyncPhase:
+    """LL/SC, atomic copy and the MPMC queue (`repro_torch.sync`) at the
+    main path's table size, each against its numpy oracle."""
+
+    def __init__(self, smoke, sync_mods):
+        self.smoke = smoke
+        self.llsc, self.ac, self.queue = sync_mods
+        self.torch, self.atomics = smoke.torch, smoke.atomics
+
+    def llsc_layout(self, strategy, seed):
+        """`ll` on P random slots, `sc` on them (desired values, every
+        third lane re-aimed at another cell, so its link cannot validate)
+        and `validate`, each against `apply_sync_reference` on the same
+        table; returns ms per call."""
+        smoke, torch, atomics, llsc = (self.smoke, self.torch, self.atomics,
+                                       self.llsc)
+        rng = np.random.default_rng(seed)
+        spec = atomics.AtomicSpec(N, K, strategy, p_max=P)
+        data = rng.integers(0, 2 ** 32, (N, K), dtype=np.uint32)
+        state = atomics.init(spec, data, device=smoke.dev)
+        ver = np.zeros(N, np.uint32)
+        ctx = llsc.init_ctx(P, K, device=smoke.dev)
+        rctx = (np.full(P, -1, np.int32), np.zeros(P, np.uint32),
+                np.zeros((P, K), np.uint32), np.zeros(P, bool))
+        slots = rng.integers(0, N, P).astype(np.int32)
+        other = slots.copy()
+        other[::3] = rng.integers(0, N, len(other[::3]))
+        desired = rng.integers(0, 2 ** 32, (P, K), dtype=np.uint32)
+        zeros = np.zeros((P, K), np.uint32)
+        ms = {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t) * 1e3
+            return out
+
+        ctx, vals = timed("ll", lambda: llsc.ll(state, ctx, slots,
+                                                strategy=strategy, k=K))
+        data, ver, rctx, ref = llsc.apply_sync_reference(
+            data, ver, rctx, (np.full(P, llsc.LL, np.int32), slots, zeros))
+        self.same(f"llsc/{strategy} ll values", vals, ref.value)
+        state, ctx, ok = timed("sc", lambda: llsc.sc(
+            state, ctx, other, desired, strategy=strategy, k=K))
+        data, ver, rctx, ref = llsc.apply_sync_reference(
+            data, ver, rctx, (np.full(P, llsc.SC, np.int32), other, desired))
+        self.same(f"llsc/{strategy} sc success", ok, ref.success)
+        ok = timed("validate", lambda: llsc.validate(
+            state, ctx, slots, strategy=strategy, k=K))
+        _, _, _, ref2 = llsc.apply_sync_reference(
+            data, ver, rctx, (np.full(P, llsc.VL, np.int32), slots, zeros))
+        self.same(f"llsc/{strategy} validate", ok, ref2.success)
+        for f, a, b in zip(("slot", "version", "value", "linked"), ctx,
+                           rctx):
+            self.same(f"llsc/{strategy} ctx.{f}", a, b)
+        self.same(f"llsc/{strategy} table",
+                  atomics.logical(spec, state), data)
+        self.same(f"llsc/{strategy} versions", state.version, ver)
+        wins = int(ref.success.sum())
+        if not 0.3 * P < wins < 0.9 * P:
+            raise SystemExit(f"llsc/{strategy}: {wins} SC lanes won")
+        return {"ms": ms, "sc_wins": wins}
+
+    def copy_layout(self, strategy, seed):
+        """`copy_batch` of COPY_Q random (src, dst) pairs over N cells
+        against `copy_batch_reference`, then a chained batch (each lane's
+        source the last lane's destination) to force several waves."""
+        smoke, torch, atomics, ac = (self.smoke, self.torch, self.atomics,
+                                     self.ac)
+        rng = np.random.default_rng(seed)
+        spec = atomics.AtomicSpec(N, K, strategy, p_max=2 * COPY_Q)
+        data = rng.integers(0, 2 ** 32, (N, K), dtype=np.uint32)
+        state = atomics.init(spec, data, device=smoke.dev)
+        ver = np.zeros(N, np.uint32)
+        out = {}
+        for name in ("random", "chained"):
+            src = rng.integers(0, N, COPY_Q)
+            dst = rng.integers(0, N, COPY_Q)
+            if name == "chained":
+                src[1::2] = dst[0:-1:2]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, waves = ac.copy_batch(spec, state, src, dst)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+            data, ver = ac.copy_batch_reference(data, ver, src, dst)
+            self.same(f"copy/{strategy}/{name} table",
+                      atomics.logical(spec, state), data)
+            self.same(f"copy/{strategy}/{name} versions", state.version,
+                      ver)
+            t = time.perf_counter()
+            want = len(ac._waves(src, dst))
+            waves_ms = (time.perf_counter() - t) * 1e3
+            if waves != want:
+                raise SystemExit(f"copy/{strategy}: {waves} waves, "
+                                 f"_waves gives {want}")
+            out[name] = {"waves": waves, "ms": wall,
+                         "wave_schedule_ms": waves_ms}
+        if out["chained"]["waves"] < 2:
+            raise SystemExit(f"copy/{strategy}: the chained batch ran in "
+                             "one wave")
+        return out
+
+    def queue_cell(self, strategy, policy, seed):
+        """`BigQueue(QUEUE_CAPACITY, k=QUEUE_K, p_max=QUEUE_LANES)`: an
+        `enqueue_batch` of QUEUE_LANES lanes, a `dequeue_batch`, then
+        `run_batch` of QUEUE_LANES lanes, half ENQ and half DEQ, twice;
+        every dequeued payload equal to a sequential FIFO replay of the
+        commit log, tickets dense."""
+        from collections import deque
+        queue = self.queue
+        rng = np.random.default_rng(seed)
+        pol = {"none": queue.BackoffPolicy("none"),
+               "exp": queue.BackoffPolicy("exp", 1, 8)}[policy]
+        q = queue.BigQueue(QUEUE_CAPACITY, k=QUEUE_K, strategy=strategy,
+                           policy=pol, p_max=QUEUE_LANES, device=self.smoke.dev)
+        fifo = deque()
+        calls = []
+        serial = 0
+        plans = [("enqueue_batch", np.full(QUEUE_LANES, queue.ENQ)),
+                 ("dequeue_batch", np.full(QUEUE_LANES // 2, queue.DEQ))]
+        plans += [("run_batch", rng.permutation(np.repeat(
+            [queue.ENQ, queue.DEQ], QUEUE_LANES // 2))) for _ in range(2)]
+        for name, kinds in plans:
+            vals = (np.arange(len(kinds), dtype=np.uint32)
+                    + serial)[:, None]
+            serial += len(kinds)
+            start = len(q.commit_log)
+            t = time.perf_counter()
+            if name == "enqueue_batch":
+                succ = q.enqueue_batch(vals)
+                out, rounds = None, None
+            elif name == "dequeue_batch":
+                out, succ = q.dequeue_batch(len(kinds))
+                rounds = None
+            else:
+                out, succ, rounds = q.run_batch(kinds, vals)
+            self.torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            for kind, lane, _ in q.commit_log[start:]:
+                if kind == "enq":
+                    fifo.append(int(vals[lane, 0]))
+                elif int(out[lane, 0]) != fifo.popleft():
+                    raise SystemExit(f"queue/{strategy}/{policy}: lane "
+                                     f"{lane} dequeued out of FIFO order")
+            if int(np.asarray(succ).sum()) != len(q.commit_log) - start:
+                raise SystemExit(f"queue/{strategy}/{policy}: successes "
+                                 "differ from the commit log")
+            if not np.asarray(succ).all():
+                raise SystemExit(f"queue/{strategy}/{policy}: {name} had "
+                                 "failed lanes")
+            calls.append({"call": name, "lanes": len(kinds), "ms": ms,
+                          "rounds": rounds,
+                          "commits": len(q.commit_log) - start})
+        for kind in ("enq", "deq"):
+            tickets = [t for k, _, t in q.commit_log if k == kind]
+            if tickets != list(range(len(tickets))):
+                raise SystemExit(f"queue/{strategy}/{policy}: {kind} "
+                                 "tickets not dense")
+        if len(q) != len(fifo):
+            raise SystemExit(f"queue/{strategy}/{policy}: len {len(q)}, "
+                             f"replay {len(fifo)}")
+        return calls
+
+    def same(self, what, got, want):
+        got = got.cpu().numpy() if hasattr(got, "cpu") else np.asarray(got)
+        want = np.asarray(want)
+        if got.dtype in (np.int32, np.uint32):
+            got = got.view(np.uint32)
+        if want.dtype in (np.int32, np.uint32):
+            want = want.view(np.uint32)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise SystemExit(f"{what} differs from the numpy oracle")
+
+
+class HashDict:
+    """The Python-dict oracle of `cachehash.apply_reference`, fed plain
+    lists: ops in lane order, add-if-absent INSERT."""
+
+    def __init__(self):
+        self.model = {}
+
+    def step(self, kind, keys, vals):
+        model = self.model
+        found = np.zeros(len(kind), bool)
+        out = np.zeros((len(kind), vals.shape[1]), np.uint32)
+        rows = vals.tolist()
+        for i, (kd, key) in enumerate(zip(kind.tolist(), keys.tolist())):
+            if kd == FIND:
+                v = model.get(key)
+                if v is not None:
+                    found[i] = True
+                    out[i] = v
+            elif kd == INSERT:
+                if key not in model:
+                    model[key] = rows[i]
+                    found[i] = True
+            elif kd == DELETE:
+                if model.pop(key, None) is not None:
+                    found[i] = True
+        return found, out
+
+
+class HashPhase:
+    """CacheHash at nb = 2**22, vw = 2, p = 16384 (PERF.md's cachehash_find
+    scale): inline on the four layouts and the chaining baseline on
+    cached_me; a prefill to load 0.5, then a FIND-only batch, the 90/5/5
+    FIND/INSERT/DELETE mix (u = 0.1, as bench_cachehash) on uniform and on
+    Zipf 0.99 keys, each against the dict oracle, the final contents
+    against it as sorted arrays."""
+
+    def __init__(self, smoke, ch):
+        self.smoke, self.ch = smoke, ch
+        self.torch = smoke.torch
+
+    def batches(self, seed):
+        """The prefill (2**21 distinct keys over [0, 2**32) in batches of
+        HASH_Q) and the three measured batches: keys half drawn from the
+        inserted ones (hits), half uniform (misses); Zipf 0.99 over the
+        inserted keys by rank."""
+        rng = np.random.default_rng(seed)
+        keys = rng.choice(2 ** 32, HASH_NB // 2, replace=False).astype(
+            np.uint32)
+        prefill = [(np.full(HASH_Q, INSERT, np.int32), keys[i:i + HASH_Q],
+                    rng.integers(0, 2 ** 32, (HASH_Q, HASH_VW),
+                                 dtype=np.uint32))
+                   for i in range(0, len(keys), HASH_Q)]
+
+        def mixed(kinds, zipf=False):
+            if zipf:
+                k = keys[(rng.zipf(1.01, HASH_Q) - 1) % len(keys)]
+            else:
+                k = np.where(rng.random(HASH_Q) < 0.5,
+                             keys[rng.integers(0, len(keys), HASH_Q)],
+                             rng.integers(0, 2 ** 32, HASH_Q,
+                                          dtype=np.uint32))
+            return kinds, k.astype(np.uint32), rng.integers(
+                0, 2 ** 32, (HASH_Q, HASH_VW), dtype=np.uint32)
+
+        def mix90():
+            upd = rng.random(HASH_Q) < 0.1
+            ins = rng.random(HASH_Q) < 0.5
+            return np.where(upd, np.where(ins, INSERT, DELETE),
+                            FIND).astype(np.int32)
+
+        runs = {"find_only_uniform": mixed(np.full(HASH_Q, FIND, np.int32)),
+                "mix_90_5_5_uniform": mixed(mix90()),
+                "mix_90_5_5_zipf099": mixed(mix90(), zipf=True)}
+        return prefill, runs
+
+    def variant(self, strategy, inline, prefill, runs, oracle_steps):
+        smoke, torch, ch = self.smoke, self.torch, self.ch
+        spec = ch.HashSpec(HASH_NB, HASH_VW, strategy, p_max=HASH_Q,
+                           inline=inline)
+        state = ch.init_hash(spec, device=smoke.dev)
+        dev = smoke.dev
+        t0 = time.perf_counter()
+        for (kind, keys, vals), (found, _) in zip(prefill, oracle_steps):
+            ops = ch.make_hash_ops(kind, keys, vals, vw=HASH_VW, device=dev)
+            state, res, _ = ch.apply_hash(spec, state, ops, donate=True)
+            if not np.array_equal(res.found.cpu().numpy(), found):
+                raise SystemExit(f"cachehash/{strategy}/{inline}: a prefill "
+                                 "batch differs from the dict oracle")
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out = {"prefill_s": prefill_s, "runs": {}}
+        for i, (name, (kind, keys, vals)) in enumerate(runs.items()):
+            found, value = oracle_steps[len(prefill) + i]
+            ops = ch.make_hash_ops(kind, keys, vals, vw=HASH_VW, device=dev)
+            before = clone_hash(state)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    state, res, stats = ch.apply_hash(spec, state, ops,
+                                                      donate=True)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                syncs = [w for w in caught if "called a synchronizing"
+                         in str(w.message)]
+            torch.cuda.synchronize()
+            checked_ms = (time.perf_counter() - t) * 1e3
+            got_found = res.found.cpu().numpy()
+            got_value = res.value.cpu().numpy().view(np.uint32)
+            if not (np.array_equal(got_found, found)
+                    and np.array_equal(got_value, value)):
+                raise SystemExit(f"cachehash/{strategy}/{inline}/{name}: "
+                                 "results differ from the dict oracle")
+            if len(syncs) != 1:
+                raise SystemExit(f"cachehash/{strategy}/{inline}/{name}: "
+                                 f"{len(syncs)} host syncs in apply_hash, "
+                                 f"not 1: {[str(w.message) for w in syncs]}")
+            row = {"rounds": int(stats.rounds),
+                   "chain_steps": int(stats.chain_steps),
+                   "inline_hits": int(stats.inline_hits),
+                   "allocs": int(stats.allocs) & 0xFFFFFFFF,
+                   "frees": int(stats.frees) & 0xFFFFFFFF,
+                   "host_syncs": len(syncs)}
+            if row["rounds"] <= HASH_TIMED_ROUNDS:
+                row.update(self.timing(spec, before, ops))
+            else:                   # hundreds of rounds: the checked call
+                row.update(ms=checked_ms, device_ops_per_call=None,
+                           device_us_per_call=None)
+            row["ops_per_s"] = HASH_Q / (row["ms"] * 1e-3)
+            out["runs"][name] = row
+            del before
+        return state, out
+
+    def timing(self, spec, state, ops):
+        """Median ms per eager `apply_hash` (each call on a fresh copy of
+        the table it was made for), device operations and device time per
+        call (torch.profiler)."""
+        smoke, ch = self.smoke, self.ch
+
+        def call(st):
+            ch.apply_hash(spec, st, ops, donate=True)
+            smoke.torch.cuda.synchronize()
+
+        def fresh():
+            return (clone_hash(state),)
+
+        ms = smoke.time_ms(call, reps=5, warmup=1, setup=fresh)
+        prof = smoke.device_busy(call, reps=3, setup=fresh)
+        return {"ms": ms, "device_ops_per_call": prof.get(
+                    "device_ops_per_apply"),
+                "device_us_per_call": prof.get("device_us_per_apply"),
+                "device_busy_share": prof.get("device_busy_share")}
+
+    def contents_equal(self, state, inline, model, what):
+        keys, values = self.ch.contents(state, inline=inline, vw=HASH_VW)
+        order = np.argsort(keys, kind="stable")
+        want_k = np.fromiter(model.keys(), np.uint32, len(model))
+        want_v = np.asarray(list(model.values()), np.uint32).reshape(
+            -1, HASH_VW)
+        w_order = np.argsort(want_k, kind="stable")
+        if not (np.array_equal(keys[order], want_k[w_order])
+                and np.array_equal(values[order], want_v[w_order])):
+            raise SystemExit(f"cachehash/{what}: the table's contents "
+                             f"differ from the dict oracle ({len(keys)} "
+                             f"entries, oracle {len(model)})")
+        return len(keys)
+
+
+def clone_hash(state):
+    return type(state)(clone(state.table), *(x.clone() for x in state[1:]))
+
+
+
 def main() -> int:
     try:
         import torch
@@ -2223,6 +2811,104 @@ def main() -> int:
             f"sdpa {row['library_ms']}")
         torch.cuda.empty_cache()
 
+    # -- 7. obs --------------------------------------------------------------------
+    from repro_torch import obs
+    from repro_torch.core import cachehash
+    from repro_torch.sync import atomic_copy, llsc, queue
+    t0 = time.perf_counter()
+    op_obs = ObsPhase(smoke, obs, tk)
+    obs_out = {}
+    for si, strategy in enumerate(STRATEGIES):
+        obs_out[strategy] = row = op_obs.layout(strategy, seed=8000 + si)
+        log(f"[obs] {strategy}: snapshot() equals the numpy recount over "
+            f"{len(OBS_BATCHES)} batches x (1 eager + {OBS_REPLAYS} "
+            f"replays of a captured apply); launches {row['launches']}")
+        for name, t in row["timing"].items():
+            log(f"[obs-timing] {strategy:9s} {name:20s} eager apply off "
+                f"{t['off']['apply_ms']} / counters "
+                f"{t['counters']['apply_ms']} ms; replayed counters "
+                f"{t['counters']['replay_ms']} ms; device operations per "
+                f"apply off {t['off']['device_ops_per_apply']} (limit "
+                f"{DEVICE_OPS_LIMIT[strategy]}) / counters "
+                f"{t['counters']['device_ops_per_apply']}; device us off "
+                f"{t['off']['device_us_per_apply']} / counters "
+                f"{t['counters']['device_us_per_apply']}")
+        torch.cuda.empty_cache()
+    obs_s = time.perf_counter() - t0
+    log(f"[obs] phase in {obs_s:.1f} s")
+
+    # -- 8. sync -------------------------------------------------------------------
+    t0 = time.perf_counter()
+    sp = SyncPhase(smoke, (llsc, atomic_copy, queue))
+    sync_out = {"llsc": {}, "copy": {}, "queue": {}}
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    for si, strategy in enumerate(STRATEGIES):
+        sync_out["llsc"][strategy] = row = sp.llsc_layout(strategy,
+                                                          9000 + si)
+        log(f"[sync] llsc {strategy}: ll / sc / validate of {P} lanes at "
+            f"n = 2**22 equal apply_sync_reference (values, success, links, "
+            f"table); SC wins {row['sc_wins']}; ms {row['ms']}")
+        torch.cuda.empty_cache()
+    for si, strategy in enumerate(STRATEGIES):
+        sync_out["copy"][strategy] = row = sp.copy_layout(strategy,
+                                                          9100 + si)
+        log(f"[sync] copy_batch {strategy}: q = {COPY_Q} equal "
+            f"copy_batch_reference; " + "; ".join(
+                f"{name} {r['waves']} waves {r['ms']:.2f} ms (schedule "
+                f"{r['wave_schedule_ms']:.2f} ms)" for name, r in row.items()))
+        torch.cuda.empty_cache()
+    for strategy in ("seqlock", "cached_me"):
+        for policy in ("none", "exp"):
+            sync_out["queue"][f"{strategy}/{policy}"] = calls = \
+                sp.queue_cell(strategy, policy, 9200)
+            log(f"[sync] BigQueue({QUEUE_CAPACITY}, k={QUEUE_K}) {strategy} "
+                f"{policy}: FIFO replay of the commit log equal; " + "; ".join(
+                    f"{c['call']} {c['lanes']} lanes {c['ms']:.1f} ms "
+                    f"rounds {c['rounds']}" for c in calls))
+    sync_launches = {k: v for k, v in tk.launch_counts().items() if v}
+    for kname in ROUND_KERNELS:
+        if not sync_launches.get(kname):
+            raise SystemExit(f"sync: {kname} never launched on the path")
+    sync_s = time.perf_counter() - t0
+    log(f"[sync] phase in {sync_s:.1f} s, launches {sync_launches}")
+
+    # -- 9. cachehash --------------------------------------------------------------
+    t0 = time.perf_counter()
+    hp = HashPhase(smoke, cachehash)
+    prefill, runs = hp.batches(9300)
+    oracle = HashDict()
+    oracle_steps = [oracle.step(*b) for b in prefill]
+    oracle_steps += [oracle.step(*b) for b in runs.values()]
+    log(f"[cachehash] dict oracle: {len(prefill)} prefill batches + "
+        f"{len(runs)} runs, {len(oracle.model)} keys, "
+        f"{time.perf_counter() - t0:.1f} s")
+    hash_out = {}
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    for strategy, inline in HASH_VARIANTS:
+        what = f"{'cachehash' if inline else 'chaining'}/{strategy}"
+        state, row = hp.variant(strategy, inline, prefill, runs,
+                                oracle_steps)
+        row["entries"] = hp.contents_equal(state, inline, oracle.model, what)
+        hash_out[what] = row
+        del state
+        torch.cuda.empty_cache()
+        log(f"[cachehash] {what}: prefill {row['prefill_s']:.2f} s, "
+            f"{row['entries']} entries equal the dict oracle")
+        for name, r in row["runs"].items():
+            log(f"[cachehash] {what:20s} {name:20s} {r['ms']:.3f} ms "
+                f"({r['ops_per_s']:.4g} ops/s), rounds {r['rounds']}, chain "
+                f"steps {r['chain_steps']}, inline hits {r['inline_hits']}, "
+                f"device operations " + (
+                    f"{r['device_ops_per_call']} ({r['device_us_per_call']}"
+                    f" us)" if r["device_ops_per_call"] is not None else
+                    "not profiled") + f", host syncs {r['host_syncs']}")
+    hash_launches = {k: v for k, v in tk.launch_counts().items() if v}
+    hash_s = time.perf_counter() - t0
+    log(f"[cachehash] phase in {hash_s:.1f} s, kernel launches "
+        f"{hash_launches} (its rounds are PyTorch operations, no kernel)")
+
     # -- report ----------------------------------------------------------------
     ref = timings["cached_me"]
     rows = []
@@ -2280,6 +2966,11 @@ def main() -> int:
                              "launches": attn_launches,
                              "kernel": attn_kernel,
                              "max_abs_err": attn_err, "timing": attn_timing},
+               "obs": {"phase_s": obs_s, "layouts": obs_out},
+               "sync": {"phase_s": sync_s, "launches": sync_launches,
+                        **sync_out},
+               "cachehash": {"phase_s": hash_s, "launches": hash_launches,
+                             "variants": hash_out},
                "kernels": rows}
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     log(card)

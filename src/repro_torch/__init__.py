@@ -4,5 +4,8 @@ A port of the JAX package `repro` (the reference, left as it is), module by
 module under the same file names.  The engine round of the four lock-free
 layouts runs through hand-written CUDA kernels for Hopper
 (`kernels/csrc/engine_round.cu`); every kernel has a plain PyTorch version
-beside it, which the CPU runs.  The public surface is `repro_torch.atomics`.
+beside it, which the CPU runs.  The public surface is `repro_torch.atomics`;
+its first clients are `repro_torch.sync` (LL/SC, atomic copy, the MPMC
+queue), `repro_torch.core.cachehash` and the telemetry of
+`repro_torch.obs`.
 """

@@ -2,10 +2,14 @@
 
 A k-word linearizable register with load/store/CAS and LL/SC:
 
-  Specs          AtomicSpec — a frozen description of shape + strategy.
-  States         TableState / LinkCtx — NamedTuples of tensors.
+  Specs          AtomicSpec / HashSpec / QueueSpec — frozen descriptions
+                 of shape + strategy.
+  States         TableState / HashState / LinkCtx / the queue's ring
+                 table — NamedTuples of tensors.
   One op schema  OpBatch with per-lane kind LOAD / STORE / CAS / LL / SC /
-                 VALIDATE, one linearization for mixed batches.
+                 VALIDATE (+ FIND / INSERT / DELETE for CacheHash,
+                 `core.cachehash.apply_hash`), one linearization for mixed
+                 batches.
   Registry       StrategyImpl + register_strategy(): layouts plug in
                  without touching core.
 
@@ -20,9 +24,12 @@ Canonical usage:
     vals, ok = atomics.read(spec, state, slots)        # honest layout read
 
 Every tensor-creating function takes `device=` ("cuda" by default; pass
-"cpu" to run the plain PyTorch versions on the CPU).  The reference's mesh
-layer (`dist`), transactions (`txn`, `mcas`) and hash specs are not ported
-yet.
+"cpu" to run the plain PyTorch versions on the CPU).  Legacy entry points
+(`core.bigatomic.apply_ops`, `sync.llsc.apply_sync`,
+`core.cachehash.apply_hash_ops`, the `BigAtomicTable` / `CacheHash`
+wrappers) are thin shims over this module.  The reference's mesh layer
+(`dist`, `DistSpec`) and transactions (`txn`, `mcas`, `VersionSpec`) are
+not ported yet.
 """
 
 from repro_torch.core.engine import (  # noqa: F401
@@ -38,7 +45,9 @@ from repro_torch.core.registry import (  # noqa: F401
     StrategyImpl, get_strategy, register_strategy, registered_strategies,
     unregister_strategy,
 )
-from repro_torch.core.specs import DEFAULT_STRATEGY, AtomicSpec  # noqa: F401
+from repro_torch.core.specs import (  # noqa: F401
+    DEFAULT_STRATEGY, AtomicSpec, HashSpec, QueueSpec,
+)
 from repro_torch.core import strategies as _builtin_strategies  # noqa: F401
 
 

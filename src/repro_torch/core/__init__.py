@@ -1,1 +1,2 @@
-"""Core of the port: specs, layouts, the strategy registry and the engine."""
+"""Core of the port: specs, layouts, the strategy registry, the engine,
+CacheHash and the v1 shims."""

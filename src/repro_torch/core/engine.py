@@ -25,6 +25,12 @@ device):
 The kernel tier's round (`kernels/engine_round.py`) and the layouts'
 `commit` read nothing back, so a kernel-tier `apply` on kinds that are the
 caller's contract can be captured in a CUDA graph.
+
+Telemetry (`repro_torch.obs`, BIGATOMIC_OBS=counters): a round given
+`telem=` counts its batch into the device counters after it resolves it,
+from the sorted slots and the predicate it already holds, with in-place
+adds and no host read.  With counters off no round is given `telem` and
+`apply` runs exactly the operations it runs without telemetry.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from repro_torch.core import registry
 from repro_torch.core.layout import (WORD_DTYPE, TableState, as_words,
                                      resolve_device, scatter_set)
 from repro_torch.core.specs import AtomicSpec
+from repro_torch.obs import telemetry as obs_telemetry
 
 # Op kinds (the reference's numeric values).
 LOAD = 0
@@ -352,8 +359,15 @@ def dirty_slots(n: int, s_slot, s_kind, succ_s) -> torch.Tensor:
     to the padding is `stats_on_sorted(...).n_dirty_cells`.  The layouts'
     `commit` hands out nodes in this order, as the reference's scan over
     the whole table does."""
+    return compact_starts(n, s_slot,
+                          _dirty_starts(n, s_slot, s_kind, succ_s))
+
+
+def compact_starts(n: int, s_slot, flag) -> torch.Tensor:
+    """The sorted slots of the lanes `flag` marks (each a segment's first
+    lane), in order, as an int32[p] list padded with n: p-sized operations,
+    no host read."""
     p = s_slot.shape[0]
-    flag = _dirty_starts(n, s_slot, s_kind, succ_s)
     rank = torch.cumsum(flag, 0) - flag.to(torch.int64)
     out = torch.full((p + 1,), n, dtype=torch.int32, device=s_slot.device)
     out[torch.where(flag, rank, p)] = s_slot.to(torch.int32)
@@ -521,14 +535,16 @@ def rebuild(n: int, ctx: LinkCtx, lanes: SortedLanes, val_s, verpt_s,
             dirty_slots(n, s_slot, s_kind, s_success))
 
 
-def linearize(data, version, ctx: LinkCtx, ops: OpBatch):
+def linearize(data, version, ctx: LinkCtx, ops: OpBatch, *, telem=None):
     """Linearize a mixed LOAD/STORE/CAS/LL/SC/VALIDATE batch in lane order.
 
     `data` is word[n, k] and `version` word[n] (bumped by 2 per successful
     write); both are updated in place.  Returns (data', version', ctx',
     ApplyResult, ApplyStats, dirty slots: `dirty_slots`).  Active lanes
     must name slots in [0, n): the reference clamp-gathers an out-of-range
-    slot, this port treats it as a failed no-op, as the kernels do."""
+    slot, this port treats it as a failed no-op, as the kernels do.  With
+    `telem` (`obs.telemetry.carry_in`), the batch is counted, never as
+    taken by the fast path."""
     n = data.shape[0]
     lanes = sort_lanes(n, ctx, ops)
     is_valcas = (lanes.kind == STORE) | (lanes.kind == CAS)
@@ -540,7 +556,13 @@ def linearize(data, version, ctx: LinkCtx, ops: OpBatch):
         data, version, val_s, verpt_s, succ_s = _pure_sc_sorted(
             data, version, lanes.slot, lanes.kind, lanes.link_ver,
             lanes.desired)
-    return (data, version) + rebuild(n, ctx, lanes, val_s, verpt_s, succ_s)
+    out = (data, version) + rebuild(n, ctx, lanes, val_s, verpt_s, succ_s)
+    if telem is not None:
+        obs_telemetry.count_table(
+            telem, n, ops, out[3], out[4], s_slot=lanes.slot,
+            eligible=_engine_round().fast_flag(n, ops, lanes.slot),
+            taken=torch.zeros((), dtype=torch.bool, device=data.device))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -620,8 +642,10 @@ def apply(spec: AtomicSpec, state: TableState, ops: OpBatch,
     kinds that are the caller's contract (see `check_kinds`), `apply` reads
     nothing back to the host and can be captured in a CUDA graph.
 
-    The reference's telemetry path (`BIGATOMIC_OBS`) is not part of this
-    port yet: `apply` takes no counters.
+    Under BIGATOMIC_OBS=counters (or trace) the batch is counted into the
+    device counters of `repro_torch.obs` by in-place adds after the round:
+    no host read, and a captured `apply` counts on every replay.  Off, no
+    counter is made or touched.
 
     Returns (state', ctx', ApplyResult, ApplyStats, Traffic)."""
     check_kinds(ops.kind, TABLE_KINDS, "table")
@@ -631,22 +655,25 @@ def apply(spec: AtomicSpec, state: TableState, ops: OpBatch,
            else canonicalize_ctx(ctx, device))
     impl = registry.get_strategy(spec.strategy)
     new_state, new_ctx, result, stats = run_round(
-        impl, round_for(spec, impl), state, ctx, ops, donate=donate)
+        impl, round_for(spec, impl), state, ctx, ops, donate=donate,
+        telem=obs_telemetry.carry_in(device))
     traffic = impl.traffic(stats, spec.k, ops.p)
     return new_state, new_ctx, result, stats, traffic
 
 
 def run_round(impl, round_fn, state: TableState, ctx: LinkCtx, ops: OpBatch,
-              *, donate: bool):
+              *, donate: bool, telem=None):
     """Run `round_fn` on canonical `ops`/`ctx` and commit it to the layout,
     with `apply`'s ownership rule: copy the state first unless `donate`.
     The round updates the table in place and names the cells it wrote;
-    `commit` reconciles only those.  Returns (state', ctx', ApplyResult,
-    ApplyStats)."""
+    `commit` reconciles only those.  `telem` (`obs.telemetry.carry_in`),
+    when not None, is handed to the round, which counts the batch.
+    Returns (state', ctx', ApplyResult, ApplyStats)."""
     if not donate:
         state = TableState(*(x.clone() for x in state))
+    counted = {} if telem is None else {"telem": telem}
     new_data, new_version, new_ctx, result, stats, dirty = round_fn(
-        impl.engine_view(state), state.version, ctx, ops)
+        impl.engine_view(state), state.version, ctx, ops, **counted)
     new_state = impl.commit(state, new_data, new_version, stats, dirty,
                             ops.p)
     return new_state, new_ctx, result, stats
@@ -708,9 +735,14 @@ def read(spec: AtomicSpec, state: TableState, slots):
 
     ok=False means the reader observed a torn/locked cell and must retry
     (blocking strategies only); lock-free strategies always return ok=True
-    with a consistent value."""
+    with a consistent value.  Under BIGATOMIC_OBS=counters the ok=False
+    lanes count into `read.torn_retries` on the device."""
     slots = _as_i32(slots, state.data.device).to(torch.int64)
-    return registry.get_strategy(spec.strategy).read(state, slots)
+    values, ok = registry.get_strategy(spec.strategy).read(state, slots)
+    telem = obs_telemetry.carry_in(state.data.device)
+    if telem is not None:
+        obs_telemetry.count_read(telem.telem, ok)
+    return values, ok
 
 
 def logical(spec: AtomicSpec, state: TableState):

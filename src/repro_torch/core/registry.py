@@ -97,7 +97,9 @@ class StrategyImpl:
         Called by `engine.round_for` with the resolved engine-kernel mode
         ('pallas' = the hand-written kernel tier, 'xla' = the plain-tensor
         tier; 'off' never reaches here).  None keeps the plain `linearize`
-        path (the default for plug-in strategies)."""
+        path (the default for plug-in strategies).  The round takes the
+        `linearize` arguments and, under BIGATOMIC_OBS=counters, the
+        keyword `telem`, which it hands to `obs.telemetry.count_table`."""
         return None
 
     def traffic(self, stats, k: int, p: int) -> Traffic:

@@ -55,6 +55,7 @@ from repro_torch.core.engine import (
     LinkCtx, OpBatch, poisoned_link_ver,
 )
 from repro_torch.core.layout import WORD_DTYPE, gather_rows, scatter_set
+from repro_torch.obs import telemetry as obs_telemetry
 
 _MODES = ("auto", "pallas", "xla", "off")
 _WRITE_KINDS = (1 << STORE) | (1 << CAS) | (1 << SC)   # a bit per kind
@@ -528,9 +529,11 @@ round_epilogue.launches = 0
 
 def make_round(n: int, k: int, *, mode: str | None = None):
     """Build a fused round callable with the `engine.linearize` signature
-    and return values: (data, version, ctx, ops) -> (data', version',
-    ctx', ApplyResult, ApplyStats, dirty slots), updating `data` and
-    `version` in place.
+    and return values: (data, version, ctx, ops, *, telem=None) ->
+    (data', version', ctx', ApplyResult, ApplyStats, dirty slots),
+    updating `data` and `version` in place; with `telem` it counts the
+    batch (`obs.telemetry.count_table`) from the prologue's sorted slots
+    and predicate.
 
     mode  'pallas' the kernel tier: `round_prologue`, `fast_round`,
                    `slow_round`, `round_epilogue`;
@@ -546,7 +549,7 @@ def make_round(n: int, k: int, *, mode: str | None = None):
         (round_prologue_plain, fast_round_plain, slow_round_plain,
          round_epilogue_plain))
 
-    def round_fn(data, version, ctx: LinkCtx, ops: OpBatch):
+    def round_fn(data, version, ctx: LinkCtx, ops: OpBatch, *, telem=None):
         # linearize gathers ctx lanes by sorted lane index, which for a ctx
         # wider than the batch means "the first p lanes"; replicate that so
         # both tiers see (and return) batch-width ctx exactly as it does.
@@ -560,7 +563,12 @@ def make_round(n: int, k: int, *, mode: str | None = None):
             data, version, *pro[2:7], fast=pro.fast)
         epilogue_fn(pro.fast, n, ctx, pro.order, pro.s_slot, pro.s_kind,
                     val_s, verpt_s, succ_s, version, out, pro.scratch)
-        return (data, version, out.ctx, ApplyResult(out.value, out.success),
-                ApplyStats(*out.stats), out.dirty)
+        result, stats = ApplyResult(out.value, out.success), \
+            ApplyStats(*out.stats)
+        if telem is not None:           # the predicate is the branch taken
+            obs_telemetry.count_table(telem, n, ops, result, stats,
+                                      s_slot=pro.s_slot, eligible=pro.fast,
+                                      taken=pro.fast)
+        return data, version, out.ctx, result, stats, out.dirty
 
     return round_fn
