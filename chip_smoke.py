@@ -130,6 +130,34 @@ package, and runs these phases:
              sorted arrays; ms, ops/s, rounds, chain steps, inline hits,
              device operations per call and host syncs per `apply_hash`
              (must be 1).  Its rounds launch no kernel.
+  10. txn    the transaction layer, with the counts reset just before its
+             checked path and read just after (the four round kernels
+             must have run; their launches join the kernels line): k-word
+             MCAS on `AtomicSpec(2**22, 4, p_max=16384)` for the four
+             layouts, T = 4096 txns of W = 4 distinct slots uniform and
+             Zipf 0.99, T = 128 over 8 cells with no backoff (and exp(1,
+             4) on cached_me), 80 % of txns expecting the live values
+             (`benchmarks/bench_txn.py`), each against `mcas_reference` in
+             `linearization_order` (success, witnesses, logical values,
+             versions, `read()`), one host read per round (counted with
+             `torch.cuda.set_sync_debug_mode("warn")`), the hot cases'
+             `mcas_round` driven to drain equal to `mcas`; version lists
+             (`VersionSpec(2**22, 4, depth=4)`: six publishes of 16384
+             slots, a hot quarter whose rings lap, timestamps across 2**31;
+             `snapshot_read` at nine timestamps and `latest` against a
+             numpy model, `check_version_list` clean); the versioned store
+             over ~256 MiB of state (four publishes, `step_at`,
+             `begin_publish` as the torn negative control); the
+             transactional map on the cachehash phase's table at load 0.5
+             (4096 disjoint read-modify-write txns, one hot counter of 64)
+             against `transact_reference` and the contents; `wf_writable`
+             at n = 2**22 (`store_batch` of 16384 lanes with repeated
+             slots, `cas_batch`) against `oracle_apply`.  Then per layout
+             and MCAS case ms per call, ktxn/s, rounds, one round's device
+             operations and device time (profiled), and one `mcas_round`
+             captured in a CUDA graph and replayed against the eager round
+             (a failed capture fails the run); publish / read / transact /
+             store_batch / cas_batch times.
 
 Exits non-zero on any failure, without the result line.  On success the
 last lines are the card (nvidia-smi), a JSON line with one entry per
@@ -2560,6 +2588,650 @@ def clone_hash(state):
 
 
 
+# -- 10. txn -----------------------------------------------------------------
+
+TXN_T, TXN_W, TXN_HOT_T, TXN_HOT_N = 4096, 4, 128, 8   # bench_txn.py shapes
+TXN_MATCH = 0.8                     # txns expecting the live values
+VL_DEPTH, VL_PUBLISHES = 4, 6
+TS_BASE = 2 ** 31 - 3               # version-list publishes cross 2**31
+MV_SLOTS, MV_PUBLISHES = 2, 4
+MAP_T, MAP_HOT_T = 4096, 64
+MV_STATE = {"w1": ((4096, 8192), "float32"),    # ~256 MiB of train state
+            "w2": ((8192, 4096), "bfloat16"),
+            "b": ((2 ** 24,), "float32")}
+TXN_TIMING_REPS = 3
+
+
+def txn_slots(rng, t, w, n, zipf=False):
+    """int32[t, w] slots, distinct within each txn: uniform over n, or
+    Zipf 0.99 ranks `(zipf(1.01) - 1) % n` as batch (d); rows with a
+    repeat are drawn again (`bench_txn.py` draws without replacement)."""
+    def draw(rows):
+        if zipf:
+            return (rng.zipf(1.01, (rows, w)) - 1) % n
+        return rng.integers(0, n, (rows, w))
+
+    slot = draw(t)
+    while True:
+        s = np.sort(slot, 1)
+        dup = (s[:, 1:] == s[:, :-1]).any(1)
+        if not dup.any():
+            return slot.astype(np.int32)
+        slot[dup] = draw(int(dup.sum()))
+
+
+class VersionModel:
+    """Numpy model of per-slot version lists: each slot's (ts, value)
+    history; a read at ts answers the newest version with ts <= it, ok
+    only while that version is among the `depth` newest."""
+
+    def __init__(self, initial, ts0, depth):
+        self.initial, self.ts0, self.depth = initial, ts0, depth
+        self.hist = {}
+
+    def publish(self, slots, values, ts):
+        for s, v in zip(slots.tolist(), values):
+            self.hist.setdefault(s, []).append((ts, v))
+
+    def read(self, slots, ts):
+        k = self.initial.shape[1]
+        vals = np.zeros((len(slots), k), np.uint32)
+        fts = np.zeros(len(slots), np.uint32)
+        ok = np.zeros(len(slots), bool)
+        for i, (s, q) in enumerate(zip(slots.tolist(), ts.tolist())):
+            h = [(self.ts0, self.initial[s])] + self.hist.get(s, [])
+            at = [j for j, (t, _) in enumerate(h) if t <= q]
+            if at and len(h) - at[-1] <= self.depth:
+                fts[i], vals[i], ok[i] = h[at[-1]][0], h[at[-1]][1], True
+        return vals, fts, ok
+
+
+class TxnPhase:
+    """The transaction layer at the main path's table size: k-word MCAS on
+    the four layouts (`AtomicSpec(2**22, 4, p_max=16384)`), the version
+    lists, the versioned store, the transactional map on the cachehash
+    phase's table, and the wait-free writable cell, each against the
+    port's own numpy references."""
+
+    def __init__(self, smoke, mods):
+        self.smoke, self.torch = smoke, smoke.torch
+        (self.mcas, self.vl, self.mv, self.tmap, self.wf, self.ch,
+         self.invariants, self.queue) = mods
+        self.dev = smoke.dev
+
+    def fail(self, what):
+        raise SystemExit(f"txn: {what}")
+
+    same = SyncPhase.same      # bit-equality of a result and numpy words
+
+    # -- MCAS ----------------------------------------------------------------
+
+    def mcas_cases(self, seed):
+        """(name, n, policy, slot, expected, desired, initial) per case:
+        (i) T = 4096, W = 4 uniform over n = 2**22; (ii) the same, Zipf
+        0.99 slots; (iii) T = 128, W = 4 over 8 cells, with no backoff
+        and exp(1, 4).  `TXN_MATCH` of the txns expect the live values,
+        the rest random comparands (`bench_txn.py:50-55, 167`)."""
+        rng = np.random.default_rng(seed)
+        big = rng.integers(0, 2 ** 32, (N, K), dtype=np.uint32)
+        hot = rng.integers(0, 2 ** 32, (TXN_HOT_N, K), dtype=np.uint32)
+        cases = []
+        for name, t, n, zipf, init in (
+                ("uniform", TXN_T, N, False, big),
+                ("zipf099", TXN_T, N, True, big),
+                ("hot", TXN_HOT_T, TXN_HOT_N, False, hot)):
+            slot = txn_slots(rng, t, TXN_W, n, zipf)
+            expected = rng.integers(0, 2 ** 32, (t, TXN_W, K),
+                                    dtype=np.uint32)
+            fresh = rng.random(t) < TXN_MATCH
+            expected[fresh] = init[slot[fresh]]
+            desired = rng.integers(0, 2 ** 32, (t, TXN_W, K),
+                                   dtype=np.uint32)
+            cases.append((name, n, "none", slot, expected, desired, init))
+        cases.append(("hot_exp",) + cases[2][1:2] + ("exp",)
+                     + cases[2][3:])
+        return cases
+
+    def policy(self, name):
+        return {"none": self.queue.BackoffPolicy("none"),
+                "exp": self.queue.BackoffPolicy("exp", 1, 4)}[name]
+
+    def mcas_layout(self, strategy, cases):
+        """Each case once, checked: `mcas` against `mcas_reference` in
+        `linearization_order` (success, witnesses, logical values,
+        versions, `read()`), its host reads counted (one per round, the
+        loop condition), and the hot cases' `mcas_round` driven to drain
+        bit for bit against `mcas`.  Returns per case the inputs the
+        timing needs and the checked numbers."""
+        smoke, torch, m = self.smoke, self.torch, self.mcas
+        atomics = smoke.atomics
+        out = {}
+        tables = {}
+        for name, n, pol, slot, expected, desired, init in cases:
+            if strategy != "cached_me" and name == "hot_exp":
+                continue
+            spec = atomics.AtomicSpec(n, K, strategy, p_max=P)
+            if n not in tables:
+                tables[n] = atomics.init(spec, init, device=self.dev)
+            state = tables[n]
+            txns = m.make_txns(slot, expected, desired, k=K, device=self.dev)
+            policy = self.policy(pol)
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    new_state, res = m.mcas(spec, state, txns, policy=policy)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                syncs = [w for w in caught
+                         if "called a synchronizing" in str(w.message)]
+            self.torch.cuda.synchronize()
+            checked_ms = (time.perf_counter() - t0) * 1e3
+            rounds = int(res.rounds)
+            what = f"mcas/{strategy}/{name}"
+            if len(syncs) != rounds:
+                self.fail(f"{what}: {len(syncs)} host syncs for {rounds} "
+                          f"rounds: {[str(w.message) for w in syncs][:4]}")
+            if not (res.round > 0).all():
+                self.fail(f"{what}: txns left unresolved")
+            order = m.linearization_order(res)
+            data, ver, succ, wit = m.mcas_reference(
+                init, np.zeros(n, np.uint32),
+                m.TxnBatch(slot, expected, desired), order)
+            self.same(f"{what} success", res.success, succ)
+            self.same(f"{what} witness", res.witness, wit)
+            self.same(f"{what} logical", atomics.logical(spec, new_state),
+                      data)
+            self.same(f"{what} versions", new_state.version, ver)
+            vals, ok = atomics.read(spec, new_state, torch.arange(
+                n, dtype=torch.int32, device=self.dev))
+            self.same(f"{what} read()", vals, data)
+            if not bool(ok.all()):
+                self.fail(f"{what}: read() not ok")
+            row = {"t": len(slot), "w": TXN_W, "n": n, "policy": pol,
+                   "rounds": rounds, "host_syncs": len(syncs),
+                   "commit_rate": float(succ.mean()),
+                   "attempts_per_txn": float(res.attempts.float().mean()),
+                   "checked_ms": checked_ms}
+            if name.startswith("hot"):
+                self.drain_equals(spec, state, txns, policy, new_state, res,
+                                  what)
+                row["mcas_round_drain"] = "equal"
+            out[name] = (row, spec, state, txns, policy)
+            del new_state
+        return out
+
+    def drain_equals(self, spec, state, txns, policy, want_state, want, what):
+        m = self.mcas
+        st = clone(state)
+        carry = m.mcas_begin(txns)
+        while bool(carry.pending.any()):
+            st, carry = m.mcas_round(spec, st, txns, carry, policy=policy,
+                                     donate=True)
+        got = m.mcas_finish(txns, carry)
+        for f, a, b in zip(got._fields, got, want):
+            if not self.torch.equal(a, b):
+                self.fail(f"{what}: mcas_round driven to drain differs from "
+                          f"mcas ({f})")
+        for i, (a, b) in enumerate(zip(st, want_state)):
+            if not self.torch.equal(a, b):
+                self.fail(f"{what}: mcas_round's table differs (field {i})")
+
+    def mcas_timing(self, strategy, runs):
+        """Per case: median ms per `mcas` call (host clock, synchronised,
+        the call's state copy included), ktxn/s; one round's device
+        operations and device us (profiled, on fresh copies); and, on
+        case (i), one `mcas_round` captured in a CUDA graph and replayed:
+        it must equal the eager round (a failed capture fails the run),
+        eager and replayed ms per round."""
+        smoke, torch, m = self.smoke, self.torch, self.mcas
+        out = {}
+        for name, (row, spec, state, txns, policy) in runs.items():
+            times = []
+            for _ in range(TXN_TIMING_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m.mcas(spec, state, txns, policy=policy)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            row = dict(row, ms=statistics.median(times))
+            row["ktxn_per_s"] = row["t"] / row["ms"]
+            carry = m.mcas_begin(txns)
+
+            def one_round(st):
+                m.mcas_round(spec, st, txns, carry, policy=policy,
+                             donate=True)
+                torch.cuda.synchronize()
+
+            prof = smoke.device_busy(one_round, reps=3,
+                                     setup=lambda: (clone(state),))
+            row["round_device_ops"] = prof.get("device_ops_per_apply")
+            row["round_device_us"] = prof.get("device_us_per_apply")
+            row["round_top_device_us"] = prof.get("top_device_us_per_apply")
+            if name == "uniform":
+                row.update(self.captured_round(spec, state, txns, policy,
+                                               f"mcas/{strategy}"))
+                row["arbitrate_ms"] = self.arbitrate_ms(spec, txns)
+            out[name] = row
+        return out
+
+    def arbitrate_ms(self, spec, txns):
+        """Device ms of one `engine.arbitrate_groups` at the round's
+        shapes, every lane eligible: its (n + 1)-sized fill and
+        scatter-min, the lane gather and the (T + 1)-sized AND."""
+        torch = self.torch
+        p = txns.t * txns.w
+        slot = txns.slot.reshape(p)
+        group = (torch.arange(p, device=self.dev) // txns.w).to(torch.int32)
+        live = torch.ones((p,), dtype=torch.bool, device=self.dev)
+        return self.smoke.device_ms(
+            lambda: self.smoke.engine.arbitrate_groups(
+                slot, group, live, n=spec.n, n_groups=txns.t), reps=20)
+
+    def captured_round(self, spec, state, txns, policy, what):
+        torch, m = self.torch, self.mcas
+        carry = m.mcas_begin(txns)
+        eager = m.mcas_round(spec, clone(state), txns, carry, policy=policy,
+                             donate=True)
+        mine = clone(state)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                out = m.mcas_round(spec, mine, txns, carry, policy=policy,
+                                   donate=True)
+            graph.replay()
+            torch.cuda.synchronize()
+        except Exception as err:        # a failed capture fails the run
+            raise SystemExit(f"{what}: capturing mcas_round in a CUDA graph "
+                             f"failed: {err!r}") from err
+        for part, (a, b) in enumerate(zip(out, eager)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                if not torch.equal(x, y):
+                    self.fail(f"{what}: the replayed mcas_round differs from "
+                              f"the eager one (output {part}.{i})")
+        replay_ms = self.smoke.time_ms(graph.replay, reps=10, warmup=2)
+        scratch = clone(state)
+        eager_ms = self.smoke.time_ms(lambda: m.mcas_round(
+            spec, scratch, txns, carry, policy=policy, donate=True), reps=5,
+            warmup=1)
+        del graph, out, mine
+        return {"round_replay_ms": replay_ms, "round_eager_ms": eager_ms,
+                "captured_round": "equal"}
+
+    # -- version lists -------------------------------------------------------
+
+    def versionlist(self, seed):
+        """`VersionSpec(2**22, 4, depth=4, p_max=16384)`: six publishes of
+        P distinct slots (a hot quarter in every publish, so its rings
+        lap), timestamps TS_BASE .. TS_BASE + 5 across 2**31; then
+        `snapshot_read` of P slots at nine timestamps and `latest`
+        against `VersionModel`, `check_version_list` clean.  Returns the
+        state, the spec and the last publish's inputs for the timing."""
+        vl, torch = self.vl, self.torch
+        rng = np.random.default_rng(seed)
+        spec = self.smoke.atomics.VersionSpec(N, K, depth=VL_DEPTH, p_max=P)
+        initial = rng.integers(0, 2 ** 32, (N, K), dtype=np.uint32)
+        ts0 = TS_BASE - 10
+        st = vl.init(spec, initial, ts0=ts0, device=self.dev)
+        model = VersionModel(initial, ts0, VL_DEPTH)
+        hot = rng.choice(N, P // 4, replace=False)
+        last = None
+        for i in range(VL_PUBLISHES):
+            cold = rng.integers(0, N, 2 * P)
+            cold = rng.permutation(np.setdiff1d(cold, hot))[:P - len(hot)]
+            slots = rng.permutation(np.concatenate([hot, cold])).astype(
+                np.int32)
+            vals = rng.integers(0, 2 ** 32, (P, K), dtype=np.uint32)
+            ts = np.full(P, TS_BASE + i, np.uint32)
+            st = vl.publish(spec, st, slots, vals, ts)
+            model.publish(slots, vals, TS_BASE + i)
+            last = (slots, vals, ts)
+        q_slots = np.concatenate([hot[:P // 4], last[0][:P // 4],
+                                  rng.integers(0, N, P // 2)]).astype(
+                                      np.int32)
+        reads = 0
+        for q in (ts0 - 1, ts0, TS_BASE - 1, *range(TS_BASE,
+                                                     TS_BASE + VL_PUBLISHES)):
+            ts = np.full(P, q, np.uint32)
+            vals, fts, ok = vl.snapshot_read(spec, st, q_slots, ts)
+            want = model.read(q_slots, ts)
+            for f, a, b in zip(("values", "ts", "ok"), (vals, fts, ok),
+                               want):
+                self.same(f"versionlist read at ts {q} {f}", a, b)
+            reads += 1
+        lv, lts, lok = vl.latest(spec, st, q_slots)
+        want = model.read(q_slots, np.full(P, 2 ** 32 - 1, np.uint32))
+        self.same("versionlist latest values", lv, want[0])
+        self.same("versionlist latest ts", lts, want[1])
+        for name, mask in self.invariants.check_version_list(spec,
+                                                             st).items():
+            if bool(mask.any()):
+                self.fail(f"versionlist: check_version_list {name} flags "
+                          f"{int(mask.sum())} healthy slots")
+        laps = sum(len(h) > VL_DEPTH for h in model.hist.values())
+        return st, spec, last, q_slots, {"publishes": VL_PUBLISHES,
+                                         "reads": reads, "lapped_slots": laps}
+
+    def versionlist_timing(self, st, spec, last, q_slots):
+        vl, torch = self.vl, self.torch
+        slots, vals, ts = last
+        ts = (ts.astype(np.int64) + VL_PUBLISHES).astype(np.uint32)
+        d_slots = torch.from_numpy(slots).to(self.dev)
+        d_vals = self.smoke.words(vals)
+        d_ts = self.smoke.words(ts)
+
+        publish_ms = self.smoke.time_ms(
+            lambda: vl.publish(spec, st, d_slots, d_vals, d_ts), reps=5,
+            warmup=1)
+        q = torch.from_numpy(q_slots).to(self.dev)
+        q_ts = self.smoke.words(np.full(P, TS_BASE + 2, np.uint32))
+        read_ms = self.smoke.time_ms(
+            lambda: vl.snapshot_read(spec, st, q, q_ts), reps=10, warmup=2)
+        return {"publish_ms": publish_ms, "snapshot_read_ms": read_ms,
+                "pool_bytes": st.pool.numel() * 4}
+
+    # -- the versioned store -------------------------------------------------
+
+    def versioned_store(self, seed):
+        """`core.multiversion` over a dict of ~256 MB of tensors (made on
+        the card from a seed), two ring slots: four publishes, each read
+        back by `snapshot_with_validation` and `step_at` of every publish
+        time against the model; then `begin_publish` (the torn negative
+        control): readers still get the last state, the torn slot fails
+        `validate` and holds half of each leaf new."""
+        mv, torch = self.mv, self.torch
+        gen = torch.Generator(device=self.dev).manual_seed(seed)
+        state = {name: torch.randn(shape, generator=gen, device=self.dev)
+                 .to(getattr(torch, dtype))
+                 for name, (shape, dtype) in MV_STATE.items()}
+        state["step"] = torch.zeros((), dtype=torch.int32, device=self.dev)
+        nbytes = sum(x.numel() * x.element_size() for x in state.values())
+        store = mv.init_store(state, n_slots=MV_SLOTS)
+        times = []
+        for i in range(1, MV_PUBLISHES + 1):
+            new = mv.tree_map(lambda x, i=i: x + i, state)
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            store = mv.publish(store, new, i)
+            self.torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            snap = mv.snapshot_with_validation(store)
+            if int(snap.step) != i or int(snap.version) % 2:
+                self.fail(f"store publish {i}: step {int(snap.step)}, "
+                          f"version {int(snap.version)}")
+            for name, leaf in new.items():
+                if not torch.equal(snap.state[name], leaf):
+                    self.fail(f"store publish {i}: snapshot leaf {name}")
+            for ts in range(0, i + 1):
+                steps, ok = mv.step_at(store, ts)
+                for s in range(MV_SLOTS):
+                    # slot s: the initial state (ts 0, step 0), then the
+                    # publishes t = s mod 2 (ts t, step t); two kept
+                    mine = [0] + [t for t in range(1, i + 1)
+                                  if t % MV_SLOTS == s]
+                    older = [t for t in mine if t <= ts]
+                    want_ok = bool(older) and older[-1] in mine[-2:]
+                    if bool(ok[s]) != want_ok or (
+                            want_ok and int(steps[s]) != older[-1]):
+                        self.fail(f"store step_at({ts}) slot {s} after "
+                                  f"publish {i}")
+            last = new
+        torn_state = mv.tree_map(lambda x: x + 1000, last)
+        torn = mv.begin_publish(store, torn_state)
+        snap = mv.snapshot_with_validation(torn)
+        for name, leaf in last.items():
+            if not torch.equal(snap.state[name], leaf):
+                self.fail(f"store: a reader of the torn store got a torn "
+                          f"leaf {name}")
+        bad = (int(torn.head) + 1) % MV_SLOTS
+        idx = torch.tensor(bad, device=self.dev)
+        bad_snap = mv.Snapshot(mv.tree_map(lambda b: b[bad], torn.slots),
+                               torn.step[bad], idx, torn.version[bad])
+        if bool(mv.validate(torn, bad_snap)):
+            self.fail("store: the torn slot validated")
+        for name, leaf in torn_state.items():
+            flat = torn.slots[name][bad].reshape(-1)
+            half = leaf.numel() // 2
+            if not (torch.equal(flat[:half], leaf.reshape(-1)[:half])
+                    and (half == 0 or not torch.equal(
+                        flat[half:], leaf.reshape(-1)[half:]))):
+                self.fail(f"store: the torn slot's leaf {name} is not half "
+                          f"written")
+        return {"state_bytes": nbytes, "publishes": MV_PUBLISHES,
+                "publish_ms": times}
+
+    # -- the transactional map -----------------------------------------------
+
+    def txn_map(self, prefill, seed):
+        """`transact` on `HashSpec(2**22, vw=2, p_max=16384)` (cached_me)
+        prefilled to load 0.5 with the cachehash phase's batches: T = 4096
+        read-modify-write txns on disjoint keys (R = W = 2), then one hot
+        counter key (T = 64, `bench_txn.py:175-177`); each against
+        `transact_reference` on the touched keys, the table's contents
+        against the prefill updated by the model."""
+        ch, tmap, torch = self.ch, self.tmap, self.torch
+        rng = np.random.default_rng(seed)
+        spec = ch.HashSpec(HASH_NB, HASH_VW, "cached_me", p_max=HASH_Q)
+        state = ch.init_hash(spec, device=self.dev)
+        for kind, keys, vals in prefill:
+            state, _, _ = ch.apply_hash(spec, state, ch.make_hash_ops(
+                kind, keys, vals, vw=HASH_VW, device=self.dev), donate=True)
+        pk = np.concatenate([b[1] for b in prefill])
+        pv = np.concatenate([b[2] for b in prefill])
+        order = np.argsort(pk)
+        pk, pv = pk[order], pv[order]
+        chosen = rng.choice(len(pk), 2 * MAP_T, replace=False)
+        rmw_keys = pk[chosen].reshape(MAP_T, 2)
+        hot_key = np.uint32(rng.integers(0, 2 ** 32))
+        while np.isin(hot_key, pk):         # a key the prefill left out
+            hot_key = np.uint32(rng.integers(0, 2 ** 32))
+        model = {int(k): v for k, v in zip(pk[chosen], pv[chosen])}
+        runs = {}
+        for name, keys, fn in (
+                ("disjoint_rmw", rmw_keys, map_fn_increment),
+                ("hot_counter", np.full((MAP_HOT_T, 1), hot_key, np.uint32),
+                 map_fn_sum_plus_one)):
+            txns = tmap.make_map_txns(keys, keys, vw=HASH_VW,
+                                      device=self.dev)
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new_state, res = tmap.transact(spec, state, txns, fn)
+            self.torch.cuda.synchronize()
+            checked_ms = (time.perf_counter() - t0) * 1e3
+            model, rv, rf = tmap.transact_reference(
+                model, txns, fn, tmap.linearization_order(res), HASH_VW)
+            self.same(f"map/{name} read_value", res.read_value, rv)
+            self.same(f"map/{name} read_found", res.read_found, rf)
+            state = new_state
+            runs[name] = {"t": len(keys), "rounds": int(res.rounds),
+                          "checked_ms": checked_ms, "txns": txns, "fn": fn,
+                          "attempts_per_txn":
+                              float(res.attempts.float().mean())}
+        if runs["hot_counter"]["rounds"] != MAP_HOT_T:
+            self.fail(f"map/hot_counter: {runs['hot_counter']['rounds']} "
+                      f"rounds, not {MAP_HOT_T}")
+        if list(model[int(hot_key)]) != [MAP_HOT_T] * HASH_VW:
+            self.fail(f"map/hot_counter: the counter reads "
+                      f"{model[int(hot_key)]}")
+        keys, values = ch.contents(state, inline=True, vw=HASH_VW)
+        o = np.argsort(keys)
+        keys, values = keys[o], values[o]
+        want_k = np.union1d(pk, np.fromiter(model, np.uint32, len(model)))
+        want_v = np.zeros((len(want_k), HASH_VW), np.uint32)
+        want_v[np.searchsorted(want_k, pk)] = pv
+        mk = np.fromiter(model, np.uint32, len(model))
+        want_v[np.searchsorted(want_k, mk)] = np.stack(list(model.values()))
+        self.same("map contents keys", keys, want_k)
+        self.same("map contents values", values, want_v)
+        return spec, state, runs
+
+    def map_timing(self, spec, state, runs):
+        smoke, tmap = self.smoke, self.tmap
+        out = {}
+        for name, run in runs.items():
+            txns, fn = run.pop("txns"), run.pop("fn")
+
+            def call():
+                tmap.transact(spec, state, txns, fn)
+                self.torch.cuda.synchronize()
+            ms = smoke.time_ms(call, reps=TXN_TIMING_REPS, warmup=1)
+            out[name] = dict(run, ms=ms, ktxn_per_s=run["t"] / ms)
+        return out
+
+    # -- the wait-free writable cell -----------------------------------------
+
+    def wf_writable(self, seed):
+        """`core.wf_writable` at n = 2**22, k = 4 (p_max = P): one
+        `store_batch` of P lanes, half on 1024 hot slots (duplicates: the
+        last lane per slot wins), then one `cas_batch` of P lanes, half
+        expecting the live values, against `oracle_apply` on the same
+        script."""
+        wf, torch = self.wf, self.torch
+        rng = np.random.default_rng(seed)
+        initial = rng.integers(0, 2 ** 32, (N, K), dtype=np.uint32)
+        st = wf.init(N, K, p_max=P, initial=initial, device=self.dev)
+        hot = rng.integers(0, N, 1024)
+        slots = np.where(rng.random(P) < 0.5, hot[rng.integers(0, 1024, P)],
+                         rng.integers(0, N, P)).astype(np.int32)
+        vals = rng.integers(0, 2 ** 32, (P, K), dtype=np.uint32)
+        d_slots = torch.from_numpy(slots).to(self.dev)
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st2 = wf.store_batch(st, d_slots, vals)
+        self.torch.cuda.synchronize()
+        store_ms = (time.perf_counter() - t0) * 1e3
+        model, _ = wf.oracle_apply(initial, [
+            ("store", int(s), v) for s, v in zip(slots, vals)])
+        self.same("wf store_batch values", st2.z_value, model)
+        if bool(wf.pending(st2).any()):
+            self.fail("wf: a store is left pending after store_batch")
+        c_slots = np.where(rng.random(P) < 0.5, hot[rng.integers(0, 1024, P)],
+                           rng.integers(0, N, P)).astype(np.int32)
+        expected = np.where((rng.random(P) < 0.5)[:, None], model[c_slots],
+                            rng.integers(0, 2 ** 32, (P, K),
+                                         dtype=np.uint32))
+        desired = rng.integers(0, 2 ** 32, (P, K), dtype=np.uint32)
+        d_c = torch.from_numpy(c_slots).to(self.dev)
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st3, ok = wf.cas_batch(st2, d_c, expected, desired)
+        self.torch.cuda.synchronize()
+        cas_ms = (time.perf_counter() - t0) * 1e3
+        model, oks = wf.oracle_apply(model, [
+            ("cas", int(s), e, d) for s, e, d in zip(c_slots, expected,
+                                                     desired)])
+        self.same("wf cas_batch success", ok, np.asarray(oks))
+        self.same("wf cas_batch values", st3.z_value, model)
+        return {"duplicate_lanes": int(P - len(np.unique(slots))),
+                "cas_successes": int(np.sum(oks)),
+                "store_batch_ms": store_ms, "cas_batch_ms": cas_ms}
+
+
+def map_fn_increment(rv, rf):
+    """Each written key gets its read value + 1 (R == W)."""
+    return rv + 1
+
+
+def map_fn_sum_plus_one(rv, rf):
+    """The counter: the read set's sum + 1 (W == 1)."""
+    return rv.sum(axis=1, keepdims=True) + 1
+
+
+def txn_phase(smoke, tk, prefill, launches_main):
+    """The txn phase (`TxnPhase`): the checked path with the launch
+    counts reset just before it and read just after (the four round
+    kernels must have run; their counts join `launches_main`), then the
+    timings.  `prefill` is the cachehash phase's prefill batches."""
+    torch = smoke.torch
+    from repro_torch.core import cachehash, multiversion, wf_writable
+    from repro_torch.guard import invariants
+    from repro_torch.sync import queue
+    from repro_torch.txn import map as txn_map
+    from repro_torch.txn import mcas as txn_mcas
+    from repro_torch.txn import versionlist
+    t0 = time.perf_counter()
+    xp = TxnPhase(smoke, (txn_mcas, versionlist, multiversion, txn_map,
+                          wf_writable, cachehash, invariants, queue))
+    cases = xp.mcas_cases(9400)
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    mcas_runs = {}
+    for strategy in STRATEGIES:
+        mcas_runs[strategy] = xp.mcas_layout(strategy, cases)
+        log(f"[txn] mcas {strategy}: " + "; ".join(
+            f"{name} T={r[0]['t']} rounds {r[0]['rounds']} (host syncs "
+            f"{r[0]['host_syncs']}), commit rate {r[0]['commit_rate']:.3f}"
+            + (", mcas_round drain equal" if "mcas_round_drain" in r[0]
+               else "") for name, r in mcas_runs[strategy].items())
+            + "; equal to mcas_reference")
+    vl_state, vl_spec, vl_last, vl_q, vl_row = xp.versionlist(9500)
+    log(f"[txn] versionlist n = 2**22, k = {K}, depth {VL_DEPTH}: "
+        f"{VL_PUBLISHES} publishes of {P} slots (ts {TS_BASE} .. "
+        f"{TS_BASE + VL_PUBLISHES - 1}), {vl_row['lapped_slots']} rings "
+        f"lapped; {vl_row['reads']} snapshot_reads and latest equal to "
+        f"the model; check_version_list clean")
+    store_row = xp.versioned_store(9600)
+    log(f"[txn] versioned store: {store_row['state_bytes'] / 2 ** 20:.0f} "
+        f"MiB state, {MV_PUBLISHES} publishes read back and step_at equal "
+        f"to the model; begin_publish: readers keep the last state, the "
+        f"torn slot fails validate")
+    map_spec, map_state, map_runs = xp.txn_map(prefill, 9700)
+    log(f"[txn] map on HashSpec(2**22, vw={HASH_VW}) at load 0.5: " +
+        "; ".join(f"{name} T={r['t']} rounds {r['rounds']}"
+                  for name, r in map_runs.items())
+        + "; equal to transact_reference, contents equal")
+    wf_row = xp.wf_writable(9800)
+    log(f"[txn] wf_writable n = 2**22: store_batch of {P} lanes "
+        f"({wf_row['duplicate_lanes']} on repeated slots) and cas_batch "
+        f"({wf_row['cas_successes']} succeeded) equal to oracle_apply")
+    txn_launches = {k: v for k, v in tk.launch_counts().items() if v}
+    for kname in ROUND_KERNELS:
+        if not txn_launches.get(kname):
+            raise SystemExit(f"txn: {kname} never launched on the path")
+        launches_main[kname] += txn_launches[kname]
+    txn_path_s = time.perf_counter() - t0
+    log(f"[txn] path in {txn_path_s:.1f} s, launches {txn_launches}")
+    txn_out = {"path_s": txn_path_s, "launches": txn_launches, "mcas": {}}
+    for strategy in STRATEGIES:
+        txn_out["mcas"][strategy] = rows = xp.mcas_timing(
+            strategy, mcas_runs.pop(strategy))
+        for name, r in rows.items():
+            log(f"[txn-timing] mcas {strategy:9s} {name:8s} {r['ms']:.2f} "
+                f"ms ({r['ktxn_per_s']:.1f} ktxn/s), {r['rounds']} rounds, "
+                f"host reads {r['host_syncs']}; one round "
+                f"{r['round_device_ops']} device operations, "
+                f"{r['round_device_us']} device us"
+                + (f"; a captured round replays equal, "
+                   f"{r['round_replay_ms']:.4f} ms (eager "
+                   f"{r['round_eager_ms']:.4f}); arbitrate_groups "
+                   f"{r['arbitrate_ms'] * 1e3:.1f} us device"
+                   if "round_replay_ms" in r else ""))
+        torch.cuda.empty_cache()
+    txn_out["versionlist"] = dict(vl_row, **xp.versionlist_timing(
+        vl_state, vl_spec, vl_last, vl_q))
+    del vl_state
+    txn_out["store"] = store_row
+    txn_out["map"] = xp.map_timing(map_spec, map_state, map_runs)
+    del map_state
+    txn_out["wf"] = wf_row
+    txn_s = time.perf_counter() - t0
+    txn_out["phase_s"] = txn_s
+    vt = txn_out["versionlist"]
+    log(f"[txn-timing] versionlist publish {vt['publish_ms']:.3f} ms, "
+        f"snapshot_read {vt['snapshot_read_ms']:.3f} ms; store "
+        f"publish ms {[round(x, 3) for x in store_row['publish_ms']]}; "
+        + "; ".join(f"map {name} {r['ms']:.1f} ms ({r['ktxn_per_s']:.2f} "
+                    f"ktxn/s, {r['rounds']} rounds)"
+                    for name, r in txn_out["map"].items())
+        + f"; wf store_batch {wf_row['store_batch_ms']:.2f} ms, cas_batch "
+        f"{wf_row['cas_batch_ms']:.2f} ms")
+    log(f"[txn] phase in {txn_s:.1f} s")
+    torch.cuda.empty_cache()
+    return txn_out
+
+
 def main() -> int:
     try:
         import torch
@@ -2909,6 +3581,9 @@ def main() -> int:
     log(f"[cachehash] phase in {hash_s:.1f} s, kernel launches "
         f"{hash_launches} (its rounds are PyTorch operations, no kernel)")
 
+    # -- 10. txn ---------------------------------------------------------------
+    txn_out = txn_phase(smoke, tk, prefill, launches_main)
+
     # -- report ----------------------------------------------------------------
     ref = timings["cached_me"]
     rows = []
@@ -2971,6 +3646,7 @@ def main() -> int:
                         **sync_out},
                "cachehash": {"phase_s": hash_s, "launches": hash_launches,
                              "variants": hash_out},
+               "txn": txn_out,
                "kernels": rows}
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     log(card)

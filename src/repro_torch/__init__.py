@@ -5,7 +5,8 @@ module under the same file names.  The engine round of the four lock-free
 layouts runs through hand-written CUDA kernels for Hopper
 (`kernels/csrc/engine_round.cu`); every kernel has a plain PyTorch version
 beside it, which the CPU runs.  The public surface is `repro_torch.atomics`;
-its first clients are `repro_torch.sync` (LL/SC, atomic copy, the MPMC
-queue), `repro_torch.core.cachehash` and the telemetry of
-`repro_torch.obs`.
+its clients are `repro_torch.sync` (LL/SC, atomic copy, the MPMC
+queue), `repro_torch.core.cachehash`, the telemetry of `repro_torch.obs`
+and the transactions of `repro_torch.txn` (MCAS, version lists, the
+transactional map; `core.multiversion`, `core.wf_writable`).
 """

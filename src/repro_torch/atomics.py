@@ -27,9 +27,13 @@ Every tensor-creating function takes `device=` ("cuda" by default; pass
 "cpu" to run the plain PyTorch versions on the CPU).  Legacy entry points
 (`core.bigatomic.apply_ops`, `sync.llsc.apply_sync`,
 `core.cachehash.apply_hash_ops`, the `BigAtomicTable` / `CacheHash`
-wrappers) are thin shims over this module.  The reference's mesh layer
-(`dist`, `DistSpec`) and transactions (`txn`, `mcas`, `VersionSpec`) are
-not ported yet.
+wrappers) are thin shims over this module.
+
+The transaction layer: k-word MCAS (`atomics.mcas`, checked txn
+construction via `atomics.make_txns`), bounded version lists
+(`VersionSpec`, `txn.versionlist`) and the optimistic transactional map
+(`txn.map`), all registry-dispatched.  The reference's mesh layer (`dist`,
+`DistSpec`, the sharded MCAS) is not ported yet.
 """
 
 from repro_torch.core.engine import (  # noqa: F401
@@ -46,9 +50,13 @@ from repro_torch.core.registry import (  # noqa: F401
     unregister_strategy,
 )
 from repro_torch.core.specs import (  # noqa: F401
-    DEFAULT_STRATEGY, AtomicSpec, HashSpec, QueueSpec,
+    DEFAULT_STRATEGY, AtomicSpec, HashSpec, QueueSpec, VersionSpec,
 )
 from repro_torch.core import strategies as _builtin_strategies  # noqa: F401
+from repro_torch import txn  # noqa: F401
+from repro_torch.txn.mcas import (  # noqa: F401
+    McasResult, TxnBatch, make_txns, mcas,
+)
 
 
 def memory_bytes(spec: AtomicSpec) -> int:

@@ -1,2 +1,3 @@
 """Core of the port: specs, layouts, the strategy registry, the engine,
-CacheHash and the v1 shims."""
+CacheHash, the versioned store, the wait-free writable cell and the v1
+shims."""

@@ -62,8 +62,8 @@ from repro_torch.core import bigatomic as ba
 from repro_torch.core import engine
 from repro_torch.core.deprecation import warn_once
 from repro_torch.core.layout import (WORD_DTYPE, TableState, as_u64,
-                                     as_words, gather_rows, resolve_device,
-                                     scatter_set, to_word)
+                                     as_words, clamped_index, gather_rows,
+                                     resolve_device, scatter_set, to_word)
 from repro_torch.core.registry import get_strategy
 from repro_torch.core.specs import DEFAULT_STRATEGY, HashSpec
 
@@ -225,13 +225,6 @@ def apply_reference(model: dict, ops, vw: int):
 # Vectorized batched ops.
 # ---------------------------------------------------------------------------
 
-def _index(idx: torch.Tensor, m: int) -> torch.Tensor:
-    """A gather index as the reference's gathers read it: a negative index
-    counts from the end, then the index is clamped into [0, m)."""
-    idx = idx.long()
-    return torch.where(idx < 0, idx + m, idx).clamp(0, m - 1)
-
-
 def _put(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
          live: torch.Tensor) -> None:
     """In place: `dst[idx[i]] = vals[i]` for live lanes, the reference's
@@ -282,7 +275,8 @@ def _walk(spec: HashSpec, data, pool, b_idx, key) -> _Walk:
     vis = []
     for j in range(spec.max_chain):
         is_node = _is_node(cur) & (found_depth < 0)
-        row = gather_rows(pool, _index(torch.where(is_node, cur, 0), cap))
+        row = gather_rows(pool,
+                          clamped_index(torch.where(is_node, cur, 0), cap))
         hit = is_node & (row[:, 0] == key)
         found_depth = torch.where(hit, j + 1, found_depth)
         vis.append(torch.where(is_node, cur, -1))
@@ -302,7 +296,8 @@ def _found_value(spec: HashSpec, w: _Walk, pool):
     fd = w.found_depth
     node_at_fd = w.vis.gather(
         1, (fd - 1).clamp(0, spec.max_chain - 1)[:, None])[:, 0]
-    pool_val = gather_rows(pool, _index(node_at_fd.clamp(min=0), cap))
+    pool_val = gather_rows(pool,
+                           clamped_index(node_at_fd.clamp(min=0), cap))
     pool_val = pool_val[:, 1:1 + vw]
     if spec.inline:
         inline_val = w.cell[:, 1:1 + vw]
@@ -424,13 +419,15 @@ def _round(spec: HashSpec, s: _Sorted, c: _Carry, t: int) -> None:
         empty_cell = _empty_cells((spec.cellw,), c.data.device)
         _put(c.data, s.bucket, empty_cell, a_live & ~has_succ)
         succ_i = torch.where(has_succ, succ, 0)
-        _put(c.data, s.bucket, gather_rows(c.pool, _index(succ_i, cap)),
+        _put(c.data, s.bucket,
+             gather_rows(c.pool, clamped_index(succ_i, cap)),
              a_live & has_succ)
         freed_a = torch.where(a_live & has_succ, succ_i, freed_a)
 
     # Case B: the victim at chain depth fd >= 1 -> path copy.
     b_live = d_live & (fd >= 1)
-    tail_code = gather_rows(c.pool, _index(node_at_fd.clamp(min=0), cap))
+    tail_code = gather_rows(c.pool,
+                            clamped_index(node_at_fd.clamp(min=0), cap))
     tail_code = tail_code[:, -1]
     ncopies = torch.where(b_live, (fd - 1).clamp(min=0), 0)
     copy_base = off + ins_need
@@ -442,7 +439,8 @@ def _round(spec: HashSpec, s: _Sorted, c: _Carry, t: int) -> None:
     j = torch.arange(max_chain - 1, device=c.pool.device)[None, :]
     nxt = torch.where(j + 1 < ncopies[:, None],
                       slot_at(copy_base[:, None] + j + 1), tail_code[:, None])
-    rows = gather_rows(c.pool, _index(vis[:, :-1].clamp(min=0), cap)
+    rows = gather_rows(c.pool,
+                       clamped_index(vis[:, :-1].clamp(min=0), cap)
                        .reshape(-1)).view(q, max_chain - 1, cellw_pool)
     rows = torch.cat([rows[..., :-1], nxt[..., None]], -1)
     _put(c.pool, slot_at(copy_base[:, None] + j).reshape(-1),

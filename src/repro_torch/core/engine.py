@@ -566,6 +566,42 @@ def linearize(data, version, ctx: LinkCtx, ops: OpBatch, *, telem=None):
 
 
 # ---------------------------------------------------------------------------
+# Txn-group lane metadata: conflict arbitration for multi-lane transactions.
+# ---------------------------------------------------------------------------
+
+def arbitrate_groups(slot, group, eligible, *, n: int, n_groups: int):
+    """The linearizer's lane-order rule lifted to whole lane GROUPS.
+
+    A transaction (`repro_torch.txn.mcas`) is a group of lanes that must
+    commit all-or-nothing.  The lowest-id eligible group claiming a cell
+    wins that cell, and a group is a WINNER iff it wins every cell it
+    claims.  Winners are therefore pairwise cell-disjoint, so a pure-SC
+    commit batch of all their lanes resolves on the engine's one-round
+    fast path with every SC succeeding.  The lowest-id eligible group
+    always wins all its cells, so >= 1 group resolves per round.
+
+    slot:     int32[p]  claimed cell per lane (out-of-range = unused lane)
+    group:    int32[p]  owning group id per lane, in [0, n_groups)
+    eligible: bool[p]   lane belongs to a group contending this round
+
+    Returns bool[n_groups]: the winner mask.  The lowest group per cell is
+    a scatter-min into an (n + 1)-sized buffer whose last entry takes the
+    dead lanes, as the reference's; no host read."""
+    dev = slot.device
+    in_range = (slot >= 0) & (slot < n)
+    live = eligible & in_range
+    claim = torch.where(live, slot, n).long()
+    gid = torch.where(live, group, n_groups).to(torch.int32)
+    cell_min = torch.full((n + 1,), n_groups, dtype=torch.int32, device=dev)
+    cell_min.scatter_reduce_(0, claim, gid, "amin")
+    lane_wins = (cell_min[claim] == group).to(torch.int32)
+    # A group wins iff ALL its live lanes win (scatter-AND via min).
+    grp = torch.ones((n_groups + 1,), dtype=torch.int32, device=dev)
+    grp.scatter_reduce_(0, gid.long(), lane_wins, "amin")
+    return grp[:n_groups] > 0
+
+
+# ---------------------------------------------------------------------------
 # Round lowering: strategies may swap `linearize` for a fused kernel round.
 # ---------------------------------------------------------------------------
 
@@ -609,17 +645,28 @@ def canonicalize_ctx(ctx: LinkCtx, device) -> LinkCtx:
 # The single public entry point: apply(spec, state, ops [, ctx]).
 # ---------------------------------------------------------------------------
 
+def host_copy(x) -> np.ndarray | None:
+    """`x` as a numpy array for a check on the host: a tensor on a card is
+    copied back (one sync, as the reference's `np.asarray` of a concrete
+    array), except while the current stream is being captured into a CUDA
+    graph, where it is the caller's contract and None is returned (the
+    reference's traced input skips the check)."""
+    if isinstance(x, torch.Tensor):
+        if x.is_cuda and torch.cuda.is_current_stream_capturing():
+            return None
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
 def check_kinds(kind, allowed, what: str) -> None:
     """Reject op kinds outside `allowed`, checked on the host.  Kinds on a
     card are copied back first (one sync, as the reference's `np.asarray`
     of a concrete array), except while the current stream is being
     captured into a CUDA graph: there, as the reference's traced kinds,
     they are the caller's contract."""
-    if isinstance(kind, torch.Tensor):
-        if kind.is_cuda and torch.cuda.is_current_stream_capturing():
-            return
-        kind = kind.cpu().numpy()
-    kind = np.asarray(kind)
+    kind = host_copy(kind)
+    if kind is None:
+        return
     bad = ~np.isin(kind, allowed)
     if bad.any():
         raise ValueError(f"op kinds {np.unique(kind[bad]).tolist()} are not "

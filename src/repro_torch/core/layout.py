@@ -78,6 +78,15 @@ def scatter_set(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     dst.index_add_(0, safe, delta)
 
 
+def clamped_index(idx: torch.Tensor, m: int) -> torch.Tensor:
+    """A gather index as the reference's gathers read it: a negative index
+    counts from the end, then the index is clamped into [0, m) (int64).
+    In range at rest; a corrupted pointer (the integrity scrub's input)
+    must still read in bounds on a card."""
+    idx = idx.long()
+    return torch.where(idx < 0, idx + m, idx).clamp(0, m - 1)
+
+
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """`table[idx]` for a contiguous [m, k] table and int64 row indices in
     [0, m).

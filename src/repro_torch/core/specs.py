@@ -71,6 +71,45 @@ class HashSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class VersionSpec:
+    """A table of `n` version lists: per-slot bounded chains of `k`-word
+    timestamped versions (the paper's version-list application).
+
+    The newest version of every slot lives INLINE in a big-atomic head cell
+    of `cellw = k + 2` words — [value(k), ts, prev] — on an ordinary
+    `AtomicSpec` table (`head_spec()`), so head updates ride the unified
+    engine and every registered strategy.  Older versions sit in a per-slot
+    ring of `depth - 1` immutable pool nodes; a node is overwritten only
+    after `depth - 1` further publishes of its slot, which bounds every
+    chain to the `depth` newest versions (reads past that report ok=False:
+    honesty, not silence)."""
+
+    n: int
+    k: int
+    depth: int = 4
+    strategy: str = DEFAULT_STRATEGY
+    p_max: int = 256
+
+    def __post_init__(self):
+        if self.n <= 0 or self.k <= 0 or self.p_max <= 0:
+            raise ValueError(f"VersionSpec sizes must be positive: {self}")
+        if self.depth < 2:
+            raise ValueError(f"depth must be >= 2 (inline head + >= 1 "
+                             f"pooled version): {self}")
+
+    @property
+    def cellw(self) -> int:
+        return self.k + 2            # [value(k), ts, prev]
+
+    @property
+    def ring_depth(self) -> int:
+        return self.depth - 1        # pooled (non-inline) versions per slot
+
+    def head_spec(self) -> AtomicSpec:
+        return AtomicSpec(self.n, self.cellw, self.strategy, self.p_max)
+
+
+@dataclasses.dataclass(frozen=True)
 class QueueSpec:
     """A bounded MPMC ticket-ring of `capacity` slots whose head, tail and
     slot cells are `k`-word big atomics (1 seq word + k-1 payload words)."""

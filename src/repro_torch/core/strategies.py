@@ -25,9 +25,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.layout import (NULL, TableState, Traffic, WORD_BYTES,
-                                     WORD_DTYPE, _empty, gather_rows,
-                                     ring_advance, ring_return, ring_take,
-                                     sim_alloc)
+                                     WORD_DTYPE, _empty, clamped_index,
+                                     gather_rows, ring_advance, ring_return,
+                                     ring_take, sim_alloc)
 from repro_torch.core.registry import StrategyImpl, register_strategy
 
 
@@ -35,15 +35,6 @@ def _i32(x, dev) -> torch.Tensor:
     """An int32 constant made on the device (a fill, which a CUDA graph can
     capture; a copy from the host it cannot)."""
     return torch.full((), x, dtype=torch.int32, device=dev)
-
-
-def _node_index(bptr: torch.Tensor, m: int) -> torch.Tensor:
-    """Node indices as the reference's gather reads `pool[bptr]`: a
-    negative pointer counts from the end, then the index is clamped into
-    [0, m).  At rest every pointer is in range; a corrupted one (the
-    integrity scrub's input) must still read in bounds on a card."""
-    idx = bptr.long()
-    return torch.where(idx < 0, idx + m, idx).clamp(0, m - 1)
 
 
 class _KernelLowering:
@@ -213,7 +204,7 @@ class Indirect(_KernelLowering, _NodePool):
 
     def logical(self, state):
         return gather_rows(state.pool,
-                           _node_index(state.bptr, state.pool.shape[0]))
+                           clamped_index(state.bptr, state.pool.shape[0]))
 
     def engine_view(self, state):
         # `commit` writes new_data into the shadow alongside the node swing,
@@ -222,7 +213,7 @@ class Indirect(_KernelLowering, _NodePool):
         return state.data
 
     def read(self, state, slots):
-        node = _node_index(state.bptr[slots], state.pool.shape[0])
+        node = clamped_index(state.bptr[slots], state.pool.shape[0])
         return state.pool[node], torch.ones(
             (slots.shape[0],), dtype=torch.bool, device=slots.device)
 
@@ -288,8 +279,8 @@ class CachedWF(_KernelLowering, _Cached):
         marked = state.mark[slots]
         v2 = state.version[slots]
         fastok = (~marked) & (v1 == v2) & ((v1 & 1) == 0)
-        backup = state.pool[_node_index(state.bptr[slots],
-                                        state.pool.shape[0])]  # slow path
+        backup = state.pool[clamped_index(state.bptr[slots],
+                                          state.pool.shape[0])]  # slow path
         return (torch.where(fastok[:, None], val, backup),
                 torch.ones((slots.shape[0],), dtype=torch.bool,
                            device=slots.device))

@@ -9,7 +9,8 @@ garbage.
   invariants   per-strategy structural checks via the
                `StrategyImpl.check_invariants` registry hook (seqlock
                parity, indirect pointer/shadow agreement, cached_wf/
-               cached_me tag consistency).
+               cached_me tag consistency), and the version lists' head /
+               pool agreement (`check_version_list`).
   scrub        whole-table digest + invariant pass classifying each cell
                clean / repairable / quarantined (`ScrubReport`); the
                digest is `kernels.scrub_digest.digest_rows` (the CUDA
@@ -17,14 +18,14 @@ garbage.
   inject       seeded bit flips and torn writes, on the table or on a
                snapshot.
 
-The `BIGATOMIC_GUARD` gate, the chaos harness and the version-list
-invariants come with the runtime and transactions slices, which read them.
+The `BIGATOMIC_GUARD` gate and the chaos harness come with the runtime
+slice, which reads them.
 """
 
 from __future__ import annotations
 
 from repro_torch.guard.invariants import (  # noqa: F401
-    check_invariants, violation_mask,
+    check_invariants, check_version_list, violation_mask,
 )
 from repro_torch.guard.scrub import (  # noqa: F401
     ScrubReport, Scrubber, cell_digest, scrub,

@@ -19,15 +19,17 @@ Per-layout invariants (`core/strategies.py`):
                     mark_clear           no invalidation mark at rest
   cached_me         tagged_null          bptr is NULL or -(tag+2) with
                                          tag = (version >> 1) & 0x3FFFFFFF
-
-The version-list checks (`check_version_list`) come with the transactions
-slice.
+  version lists     head_prev_agrees     head's prev pointer names the ring
+                                         slot the last publish displaced
+                    head_ts_newest       every published pool node is older
+                                         than the inline head
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.layout import as_u64, to_word
 from repro_torch.core.registry import get_strategy
 
 
@@ -46,3 +48,31 @@ def violation_mask(spec, state) -> torch.Tensor:
     for m in check_invariants(spec, state).values():
         out |= m
     return out
+
+
+def check_version_list(vspec, vstate) -> dict:
+    """Head/pool agreement for `txn.versionlist` chains (bool[n] masks on
+    the state's device, no host read).
+
+    A healthy slot's inline head is its newest version: the head's `prev`
+    word names exactly the ring slot the last publish displaced into
+    (NULLV before any publish), and every published pool node carries a
+    strictly older timestamp than the head (`publish` requires strictly
+    increasing ts per slot).  Timestamps, counts and pointers compare as
+    the reference's uint32 words."""
+    from repro_torch.txn.versionlist import NULLV
+    k, rd = vspec.k, vspec.ring_depth
+    head = get_strategy(vspec.strategy).logical(vstate.table)   # [n, k+2]
+    hts, hprev = as_u64(head[:, k]), head[:, k + 1]
+    cnt = as_u64(vstate.count)
+    dev = cnt.device
+    slots = torch.arange(vspec.n, dtype=torch.int64, device=dev)
+    last_pos = torch.where(cnt > 0, (cnt - 1) % rd, 0)
+    expect = torch.where(cnt > 0, to_word(slots * rd + last_pos), NULLV)
+    pool_ts = as_u64(vstate.pool[:, :, k])                      # [n, rd]
+    published = (torch.arange(rd, device=dev)[None, :]
+                 < cnt.clamp(max=rd)[:, None])
+    return {
+        "head_prev_agrees": hprev != expect,
+        "head_ts_newest": (published & (pool_ts >= hts[:, None])).any(1),
+    }
