@@ -158,6 +158,35 @@ package, and runs these phases:
              captured in a CUDA graph and replayed against the eager round
              (a failed capture fails the run); publish / read / transact /
              store_batch / cas_batch times.
+  11. serving
+             the paged-KV server (`serving.engine.ServingEngine` over
+             `models.transformer`, the CacheHash page table, the BigQueue
+             rings and `txn.map`): glm4_9b at full width and depth (40
+             layers, d_model 4096, bf16, ~17.5 GiB of weights drawn on the
+             card from a seeded generator with `dense_init`'s scales),
+             `ServingEngine(max_batch=4, page_size=16, n_pages=256,
+             max_pages_per_seq=64)` on the default layout, six greedy
+             requests of 128-512 prompt tokens and 32 new tokens.  With
+             the counts reset just before and read just after, the checked
+             run: the page table against a numpy model (`PageModel`) after
+             every step (contents equal, no page mapped twice, the free
+             ring's count; at the end every page back on the ring, once);
+             the four round kernels (through the rings) and
+             `flash_attention_wgmma` (through the prefills) must have run,
+             their launches join the kernels line.  Then the paged decode
+             against the dense path (`make_prefill_step` +
+             `make_serve_step`, teacher-forced with the engine's tokens):
+             logits within `SERVE_ATOL` + `SERVE_RTOL` |want|, tokens
+             equal wherever the dense top-2 margin exceeds twice that; the
+             prefill's attention route against its plain pair-list version
+             at t = 512; the reduced fp32 deepseek_7b engine on the four
+             lock-free layouts, tokens equal to the dense path's.  Then a
+             timed run (prefill ms, decode ms per step, tokens/s, host
+             syncs and host reads per step, a decode step's and a
+             one-crossing step's reads gated to the CPU's pinned 4 and
+             15, three plain decode steps profiled for their device
+             operations and busy share) and a split run (FIND, gather,
+             forward, append, bookkeeping, sampling).
 
 Exits non-zero on any failure, without the result line.  On success the
 last lines are the card (nvidia-smi), a JSON line with one entry per
@@ -167,6 +196,7 @@ kernel, and `{"ok": true, "device": {...}}`.  Details go to
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -3232,6 +3262,665 @@ def txn_phase(smoke, tk, prefill, launches_main):
     return txn_out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the paged-KV server (serving/engine.py over models/, the
+# CacheHash page table, the BigQueue rings and the transactional map).
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "glm4_9b"                    # full width and depth, bf16
+SERVE_SEED = 11000
+SERVE_ENGINE = {"max_batch": 4, "page_size": 16, "n_pages": 256,
+                "max_pages_per_seq": 64}
+SERVE_PROMPTS = (128, 512, 200, 317, 409, 150)    # six requests
+SERVE_NEW = 32
+# The paged decode against the dense path on the same weights, teacher-
+# forced with the engine's tokens: both round bf16 activations, and the
+# engine's batch of up to 4 rows and 1024 gathered positions sums in
+# another order than the dense path's batch of 1, so a logit may differ
+# by a few bf16 ulps at its scale: |got - want| <= atol + rtol |want|.
+# The tokens must agree wherever the dense top-2 margin exceeds twice
+# that (the most two logits within it can cross).
+SERVE_ATOL, SERVE_RTOL = 0.1, 2 ** -5
+# The reduced fp32 deepseek_7b engine on the four lock-free layouts:
+# (prompt length, new tokens) per request; tokens must equal the dense
+# path's exactly.
+SERVE_FP32_REQUESTS = ((20, 6), (12, 3), (17, 8))
+SERVE_PROFILED_STEPS = 3
+
+
+# Device-to-host reads of one decode step, one live row's crossing at
+# most: the counts tests/test_torch_serving.py pins on the CPU
+# (`DECODE_HOST_READS`).  A crossing with k rows crossing adds a dequeue
+# round (6 reads) per further page.
+SERVE_HOST_READS = {"decode": 4, "crossing": 15}
+# The ways a tensor on the card reaches the host.
+READ_METHODS = ("cpu", "tolist", "item", "__bool__", "__int__", "__float__",
+                "__index__")
+
+
+@contextlib.contextmanager
+def counting_host_reads(torch):
+    """Count every call that copies a tensor on the card to the host (one
+    read each) while the block runs; yields the counter."""
+    counter = {"n": 0}
+    saved = {name: getattr(torch.Tensor, name) for name in READ_METHODS}
+
+    def wrap(orig):
+        def read(self, *a, **kw):
+            if self.is_cuda:
+                counter["n"] += 1
+            return orig(self, *a, **kw)
+        return read
+
+    for name, orig in saved.items():
+        setattr(torch.Tensor, name, wrap(orig))
+    try:
+        yield counter
+    finally:
+        for name, orig in saved.items():
+            setattr(torch.Tensor, name, orig)
+
+
+class PageModel:
+    """A numpy model of the page table and the free-page ring, driven by
+    the calls the engine makes: the ring is FIFO and starts as pages
+    n-1 .. 0; an allocation pops pages in lane order, a retirement pushes
+    the retired sequence's pages in page order before the step's
+    allocations pop."""
+
+    def __init__(self, n_pages):
+        self.free = list(range(n_pages - 1, -1, -1))
+        self.map = {}                       # page key -> physical page
+
+    @staticmethod
+    def key(seq_id, page_no):
+        return (int(seq_id) << 20) | int(page_no)
+
+    def alloc(self, keys):
+        if len(keys) > len(self.free):
+            return None
+        phys, self.free = self.free[:len(keys)], self.free[len(keys):]
+        for k, p in zip(keys, phys):
+            if k in self.map:
+                raise SystemExit(f"serving: page key {k:#x} mapped twice")
+            self.map[k] = p
+        return phys
+
+    def retire(self, keys):
+        self.free += [self.map[k] for k in keys if k in self.map]
+        for k in keys:
+            self.map.pop(k, None)
+
+
+class ServingPhase:
+    """Phase 11: the paged-KV server at the full width of glm4_9b (see
+    `serving_phase`)."""
+
+    def __init__(self, smoke, mods):
+        self.s, self.torch, self.dev = smoke, smoke.torch, smoke.dev
+        (self.configs, self.tm, self.steps, self.engine_mod, self.pk,
+         self.attn, self.ch) = mods
+
+    def fail(self, what):
+        raise SystemExit(f"serving: {what}")
+
+    def requests(self, cfg, seed):
+        rng = np.random.default_rng(seed)
+        return [rng.integers(0, cfg.vocab, t).astype(np.int32)
+                for t in SERVE_PROMPTS]
+
+    def new_engine(self, cfg, params, **kw):
+        return self.engine_mod.ServingEngine(cfg, params, device=self.dev,
+                                             **{**SERVE_ENGINE, **kw})
+
+    def submit_all(self, eng, prompts):
+        for rid, prompt in enumerate(prompts):
+            eng.submit(self.engine_mod.Request(rid=rid, prompt=prompt,
+                                               max_new_tokens=SERVE_NEW))
+
+    # -- the checked run ------------------------------------------------------
+
+    def checked_run(self, cfg, params, prompts):
+        """The engine on the six requests with the page table held to
+        `PageModel` after every step and the sampled logits kept (on the
+        host) for the dense comparison.  Returns (tokens by rid, logits
+        by (rid, position), steps, the model)."""
+        pk = self.pk
+        eng = self.new_engine(cfg, params)
+        model = PageModel(SERVE_ENGINE["n_pages"])
+        orig_alloc, orig_book = pk.alloc_pages, pk.txn_bookkeep
+
+        def alloc_pages(paged, seq_ids, page_nos):
+            want = model.alloc([model.key(s, p)
+                                for s, p in zip(seq_ids, page_nos)])
+            paged, phys = orig_alloc(paged, seq_ids, page_nos)
+            if want is None or phys.tolist() != want:
+                self.fail(f"alloc_pages gave {phys.tolist()}, the model "
+                          f"{want}")
+            return paged, phys
+
+        def txn_bookkeep(paged, retires, allocs):
+            model.retire([model.key(s, p) for s, used in retires
+                          for p in range(used)])
+            want = model.alloc([model.key(s, p) for s, p in allocs])
+            paged, phys = orig_book(paged, retires, allocs)
+            if want is None or phys.tolist() != want:
+                self.fail(f"txn_bookkeep gave {phys.tolist()}, the model "
+                          f"{want}")
+            return paged, phys
+
+        tags, logits = [], []
+        orig_sample, orig_pc = eng._sample, eng._prefill_compute
+        orig_fd = eng._finish_decode
+
+        def sample(x):
+            logits.append(x.float().cpu())
+            return orig_sample(x)
+
+        def prefill_compute(req):
+            tags.append([(req.rid, len(req.prompt) - 1)])
+            steps["admissions"] += 1
+            return orig_pc(req)
+
+        def finish_decode(live, x):
+            tags.append([(eng.slots[i].rid, eng.slots[i].pos) for i in live])
+            return orig_fd(live, x)
+
+        steps = {"steps": 0, "crossings": 0, "admissions": 0, "retires": 0}
+        eng._sample, eng._prefill_compute = sample, prefill_compute
+        eng._finish_decode = finish_decode
+        pk.alloc_pages, pk.txn_bookkeep = alloc_pages, txn_bookkeep
+        try:
+            self.submit_all(eng, prompts)
+            for _ in range(4 * SERVE_NEW * len(prompts)):
+                before = [s.pos for s in eng.slots if s.active]
+                live = eng.step()
+                if not live and not eng.pending():
+                    break
+                steps["steps"] += 1
+                steps["crossings"] += sum(
+                    p % SERVE_ENGINE["page_size"] == 0 for p in before)
+                self.check_table(eng, model)
+        finally:
+            pk.alloc_pages, pk.txn_bookkeep = orig_alloc, orig_book
+        self.check_table(eng, model)
+        if model.map or len(eng.paged.free) != SERVE_ENGINE["n_pages"]:
+            self.fail(f"{len(model.map)} pages still mapped, "
+                      f"{len(eng.paged.free)} on the free ring")
+        pages, ok = eng.paged.free.dequeue_batch(SERVE_ENGINE["n_pages"])
+        if not ok.all() or sorted(pages[:, 0].tolist()) != list(
+                range(SERVE_ENGINE["n_pages"])):
+            self.fail("the free ring does not hold every page once")
+        by_pos = {}
+        for tag, x in zip(tags, logits):
+            for j, (rid, pos) in enumerate(tag):
+                by_pos[(rid, pos)] = x[j]
+        out = {rid: r.out_tokens for rid, r in eng.requests.items()}
+        steps["retires"] = sum(r.done for r in eng.requests.values())
+        return out, by_pos, steps, model
+
+    def check_table(self, eng, model):
+        """The page table's contents equal the model's mapping; no physical
+        page is mapped twice; the ring holds the model's free count."""
+        items = self.ch.items(eng.paged.state.table, inline=True, vw=1)
+        got = {int(k): int(v[0]) for k, v in items.items()}
+        if got != model.map:
+            diff = sorted(set(got.items()) ^ set(model.map.items()))[:6]
+            self.fail(f"page table differs from the model: {diff}")
+        if len(set(got.values())) != len(got):
+            self.fail("a physical page is mapped twice")
+        if len(eng.paged.free) != len(model.free):
+            self.fail(f"free ring holds {len(eng.paged.free)}, the model "
+                      f"{len(model.free)}")
+
+    # -- the dense path -------------------------------------------------------
+
+    def dense_compare(self, cfg, params, prompts, out, by_pos):
+        """`make_prefill_step` + `make_serve_step` (no page table) per
+        request, teacher-forced with the engine's tokens: every logit
+        within the stated tolerance of the engine's, and the engine's token
+        the dense argmax wherever the dense top-2 margin exceeds twice the
+        tolerance.  Returns the largest error and the token counts."""
+        torch = self.torch
+        max_err, checked, margin_ok = 0.0, 0, 0
+        for rid, prompt in enumerate(prompts):
+            T = len(prompt)
+            prefill = self.steps.make_prefill_step(cfg, max_len=T + SERVE_NEW)
+            serve = self.steps.make_serve_step(cfg)
+            tokens = torch.as_tensor(prompt[None]).to(self.dev)
+            logits, cache = prefill(params, {"tokens": tokens})
+            rows = [logits[0, -1]]
+            for d in range(SERVE_NEW - 1):
+                logits, cache = serve(params, cache, {
+                    "tokens": torch.tensor([[out[rid][d]]], dtype=torch.int32,
+                                           device=self.dev),
+                    "pos": torch.tensor([T + d], dtype=torch.int32,
+                                        device=self.dev)})
+                rows.append(logits[0, 0])
+            for d, row in enumerate(rows):      # row d -> out[rid][d]
+                want = row.float().cpu()
+                got = by_pos[(rid, T - 1 + d)]
+                tol = SERVE_ATOL + SERVE_RTOL * want.abs()
+                err = (got - want).abs()
+                max_err = max(max_err, float(err.max()))
+                if not torch.isfinite(got).all() or bool((err > tol).any()):
+                    self.fail(f"request {rid} position {T + d}: paged logits "
+                              f"differ from the dense path by "
+                              f"{float(err.max()):.4f}")
+                top2 = torch.topk(want, 2)
+                margin = float(top2.values[0] - top2.values[1])
+                checked += 1
+                if margin > 2 * float(tol[top2.indices[0]]):
+                    margin_ok += 1
+                    if out[rid][d] != int(top2.indices[0]):
+                        self.fail(f"request {rid} token {d}: engine "
+                                  f"{out[rid][d]}, dense "
+                                  f"{int(top2.indices[0])} (margin "
+                                  f"{margin:.3f})")
+            del cache
+        return {"max_abs_err": max_err, "positions": checked,
+                "tokens_held_by_margin": margin_ok}
+
+    def prefill_route(self, cfg, seed):
+        """The prefill's attention at one prompt's shapes (the longest):
+        the kernel route (`models.attention.flash_attention`) against the
+        plain pair-list version, bf16 within the attention phase's
+        tolerance; the route must launch `flash_attention_wgmma`."""
+        torch, tk = self.torch, self.s.tk
+        T = max(SERVE_PROMPTS)
+        gen = torch.Generator(device=self.dev).manual_seed(seed)
+        q, k, v = (torch.randn((1, T, h, cfg.hd), generator=gen,
+                               device=self.dev).to(cfg.cdtype())
+                   for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+        before = tk.launch_counts()[WGMMA]
+        got = self.attn.flash_attention(q, k, v, causal=True,
+                                        q_block=cfg.q_block,
+                                        kv_block=cfg.kv_block)
+        launched = tk.launch_counts()[WGMMA] - before
+        want = self.attn.flash_attention_pairs(q, k, v, causal=True,
+                                               q_block=cfg.q_block,
+                                               kv_block=cfg.kv_block)
+        err = (got.float() - want.float()).abs()
+        atol, rtol = BF16_TOL
+        if launched != 1 or not torch.isfinite(got.float()).all() or \
+                bool((err > atol + rtol * want.float().abs()).any()):
+            self.fail(f"prefill attention route: {launched} wgmma launches, "
+                      f"max abs err {float(err.max())}")
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        # read q, k and v once, write o once; the causal pairs' products
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = 4 * cfg.n_heads * cfg.hd * live_pairs(T, T, True, 0)
+        row = {"t": T, "max_abs_err": float(err.max()),
+               "kernel_ms": self.s.device_ms(
+                   lambda: self.attn.flash_attention(q, k, v, causal=True),
+                   reps=10),
+               "plain_ms": self.s.time_ms(
+                   lambda: self.attn.flash_attention_pairs(
+                       q, k, v, causal=True), reps=3, warmup=1),
+               "library_ms": self.s.device_ms(lambda: sdpa(
+                   qt, kt, vt, is_causal=True, enable_gqa=True), reps=10),
+               "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "flops_ms": flops / BF16_FLOPS * 1e3}
+        row["bound_ms"] = max(row["bytes_ms"], row["flops_ms"])
+        return row
+
+    def fp32_layouts(self, seed):
+        """The reduced fp32 deepseek_7b engine on the four lock-free
+        layouts: greedy tokens equal the dense path's exactly."""
+        import dataclasses
+        cfg = dataclasses.replace(
+            self.configs.get_config("deepseek_7b", reduced=True),
+            param_dtype="float32", compute_dtype="float32")
+        params = self.tm.init_params(cfg, seed=seed, device=self.dev)
+        rng = np.random.default_rng(seed)
+        reqs = [(rng.integers(0, cfg.vocab, t).astype(np.int32), n)
+                for t, n in SERVE_FP32_REQUESTS]
+        dense = [self.dense_greedy(cfg, params, p, n) for p, n in reqs]
+        for strategy in STRATEGIES:
+            eng = self.engine_mod.ServingEngine(
+                cfg, params, max_batch=2, n_pages=32, page_size=8,
+                max_pages_per_seq=8, strategy=strategy, device=self.dev)
+            for rid, (p, n) in enumerate(reqs):
+                eng.submit(self.engine_mod.Request(rid=rid, prompt=p,
+                                                   max_new_tokens=n))
+            got = eng.run_to_completion()
+            for rid, want in enumerate(dense):
+                if got[rid] != want:
+                    self.fail(f"fp32 deepseek_7b on {strategy}: request "
+                              f"{rid} paged {got[rid]}, dense {want}")
+            if len(eng.paged.free) != 32:
+                self.fail(f"fp32 deepseek_7b on {strategy}: pages leaked")
+        return [len(d) for d in dense]
+
+    def dense_greedy(self, cfg, params, prompt, n_new):
+        torch = self.torch
+        T = len(prompt)
+        prefill = self.steps.make_prefill_step(cfg, max_len=T + n_new)
+        serve = self.steps.make_serve_step(cfg)
+        logits, cache = prefill(params, {"tokens": torch.as_tensor(
+            prompt[None]).to(self.dev)})
+        toks = [int(torch.argmax(logits[0, -1]))]
+        for d in range(n_new - 1):
+            logits, cache = serve(params, cache, {
+                "tokens": torch.tensor([[toks[-1]]], dtype=torch.int32,
+                                       device=self.dev),
+                "pos": torch.tensor([T + d], dtype=torch.int32,
+                                    device=self.dev)})
+            toks.append(int(torch.argmax(logits[0, 0])))
+        return toks
+
+    # -- timing ---------------------------------------------------------------
+
+    def timed_run(self, cfg, params, prompts):
+        """The six requests again, unhooked: the wall time of every step
+        (each ends on the sampled tokens' read back) with its host syncs
+        (`torch.cuda.set_sync_debug_mode("warn")`: reads and uploads from
+        pageable memory) and host reads (`counting_host_reads`; a decode
+        step's and a one-crossing step's must equal `SERVE_HOST_READS`),
+        each prefill's time,
+        tokens/s; three plain decode steps (4 live, no crossing, nobody
+        retiring) profiled for their device operations and busy share."""
+        torch = self.torch
+        eng = self.new_engine(cfg, params)
+        prefill_ms = []
+        orig_pc = eng._prefill_compute
+
+        def prefill_compute(req):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig_pc(req)
+            prefill_ms.append(((time.perf_counter() - t) * 1e3,
+                               len(req.prompt)))
+            return out
+
+        eng._prefill_compute = prefill_compute
+        self.submit_all(eng, prompts)
+        P = SERVE_ENGINE["page_size"]
+        rows, profile = [], None
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        while True:
+            live = [s for s in eng.slots if s.active]
+            plain = (len(live) == SERVE_ENGINE["max_batch"] and
+                     not eng._pending_retire and
+                     all((s.pos + d) % P and s.new_tokens + d + 1 < SERVE_NEW
+                         for s in live
+                         for d in range(SERVE_PROFILED_STEPS)))
+            if profile is None and plain:
+                t = time.perf_counter()
+                profile = self.s.device_busy(
+                    eng.step, reps=SERVE_PROFILED_STEPS,
+                    trace=ROOT / "chiprun_out" / "serving_trace.tmp.json")
+                rows.append({"kind": "profiled", "n": SERVE_PROFILED_STEPS,
+                             "ms": (time.perf_counter() - t) * 1e3})
+                continue
+            crossing = sum(s.pos % P == 0 for s in live)
+            n_pre = len(prefill_ms)
+            pending = bool(eng._pending_retire)
+            done = sum(r.done for r in eng.requests.values())
+            t = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught, \
+                    counting_host_reads(torch) as reads:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    n = eng.step()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            ms = (time.perf_counter() - t) * 1e3
+            syncs = sum("called a synchronizing" in str(w.message)
+                        for w in caught)
+            if not n and not eng.pending():
+                break
+            kind = ("admission" if len(prefill_ms) > n_pre else
+                    "retire_flush" if pending else
+                    "retire" if sum(r.done for r in eng.requests.values())
+                    > done else "crossing" if crossing else "decode")
+            rows.append({"kind": kind, "live": n, "crossings": crossing,
+                         "ms": ms, "host_syncs": syncs,
+                         "host_reads": reads["n"]})
+            want = SERVE_HOST_READS.get(kind)
+            if want is not None and crossing <= 1 and reads["n"] != want:
+                self.fail(f"a {kind} step read {reads['n']} tensors back to "
+                          f"the host, the CPU pins {want}")
+        wall_s = time.perf_counter() - t_run
+        if profile is None:
+            profile = {"error": "not measured: no three plain decode steps"}
+        new_tokens = sum(len(r.out_tokens) for r in eng.requests.values())
+        return self.summary(rows, prefill_ms, wall_s, new_tokens, profile)
+
+    @staticmethod
+    def summary(rows, prefill_ms, wall_s, new_tokens, profile):
+        def med(kind, live=None):
+            vals = [r["ms"] for r in rows if r["kind"] == kind
+                    and live in (None, r.get("live"))]
+            return statistics.median(vals) if vals else None
+
+        decode = [r for r in rows if r["kind"] == "decode"]
+        decode_s = sum(r["ms"] for r in decode) / 1e3
+        lives = sorted({r["live"] for r in decode})
+        return {
+            "prefill_ms": [{"t": t, "ms": ms} for ms, t in prefill_ms],
+            "decode_step_ms": med("decode", SERVE_ENGINE["max_batch"]),
+            "decode_step_ms_by_live": {n: med("decode", n) for n in lives},
+            "crossing_step_ms": med("crossing"),
+            "admission_step_ms": med("admission"),
+            "host_syncs": {kind: sorted({r["host_syncs"] for r in rows
+                                         if r["kind"] == kind})
+                           for kind in ("decode", "crossing", "admission",
+                                        "retire", "retire_flush")},
+            "host_syncs_decode_by_live": sorted({
+                (r["live"], r["host_syncs"]) for r in decode}),
+            "host_reads": {kind: sorted({r["host_reads"] for r in rows
+                                         if r["kind"] == kind})
+                           for kind in ("decode", "crossing", "admission",
+                                        "retire", "retire_flush")},
+            "host_syncs_by_crossings": sorted({
+                (r["crossings"], r["host_syncs"]) for r in rows
+                if r["kind"] == "crossing"}),
+            "steps": {kind: sum(r["kind"] == kind for r in rows)
+                      for kind in ("decode", "crossing", "admission",
+                                   "retire", "retire_flush", "profiled")},
+            "wall_s": wall_s, "new_tokens": new_tokens,
+            "tokens_per_s": new_tokens / wall_s,
+            "decode_tokens_per_s": (sum(r["live"] for r in decode) / decode_s
+                                    if decode else None),
+            "profile": {k: v for k, v in (profile or {}).items()
+                        if k != "device_ops"},
+        }
+
+    def split_run(self, cfg, params, prompts):
+        """The six requests once more with each part of a decode step
+        bracketed by synchronisations: the page-table FIND (`apply_hash`
+        in `lookup_and_gather`), the gather, the forward, the append, the
+        bookkeeping (`txn_bookkeep`) and the sampling.  Returns the median
+        ms of each part over the plain decode steps and over the steps
+        with a crossing."""
+        torch, pk = self.torch, self.pk
+        eng = self.new_engine(cfg, params)
+        parts = {}
+        saved = {}
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                parts[name] = parts.get(name, 0.0) + \
+                    (time.perf_counter() - t) * 1e3
+                return out
+            return run
+
+        in_fused = [False]
+        orig_fused = eng._fused_step
+
+        def fused(*a):
+            in_fused[0] = True
+            try:
+                return orig_fused(*a)
+            finally:
+                in_fused[0] = False
+
+        orig_hash = pk._hash_apply
+        timed_find = timed("find", orig_hash)
+
+        def hash_apply(*a, **kw):
+            return (timed_find if in_fused[0] else orig_hash)(*a, **kw)
+
+        for name, attr in (("gather", "gather_fn"),
+                           ("append", "append_token_fn"),
+                           ("bookkeeping", "txn_bookkeep")):
+            saved[attr] = getattr(pk, attr)
+            setattr(pk, attr, timed(name, saved[attr]))
+        saved["_hash_apply"] = orig_hash
+        pk._hash_apply = hash_apply
+        eng._fused_step = fused
+        eng._decode_batch = timed("forward", eng._decode_batch)
+        eng._sample = timed("sample", eng._sample)
+        P = SERVE_ENGINE["page_size"]
+        rows = []
+        try:
+            self.submit_all(eng, prompts)
+            while True:
+                live = [s for s in eng.slots if s.active]
+                crossing = any(s.pos % P == 0 for s in live)
+                quiet = not eng._pending_retire and (
+                    len(live) == len(eng.slots) or not eng.pending())
+                parts.clear()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                n = eng.step()
+                torch.cuda.synchronize()
+                total = (time.perf_counter() - t) * 1e3
+                if not n and not eng.pending():
+                    break
+                if live and quiet and len(live) == n:
+                    rows.append((("crossing" if crossing else "decode")
+                                 + f"_b{n}", dict(parts, step=total)))
+        finally:
+            for attr, fn in saved.items():
+                setattr(pk, attr, fn)
+        out = {}
+        for kind in sorted({k for k, _ in rows}):
+            sel = [p for k, p in rows if k == kind]
+            names = sorted({n for p in sel for n in p})
+            out[kind] = {n: statistics.median(p.get(n, 0.0) for p in sel)
+                         for n in names}
+            out[kind]["steps"] = len(sel)
+        return out
+
+
+def serving_phase(smoke, tk, launches_main):
+    """Phase 11, the paged-KV server: glm4_9b at full width on the card
+    (weights drawn on the card from a seeded generator), the checked run
+    with the launch counts reset just before it and read just after (the
+    four round kernels, through the BigQueue rings, and
+    `flash_attention_wgmma`, through the prefills, must have run; their
+    launches join `launches_main`), the dense comparison, the prefill's
+    attention route, the fp32 layouts, then the timed and the split
+    runs."""
+    torch = smoke.torch
+    from repro_torch import configs
+    from repro_torch.core import cachehash
+    from repro_torch.launch import steps
+    from repro_torch.models import attention, transformer
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serving import engine as serving_engine
+    from repro_torch.serving import paged_kv
+    t0 = time.perf_counter()
+    sp = ServingPhase(smoke, (configs, transformer, steps, serving_engine,
+                              paged_kv, attention, cachehash))
+    cfg = configs.get_config(SERVE_ARCH)
+    t = time.perf_counter()
+    params = transformer.init_params(cfg, seed=SERVE_SEED, device=smoke.dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"[serving] {SERVE_ARCH}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv_heads}, hd "
+        f"{cfg.hd}), d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_dtype}: "
+        f"{n_params / 1e9:.2f} G parameters "
+        f"({n_params * 2 / 2 ** 30:.1f} GiB) drawn on the card in "
+        f"{init_s:.1f} s")
+    prompts = sp.requests(cfg, SERVE_SEED + 1)
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    t = time.perf_counter()
+    out, by_pos, steps_seen, _ = sp.checked_run(cfg, params, prompts)
+    torch.cuda.synchronize()
+    checked_s = time.perf_counter() - t
+    serve_launches = {k: v for k, v in tk.launch_counts().items() if v}
+    for kname in ROUND_KERNELS + (WGMMA,):
+        if not serve_launches.get(kname):
+            raise SystemExit(f"serving: {kname} never launched on the path")
+        launches_main[kname] += serve_launches[kname]
+    log(f"[serving] checked run in {checked_s:.1f} s: {steps_seen}; page "
+        f"table equal to the numpy model after every step, no page mapped "
+        f"twice, every page back on the free ring; launches "
+        f"{serve_launches}")
+    t = time.perf_counter()
+    dense = sp.dense_compare(cfg, params, prompts, out, by_pos)
+    del by_pos
+    log(f"[serving] paged decode vs the dense path (make_prefill_step + "
+        f"make_serve_step, teacher-forced): {dense['positions']} positions "
+        f"within {SERVE_ATOL} + {SERVE_RTOL} |want|, max abs err "
+        f"{dense['max_abs_err']:.4f}; tokens equal at the "
+        f"{dense['tokens_held_by_margin']} positions whose dense margin "
+        f"exceeds twice that ({time.perf_counter() - t:.1f} s)")
+    route = sp.prefill_route(cfg, SERVE_SEED + 2)
+    smoke.max_err[WGMMA] = max(smoke.max_err[WGMMA], route["max_abs_err"])
+    log(f"[serving] prefill attention at t = {route['t']}: kernel route "
+        f"(flash_attention_wgmma) within the bf16 tolerance of the plain "
+        f"pair-list version, max abs err {route['max_abs_err']:.2e}; "
+        f"{route['kernel_ms']:.4f} ms device (bound {route['bound_ms']:.4f}: "
+        f"bytes {route['bytes_ms']:.4f} / FLOPs {route['flops_ms']:.4f}), "
+        f"plain {route['plain_ms']:.3f} ms, sdpa {route['library_ms']:.4f} "
+        f"ms")
+    t = time.perf_counter()
+    fp32 = sp.fp32_layouts(SERVE_SEED + 3)
+    log(f"[serving] reduced fp32 deepseek_7b engine on {', '.join(STRATEGIES)}: "
+        f"greedy tokens ({fp32} per request) equal the dense path's "
+        f"({time.perf_counter() - t:.1f} s)")
+    timing = sp.timed_run(cfg, params, prompts)
+    log(f"[serving-timing] prefill ms (t): " + ", ".join(
+        f"{r['ms']:.1f} ({r['t']})" for r in timing["prefill_ms"]))
+    log(f"[serving-timing] decode step {timing['decode_step_ms']} ms "
+        f"(median, 4 live; by live rows "
+        f"{timing['decode_step_ms_by_live']}), with a crossing "
+        f"{timing['crossing_step_ms']} ms, "
+        f"with admissions {timing['admission_step_ms']} ms; steps "
+        f"{timing['steps']}; tokens/s {timing['tokens_per_s']:.1f} over the "
+        f"run ({timing['new_tokens']} tokens in {timing['wall_s']:.2f} s), "
+        f"{timing['decode_tokens_per_s']} in plain decode steps")
+    log(f"[serving-timing] host reads per step {timing['host_reads']} "
+        f"(a decode step and one with one crossing equal to the CPU's pinned "
+        f"{SERVE_HOST_READS})")
+    log(f"[serving-timing] host syncs per step {timing['host_syncs']}, "
+        f"decode by live rows {timing['host_syncs_decode_by_live']}, by "
+        f"crossings {timing['host_syncs_by_crossings']}; a plain decode "
+        f"step profiled: " + json.dumps(
+            {k: (round(v, 4) if isinstance(v, float) else v)
+             for k, v in timing["profile"].items()}))
+    split = sp.split_run(cfg, params, prompts)
+    for kind, row in split.items():
+        log(f"[serving-timing] split of a {kind} step (median ms, "
+            f"synchronised): " + json.dumps(
+                {k: round(v, 3) for k, v in row.items()}))
+    del params
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t0
+    log(f"[serving] phase in {phase_s:.1f} s")
+    return {"arch": SERVE_ARCH, "engine": SERVE_ENGINE,
+            "prompts": list(SERVE_PROMPTS), "new_tokens": SERVE_NEW,
+            "n_params": n_params, "init_s": init_s, "checked_s": checked_s,
+            "steps": steps_seen, "launches": serve_launches,
+            "dense": dense, "tolerance": [SERVE_ATOL, SERVE_RTOL],
+            "prefill_route": route, "fp32_layouts": fp32,
+            "timing": timing, "split": split, "phase_s": phase_s}
+
+
 def main() -> int:
     try:
         import torch
@@ -3584,6 +4273,9 @@ def main() -> int:
     # -- 10. txn ---------------------------------------------------------------
     txn_out = txn_phase(smoke, tk, prefill, launches_main)
 
+    # -- 11. serving -------------------------------------------------------------
+    serving_out = serving_phase(smoke, tk, launches_main)
+
     # -- report ----------------------------------------------------------------
     ref = timings["cached_me"]
     rows = []
@@ -3647,6 +4339,7 @@ def main() -> int:
                "cachehash": {"phase_s": hash_s, "launches": hash_launches,
                              "variants": hash_out},
                "txn": txn_out,
+               "serving": serving_out,
                "kernels": rows}
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     log(card)

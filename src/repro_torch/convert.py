@@ -95,3 +95,38 @@ def link_ctx(fields, device="cuda") -> LinkCtx:
 
 def op_batch(fields, device="cuda") -> OpBatch:
     return to_torch(OpBatch, fields, device)
+
+
+def model_params(tree, device="cuda"):
+    """The reference's `init_params` tree (its leaves as numpy arrays, or
+    anything `np.asarray` takes: jax arrays, ml_dtypes bfloat16) as the
+    port's params on `device`: the same nested dicts and tuples, each
+    leaf a tensor of the same shape and dtype (bfloat16 bits kept)."""
+    if isinstance(tree, dict):
+        return {k: model_params(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(model_params(v, device) for v in tree)
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.uint16).astype(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr, order="C")).to(device)
+
+
+def model_params_to_numpy(params):
+    """The reverse of `model_params`: the port's params as numpy arrays in
+    the same tree (bfloat16 as `ml_dtypes.bfloat16` when that package is
+    there, else its raw uint16 bits)."""
+    if isinstance(params, dict):
+        return {k: model_params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (tuple, list)):
+        return tuple(model_params_to_numpy(v) for v in params)
+    t = params.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        bits = t.view(torch.int16).numpy().view(np.uint16)
+        try:
+            import ml_dtypes
+        except ImportError:
+            return bits
+        return bits.view(ml_dtypes.bfloat16)
+    return t.numpy()

@@ -42,7 +42,8 @@ import torch
 
 from repro_torch.core import registry
 from repro_torch.core.layout import (WORD_DTYPE, TableState, as_words,
-                                     resolve_device, scatter_set)
+                                     clamped_index, resolve_device,
+                                     scatter_set)
 from repro_torch.core.specs import AtomicSpec
 from repro_torch.obs import telemetry as obs_telemetry
 
@@ -454,7 +455,9 @@ def _pure_sc_sorted(data, version, s_slot, s_kind, s_link_ver, s_desired):
     """One-round closed form for batches without STORE/CAS lanes: every
     SC's link predates the batch, so the first eligible SC per cell wins
     and every later SC on that cell is already stale.  Updates the table in
-    place; returns (data, version, val_s, verpt_s, success) sorted."""
+    place; returns (data, version, val_s, verpt_s, success) sorted.  A lane
+    whose slot lies outside [0, n) is dead: zeros and success False, as in
+    `slow_round_plain`."""
     n = data.shape[0]
     idx, seg_start, start_idx, _ = _segments(s_slot)
     live = (s_slot >= 0) & (s_slot < n)
@@ -473,6 +476,8 @@ def _pure_sc_sorted(data, version, s_slot, s_kind, s_link_ver, s_desired):
     val_s = torch.where(post_excl[:, None], s_desired[wpos.clamp(min=0)],
                         init_vals)
     verpt_s = ver0 + 2 * post_excl.to(ver0.dtype)
+    val_s = torch.where(live[:, None], val_s, 0)
+    verpt_s = torch.where(live, verpt_s, 0)
     scatter_set(data, safe, s_desired, win)
     version.index_add_(0, safe, 2 * win.to(version.dtype))
     return (data, version, val_s, verpt_s,
@@ -783,8 +788,11 @@ def read(spec: AtomicSpec, state: TableState, slots):
     ok=False means the reader observed a torn/locked cell and must retry
     (blocking strategies only); lock-free strategies always return ok=True
     with a consistent value.  Under BIGATOMIC_OBS=counters the ok=False
-    lanes count into `read.torn_retries` on the device."""
-    slots = _as_i32(slots, state.data.device).to(torch.int64)
+    lanes count into `read.torn_retries` on the device.  A slot outside
+    [0, n) reads as the reference's gather does: a negative slot counts
+    from the end, then the slot is clamped into [0, n)."""
+    slots = clamped_index(_as_i32(slots, state.data.device),
+                          state.data.shape[0])
     values, ok = registry.get_strategy(spec.strategy).read(state, slots)
     telem = obs_telemetry.carry_in(state.data.device)
     if telem is not None:

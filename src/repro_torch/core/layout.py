@@ -87,6 +87,16 @@ def clamped_index(idx: torch.Tensor, m: int) -> torch.Tensor:
     return torch.where(idx < 0, idx + m, idx).clamp(0, m - 1)
 
 
+def wrapped_index(idx: torch.Tensor, m: int):
+    """A scatter index as the reference's scatters read it: a negative index
+    counts from the end once.  Returns (int64 index, in range) where the
+    index is clamped into [0, m) and `in range` marks the lanes the
+    reference writes (its `.at[].set` drops the others)."""
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + m, idx)
+    return idx.clamp(0, m - 1), (idx >= 0) & (idx < m)
+
+
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """`table[idx]` for a contiguous [m, k] table and int64 row indices in
     [0, m).

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.layout import (TableState, Traffic, WORD_BYTES,
-                                     WORD_DTYPE, _empty)
+                                     WORD_DTYPE, _empty, clamped_index)
 
 
 class StrategyImpl:
@@ -82,7 +82,9 @@ class StrategyImpl:
 
     def read(self, state: TableState, slots):
         """Honest reader protocol: values + ok mask from layout fields only.
-        ok=False means the reader is *blocked* (torn state / lock held)."""
+        ok=False means the reader is *blocked* (torn state / lock held).
+        Slots are clamped as the reference's gather clamps them."""
+        slots = clamped_index(slots, state.data.shape[0])
         return state.data[slots], torch.ones(
             (slots.shape[0],), dtype=torch.bool, device=slots.device)
 

@@ -73,6 +73,7 @@ class Seqlock(_KernelLowering, _Versioned):
     blocks_readers = True
 
     def read(self, state, slots):
+        slots = clamped_index(slots, state.data.shape[0])
         v1 = state.version[slots]
         val = state.data[slots]
         v2 = state.version[slots]
@@ -108,6 +109,7 @@ class Simplock(_Versioned):
                                               device=data.device))
 
     def read(self, state, slots):
+        slots = clamped_index(slots, state.data.shape[0])
         held = state.lock[slots] != 0
         return state.data[slots], ~held
 
@@ -213,6 +215,7 @@ class Indirect(_KernelLowering, _NodePool):
         return state.data
 
     def read(self, state, slots):
+        slots = clamped_index(slots, state.data.shape[0])
         node = clamped_index(state.bptr[slots], state.pool.shape[0])
         return state.pool[node], torch.ones(
             (slots.shape[0],), dtype=torch.bool, device=slots.device)
@@ -274,6 +277,7 @@ class CachedWF(_KernelLowering, _Cached):
         return new_state._replace(mark=torch.zeros_like(state.mark))
 
     def read(self, state, slots):
+        slots = clamped_index(slots, state.data.shape[0])
         v1 = state.version[slots]
         val = state.data[slots]
         marked = state.mark[slots]
@@ -357,6 +361,7 @@ class CachedME(_KernelLowering, _Cached):
         return st._replace(data=new_data, version=new_version)
 
     def read(self, state, slots):
+        slots = clamped_index(slots, state.data.shape[0])
         v1 = state.version[slots]
         val = state.data[slots]
         bp = state.bptr[slots]

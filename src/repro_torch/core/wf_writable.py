@@ -29,9 +29,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import semantics as sem
-from repro_torch.core.engine import CAS, OpBatch
+from repro_torch.core.engine import CAS, IDLE, OpBatch
 from repro_torch.core.layout import (WORD_DTYPE, as_u64, as_words,
-                                     resolve_device, scatter_set, to_word)
+                                     clamped_index, resolve_device,
+                                     scatter_set, to_word, wrapped_index)
 
 NULLW = -1
 
@@ -70,9 +71,10 @@ def pending(st: WritableState) -> torch.Tensor:
 
 def load(st: WritableState, slots) -> torch.Tensor:
     """Wait-free: one read of Z.value (Line 11).  Pending writes in W are
-    invisible until transferred: they linearize at transfer time."""
-    slots = torch.as_tensor(slots).to(st.z_value.device).long()
-    return st.z_value[slots]
+    invisible until transferred: they linearize at transfer time.  Slots
+    are clamped as the reference's gather clamps them."""
+    slots = torch.as_tensor(slots).to(st.z_value.device)
+    return st.z_value[clamped_index(slots, st.z_value.shape[0])]
 
 
 def help_write(st: WritableState) -> WritableState:
@@ -126,17 +128,26 @@ def cas_batch(st: WritableState, slots, expected, desired):
     """Batched CAS (Lines 25-33): helpers first (transfer pending writes),
     then the compare-exchange on Z with seq bump.  Within the batch,
     same-slot CASes serialize in lane order (the engine's linearization).
+    A slot outside [0, n), after a negative slot counts from the end, is
+    the reference's: its lane compares against the clamped row as the
+    batch found it, and writes nothing.
 
     Returns (state', success bool[p])."""
     st = help_write(st)                      # Line 30: casers help writers
     dev = st.z_value.device
+    n = st.z_value.shape[0]
     slots = torch.as_tensor(slots).to(device=dev, dtype=torch.int32)
-    ops = OpBatch(torch.full_like(slots, CAS), slots,
-                  as_words(expected, dev), as_words(desired, dev))
+    safe, live = wrapped_index(slots, n)
+    expected = as_words(expected, dev)
+    ops = OpBatch(torch.where(live, CAS, IDLE).to(torch.int32),
+                  safe.to(torch.int32), expected, as_words(desired, dev))
     new_val, new_seq_x2, res, _ = sem.apply_batch(
         st.z_value.clone(), st.z_seq * 2, ops)   # parity-versioned engine
-    return st._replace(z_value=new_val,
-                       z_seq=to_word(as_u64(new_seq_x2) // 2)), res.success
+    dropped = ~live & (st.z_value[clamped_index(slots, n)]
+                       == expected).all(1)
+    return (st._replace(z_value=new_val,
+                        z_seq=to_word(as_u64(new_seq_x2) // 2)),
+            res.success | dropped)
 
 
 def _last_lane_per_index(idx: torch.Tensor, size: int) -> torch.Tensor:
@@ -155,18 +166,20 @@ def store_batch(st: WritableState, slots, values) -> WritableState:
     """Batched stores: install every lane's write (last lane per slot wins,
     = lane-order linearization), then transfer."""
     dev = st.z_value.device
-    slots = torch.as_tensor(slots).to(dev).long()
     values = as_words(values, dev)
     n, m = st.z_value.shape[0], st.pool.shape[0]
+    slots, live = wrapped_index(torch.as_tensor(slots).to(dev), n)
     p = slots.shape[0]
     nodes = (_cursor(st) + torch.arange(p, device=dev)) % m
     pool = st.pool.clone()                     # nodes repeat when p > m
     scatter_set(pool, nodes, values, _last_lane_per_index(nodes, m))
+    # Out-of-range slots are dropped, as the reference's scatters drop them.
+    last = _last_lane_per_index(torch.where(live, slots, n), n + 1) & live
     w_node = st.w_node.clone()
-    scatter_set(w_node, slots, nodes.to(torch.int32),
-                _last_lane_per_index(slots, n))
-    w_mark = st.w_mark.clone()
-    w_mark[slots] = ~st.z_mark[slots]          # equal on every lane of a slot
+    scatter_set(w_node, slots, nodes.to(torch.int32), last)
+    w_mark = torch.cat([st.w_mark, st.w_mark.new_zeros(1)])
+    w_mark[torch.where(live, slots, n)] = ~st.z_mark[slots]   # equal per slot
+    w_mark = w_mark[:n]
     st = st._replace(pool=pool, w_node=w_node, w_mark=w_mark,
                      pool_next=to_word(as_u64(st.pool_next) + p))
     return help_write(st)

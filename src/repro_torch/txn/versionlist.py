@@ -41,7 +41,7 @@ from repro_torch.core import engine, registry
 from repro_torch.core.engine import STORE, OpBatch
 from repro_torch.core.layout import (WORD_DTYPE, TableState, as_u64,
                                      as_words, clamped_index, resolve_device,
-                                     to_word)
+                                     scatter_set, to_word, wrapped_index)
 from repro_torch.core.specs import VersionSpec
 
 NULLV = -1          # the word 0xFFFFFFFF: "no older version" terminator
@@ -90,7 +90,10 @@ def publish(spec: VersionSpec, state: VersionState, slots, values, ts
     Slots must be distinct within one batch (checked on the host: slots on
     a card are copied back once, unless there is only one or the stream is
     being captured) and `ts` strictly greater than each slot's current head
-    timestamp (caller contract).  The caller's `state` stays valid."""
+    timestamp (caller contract).  The caller's `state` stays valid.  A
+    slot outside [0, n) is read clamped and written nowhere, as the
+    reference's gathers and scatters treat it (a negative slot first
+    counts from the end)."""
     dev = state.pool.device
     q = slots.numel() if isinstance(slots, torch.Tensor) else np.size(slots)
     host = engine.host_copy(slots) if q > 1 else None
@@ -101,12 +104,13 @@ def publish(spec: VersionSpec, state: VersionState, slots, values, ts
     values = as_words(values, dev)
     ts = as_words(ts, dev).reshape(-1)
     rd = spec.ring_depth
-    s64 = slots.long()
+    s64, live = wrapped_index(slots, spec.n)
     # The displaced head's ring position and global chain pointer (uint32).
     pos = as_u64(state.count[s64]) % rd
     prev = to_word(as_u64(slots) * rd + pos)
     new_cells = torch.cat([values, ts[:, None], prev[:, None]], 1)
-    ops = OpBatch(torch.full_like(slots, STORE), slots,
+    ops = OpBatch(torch.full_like(slots, STORE),
+                  torch.where(live, s64, spec.n).to(torch.int32),
                   torch.zeros_like(new_cells), new_cells)
     hspec = spec.head_spec()
     impl = registry.get_strategy(hspec.strategy)
@@ -114,9 +118,10 @@ def publish(spec: VersionSpec, state: VersionState, slots, values, ts
         impl, engine.round_for(hspec, impl), state.table,
         engine.init_ctx(ops.p, hspec.k, device=dev), ops, donate=False)
     pool = state.pool.clone()
-    pool[s64, pos] = res.value
+    flat = pool.view(spec.n * rd, spec.cellw)
+    scatter_set(flat, s64 * rd + pos, res.value, live)
     count = state.count.clone()
-    count.index_add_(0, s64, torch.ones_like(slots))
+    count.index_add_(0, s64, live.to(count.dtype))
     return VersionState(table, pool, count)
 
 

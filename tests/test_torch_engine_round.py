@@ -586,11 +586,13 @@ def test_kernel_tier_apply_matches_jax(strategy, spectrum, monkeypatch):
         ctx = tuple(np.asarray(x) for x in jout[1])
 
 
-def test_out_of_range_active_slot_is_a_failed_noop():
+def test_out_of_range_active_slot_is_a_failed_noop(monkeypatch):
     """An active lane outside [0, n) in an otherwise collision-free batch:
     the predicate fails, the slow path leaves the lane a failed no-op with
     zero outputs, and the round equals `linearize` (the port's `off`
-    tier) on every output; the other lanes equal the sequential oracle."""
+    tier) on every output; the other lanes equal the sequential oracle.
+    Then the same rule on read-only and LL / SC / VALIDATE-only batches
+    (`OUT_OF_RANGE_BATCHES`), on every tier and layout."""
     n, k, p = 32, 2, 12
     rng = np.random.default_rng(23)
     data, ver = make_table(n, k, seed=23)
@@ -612,6 +614,102 @@ def test_out_of_range_active_slot_is_a_failed_noop():
     np.testing.assert_array_equal(out[0], odata)
     np.testing.assert_array_equal(out[1], over)
     np.testing.assert_array_equal(out[7][keep], ores.success[keep])
+    for name in OUT_OF_RANGE_BATCHES:
+        assert_out_of_range_lanes_fail_everywhere(name, monkeypatch)
+
+
+# Batches without STORE / CAS lanes whose active lanes name slots outside
+# [0, n) (n = 4): `linearize` replays them in `_pure_sc_sorted`.  "load" is
+# the batch of ROADMAP Queue 3 item 4.  (kinds, slots, ctx slots)
+OUT_OF_RANGE_BATCHES = {
+    "load": ([tengine.LOAD] * 4, [0, 4, -1, 7], [-1, -1, -1, -1]),
+    "read_mixed": ([tengine.LOAD, tengine.LL, tengine.VALIDATE,
+                    tengine.IDLE], [5, -1, 1, 2], [0, -1, 1, 2]),
+    "ll_sc_validate": ([tengine.LL, tengine.SC, tengine.VALIDATE,
+                        tengine.LL], [0, 4, -2, 7], [0, 4, -2, 7]),
+    "sc_validate": ([tengine.SC, tengine.SC, tengine.VALIDATE,
+                     tengine.SC], [1, -3, 9, 1], [1, -3, 9, 1]),
+}
+ALL_LAYOUTS = ["plain", "simplock", *LOCK_FREE]
+
+
+def assert_out_of_range_lanes_fail_everywhere(name, monkeypatch):
+    """`name`'s batch through `atomics.apply` on every layout and every
+    tier (`off`: `linearize`; `xla` and `pallas`: the kernel round's plain
+    twins on the CPU, which the CUDA kernels are held equal to): one
+    answer everywhere.  Each out-of-range lane is a failed no-op with zero
+    value (and, for an LL, a zero link version and value); the in-range
+    lanes and the table equal the sequential oracle run on the batch with
+    those lanes made IDLE.  (The reference instead wraps a negative slot
+    and clamps the gather: its LOAD at -1 reads row 3 and succeeds.)"""
+    n, k, p = 4, 2, 4
+    kinds, slots, cslots = (np.asarray(x, np.int32)
+                            for x in OUT_OF_RANGE_BATCHES[name])
+    initial = np.arange(n * k, dtype=np.uint32).reshape(n, k)
+    desired = np.full((p, k), 9, np.uint32)
+    ops = (kinds, slots, np.zeros((p, k), np.uint32), desired)
+    ctx = (cslots, np.zeros(p, np.uint32), np.zeros((p, k), np.uint32),
+           np.ones(p, bool))
+    dead = (kinds != tengine.IDLE) & ((slots < 0) | (slots >= n))
+    o_data, o_ver, o_ctx, o_res = tengine.apply_ops_reference(
+        initial, np.zeros(n, np.uint32), ctx,
+        (np.where(dead, tengine.IDLE, kinds), slots, ops[2], desired))
+    answers = {}
+    for mode in ("off", "xla", "pallas"):
+        monkeypatch.setenv("BIGATOMIC_ENGINE_KERNEL", mode)
+        for layout in ALL_LAYOUTS:
+            spec = tatomics.AtomicSpec(n, k, layout, p)
+            state = tatomics.init(spec, initial, device="cpu")
+            new_state, new_ctx, res, _, _ = tatomics.apply(
+                spec, state, convert.op_batch(ops, "cpu"),
+                convert.link_ctx(ctx, "cpu"))
+            got = [convert.array(tatomics.logical(spec, new_state),
+                                 word=True),
+                   *convert.to_numpy(new_ctx), *convert.to_numpy(res)]
+            label = f"{name}/{mode}/{layout}"
+            answers[label] = got
+            table, c_slot, c_ver, c_val, _, value, success = got
+            np.testing.assert_array_equal(table, o_data, err_msg=label)
+            assert not success[dead].any(), label
+            assert not value[dead].any(), label
+            np.testing.assert_array_equal(value[~dead],
+                                          o_res.value[~dead], err_msg=label)
+            np.testing.assert_array_equal(
+                success[~dead], o_res.success[~dead], err_msg=label)
+            ll_dead = dead & (kinds == tengine.LL)
+            assert not c_ver[ll_dead].any(), label
+            assert not c_val[ll_dead].any(), label
+    first, *rest = answers
+    for label in rest:
+        for a, b in zip(answers[first], answers[label]):
+            np.testing.assert_array_equal(a, b, err_msg=f"{first} vs {label}")
+
+
+def test_success_without_write_of_the_reference_is_not_copied(monkeypatch):
+    """ROADMAP Queue 3 item 4's record of a fault of the reference: kinds
+    STORE / LOAD / CAS / LL at slots [4, 3, 5, -2], the CAS expecting row
+    3.  The reference clamp-gathers slot 5 to row 3, reports the CAS a
+    success and writes nothing (success [F, T, T, T]); the port fails
+    both out-of-range writes, as its kernels do (success [F, T, F, F],
+    one failed CAS), on every tier, and leaves the table as it was."""
+    n, k, p = 4, 2, 4
+    initial = np.arange(n * k, dtype=np.uint32).reshape(n, k)
+    expected = np.zeros((p, k), np.uint32)
+    expected[2] = initial[3]
+    ops = (np.asarray([tengine.STORE, tengine.LOAD, tengine.CAS, tengine.LL],
+                      np.int32), np.asarray([4, 3, 5, -2], np.int32),
+           expected, np.full((p, k), 9, np.uint32))
+    for mode in ("off", "xla", "pallas"):
+        monkeypatch.setenv("BIGATOMIC_ENGINE_KERNEL", mode)
+        spec = tatomics.AtomicSpec(n, k, "cached_me", p)
+        state, _, res, stats, _ = tatomics.apply(
+            spec, tatomics.init(spec, initial, device="cpu"),
+            convert.op_batch(ops, "cpu"))
+        assert res.success.tolist() == [False, True, False, False], mode
+        assert int(stats.n_cas_fail) == 1, mode
+        np.testing.assert_array_equal(
+            convert.array(tatomics.logical(spec, state), word=True),
+            initial, err_msg=mode)
 
 
 @pytest.mark.parametrize("spectrum", ["none", "read_dup", "read_same"])

@@ -54,6 +54,29 @@ def test_init_logical_read_match(strategy):
     np.testing.assert_array_equal(np.asarray(jok), tok.numpy())
 
 
+@pytest.mark.parametrize("slots", [[0, 4], [-5], [-1]])
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_read_of_out_of_range_slots_matches_reference(strategy, slots):
+    """ROADMAP Queue 3 item 5: `AtomicSpec(4, 2, s, 2)` over
+    `arange(8).reshape(4, 2)`, read at slots outside [0, n).  The
+    reference's gather wraps a negative slot, then clamps (slot 4 reads
+    row 3, -5 row 0, -1 row 3); `engine.read` and the strategy's own `read`
+    give the same rows and ok, where they raised before."""
+    initial = np.arange(8, dtype=np.uint32).reshape(4, 2)
+    jspec = jatomics.AtomicSpec(4, 2, strategy, 2)
+    tspec = tatomics.AtomicSpec(4, 2, strategy, 2)
+    jstate = jatomics.init(jspec, initial)
+    tstate = tatomics.init(tspec, initial, device="cpu")
+    q = np.asarray(slots, np.int32)
+    jv, jok = jatomics.read(jspec, jstate, jnp.asarray(q))
+    for tv, tok in (tatomics.read(tspec, tstate, q),
+                    tatomics.get_strategy(strategy).read(
+                        tstate, torch.from_numpy(q).long())):
+        np.testing.assert_array_equal(np.asarray(jv),
+                                      convert.array(tv, word=True))
+        np.testing.assert_array_equal(np.asarray(jok), tok.numpy())
+
+
 @pytest.mark.parametrize("strategy", STRATEGIES)
 def test_memory_bytes_and_state_nbytes_match(strategy):
     for n, k, p in ((10, 3, 4), (64, 4, 16), (7, 1, 2)):

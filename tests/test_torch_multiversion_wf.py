@@ -287,7 +287,31 @@ def scenario_wf_batches(P):
     return out
 
 
+def scenario_wf_out_of_range(P):
+    """ROADMAP Queue 3 item 5: `init(4, 2, 4, arange(8).reshape(4, 2))`,
+    then `load` at [0, 4], [-5] and [-1], `store_batch` at [0, 4] and
+    `cas_batch` at [-5, 1] expecting rows 0 and 1.  The reference's
+    gathers wrap a negative slot then clamp, its scatters drop what lies
+    outside [0, n): the CAS at -5 succeeds and writes nothing."""
+    wf = P.wf
+    initial = np.arange(8, dtype=np.uint32).reshape(4, 2)
+    st = wf.init(4, 2, 4, initial, **P.kw)
+    out = {}
+    for i, slots in enumerate(([0, 4], [-5], [-1])):
+        out[f"load{i}"] = bits(wf.load(st, P.array(np.asarray(slots,
+                                                              np.int32))))
+    stored = wf.store_batch(st, P.array(np.asarray([0, 4], np.int32)),
+                            np.full((2, 2), 9, np.uint32))
+    record_wf(out, "store", stored)
+    cased, ok = wf.cas_batch(st, P.array(np.asarray([-5, 1], np.int32)),
+                             initial[[0, 1]], np.full((2, 2), 7, np.uint32))
+    out["cas/ok"] = bits(ok)
+    record_wf(out, "cas", cased)
+    return out
+
+
 SCENARIOS = {
+    "wf_out_of_range": (scenario_wf_out_of_range, ()),
     "mv_roundtrip": (scenario_mv_roundtrip, ()),
     "mv_torn": (scenario_mv_torn, ()),
     "mv_sequence": (scenario_mv_sequence, ()),

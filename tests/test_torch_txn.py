@@ -352,6 +352,35 @@ def scenario_vl_snapshot(P, strategy):
     return out
 
 
+def scenario_vl_out_of_range(P, strategy):
+    """ROADMAP Queue 3 item 5: `VersionSpec(n=4, k=2, depth=3)`, `publish`
+    to slots [0, 4] (slot 4 is dropped: count [1, 0, 0, 0]), then to [-1]
+    (row 3), then `snapshot_read` and `latest` of [0, 4], [-5] and [-1]:
+    reads wrap a negative slot then clamp, as the reference's gathers."""
+    vl = P.vl
+    spec = P.atomics.VersionSpec(n=4, k=2, depth=3, strategy=strategy,
+                                 p_max=4)
+    st = vl.init(spec, np.arange(8, dtype=np.uint32).reshape(4, 2),
+                 **P.kw)
+    st = vl.publish(spec, st, np.asarray([0, 4], np.int32),
+                    np.full((2, 2), 9, np.uint32), np.asarray([5, 5],
+                                                              np.uint32))
+    out = {}
+    record_versions(P, out, "publish0", spec, st)
+    st = vl.publish(spec, st, np.asarray([-1], np.int32),
+                    np.full((1, 2), 8, np.uint32), np.asarray([6],
+                                                              np.uint32))
+    record_versions(P, out, "publish1", spec, st)
+    for i, slots in enumerate(([0, 4], [-5], [-1])):
+        q = np.asarray(slots, np.int32)
+        for name, x in zip(("vals", "fts", "ok"), vl.snapshot_read(
+                spec, st, q, np.full(len(slots), 5, np.uint32))):
+            out[f"snap{i}/{name}"] = bits(x)
+        for name, x in zip(("vals", "ts", "ok"), vl.latest(spec, st, q)):
+            out[f"latest{i}/{name}"] = bits(x)
+    return out
+
+
 def scenario_vl_multi_slot(P):
     """test_versionlist_multi_slot_snapshot_is_consistent."""
     vl = P.vl
@@ -601,6 +630,8 @@ SCENARIOS = {
     "mcas_aba": (scenario_mcas_aba, ()),
     **{f"vl_snapshot/{s}": (scenario_vl_snapshot, (s,)) for s in LOCK_FREE},
     "vl_multi_slot": (scenario_vl_multi_slot, ()),
+    **{f"vl_out_of_range/{s}": (scenario_vl_out_of_range, (s,))
+       for s in LOCK_FREE},
     **{f"vl_high_ts/{s}": (scenario_vl_high_ts, (s,))
        for s in ("seqlock", "cached_me")},
     **{f"vl_guard/{s}": (scenario_vl_guard, (s,))
