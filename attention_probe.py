@@ -10,7 +10,10 @@ and prints what `ptxas -v` said of each kernel (registers, spills), then
 runs each case of `chip_smoke.ATTENTION_CASES` (all, or those named):
 which kernel it launched, its largest error against
 `flash_attention_plain` and that error over the case's tolerance, and the
-times `chip_smoke.AttentionPhase.timing` takes (kernel, bound, SDPA).
+times `chip_smoke.AttentionPhase.timing` takes (kernel, bound, SDPA);
+for a case whose head dim the wrapper zero-pads for TMA, also the split
+of its time: the kernel alone on padded inputs, the three pads and the
+output's copy (device ms each).
 A case that fails is reported and the next one runs; the exit code is 1
 if any failed.  Details go to `chiprun_out/attention_probe.json`.
 """
@@ -78,7 +81,11 @@ def main(names) -> int:
                    "finite": bool(torch.isfinite(out).all())}
             row.update({key: val for key, val in
                         phase.timing(name, 6000 + i).items()
-                        if key in ("ms", "bound_ms", "library_ms")})
+                        if key in ("ms", "bound_ms", "library_ms",
+                                   "library_causal_ms")})
+            if fa.kernel_for(q.dtype, c.hd) != "flash_attention" and \
+                    fa.aligned_head_dim(q.dtype, c.hd) != c.hd:
+                row["split"] = split(phase.s, fa, _build, c, q, k, v)
             ok = ran == [c.kernel] and over <= 1 and row["finite"]
         except Exception:                  # report it, go on to the next
             row, ok = {"error": traceback.format_exc()[-2000:]}, False
@@ -92,6 +99,31 @@ def main(names) -> int:
     (out_dir / "attention_probe.json").write_text(json.dumps(results,
                                                              indent=1))
     return 1 if failed else 0
+
+
+def split(smoke, fa, build, c, q, k, v):
+    """Device ms of the padded route's parts: the tensor-core kernel alone
+    on q, k, v padded to `aligned_head_dim`, the three pads, and the copy
+    of the output's first hd columns."""
+    import math
+    import torch.nn.functional as F
+    hd = c.hd
+    hd_k = fa.aligned_head_dim(q.dtype, hd)
+    name = fa.kernel_for(q.dtype, hd)
+    qp, kp, vp = (F.pad(t, (0, hd_k - hd)) for t in (q, k, v))
+    o, out = q.new_empty(q.shape[:3] + (hd_k,)), q.new_empty(q.shape)
+
+    def kernel():
+        build.launch(name, name, q.device, qp.data_ptr(), kp.data_ptr(),
+                     vp.data_ptr(), o.data_ptr(), c.b, c.tq, c.tkv, c.h,
+                     c.kvh, hd_k, 1.0 / math.sqrt(hd), int(c.causal),
+                     int(c.window))
+
+    return {"kernel_ms": smoke.device_ms(kernel),
+            "pads_ms": smoke.device_ms(
+                lambda: [F.pad(t, (0, hd_k - hd)) for t in (q, k, v)]),
+            "out_copy_ms": smoke.device_ms(
+                lambda: out.copy_(o[..., :hd]))}
 
 
 if __name__ == "__main__":

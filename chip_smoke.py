@@ -92,20 +92,26 @@ package, and runs these phases:
              `flash_attention` against `flash_attention_plain` at the
              attention widths of glm4_9b (t=4096, causal, bf16),
              mixtral_8x7b (t=8192, window 4096, bf16 and fp32),
-             hubert_xlarge (t=4096, hd=80, bidirectional, bf16) and
-             recurrentgemma_9b (t=4096, hd=256, kvh=1, window 2048, bf16),
-             a ragged fp32 case (t=1000), bf16 at hd=64 (t=4096), three
+             hubert_xlarge (t=4096, hd=80, bidirectional, bf16),
+             recurrentgemma_9b (t=4096, hd=256, kvh=1, window 2048, bf16
+             and fp32) and Phi-3-mini (t=4096, hd=96, kvh=32, bf16), a
+             ragged fp32 case (t=1000), bf16 at hd=64 (t=4096), three
              ragged bf16 cases at b=2 (t=1000, and tq != tkv), hd=16 at
-             b=2 (tq 1000, tkv 1200) in bf16 and fp32, and bf16 at hd=100
-             (t=1000), with the counts reset (bf16 within 1e-3 + 1e-2
-             |want|, fp32 within 1e-4 + 1e-4 |want|); each case must have
-             launched the kernel it names (`kernel_for`: the wgmma kernel
-             for bf16 at hd 16 / 32 / 64 / 80 / 128 / 256, the 3xTF32
-             kernel for fp32 at hd 16 / 32 / 64 / 80 / 128, the CUDA-core
-             kernel for the rest, here hd 100); then each case's time, its
-             bound (operations over the peak of the kernel's type, three
-             passes on the 3xTF32 kernel), the plain version's and
-             `scaled_dot_product_attention`'s.
+             b=2 (tq 1000, tkv 1200) in bf16 and fp32, head dims the
+             tensor-core kernels pad: bf16 at hd=100, 129, 184, 250
+             (t=1000), hd=7 and 50 (b=2, tq 1000, tkv 1200) and hd=200
+             (t=4096, window 2048), fp32 at hd=100 and 95 (t=1000) and
+             hd=7 and 50 (b=2, tq 1000, tkv 1200), with the counts reset
+             (bf16 within 1e-3 + 1e-2 |want|, fp32 within 1e-4 + 1e-4
+             |want|); each case must have launched the kernel
+             it names (`kernel_for`: the wgmma kernel for bf16 at every hd,
+             the 3xTF32 kernel for fp32 up to hd 128, the CUDA-core kernel
+             for fp32 past it, here hd 256); then each case's time, its
+             bound (bytes over the memory rate, or operations over the
+             card's fastest route for the type: bf16 tensor cores, fp32 as
+             three TF32 passes), the plain version's and
+             `scaled_dot_product_attention`'s (with a window, its masked
+             path, and its causal path without the window beside it).
   7. obs     with BIGATOMIC_OBS=counters set inside the phase, per layout:
              `apply` of batches (a), (c), (d) at n=2**22, k=4, p=16384,
              eager and as a captured CUDA graph replayed 5 times;
@@ -384,7 +390,7 @@ class Smoke:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps
 
-    def device_busy(self, run, reps=5, trace=None, setup=None):
+    def device_busy(self, run, reps=5, trace=None, setup=None, tries=1):
         """Share of the wall time of `run` (which ends synchronised) that
         the card spends in kernels, memcpys and memsets, from a
         torch.profiler trace; plus the kernels' device time by name, and
@@ -392,8 +398,19 @@ class Smoke:
         launch's correlation id, each launch by the call's annotation):
         `device_ops_per_apply` is the most among the calls whose every
         launch left its operation in the trace (the profiler can drop the
-        first call's), None if none did.  With `setup`, each call is
-        `run(*setup())`, made before the trace."""
+        first call's, and now and then every call's: the gated callers
+        then trace the calls again, up to `tries` traces), None if none
+        did.  With
+        `setup`, each call is `run(*setup())`, made before the trace."""
+        for attempt in range(1, tries + 1):
+            out = self._device_busy(run, reps, trace, setup)
+            if out.get("device_ops_per_apply") is not None or \
+                    "error" in out:
+                break
+        out["traces"] = attempt
+        return out
+
+    def _device_busy(self, run, reps, trace, setup):
         from torch.profiler import ProfilerActivity, profile, record_function
         torch = self.torch
         fresh = [setup() if setup is not None else () for _ in range(reps)]
@@ -924,7 +941,7 @@ class Smoke:
                 kern["bound_ms"] = kern["bytes"] / HBM_BYTES_PER_S * 1e3
             trace = (ROOT / "chiprun_out" / f"apply_trace_{strategy}_{name}"
                      ".json") if strategy == "cached_me" else None
-            row["profile"] = self.device_busy(run, trace=trace)
+            row["profile"] = self.device_busy(run, trace=trace, tries=3)
             row["replay_profile"] = self.device_busy(replay)
             self.check_device_ops(strategy, name, row["profile"])
             out[name] = row
@@ -1864,18 +1881,18 @@ class GuardPhase:
 # Phase 6: attention (kernels/flash_attention.py).
 # ---------------------------------------------------------------------------
 
-# H100 SXM dense peaks: bf16 and TF32 tensor cores, fp32 on the CUDA cores
-BF16_FLOPS, TF32_FLOPS, FP32_FLOPS = 989e12, 495e12, 67e12
+# H100 SXM dense peaks of the bf16 and TF32 tensor cores
+BF16_FLOPS, TF32_FLOPS = 989e12, 495e12
 # bf16: both sides compute in fp32 and round to bf16, so they may differ by
 # one bf16 ulp, at most 2^-7 of the value (rtol 1e-2), or by atol 1e-3 near
 # 0.  fp32: the summation order differs from the plain version's.
 BF16_TOL, FP32_TOL = (1e-3, 1e-2), (1e-4, 1e-4)
 WGMMA, TF32X3, CORES = ("flash_attention_wgmma", "flash_attention_tf32x3",
                         "flash_attention")
-# (peak, passes) of each kernel's bound: the 3xTF32 kernel runs every
-# product three times on the TF32 tensor cores
-KERNEL_PEAK = {WGMMA: (BF16_FLOPS, 1), TF32X3: (TF32_FLOPS, 3),
-               CORES: (FP32_FLOPS, 1)}
+# (peak, passes) of an attention case's bound, by dtype, whatever kernel
+# ran: the card's fastest route for the type, bf16 on the tensor cores, fp32
+# to fp32 accuracy as three TF32 products (3xTF32)
+DTYPE_PEAK = {"bfloat16": (BF16_FLOPS, 1), "float32": (TF32_FLOPS, 3)}
 
 
 class AttnCase(NamedTuple):
@@ -1920,10 +1937,11 @@ ATTENTION_CASES = {
                                      "bfloat16", BF16_TOL, WGMMA),
     "hd16_b2_q1000_kv1200_fp32": AttnCase(2, 1000, 1200, 32, 8, 16, True, 0,
                                           "float32", FP32_TOL, TF32X3),
-    # a head dim no tensor-core kernel is built for (not a multiple of 16
-    # or 32 columns) stays on the CUDA cores
+    # head dims the tensor-core kernels run at a padded width W, the
+    # columns past hd zeros: hd 100 (W 112; rows of 200 bytes, which no TMA
+    # map takes, so the wrapper pads q, k and v to 104); more below
     "hd100_t1000": AttnCase(1, 1000, 1000, 32, 8, 100, True, 0, "bfloat16",
-                            BF16_TOL, CORES),
+                            BF16_TOL, WGMMA),
     # b = 2 and ends that are no multiple of a tile, one per wgmma head
     # dim: the kernel's ragged-key mask, its store cut-off at tq and the
     # batch coordinate of its TMA maps; tq != tkv in the last two, and in
@@ -1935,11 +1953,41 @@ ATTENTION_CASES = {
                                               BF16_TOL, WGMMA),
     "recurrentgemma_9b_b2_q1000_kv700_w200": AttnCase(
         2, 1000, 700, 16, 1, 256, True, 200, "bfloat16", BF16_TOL, WGMMA),
+    # more head dims at a padded width: as they come, at Phi-3-mini's hd 96
+    # (W 96), hd 200 (W 224, 64-key tiles), hd 184 (W 192) and fp32 hd 100
+    # (W 112); padded by the wrapper to rows of 16 bytes, bf16 hd 7 (to 8,
+    # W 16, ragged), hd 50 (56, W 64), hd 129 (136, W 160), hd 250 (256, W
+    # 256) and fp32 hd 7 (8, W 16), hd 50 (52, W 64), hd 95 (96, W 96)
+    "phi3_mini_t4096": AttnCase(1, 4096, 4096, 32, 32, 96, True, 0,
+                                "bfloat16", BF16_TOL, WGMMA),
+    "hd7_b2_q1000_kv1200": AttnCase(2, 1000, 1200, 32, 8, 7, True, 0,
+                                    "bfloat16", BF16_TOL, WGMMA),
+    "hd200_t4096_w2048": AttnCase(1, 4096, 4096, 16, 1, 200, True, 2048,
+                                  "bfloat16", BF16_TOL, WGMMA),
+    "hd100_t1000_fp32": AttnCase(1, 1000, 1000, 32, 8, 100, True, 0,
+                                 "float32", FP32_TOL, TF32X3),
+    "hd50_b2_q1000_kv1200_fp32": AttnCase(2, 1000, 1200, 32, 8, 50, True, 0,
+                                          "float32", FP32_TOL, TF32X3),
+    "hd50_b2_q1000_kv1200": AttnCase(2, 1000, 1200, 32, 8, 50, True, 0,
+                                     "bfloat16", BF16_TOL, WGMMA),
+    "hd7_b2_q1000_kv1200_fp32": AttnCase(2, 1000, 1200, 32, 8, 7, True, 0,
+                                         "float32", FP32_TOL, TF32X3),
+    "hd95_t1000_fp32": AttnCase(1, 1000, 1000, 32, 8, 95, True, 0,
+                                "float32", FP32_TOL, TF32X3),
+    "hd129_t1000": AttnCase(1, 1000, 1000, 32, 8, 129, True, 0, "bfloat16",
+                            BF16_TOL, WGMMA),
+    "hd184_t1000": AttnCase(1, 1000, 1000, 32, 8, 184, True, 0, "bfloat16",
+                            BF16_TOL, WGMMA),
+    "hd250_t1000": AttnCase(1, 1000, 1000, 32, 8, 250, True, 0, "bfloat16",
+                            BF16_TOL, WGMMA),
+    # fp32 past hd 128 stays on the CUDA cores: recurrentgemma_9b in fp32
+    "recurrentgemma_9b_t4096_w2048_fp32": AttnCase(
+        1, 4096, 4096, 16, 1, 256, True, 2048, "float32", FP32_TOL, CORES),
 }
 # the case each attention kernel's entry in the kernels line reports
 ATTENTION_ROW = {WGMMA: "glm4_9b_t4096",
                  TF32X3: "mixtral_8x7b_t8192_w4096_fp32",
-                 CORES: "hd100_t1000"}
+                 CORES: "recurrentgemma_9b_t4096_w2048_fp32"}
 
 
 def live_pairs(tq, tkv, causal, window):
@@ -2043,11 +2091,17 @@ class AttentionPhase:
         except RuntimeError as err:
             row["library_ms"] = None
             row["library_error"] = f"not measured: {err!r}"[:300]
+        if mask is not None:
+            # SDPA's causal path without the window (more live pairs, no
+            # mask to read): what SDPA takes where it is not held to the
+            # masked path
+            row["library_causal_ms"] = s.device_ms(lambda: sdpa(
+                qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
         # read q, k and v once, write o once
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         flops = 4 * c.b * c.h * c.hd * live_pairs(c.tq, c.tkv, causal,
                                                   window)
-        peak, passes = KERNEL_PEAK[row["kernel"]]
+        peak, passes = DTYPE_PEAK[c.dtype]
         row.update(bytes=nbytes, flops=flops, passes=passes,
                    bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                    flops_ms=passes * flops / peak * 1e3)
@@ -2248,7 +2302,7 @@ class ObsPhase:
                                                             reps=10))
         for mode in ("off", "counters"):
             os.environ["BIGATOMIC_OBS"] = mode
-            prof = smoke.device_busy(run)
+            prof = smoke.device_busy(run, tries=3)
             out[mode]["device_ops_per_apply"] = prof.get(
                 "device_ops_per_apply")
             out[mode]["device_us_per_apply"] = prof.get("device_us_per_apply")
@@ -4169,7 +4223,9 @@ def main() -> int:
             f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}: bytes {row['bytes_ms']:.4f} / FLOPs "
             f"{row['flops_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, "
-            f"sdpa {row['library_ms']}")
+            f"sdpa {row['library_ms']}"
+            + (f" (causal, no window: {row['library_causal_ms']})"
+               if "library_causal_ms" in row else ""))
         torch.cuda.empty_cache()
 
     # -- 7. obs --------------------------------------------------------------------

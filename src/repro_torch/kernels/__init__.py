@@ -17,11 +17,11 @@
   scrub_digest     the integrity scrub's per-cell FNV-1a digest,
                    `digest_rows` (`csrc/scrub_digest.cu`)
   flash_attention  forward attention with an online softmax: the wgmma
-                   kernel for bf16 at head dims 16 / 32 / 64 / 80 / 128 /
-                   256 (`csrc/flash_attention_wgmma.cu`), the 3xTF32
-                   kernel for fp32 at 16 / 32 / 64 / 80 / 128
-                   (`csrc/flash_attention_tf32x3.cu`), the CUDA-core
-                   kernel for the rest (`csrc/flash_attention.cu`)
+                   kernel for bf16 at every head dim 1-256
+                   (`csrc/flash_attention_wgmma.cu`), the 3xTF32 kernel
+                   for fp32 at 1-128 (`csrc/flash_attention_tf32x3.cu`),
+                   the CUDA-core kernel for fp32 at 129-256
+                   (`csrc/flash_attention.cu`)
 
 `ops.py` holds the raw-table layer around them, `ref.py` the plain versions
 of the table kernels.  Importing the package builds nothing: each kernel

@@ -2,14 +2,14 @@
 // (src/repro_torch/kernels/flash_attention.py::flash_attention).
 //
 //   flash_attention_kernel   replaces src/repro/kernels/flash_attention.py::
-//                            flash_attention_tpu at the head dims the
-//                            tensor-core kernels are not built for: bf16
-//                            outside 16, 32, 64, 80, 128 and 256
-//                            (flash_attention_wgmma.cu), fp32 outside 16,
-//                            32, 64, 80 and 128 (flash_attention_tf32x3.cu)
+//                            flash_attention_tpu for fp32 at head dims
+//                            129-256, which the 3xTF32 kernel does not fit
+//                            (flash_attention_tf32x3.cu takes fp32 up to
+//                            128, flash_attention_wgmma.cu bf16 at every
+//                            head dim)
 //
 // q [b, tq, h, hd], k and v [b, tkv, kvh, hd] (the model's layout, read
-// directly), fp32 or bf16, hd <= 256 -> o [b, tq, h, hd] in q's type.  Query
+// directly), fp32, hd <= 256 -> o [b, tq, h, hd] fp32.  Query
 // head i reads kv head i / (h / kvh) (contiguous GQA groups).  Masks: causal
 // (key <= query), sliding window (key > query - window) and the ragged end
 // of the keys (key < tkv); ragged ends of q and kv are masked here, with no
@@ -40,12 +40,11 @@
 // rate, against 71 MB of HBM traffic (21 us at 3.35 TB/s).  This kernel
 // runs them on the CUDA cores in fp32 (67 TFLOP/s peak), with about one
 // shared-memory load per FMA, so it sits well above that bound; bf16 and
-// fp32 at those widths run on the tensor-core kernels instead.
+// fp32 up to hd 128 run on the tensor-core kernels instead.
 
 #include <cstddef>
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -56,21 +55,6 @@ constexpr int kTileQ = kWarps * kRows;      // 64 query rows per block
 constexpr int kTileK = 32;                  // keys per kv tile: one a lane
 constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
@@ -98,11 +82,11 @@ struct Strides {
 };
 
 // D = output dims per lane, ceil(hd / 32) rounded up to a power of two.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int tq, int tkv, int h,
-    int kvh, int hd, float scale, int causal, int window) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, int tq, int tkv,
+    int h, int kvh, int hd, float scale, int causal, int window) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const Strides st(hd);
@@ -119,15 +103,15 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   const int lane = threadIdx.x % 32;
   const size_t q_row = (size_t)h * hd;       // stride of a position in q / o
   const size_t kv_row = (size_t)kvh * hd;    // stride of a position in k / v
-  const T* qb = q + (size_t)bi * tq * q_row + (size_t)hi * hd;
-  const T* kb = k + (size_t)bi * tkv * kv_row + (size_t)kvi * hd;
-  const T* vb = v + (size_t)bi * tkv * kv_row + (size_t)kvi * hd;
+  const float* qb = q + (size_t)bi * tq * q_row + (size_t)hi * hd;
+  const float* kb = k + (size_t)bi * tkv * kv_row + (size_t)kvi * hd;
+  const float* vb = v + (size_t)bi * tkv * kv_row + (size_t)kvi * hd;
 
   // Q tile, zero outside [0, tq) x [0, hd).
   for (int e = threadIdx.x; e < kTileQ * st.hq; e += kThreads) {
     const int r = e / st.hq, d = e % st.hq;
     const int t = q0 + r;
-    qs[e] = (t < tq && d < hd) ? to_f32(qb[(size_t)t * q_row + d]) : 0.f;
+    qs[e] = (t < tq && d < hd) ? qb[(size_t)t * q_row + d] : 0.f;
   }
 
   // Keys live for some row of the tile: [lo, hi).
@@ -154,8 +138,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
       const int j = e / st.hq, d = e % st.hq;
       const int t = k0 + j;
       const bool in = t < tkv && d < hd;
-      ks[j * st.hk + d] = in ? to_f32(kb[(size_t)t * kv_row + d]) : 0.f;
-      if (d < hd) vs[j * hd + d] = in ? to_f32(vb[(size_t)t * kv_row + d]) : 0.f;
+      ks[j * st.hk + d] = in ? kb[(size_t)t * kv_row + d] : 0.f;
+      if (d < hd) vs[j * hd + d] = in ? vb[(size_t)t * kv_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -234,46 +218,45 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const int qpos = r0 + r;
     const float denom = fmaxf(warp_sum(l[r]), 1e-30f);
     if (qpos >= tq) continue;
-    T* orow = o + ((size_t)bi * tq + qpos) * q_row + (size_t)hi * hd;
+    float* orow = o + ((size_t)bi * tq + qpos) * q_row + (size_t)hi * hd;
 #pragma unroll
     for (int i = 0; i < D; ++i) {
       const int d = lane + 32 * i;
-      if (d < hd) orow[d] = from_f32<T>(acc[r][i] / denom);
+      if (d < hd) orow[d] = acc[r][i] / denom;
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int tq, int tkv, int h, int kvh, int hd, float scale, int causal,
            int window, cudaStream_t stream) {
-  auto kern = flash_attention_kernel<T, D>;
+  auto kern = flash_attention_kernel<D>;
   const size_t bytes = Strides(hd).bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((tq + kTileQ - 1) / kTileQ, h, b);
   kern<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), tq, tkv, h, kvh, hd,
-      scale, causal, window);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), tq, tkv, h, kvh,
+      hd, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int b,
              int tq, int tkv, int h, int kvh, int hd, float scale, int causal,
              int window, cudaStream_t stream) {
   if (hd <= 32)
-    return launch<T, 1>(q, k, v, o, b, tq, tkv, h, kvh, hd, scale, causal,
+    return launch<1>(q, k, v, o, b, tq, tkv, h, kvh, hd, scale, causal,
                         window, stream);
   if (hd <= 64)
-    return launch<T, 2>(q, k, v, o, b, tq, tkv, h, kvh, hd, scale, causal,
+    return launch<2>(q, k, v, o, b, tq, tkv, h, kvh, hd, scale, causal,
                         window, stream);
   if (hd <= 128)
-    return launch<T, 4>(q, k, v, o, b, tq, tkv, h, kvh, hd, scale, causal,
+    return launch<4>(q, k, v, o, b, tq, tkv, h, kvh, hd, scale, causal,
                         window, stream);
-  return launch<T, 8>(q, k, v, o, b, tq, tkv, h, kvh, hd, scale, causal,
+  return launch<8>(q, k, v, o, b, tq, tkv, h, kvh, hd, scale, causal,
                       window, stream);
 }
 
@@ -281,23 +264,19 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
 
 extern "C" {
 
-// q[b, tq, h, hd], k and v[b, tkv, kvh, hd] -> o[b, tq, h, hd]; bf16 != 0
-// selects __nv_bfloat16, else float.  hd in [1, 256], h % kvh == 0 (the
-// wrapper checks).  Launches on `stream` of `device` and returns the
-// cudaError_t of the launch (0 = queued).
+// q[b, tq, h, hd], k and v[b, tkv, kvh, hd] -> o[b, tq, h, hd], fp32.  hd
+// in [1, 256], h % kvh == 0 (the wrapper checks).  Launches on `stream` of
+// `device` and returns the cudaError_t of the launch (0 = queued).
 int flash_attention(const void* q, const void* k, const void* v, void* o,
                     int b, int tq, int tkv, int h, int kvh, int hd,
-                    float scale, int causal, int window, int bf16,
-                    int device, void* stream) {
+                    float scale, int causal, int window, int device,
+                    void* stream) {
   cudaGetLastError();
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (b <= 0 || tq <= 0 || h <= 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, b, tq, tkv, h, kvh, hd,
-                                        scale, causal, window, s)
-              : dispatch<float>(q, k, v, o, b, tq, tkv, h, kvh, hd, scale,
-                                causal, window, s);
+  return dispatch(q, k, v, o, b, tq, tkv, h, kvh, hd, scale, causal, window,
+                  static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error_string(int err) {

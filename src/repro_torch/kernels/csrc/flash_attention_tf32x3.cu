@@ -4,8 +4,7 @@
 //
 //   flash_attention_tf32x3_kernel   replaces src/repro/kernels/
 //                                   flash_attention.py::flash_attention_tpu
-//                                   for fp32 at head dims 16, 32, 64, 80
-//                                   and 128
+//                                   for fp32 at every head dim 1-128
 //
 // q [b, tq, h, hd], k and v [b, tkv, kvh, hd] fp32 (the model's layout, read
 // directly) -> o [b, tq, h, hd] fp32.  Query head i reads kv head
@@ -15,7 +14,7 @@
 // NEG_INF = -1e30, a masked score is -inf and contributes p = 0, and the
 // output is O / max(l, 1e-30), so a row with no live key gives zeros here
 // (the wrapper then gives such rows the Pallas kernel's value).  bf16 goes
-// to flash_attention_wgmma.cu, other head dims to flash_attention.cu.  The
+// to flash_attention_wgmma.cu, fp32 past hd 128 to flash_attention.cu.  The
 // plain PyTorch version is flash_attention.py::flash_attention_plain.
 //
 // What bounds it on an H100: operations.  At glm4_9b's widths (h = 32,
@@ -30,13 +29,14 @@
 // Three passes make the bound 3 x operations / 495 TFLOP/s (50 us there).
 //
 // Design.  One block per (128 query rows, head, batch), three warpgroups:
-// two consumers of 64 query rows each, then a producer.  In the producer,
-// one thread issues the TMA loads (Q once, then K and V tiles into a ring
-// of kStages stages; per stage a "full" mbarrier for the TMA bytes, a
-// "ready" one for the converted tiles and an "empty" one), and its other
-// three warps prepare each stage for both consumers: K_lo = K - K_hi, and
-// V transposed, as Vt and Vt_lo.  Every product then runs on wgmma
-// (m64nNk8 .tf32, fp32 accumulators):
+// two consumers of 64 query rows each, then a producer.  The producer
+// fills Q once, then K and V tiles into a ring of kStages stages (per
+// stage a "full" mbarrier for the TMA bytes, a "ready" one for the
+// converted tiles and an "empty" one), and its last three warps, the
+// converters, prepare each stage for both consumers: K_lo = K - K_hi, and
+// V transposed, as Vt and Vt_lo.  The producer's first thread loads the
+// tiles with TMA; the converters wait on full.  Every product then runs
+// on wgmma (m64nNk8 .tf32, fp32 accumulators):
 //   - S = Q_hi K + Q_hi K_lo + Q_lo K: Q and K K-major in shared memory as
 //     TMA writes them (128-byte swizzle, 32 fp32 columns a row), the tensor
 //     core reading Q's and K's top 19 bits (their hi terms); Q_lo as the A
@@ -59,14 +59,19 @@
 // from shared memory as stored and split in registers, kept Q_lo in
 // registers, and had each consumer write its own K_lo between two
 // barriers; it was right, spilled at hd = 128 and was 1.03-1.22x slower
-// (PERF.md §6).  Tiles: 32 keys at hd 80 / 128 (hd 128: Q
-// 64 KB + 2 stages of K, V, K_lo, Vt, Vt_lo, 80 KB), 64 keys below.  hd 256
-// does not fit (Q alone 128 KB, O 128 registers a thread) and stays on
-// flash_attention.cu.  hd 16 and 80 read the columns past hd of their last
-// 32-column chunk as zeros (TMA's out-of-bounds fill).  TMA maps are 4-D
-// (hd, heads, t, b), so rows past t read as zeros and no tile reads the
-// next batch's rows.  Blocks run head-major with the heaviest causal q
-// tiles first.
+// (PERF.md §6).  The kernel is built for padded widths W (TF32_WIDTHS) and
+// runs a head dim hd, a multiple of 4, at the smallest W >= hd: Q's, K's
+// and V's columns hd..W-1 are zeros in shared memory (TMA's out-of-bounds
+// fill), so K_lo's are too and so are Vt's rows past hd; Q K^T runs W / 8
+// k-steps, P Vt W columns, and the epilogue stores only the columns below
+// hd.  A tensor map's strides are multiples of 16 bytes, so the wrapper
+// zero-pads any other hd to the next multiple of 4 and passes the scale of
+// the real one.  Tiles: 32 keys at W > 64 (W 128: Q 64 KB + 2 stages of K,
+// V, K_lo, Vt, Vt_lo, 80 KB), 64 keys below.  hd > 128 does not fit (Q
+// alone 128 KB at 256, O 128 registers a thread) and stays on
+// flash_attention.cu.  TMA maps are 4-D (hd, heads, t, b), so rows past t
+// read as zeros and no tile reads the next batch's rows.  Blocks run
+// head-major with the heaviest causal q tiles first.
 
 #include <cmath>
 #include <cstddef>
@@ -86,20 +91,26 @@ constexpr int kTileQ = 64 * kConsumers;            // query rows per block
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int HD>
+// The widths the kernel is built for, each padded width W a template
+// instance: a call at head dim hd runs at the smallest W >= hd
+// (flash_attention.py::TF32_WIDTHS; W / hd <= 1.25 from hd 64 up).
+#define TF32_WIDTHS 16, 32, 64, 80, 96, 112, 128
+
+template <int W>
 struct Tile {
-  static constexpr int kHdp = (HD + 31) / 32 * 32;  // width in shared memory
+  static constexpr int kHdp = (W + 31) / 32 * 32;   // width in shared memory
   static constexpr int kChunks = kHdp / 32;         // 32-column chunks
-  static constexpr int kKeys = HD > 64 ? 32 : 64;   // keys per kv tile
-  static constexpr int kSteps = HD / 8;             // k8 steps of Q K^T
+  static constexpr int kKeys = W > 64 ? 32 : 64;    // keys per kv tile
+  static constexpr int kWidth = W;
+  static constexpr int kSteps = W / 8;              // k8 steps of Q K^T
   static constexpr uint32_t kQChunk = kTileQ * 128;     // bytes
   static constexpr uint32_t kKvChunk = kKeys * 128;
   static constexpr uint32_t kQBytes = kQChunk * kChunks;
   static constexpr uint32_t kKvBytes = kKvChunk * kChunks;  // K, V or K_lo
-  // Vt / Vt_lo: [key chunk][HD rows][32 keys]
-  static constexpr uint32_t kVtChunk = HD * 128;
+  // Vt / Vt_lo: [key chunk][W rows][32 keys]
+  static constexpr uint32_t kVtChunk = W * 128;
   static constexpr uint32_t kVtBytes = kVtChunk * (kKeys / 32);
-  // a stage: K, V (TMA), then K_lo, Vt, Vt_lo (the producer's)
+  // a stage: K, V (the producer's loads), then K_lo, Vt, Vt_lo (converted)
   static constexpr uint32_t kKlo = 2 * kKvBytes;
   static constexpr uint32_t kVt = 3 * kKvBytes;
   static constexpr uint32_t kVtLo = kVt + kVtBytes;
@@ -167,141 +178,59 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// D[64 x 16] (+)= A[64 x 8] B[8 x 16], tf32 in, fp32 out: A in registers,
-// B K-major in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[8],
-                                         const uint32_t (&a)[4],
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+// D[64 x N] (+)= A[64 x 8] B[8 x N] for N = 2 R, tf32 in, fp32 out: A in
+// registers, B K-major in shared memory.
+#define WGMMA_RS_TF32(N, R) \
+  WGMMA_RS(R, "m64n" #N "k8.f32.tf32.tf32", "1, 1")
+WGMMA_RS_TF32(16, 8)
+WGMMA_RS_TF32(32, 16)
+WGMMA_RS_TF32(64, 32)
+WGMMA_RS_TF32(80, 40)
+WGMMA_RS_TF32(96, 48)
+WGMMA_RS_TF32(112, 56)
+WGMMA_RS_TF32(128, 64)
+
+// A stage for both consumers, by converter thread `ctid` of kConverters:
+// K_lo = K - K_hi, and V transposed (keys contiguous, each 8 in the order
+// 0 2 4 6 1 3 5 7) as Vt and Vt_lo.  Vt's rows past hd are V's zero
+// columns, so P Vt's columns past hd are 0 (they are not stored either).
+template <class T>
+__device__ __forceinline__ void convert_stage(uint8_t* st, int ctid) {
+  const float4* const k4 = reinterpret_cast<const float4*>(st);
+  float4* const k_lo4 = reinterpret_cast<float4*>(st + T::kKlo);
+  for (int e = ctid; e < (int)(T::kKvBytes / 16); e += kConverters) {
+    const float4 x = k4[e];
+    k_lo4[e] = make_float4(x.x - tf32_hi(x.x), x.y - tf32_hi(x.y),
+                           x.z - tf32_hi(x.z), x.w - tf32_hi(x.w));
+  }
+  // Item (n, g4): dims n of keys 8 (g4 / 2) + 2 i + g4 % 2, i < 4, to the
+  // 16-byte unit of Vt row n at key position 4 g4.
+  constexpr int kW = T::kWidth;
+  for (int e = ctid; e < kW * (T::kKeys / 4); e += kConverters) {
+    const int n = e % kW, g4 = e / kW;
+    const int key0 = 8 * (g4 / 2) + g4 % 2;
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = *reinterpret_cast<const float*>(
+          st + T::kKvBytes + swizzled(key0 + 2 * i, 4 * n, T::kKvChunk));
+    const uint32_t off = (g4 / 8) * T::kVtChunk + swizzled(n, 16 * (g4 % 8), 0);
+    *reinterpret_cast<float4*>(st + T::kVt + off) =
+        make_float4(x[0], x[1], x[2], x[3]);
+    *reinterpret_cast<float4*>(st + T::kVtLo + off) = make_float4(
+        x[0] - tf32_hi(x[0]), x[1] - tf32_hi(x[1]), x[2] - tf32_hi(x[2]),
+        x[3] - tf32_hi(x[3]));
+  }
 }
 
-// D[64 x 32] (+)= A[64 x 8] B[8 x 32], tf32 in, fp32 out: A in registers,
-// B K-major in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[16],
-                                         const uint32_t (&a)[4],
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-
-// D[64 x 64] (+)= A[64 x 8] B[8 x 64], tf32 in, fp32 out: A in registers,
-// B K-major in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-
-// D[64 x 80] (+)= A[64 x 8] B[8 x 80], tf32 in, fp32 out: A in registers,
-// B K-major in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[40],
-                                         const uint32_t (&a)[4],
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39}, "
-      "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-
-// D[64 x 128] (+)= A[64 x 8] B[8 x 128], tf32 in, fp32 out: A in registers,
-// B K-major in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4],
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-
-// Byte offset of element (row, col) in a tile of 32-column chunks of
-// `chunk` bytes each, as TMA's 128-byte swizzle lays it out: the 16-byte
-// unit of a 128-byte row is XORed with row % 8.
-__device__ __forceinline__ uint32_t swz(int row, int col, uint32_t chunk) {
-  return (col / 32) * chunk + row * 128 +
-         ((((col % 32) / 4) ^ (row % 8)) * 16) + (col % 4) * 4;
-}
-
-template <int HD>
+// hd <= W, hd % 4 == 0; TMA maps over q, k, v, which o shares the layout of.
+template <int W>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_tf32x3_kernel(
     const __grid_constant__ CUtensorMap map_q,
     const __grid_constant__ CUtensorMap map_k,
     const __grid_constant__ CUtensorMap map_v, float* __restrict__ o, int tq,
-    int tkv, int h, int kvh, float scale, int causal, int window) {
-  using T = Tile<HD>;
+    int tkv, int h, int kvh, int hd, float scale, int causal, int window) {
+  using T = Tile<W>;
   constexpr int kKeys = T::kKeys;
   constexpr int kStages = T::kStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -358,42 +287,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tf32x3_kernel(
                    32 * c, kvi, k0, bi);
         }
       }
-    } else if (ptid >= 32) {
-      // The converters: per stage K_lo, and V transposed (keys contiguous,
-      // each 8 in the order 0 2 4 6 1 3 5 7) as Vt and Vt_lo.
-      const int ctid = ptid - 32;
+    } else if (ptid >= 128 - kConverters) {
+      // The converters.
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
-        uint8_t* const st = smem + T::kQBytes + s * T::kStageBytes;
         mbar_wait(full0 + 8 * s, (it / kStages) & 1);
-        const float4* const k4 = reinterpret_cast<const float4*>(st);
-        float4* const k_lo4 = reinterpret_cast<float4*>(st + T::kKlo);
-        for (int e = ctid; e < (int)(T::kKvBytes / 16); e += kConverters) {
-          const float4 x = k4[e];
-          k_lo4[e] = make_float4(x.x - tf32_hi(x.x), x.y - tf32_hi(x.y),
-                                 x.z - tf32_hi(x.z), x.w - tf32_hi(x.w));
-        }
-        // Item (n, g4): dims n of keys 8 (g4 / 2) + 2 i + g4 % 2, i < 4, to
-        // the 16-byte unit of Vt row n at key position 4 g4.
-        for (int e = ctid; e < HD * (kKeys / 4); e += kConverters) {
-          const int n = e % HD, g4 = e / HD;
-          const int key0 = 8 * (g4 / 2) + g4 % 2;
-          float x[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            x[i] = *reinterpret_cast<const float*>(
-                st + T::kKvBytes + swz(key0 + 2 * i, n, T::kKvChunk));
-          const int pos = 4 * g4;
-          const uint32_t off = (pos / 32) * T::kVtChunk + n * 128 +
-                               ((((pos % 32) / 4) ^ (n % 8)) * 16);
-          *reinterpret_cast<float4*>(st + T::kVt + off) =
-              make_float4(x[0], x[1], x[2], x[3]);
-          *reinterpret_cast<float4*>(st + T::kVtLo + off) = make_float4(
-              x[0] - tf32_hi(x[0]), x[1] - tf32_hi(x[1]),
-              x[2] - tf32_hi(x[2]), x[3] - tf32_hi(x[3]));
-        }
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        mbar_arrive(ready0 + 8 * s);
+        convert_stage<T>(smem + T::kQBytes + s * T::kStageBytes,
+                         ptid - (128 - kConverters));
+        release(ready0 + 8 * s);
       }
     }
     return;
@@ -412,10 +313,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tf32x3_kernel(
   const uint8_t* const q_gen = smem + g * 64 * 128;
   const float sc = scale * kLog2e;
 
-  float acc[HD / 2];
+  float acc[W / 2];
   float sco[kKeys / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < kKeys / 2; ++i) sco[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -437,8 +338,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tf32x3_kernel(
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const float x = *reinterpret_cast<const float*>(
-              q_gen + swz(16 * warp + gq + 8 * (j & 1),
-                          8 * kk + tg + 4 * (j >> 1), T::kQChunk));
+              q_gen + swizzled(16 * warp + gq + 8 * (j & 1),
+                               4 * (8 * kk + tg + 4 * (j >> 1)), T::kQChunk));
           q_lo[kk][j] = __float_as_uint(x - tf32_hi(x));
         }
       }
@@ -496,7 +397,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tf32x3_kernel(
       l[0] = l[0] * corr[0] + sum[0];
       l[1] = l[1] * corr[1] + sum[1];
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+      for (int i = 0; i < W / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 
       // O += P_hi Vt + P_hi Vt_lo + P_lo Vt, 8 keys a step.  With k index t
       // standing for key 2t and t + 4 for key 2t + 1 (Vt's order), the A
@@ -526,7 +427,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tf32x3_kernel(
     mbar_arrive(empty0 + 8 * s);
   }
 
-  // Epilogue: O / max(l, 1e-30), two fp32 columns a store, rows below tq.
+  // Epilogue: O / max(l, 1e-30), its columns below hd (a multiple of 4),
+  // two fp32 columns a store, rows below tq.
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -538,36 +440,53 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tf32x3_kernel(
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= tq) continue;
-    float* const orow = o + (((size_t)bi * tq + row) * h + hi) * HD;
+    float* const orow = o + (((size_t)bi * tq + row) * h + hi) * hd;
 #pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt)
-      *reinterpret_cast<float2*>(orow + 8 * nt + 2 * tg) = make_float2(
-          acc[4 * nt + 2 * r] * inv[r], acc[4 * nt + 2 * r + 1] * inv[r]);
+    for (int nt = 0; nt < W / 8; ++nt) {
+      const int c = 8 * nt + 2 * tg;
+      if (c < hd)
+        *reinterpret_cast<float2*>(orow + c) = make_float2(
+            acc[4 * nt + 2 * r] * inv[r], acc[4 * nt + 2 * r + 1] * inv[r]);
+    }
   }
 }
 
-template <int HD>
+template <int W>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int tq, int tkv, int h, int kvh, float scale, int causal,
+           int tq, int tkv, int h, int kvh, int hd, float scale, int causal,
            int window, cudaStream_t stream) {
-  using T = Tile<HD>;
-  CUtensorMap map_q, map_k, map_v;
+  using T = Tile<W>;
   constexpr auto kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  int err = make_map(&map_q, kF32, 4, q, b, tq, h, HD, 32, kTileQ);
+  CUtensorMap map_q{}, map_k{}, map_v{};
+  int err = make_map(&map_q, kF32, 4, q, b, tq, h, hd, 32, kTileQ);
   if (err == 0)
-    err = make_map(&map_k, kF32, 4, k, b, tkv, kvh, HD, 32, T::kKeys);
+    err = make_map(&map_k, kF32, 4, k, b, tkv, kvh, hd, 32, T::kKeys);
   if (err == 0)
-    err = make_map(&map_v, kF32, 4, v, b, tkv, kvh, HD, 32, T::kKeys);
+    err = make_map(&map_v, kF32, 4, v, b, tkv, kvh, hd, 32, T::kKeys);
   if (err != 0) return err;
-  auto kern = flash_attention_tf32x3_kernel<HD>;
+  auto kern = flash_attention_tf32x3_kernel<W>;
   const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(h, (tq + kTileQ - 1) / kTileQ, b);
   kern<<<grid, kThreads, T::kSmem, stream>>>(
-      map_q, map_k, map_v, static_cast<float*>(o), tq, tkv, h, kvh, scale,
-      causal, window);
+      map_q, map_k, map_v, static_cast<float*>(o), tq, tkv, h, kvh, hd,
+      scale, causal, window);
   return (int)cudaGetLastError();
+}
+
+// The launch at the smallest width W >= hd of the list.
+template <int W, int... Wider>
+int launch_padded(const void* q, const void* k, const void* v, void* o,
+                  int b, int tq, int tkv, int h, int kvh, int hd, float scale,
+                  int causal, int window, cudaStream_t stream) {
+  if (hd <= W)
+    return launch<W>(q, k, v, o, b, tq, tkv, h, kvh, hd, scale, causal,
+                     window, stream);
+  if constexpr (sizeof...(Wider) > 0)
+    return launch_padded<Wider...>(q, k, v, o, b, tq, tkv, h, kvh, hd, scale,
+                                   causal, window, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -575,9 +494,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 extern "C" {
 
 // q[b, tq, h, hd], k and v[b, tkv, kvh, hd] fp32 -> o[b, tq, h, hd] fp32,
-// for hd in {16, 32, 64, 80, 128}; h % kvh == 0 and 16-byte aligned,
-// contiguous tensors (the wrapper checks).  Launches on `stream` of
-// `device` and returns the cudaError_t of the launch (0 = queued).
+// for hd in 4, 8, ... 128 (the wrapper pads any other hd); h % kvh == 0
+// and contiguous tensors aligned to 16 bytes (the wrapper checks).
+// Launches on `stream` of `device` and returns the cudaError_t of the
+// launch (0 = queued).
 int flash_attention_tf32x3(const void* q, const void* k, const void* v,
                            void* o, int b, int tq, int tkv, int h, int kvh,
                            int hd, float scale, int causal, int window,
@@ -586,28 +506,12 @@ int flash_attention_tf32x3(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (b <= 0 || tq <= 0 || h <= 0) return 0;
+  if (hd < 4 || hd % 4) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (tkv <= 0)
     return (int)cudaMemsetAsync(o, 0, (size_t)b * tq * h * hd * 4, s);
-  switch (hd) {
-    case 16:
-      return launch<16>(q, k, v, o, b, tq, tkv, h, kvh, scale, causal, window,
-                        s);
-    case 32:
-      return launch<32>(q, k, v, o, b, tq, tkv, h, kvh, scale, causal, window,
-                        s);
-    case 64:
-      return launch<64>(q, k, v, o, b, tq, tkv, h, kvh, scale, causal, window,
-                        s);
-    case 80:
-      return launch<80>(q, k, v, o, b, tq, tkv, h, kvh, scale, causal, window,
-                        s);
-    case 128:
-      return launch<128>(q, k, v, o, b, tq, tkv, h, kvh, scale, causal,
-                         window, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch_padded<TF32_WIDTHS>(q, k, v, o, b, tq, tkv, h, kvh, hd,
+                                    scale, causal, window, s);
 }
 
 const char* flash_attention_tf32x3_error_string(int err) {

@@ -5,15 +5,22 @@ the reference's Pallas kernel `kernels/flash_attention.py::
 flash_attention_tpu` with one of three CUDA kernels, chosen by a static
 rule on (dtype, head dim) (`kernel_for`):
 
-  flash_attention_wgmma   bf16 at a head dim in `WGMMA_HEAD_DIMS` (16, 32,
-                          64, 80, 128, 256): tensor cores (wgmma), K/V
-                          through TMA (`csrc/flash_attention_wgmma.cu`)
-  flash_attention_tf32x3  fp32 at a head dim in `TF32_HEAD_DIMS` (16, 32,
-                          64, 80, 128): tensor cores, each product as three
-                          TF32 products (hi/lo split), K/V through TMA
+  flash_attention_wgmma   bf16 at every head dim 1-256: tensor cores
+                          (wgmma) (`csrc/flash_attention_wgmma.cu`)
+  flash_attention_tf32x3  fp32 at every head dim 1-128: tensor cores, each
+                          product as three TF32 products (hi/lo split)
                           (`csrc/flash_attention_tf32x3.cu`)
-  flash_attention         every other head dim, in either dtype: fp32 FMAs
-                          on the CUDA cores (`csrc/flash_attention.cu`)
+  flash_attention         fp32 at head dims 129-256: fp32 FMAs on the CUDA
+                          cores (`csrc/flash_attention.cu`)
+
+The two tensor-core kernels are built for a few padded widths
+(`WGMMA_WIDTHS`, `TF32_WIDTHS`) and run head dim hd at the smallest one
+at or above it (`padded_width`), the columns past hd zeros in shared memory
+and never stored.  They load their tiles with TMA, whose tensor maps need
+rows that are a multiple of 16 bytes: where a row of hd elements is not,
+the wrapper runs them on copies of q, k and v zero-padded to
+`aligned_head_dim` (a multiple of 8 bf16 or 4 fp32 elements) with the
+scale of the real hd, and keeps the first hd columns of the output.
 
 All three read the model's `[b, t, h, hd]` layout directly (the Pallas
 wrapper's transposes and padding do not carry over), handle causal,
@@ -38,26 +45,46 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 BLOCK = 512                  # the plain version's query and key block
-WGMMA_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
-# hd 256 does not fit the fp32 kernel's shared memory and registers
-TF32_HEAD_DIMS = (16, 32, 64, 80, 128)
+# The padded widths each tensor-core kernel is built for (W / hd <= 1.25
+# from hd 64 up); the same lists are WGMMA_WIDTHS and TF32_WIDTHS in the
+# kernels' sources.
+WGMMA_WIDTHS = (16, 32, 64, 80, 96, 112, 128, 160, 192, 224, 256)
+# fp32 past 128 does not fit the 3xTF32 kernel's shared memory and registers
+TF32_WIDTHS = (16, 32, 64, 80, 96, 112, 128)
+
+
+def padded_width(dtype: torch.dtype, hd: int) -> int | None:
+    """The width a tensor-core kernel runs head dim `hd` at: the smallest
+    one it is built for that is at least hd (bf16 on the wgmma kernel, fp32
+    on the 3xTF32 one); None where the CUDA-core kernel takes the call."""
+    widths = WGMMA_WIDTHS if dtype == torch.bfloat16 else TF32_WIDTHS
+    return next((w for w in widths if w >= hd), None)
 
 
 def kernel_for(dtype: torch.dtype, hd: int) -> str:
     """Name of the CUDA kernel that a call with this dtype and head dim
-    launches on the card: a tensor-core kernel where one is built for the
-    pair (the wgmma kernel for bf16, the 3xTF32 kernel for fp32), the
-    CUDA-core kernel for the rest."""
-    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+    launches on the card: the wgmma kernel for bf16, the 3xTF32 kernel for
+    fp32 up to its widest width, the CUDA-core kernel past it."""
+    if padded_width(dtype, hd) is None:
+        return "flash_attention"
+    if dtype == torch.bfloat16:
         return "flash_attention_wgmma"
-    if dtype == torch.float32 and hd in TF32_HEAD_DIMS:
-        return "flash_attention_tf32x3"
-    return "flash_attention"
+    return "flash_attention_tf32x3"
+
+
+def aligned_head_dim(dtype: torch.dtype, hd: int) -> int:
+    """The head dim a tensor-core kernel is launched with for head dim hd:
+    hd rounded up to a row of a multiple of 16 bytes (8 bf16 or 4 fp32
+    elements), as its TMA maps need; the wrapper zero-pads q, k and v to
+    it where it is larger."""
+    per = 16 // dtype.itemsize
+    return -(-hd // per) * per
 
 
 def _live(qpos, kpos, tkv: int, causal: bool, window: int):
@@ -200,22 +227,32 @@ def _cuda_core_kernel(q, k, v, out, causal, window):
     _build.launch("flash_attention", "flash_attention", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b, tq, k.shape[1], h, k.shape[2], hd, 1.0 / math.sqrt(hd),
-                  int(causal), int(window), int(q.dtype == torch.bfloat16))
+                  int(causal), int(window))
     _cuda_core_kernel.launches += 1
 
 
 def _tma_launch(name, q, k, v, out, causal, window):
-    """Launch the TMA kernel `name` (`csrc/<name>.cu`); its TMA maps need
-    16-byte aligned tensors."""
-    for arg, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+    """Launch the TMA kernel `name` (`csrc/<name>.cu`), whose TMA maps need
+    16-byte aligned tensors with rows of a multiple of 16 bytes: where hd
+    is below `aligned_head_dim`, it runs on copies of q, k and v
+    zero-padded to it, with the scale of the real hd, and `out` takes the
+    first hd columns of the padded output."""
+    b, tq, h, hd = q.shape
+    hd_k = aligned_head_dim(q.dtype, hd)
+    o = out
+    if hd_k != hd:
+        q, k, v = (F.pad(t, (0, hd_k - hd)) for t in (q, k, v))
+        o = q.new_empty((b, tq, h, hd_k))
+    for arg, t in (("q", q), ("k", k), ("v", v), ("out", o)):
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {arg} is not 16-byte "
                              "aligned")
-    b, tq, h, hd = q.shape
     _build.launch(name, name, q.device,
-                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  b, tq, k.shape[1], h, k.shape[2], hd, 1.0 / math.sqrt(hd),
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  b, tq, k.shape[1], h, k.shape[2], hd_k, 1.0 / math.sqrt(hd),
                   int(causal), int(window))
+    if o is not out:
+        out.copy_(o[..., :hd])
 
 
 def _wgmma_kernel(q, k, v, out, causal, window):

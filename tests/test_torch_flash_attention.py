@@ -10,10 +10,14 @@ tolerances are those of `tests/test_flash_kernel.py`: fp32 rtol = atol =
 2e-5, bf16 2e-2.  Three ragged cases with rows that have no live key also
 go through the Pallas kernel, and every row, those included, equals it.
 Which CUDA kernel a call on the card launches is a pure function of
-(dtype, head dim), `kernel_for`, tested here; the kernels themselves run
-only on the card (`chip_smoke.py`).  The 3xTF32 kernel's arithmetic
-(operands cut to TF32, three products) is emulated in plain PyTorch and
-held to the fp32 tolerance the card's run uses.
+(dtype, head dim), `kernel_for`, tested here with the padded width
+(`padded_width`) it runs at and the head dim it is launched with
+(`aligned_head_dim`); head dims the card pads (7, 100, 200) go through the
+same oracle and Pallas checks, and zero-padding to the width is checked to
+change nothing.  The kernels themselves run only on the card
+(`chip_smoke.py`).  The 3xTF32 kernel's arithmetic (operands cut to TF32,
+three products) is emulated in plain PyTorch and held to the fp32
+tolerance the card's run uses.
 """
 
 import math
@@ -32,13 +36,15 @@ import torch
 from repro.models.attention import flash_attention as flash_ref
 
 from repro_torch import kernels as tk
-from repro_torch.kernels.flash_attention import (KERNELS, TF32_HEAD_DIMS,
-                                                 WGMMA_HEAD_DIMS,
+from repro_torch.kernels.flash_attention import (KERNELS, TF32_WIDTHS,
+                                                 WGMMA_WIDTHS,
+                                                 aligned_head_dim,
                                                  fill_dead_rows,
                                                  first_dead_row,
                                                  flash_attention,
                                                  flash_attention_plain,
-                                                 hbm_bytes_model, kernel_for)
+                                                 hbm_bytes_model, kernel_for,
+                                                 padded_width)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -64,6 +70,12 @@ RAGGED = {
     # a multiple of kvb, and the window spans two q blocks
     "ragged_causal_w40": (1, 100, 45, 4, 2, 24, True, 40, 32, 32),
 }
+# Head dims that no tensor-core kernel width equals, so the card pads them
+# (hd 7 and 100 also in the wrapper, to rows of 16 bytes, in bf16; 200 is
+# bf16 only on the tensor cores): b, tq, tkv, h, kvh, hd, causal, window,
+# qb, kvb; ragged, a window, every row with a live key.
+PADDED = {f"{prefix}hd{hd}": (1, 90, 70, 4, 1, hd, True, 24, 32, 32)
+          for prefix in ("", "bf16_") for hd in (7, 100, 200)}
 
 
 def make(b, tq, tkv, h, kvh, hd, seed=0):
@@ -163,7 +175,7 @@ def tpu_out(tmp_path_factory):
             arrays[f"{name}/{x}"] = a
         arrays[f"{name}/static"] = np.array([causal, window, qb, kvb])
     for name, (b, tq, tkv, h, kvh, hd, causal, window, qb,
-               kvb) in RAGGED.items():
+               kvb) in {**RAGGED, **PADDED}.items():
         for x, a in zip("qkv", make(b, tq, tkv, h, kvh, hd, seed=11)):
             arrays[f"{name}/{x}"] = a
         arrays[f"{name}/static"] = np.array([causal, window, qb, kvb])
@@ -293,19 +305,51 @@ def test_dead_rows_match_pallas_kernel(tpu_out, name):
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 
-def test_kernel_for_names_each_route():
-    """bf16 at a head dim the wgmma kernel is built for goes to it, fp32 at
-    one the 3xTF32 kernel is built for to that one; every other head dim,
-    in either dtype, to the CUDA-core kernel."""
-    assert WGMMA_HEAD_DIMS == (16, 32, 64, 80, 128, 256)
-    assert TF32_HEAD_DIMS == (16, 32, 64, 80, 128)
-    for hd in (1, 8, 16, 24, 32, 64, 80, 96, 100, 128, 255, 256):
-        assert kernel_for(torch.bfloat16, hd) == (
-            "flash_attention_wgmma" if hd in WGMMA_HEAD_DIMS
-            else "flash_attention")
-        assert kernel_for(torch.float32, hd) == (
-            "flash_attention_tf32x3" if hd in TF32_HEAD_DIMS
-            else "flash_attention")
+# hd: the width and the head dim the kernel is launched with (hd padded
+# to rows of a multiple of 16 bytes) of a bf16 call, then of an fp32 call
+# (None: the CUDA-core kernel, which pads nothing).
+ROUTES = {
+    1: (16, 8, 16, 4), 7: (16, 8, 16, 8), 16: (16, 16, 16, 16),
+    50: (64, 56, 64, 52), 80: (80, 80, 80, 80), 96: (96, 96, 96, 96),
+    100: (112, 104, 112, 100), 127: (128, 128, 128, 128),
+    128: (128, 128, 128, 128), 129: (160, 136, None, None),
+    200: (224, 200, None, None), 256: (256, 256, None, None),
+}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hd", list(ROUTES))
+def test_kernel_for_names_each_route(hd, dtype):
+    """bf16 at every head dim goes to the wgmma kernel and fp32 up to 128
+    to the 3xTF32 kernel, each at the smallest width it is built for at or
+    above hd, launched with hd rounded up to rows of a multiple of 16 bytes
+    (TMA's strides; the wrapper zero-pads to it); fp32 past 128 goes to the
+    CUDA-core kernel."""
+    bf16 = dtype == "bfloat16"
+    width, hd_k = ROUTES[hd][:2] if bf16 else ROUTES[hd][2:]
+    dt = getattr(torch, dtype)
+    assert padded_width(dt, hd) == width
+    if width is None:
+        assert kernel_for(dt, hd) == "flash_attention"
+        return
+    assert kernel_for(dt, hd) == ("flash_attention_wgmma" if bf16
+                                  else "flash_attention_tf32x3")
+    assert aligned_head_dim(dt, hd) == hd_k
+    assert hd <= hd_k <= width and (hd_k * dt.itemsize) % 16 == 0
+
+
+def test_padded_widths_cost_at_most_a_quarter():
+    """From hd 64 up a padded width is at most 1.25 hd, so the padding
+    costs the tensor cores at most a quarter more work; every hd in 1-256
+    (bf16) and 1-128 (fp32) has a width."""
+    assert WGMMA_WIDTHS == (16, 32, 64, 80, 96, 112, 128, 160, 192, 224, 256)
+    assert TF32_WIDTHS == (16, 32, 64, 80, 96, 112, 128)
+    for dtype, top in ((torch.bfloat16, 256), (torch.float32, 128)):
+        for hd in range(1, top + 1):
+            w = padded_width(dtype, hd)
+            assert w >= hd and w % 16 == 0
+            assert hd < 64 or w <= 1.25 * hd
+    assert padded_width(torch.float32, 129) is None
     assert sorted(KERNELS) == ["flash_attention", "flash_attention_tf32x3",
                                "flash_attention_wgmma"]
 
@@ -427,3 +471,71 @@ def test_tf32x3_split_meets_the_fp32_tolerance(name):
     assert float(((got - want).abs() - bound).max()) <= 0
     one = attention_with(matmul_tf32, q, k, v, causal, window)
     assert bool(((one - want).abs() > bound).any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [7, 100, 200])
+@pytest.mark.parametrize("name", list(SMALL_HD))
+def test_padded_head_dims_match_jax_oracle(name, hd, dtype):
+    """Head dims the card runs at a padded width (hd 7, 100, 200) in both
+    dtypes, ragged, with windows: the plain version against the JAX
+    oracle."""
+    b, tq, tkv, h, kvh, causal, window = SMALL_HD[name]
+    q, k, v = make(b, tq, tkv, h, kvh, hd, seed=hd + 1)
+    bf16 = dtype == "bfloat16"
+    got = port(q, k, v, getattr(torch, dtype), causal=causal, window=window)
+    want = jax_ref(q, k, v, jnp.bfloat16 if bf16 else jnp.float32,
+                   causal=causal, window=window)
+    tol = 2e-2 if bf16 else 2e-5
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name", list(PADDED))
+def test_padded_head_dims_match_pallas_kernel(tpu_out, name):
+    """The same head dims against the Pallas kernel in interpret mode, at
+    its blocks of 32."""
+    b, tq, tkv, h, kvh, hd, causal, window, qb, kvb = PADDED[name]
+    assert first_dead_row(tq, tkv, window) == tq
+    q, k, v = make(b, tq, tkv, h, kvh, hd, seed=11)
+    bf16 = name.startswith("bf16")
+    tol = 2e-2 if bf16 else 2e-5
+    got = port(q, k, v, torch.bfloat16 if bf16 else torch.float32,
+               causal=causal, window=window, q_block=qb, kv_block=kvb)
+    np.testing.assert_allclose(got, tpu_out[name], rtol=tol, atol=tol)
+
+
+# bf16 output may round one ulp apart when the fp32 sums differ in order
+BF16_ULP_TOL = (1e-3, 1e-2)
+
+
+@pytest.mark.parametrize("dtype,hd", [("bfloat16", 7), ("bfloat16", 50),
+                                      ("bfloat16", 100), ("bfloat16", 200),
+                                      ("float32", 7), ("float32", 50),
+                                      ("float32", 100)])
+def test_zero_padding_to_the_kernel_width_changes_nothing(dtype, hd):
+    """What the tensor-core kernels compute for a head dim below their
+    width: Q, K and V zero-padded to W = padded_width(dtype, hd) (the
+    wrapper's padding to aligned_head_dim, then the kernel's in shared
+    memory), scores scaled by the real hd's 1 / sqrt(hd), give the
+    unpadded attention in the first hd columns and exact zeros past them
+    (the columns the kernels never store).  The plain version scales by
+    1 / sqrt(W) at width W, so Q is scaled by sqrt(W / hd) in fp32 first."""
+    dt = getattr(torch, dtype)
+    w = padded_width(dt, hd)
+    assert hd <= aligned_head_dim(dt, hd) <= w and w > hd
+    b, tq, tkv, h, kvh = 2, 100, 120, 4, 2
+    q, k, v = (torch.from_numpy(x).to(dt)
+               for x in make(b, tq, tkv, h, kvh, hd, seed=hd + 5))
+
+    def pad(x):
+        return torch.nn.functional.pad(x.float(), (0, w - hd))
+
+    for causal, window in ((True, 0), (True, 24), (False, 16)):
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        got = flash_attention_plain(pad(q) * math.sqrt(w / hd), pad(k),
+                                    pad(v), causal=causal,
+                                    window=window).to(dt)
+        assert bool((got[..., hd:] == 0).all())
+        # fp32: the file's oracle tolerance (Q's scaling rounds once more)
+        atol, rtol = BF16_ULP_TOL if dtype == "bfloat16" else (2e-5, 2e-5)
+        torch.testing.assert_close(got[..., :hd], want, atol=atol, rtol=rtol)
