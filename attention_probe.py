@@ -2,10 +2,10 @@
 """The attention kernels alone on one NVIDIA card: a quicker look than
 `chip_smoke.py` while a kernel is being changed.
 
-    python3 attention_probe.py [CASE ...]
+    python3 attention_probe.py [--kernels-from DIR] [CASE ...]
 
 Run from the root of a checkout on a machine with a CUDA card and `nvcc`.
-It builds the three attention libraries (`kernels/csrc/flash_attention*.cu`)
+It builds the attention libraries (`kernels/csrc/flash_attention*.cu`)
 and prints what `ptxas -v` said of each kernel (registers, spills), then
 runs each case of `chip_smoke.ATTENTION_CASES` (all, or those named):
 which kernel it launched, its largest error against
@@ -16,10 +16,16 @@ of its time: the kernel alone on padded inputs, the three pads and the
 output's copy (device ms each).
 A case that fails is reported and the next one runs; the exit code is 1
 if any failed.  Details go to `chiprun_out/attention_probe.json`.
+
+`--kernels-from DIR` runs the same cases on the port of another checkout
+(`DIR/src/repro_torch`, e.g. the parent commit unpacked with `git
+archive`): its routes, kernels and build directory, each case held to the
+kernel that checkout routes it to.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -27,15 +33,19 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-LIBS = ("flash_attention_tf32x3", "flash_attention_wgmma", "flash_attention")
 
 
-def main(names) -> int:
+def main(argv) -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--kernels-from", type=Path, default=ROOT)
+    parser.add_argument("names", nargs="*")
+    opts = parser.parse_args(argv)
+    names = opts.names
     import torch
     if not torch.cuda.is_available():
         print("attention_probe: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(opts.kernels_from.resolve() / "src"))
     import chip_smoke as cs
     from repro_torch import atomics, convert
     from repro_torch import kernels as tk
@@ -44,9 +54,10 @@ def main(names) -> int:
     from repro_torch.kernels import engine_round as er
     from repro_torch.kernels import flash_attention as fa
 
-    print(cs.card_line(), flush=True)
+    print(cs.card_line(), f"kernels from {fa.__file__}", flush=True)
     t0 = time.perf_counter()
-    for lib in LIBS:
+    libs = [n for n in _build.SIGNATURES if n.startswith("flash_attention")]
+    for lib in libs:
         _build.build(lib)
         print(f"[build] {lib} {time.perf_counter() - t0:.1f} s", flush=True)
         log = _build.library_path(lib).with_suffix(".log").read_text()
@@ -71,6 +82,8 @@ def main(names) -> int:
                                      window=c.window)
             torch.cuda.synchronize()
             ran = [n for n, count in tk.launch_counts().items() if count]
+            routed = c.kernel if opts.kernels_from.resolve() == ROOT else \
+                fa.kernel_for(q.dtype, c.hd)
             want = fa.flash_attention_plain(q, k, v, causal=c.causal,
                                             window=c.window).float()
             err = (out.float() - want).abs()
@@ -83,10 +96,10 @@ def main(names) -> int:
                         phase.timing(name, 6000 + i).items()
                         if key in ("ms", "bound_ms", "library_ms",
                                    "library_causal_ms")})
-            if fa.kernel_for(q.dtype, c.hd) != "flash_attention" and \
+            if fa.padded_width(q.dtype, c.hd) is not None and \
                     fa.aligned_head_dim(q.dtype, c.hd) != c.hd:
                 row["split"] = split(phase.s, fa, _build, c, q, k, v)
-            ok = ran == [c.kernel] and over <= 1 and row["finite"]
+            ok = ran == [routed] and over <= 1 and row["finite"]
         except Exception:                  # report it, go on to the next
             row, ok = {"error": traceback.format_exc()[-2000:]}, False
             torch.cuda.synchronize()

@@ -101,12 +101,14 @@ package, and runs these phases:
              tensor-core kernels pad: bf16 at hd=100, 129, 184, 250
              (t=1000), hd=7 and 50 (b=2, tq 1000, tkv 1200) and hd=200
              (t=4096, window 2048), fp32 at hd=100 and 95 (t=1000) and
-             hd=7 and 50 (b=2, tq 1000, tkv 1200), with the counts reset
+             hd=7 and 50 (b=2, tq 1000, tkv 1200), and fp32 past hd 128,
+             where the 3xTF32 kernel's consumers split O: hd=129, 184, 250
+             (t=1000), hd=200 (t=4096, window 2048) and recurrentgemma_9b's
+             ragged b=2 case, with the counts reset
              (bf16 within 1e-3 + 1e-2 |want|, fp32 within 1e-4 + 1e-4
              |want|); each case must have launched the kernel
-             it names (`kernel_for`: the wgmma kernel for bf16 at every hd,
-             the 3xTF32 kernel for fp32 up to hd 128, the CUDA-core kernel
-             for fp32 past it, here hd 256); then each case's time, its
+             it names (`kernel_for`: the wgmma kernel for bf16 and the
+             3xTF32 kernel for fp32, at every hd); then each case's time, its
              bound (bytes over the memory rate, or operations over the
              card's fastest route for the type: bf16 tensor cores, fp32 as
              three TF32 passes), the plain version's and
@@ -244,8 +246,6 @@ KERNELS = {
                         "src/repro/kernels/cachehash_probe.py:81"),
     "digest_rows": ("src/repro_torch/kernels/csrc/scrub_digest.cu",
                     "src/repro/guard/scrub.py:91"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention.py:120"),
     "flash_attention_wgmma": (
         "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "src/repro/kernels/flash_attention.py:120"),
@@ -1887,8 +1887,7 @@ BF16_FLOPS, TF32_FLOPS = 989e12, 495e12
 # one bf16 ulp, at most 2^-7 of the value (rtol 1e-2), or by atol 1e-3 near
 # 0.  fp32: the summation order differs from the plain version's.
 BF16_TOL, FP32_TOL = (1e-3, 1e-2), (1e-4, 1e-4)
-WGMMA, TF32X3, CORES = ("flash_attention_wgmma", "flash_attention_tf32x3",
-                        "flash_attention")
+WGMMA, TF32X3 = "flash_attention_wgmma", "flash_attention_tf32x3"
 # (peak, passes) of an attention case's bound, by dtype, whatever kernel
 # ran: the card's fastest route for the type, bf16 on the tensor cores, fp32
 # to fp32 accuracy as three TF32 products (3xTF32)
@@ -1980,14 +1979,27 @@ ATTENTION_CASES = {
                             BF16_TOL, WGMMA),
     "hd250_t1000": AttnCase(1, 1000, 1000, 32, 8, 250, True, 0, "bfloat16",
                             BF16_TOL, WGMMA),
-    # fp32 past hd 128 stays on the CUDA cores: recurrentgemma_9b in fp32
+    # fp32 past hd 128, where the 3xTF32 kernel's block takes 64 query rows
+    # and its two consumers split O by columns: recurrentgemma_9b in fp32
+    # (W 256), then one case per new width: hd 129 (padded to 132, W 160),
+    # hd 184 (W 192), hd 200 with a window (W 224), hd 250 (252, W 256),
+    # and recurrentgemma_9b's ragged b = 2 case with dead rows
     "recurrentgemma_9b_t4096_w2048_fp32": AttnCase(
-        1, 4096, 4096, 16, 1, 256, True, 2048, "float32", FP32_TOL, CORES),
+        1, 4096, 4096, 16, 1, 256, True, 2048, "float32", FP32_TOL, TF32X3),
+    "hd129_t1000_fp32": AttnCase(1, 1000, 1000, 32, 8, 129, True, 0,
+                                 "float32", FP32_TOL, TF32X3),
+    "hd184_t1000_fp32": AttnCase(1, 1000, 1000, 32, 8, 184, True, 0,
+                                 "float32", FP32_TOL, TF32X3),
+    "hd200_t4096_w2048_fp32": AttnCase(1, 4096, 4096, 16, 1, 200, True,
+                                       2048, "float32", FP32_TOL, TF32X3),
+    "hd250_t1000_fp32": AttnCase(1, 1000, 1000, 32, 8, 250, True, 0,
+                                 "float32", FP32_TOL, TF32X3),
+    "recurrentgemma_9b_b2_q1000_kv700_w200_fp32": AttnCase(
+        2, 1000, 700, 16, 1, 256, True, 200, "float32", FP32_TOL, TF32X3),
 }
 # the case each attention kernel's entry in the kernels line reports
 ATTENTION_ROW = {WGMMA: "glm4_9b_t4096",
-                 TF32X3: "mixtral_8x7b_t8192_w4096_fp32",
-                 CORES: "recurrentgemma_9b_t4096_w2048_fp32"}
+                 TF32X3: "mixtral_8x7b_t8192_w4096_fp32"}
 
 
 def live_pairs(tq, tkv, causal, window):

@@ -19,9 +19,8 @@
   flash_attention  forward attention with an online softmax: the wgmma
                    kernel for bf16 at every head dim 1-256
                    (`csrc/flash_attention_wgmma.cu`), the 3xTF32 kernel
-                   for fp32 at 1-128 (`csrc/flash_attention_tf32x3.cu`),
-                   the CUDA-core kernel for fp32 at 129-256
-                   (`csrc/flash_attention.cu`)
+                   for fp32 at every head dim 1-256
+                   (`csrc/flash_attention_tf32x3.cu`)
 
 `ops.py` holds the raw-table layer around them, `ref.py` the plain versions
 of the table kernels.  Importing the package builds nothing: each kernel

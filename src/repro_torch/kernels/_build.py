@@ -5,7 +5,6 @@ into its own shared library with a plain C interface, which `ctypes`
 loads: `engine_round.cu` (the fused engine round), `table_ops.cu` (the
 raw-table kernels; both include `segment_replay.cuh`, the segment
 replay), `scrub_digest.cu` (the scrub's cell digest),
-`flash_attention.cu` (forward attention on the CUDA cores, fp32),
 `flash_attention_wgmma.cu` (forward attention on the tensor cores, bf16)
 and `flash_attention_tf32x3.cu` (the same, fp32 as three TF32 products;
 both include `tma_wgmma.cuh`, their TMA and wgmma building blocks).
@@ -63,10 +62,6 @@ SIGNATURES = {
                             _I, _P],
     },
     "scrub_digest": {"digest_rows": [_P, _P, _I, _I, _P, _I, _P]},
-    "flash_attention": {
-        "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                            _I, _I, _P],
-    },
     "flash_attention_wgmma": {
         "flash_attention_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                   _I, _I, _I, _P],

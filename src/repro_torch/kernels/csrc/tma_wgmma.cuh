@@ -58,13 +58,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma shared-memory descriptor with the 128-byte swizzle: start address,
-// leading and stride byte offsets, each in 16-byte units.
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets, each in 16-byte units, and the swizzle (1: 128-byte, the
+// default; 2: 64-byte).
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo,
+                                              uint64_t swizzle = 1) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) |
+         (swizzle << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -73,8 +76,10 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
+// Wait until at most N committed wgmma groups are pending (all by default).
+template <int N = 0>
 __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Orders this thread's generic-proxy writes to shared memory before the

@@ -2,18 +2,16 @@
 
 `flash_attention(q, k, v, causal=, window=, q_block=, kv_block=)` replaces
 the reference's Pallas kernel `kernels/flash_attention.py::
-flash_attention_tpu` with one of three CUDA kernels, chosen by a static
-rule on (dtype, head dim) (`kernel_for`):
+flash_attention_tpu` with one of two CUDA kernels, chosen by the dtype
+(`kernel_for`):
 
   flash_attention_wgmma   bf16 at every head dim 1-256: tensor cores
                           (wgmma) (`csrc/flash_attention_wgmma.cu`)
-  flash_attention_tf32x3  fp32 at every head dim 1-128: tensor cores, each
+  flash_attention_tf32x3  fp32 at every head dim 1-256: tensor cores, each
                           product as three TF32 products (hi/lo split)
                           (`csrc/flash_attention_tf32x3.cu`)
-  flash_attention         fp32 at head dims 129-256: fp32 FMAs on the CUDA
-                          cores (`csrc/flash_attention.cu`)
 
-The two tensor-core kernels are built for a few padded widths
+Both kernels are built for a few padded widths
 (`WGMMA_WIDTHS`, `TF32_WIDTHS`) and run head dim hd at the smallest one
 at or above it (`padded_width`), the columns past hd zeros in shared memory
 and never stored.  They load their tiles with TMA, whose tensor maps need
@@ -22,7 +20,7 @@ the wrapper runs them on copies of q, k and v zero-padded to
 `aligned_head_dim` (a multiple of 8 bf16 or 4 fp32 elements) with the
 scale of the real hd, and keeps the first hd columns of the output.
 
-All three read the model's `[b, t, h, hd]` layout directly (the Pallas
+Both read the model's `[b, t, h, hd]` layout directly (the Pallas
 wrapper's transposes and padding do not carry over), handle causal,
 sliding-window (`key > query - window`) and ragged-length masks and GQA
 (query head i reads kv head `i // (h // kvh)`), keep the softmax
@@ -53,26 +51,24 @@ NEG_INF = -1e30
 BLOCK = 512                  # the plain version's query and key block
 # The padded widths each tensor-core kernel is built for (W / hd <= 1.25
 # from hd 64 up); the same lists are WGMMA_WIDTHS and TF32_WIDTHS in the
-# kernels' sources.
+# kernels' sources.  Past 128 the 3xTF32 kernel splits O between its two
+# consumers (`csrc/flash_attention_tf32x3.cu`).
 WGMMA_WIDTHS = (16, 32, 64, 80, 96, 112, 128, 160, 192, 224, 256)
-# fp32 past 128 does not fit the 3xTF32 kernel's shared memory and registers
-TF32_WIDTHS = (16, 32, 64, 80, 96, 112, 128)
+TF32_WIDTHS = WGMMA_WIDTHS
 
 
 def padded_width(dtype: torch.dtype, hd: int) -> int | None:
     """The width a tensor-core kernel runs head dim `hd` at: the smallest
     one it is built for that is at least hd (bf16 on the wgmma kernel, fp32
-    on the 3xTF32 one); None where the CUDA-core kernel takes the call."""
+    on the 3xTF32 one); None past the widest."""
     widths = WGMMA_WIDTHS if dtype == torch.bfloat16 else TF32_WIDTHS
     return next((w for w in widths if w >= hd), None)
 
 
 def kernel_for(dtype: torch.dtype, hd: int) -> str:
     """Name of the CUDA kernel that a call with this dtype and head dim
-    launches on the card: the wgmma kernel for bf16, the 3xTF32 kernel for
-    fp32 up to its widest width, the CUDA-core kernel past it."""
-    if padded_width(dtype, hd) is None:
-        return "flash_attention"
+    (1-256) launches on the card: the wgmma kernel for bf16, the 3xTF32
+    kernel for fp32."""
     if dtype == torch.bfloat16:
         return "flash_attention_wgmma"
     return "flash_attention_tf32x3"
@@ -221,16 +217,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                           q_block=q_block, kv_block=kv_block)
 
 
-def _cuda_core_kernel(q, k, v, out, causal, window):
-    """Launch `flash_attention_kernel` (`csrc/flash_attention.cu`)."""
-    b, tq, h, hd = q.shape
-    _build.launch("flash_attention", "flash_attention", q.device,
-                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  b, tq, k.shape[1], h, k.shape[2], hd, 1.0 / math.sqrt(hd),
-                  int(causal), int(window))
-    _cuda_core_kernel.launches += 1
-
-
 def _tma_launch(name, q, k, v, out, causal, window):
     """Launch the TMA kernel `name` (`csrc/<name>.cu`), whose TMA maps need
     16-byte aligned tensors with rows of a multiple of 16 bytes: where hd
@@ -269,12 +255,10 @@ def _tf32x3_kernel(q, k, v, out, causal, window):
     _tf32x3_kernel.launches += 1
 
 
-_cuda_core_kernel.launches = 0
 _wgmma_kernel.launches = 0
 _tf32x3_kernel.launches = 0
 # Each CUDA kernel's launcher, by the name its launches are counted under.
-KERNELS = {"flash_attention": _cuda_core_kernel,
-           "flash_attention_wgmma": _wgmma_kernel,
+KERNELS = {"flash_attention_wgmma": _wgmma_kernel,
            "flash_attention_tf32x3": _tf32x3_kernel}
 
 

@@ -306,32 +306,27 @@ def test_dead_rows_match_pallas_kernel(tpu_out, name):
 
 
 # hd: the width and the head dim the kernel is launched with (hd padded
-# to rows of a multiple of 16 bytes) of a bf16 call, then of an fp32 call
-# (None: the CUDA-core kernel, which pads nothing).
+# to rows of a multiple of 16 bytes) of a bf16 call, then of an fp32 call.
 ROUTES = {
     1: (16, 8, 16, 4), 7: (16, 8, 16, 8), 16: (16, 16, 16, 16),
     50: (64, 56, 64, 52), 80: (80, 80, 80, 80), 96: (96, 96, 96, 96),
     100: (112, 104, 112, 100), 127: (128, 128, 128, 128),
-    128: (128, 128, 128, 128), 129: (160, 136, None, None),
-    200: (224, 200, None, None), 256: (256, 256, None, None),
+    128: (128, 128, 128, 128), 129: (160, 136, 160, 132),
+    200: (224, 200, 224, 200), 256: (256, 256, 256, 256),
 }
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("hd", list(ROUTES))
 def test_kernel_for_names_each_route(hd, dtype):
-    """bf16 at every head dim goes to the wgmma kernel and fp32 up to 128
-    to the 3xTF32 kernel, each at the smallest width it is built for at or
-    above hd, launched with hd rounded up to rows of a multiple of 16 bytes
-    (TMA's strides; the wrapper zero-pads to it); fp32 past 128 goes to the
-    CUDA-core kernel."""
+    """bf16 at every head dim goes to the wgmma kernel and fp32 at every
+    head dim to the 3xTF32 kernel, each at the smallest width it is built
+    for at or above hd, launched with hd rounded up to rows of a multiple
+    of 16 bytes (TMA's strides; the wrapper zero-pads to it)."""
     bf16 = dtype == "bfloat16"
     width, hd_k = ROUTES[hd][:2] if bf16 else ROUTES[hd][2:]
     dt = getattr(torch, dtype)
     assert padded_width(dt, hd) == width
-    if width is None:
-        assert kernel_for(dt, hd) == "flash_attention"
-        return
     assert kernel_for(dt, hd) == ("flash_attention_wgmma" if bf16
                                   else "flash_attention_tf32x3")
     assert aligned_head_dim(dt, hd) == hd_k
@@ -341,16 +336,22 @@ def test_kernel_for_names_each_route(hd, dtype):
 def test_padded_widths_cost_at_most_a_quarter():
     """From hd 64 up a padded width is at most 1.25 hd, so the padding
     costs the tensor cores at most a quarter more work; every hd in 1-256
-    (bf16) and 1-128 (fp32) has a width."""
+    has a width in both dtypes, the smallest of the kernel's widths at or
+    above it, on the dtype's kernel."""
     assert WGMMA_WIDTHS == (16, 32, 64, 80, 96, 112, 128, 160, 192, 224, 256)
-    assert TF32_WIDTHS == (16, 32, 64, 80, 96, 112, 128)
-    for dtype, top in ((torch.bfloat16, 256), (torch.float32, 128)):
-        for hd in range(1, top + 1):
+    assert TF32_WIDTHS == WGMMA_WIDTHS
+    for dtype, widths in ((torch.bfloat16, WGMMA_WIDTHS),
+                          (torch.float32, TF32_WIDTHS)):
+        for hd in range(1, 257):
             w = padded_width(dtype, hd)
-            assert w >= hd and w % 16 == 0
+            assert w == min(x for x in widths if x >= hd)
+            assert w % 16 == 0
             assert hd < 64 or w <= 1.25 * hd
-    assert padded_width(torch.float32, 129) is None
-    assert sorted(KERNELS) == ["flash_attention", "flash_attention_tf32x3",
+            assert kernel_for(dtype, hd) == (
+                "flash_attention_wgmma" if dtype == torch.bfloat16
+                else "flash_attention_tf32x3")
+        assert padded_width(dtype, 257) is None
+    assert sorted(KERNELS) == ["flash_attention_tf32x3",
                                "flash_attention_wgmma"]
 
 
@@ -407,12 +408,18 @@ def test_small_head_dims_match_jax_oracle(name, hd, dtype):
 FP32_TOL = (1e-4, 1e-4)
 # The fp32 chip cases' widths, t cut down: glm4_9b (t 1000 on the card),
 # mixtral_8x7b (t 8192, window 4096) and the tiny configs' hd 16 at b = 2
-# (tq 1000, tkv 1200).
+# (tq 1000, tkv 1200); past hd 128, where the kernel's consumers split the
+# reduction of S: hd 129 (t 1000 on the card) at b = 2 with ragged ends,
+# hd 200 with a window (t 4096, window 2048) and recurrentgemma_9b's hd 256
+# with its one kv head (t 4096, window 2048).
 TF32_CASES = {
     # b, tq, tkv, h, kvh, hd, causal, window
     "glm4_9b": (1, 256, 256, 32, 2, 128, True, 0),
     "mixtral_8x7b_w": (1, 320, 320, 32, 8, 128, True, 96),
     "hd16_b2_ragged": (2, 100, 120, 32, 8, 16, True, 0),
+    "hd129_b2_ragged": (2, 100, 120, 8, 2, 129, True, 0),
+    "hd200_w": (1, 300, 300, 4, 1, 200, True, 96),
+    "recurrentgemma_9b_hd256_w": (1, 300, 300, 4, 1, 256, True, 96),
 }
 
 
@@ -435,14 +442,31 @@ def matmul_tf32(a, b):
     return tf32(a) @ tf32(b)
 
 
-def attention_with(matmul, q, k, v, causal, window):
+def scores_split_tf32x3(a, b):
+    """a @ b (a [.., m, hd], b [.., hd, n]) as the 3xTF32 kernel forms S
+    past hd 128: consumer c takes columns [16 c, 16 c + 16) of every 32,
+    and sums Q_hi K_hi, Q_hi K_lo (one m64n32k8 product, the two halves of
+    its columns) and Q_lo K_hi over them, each in fp32; S is the fp32 sum
+    of the two partials."""
+    half = torch.arange(a.shape[-1]) % 32 >= 16
+    parts = []
+    for cols in (~half, half):
+        x, y = a[..., cols], b[..., cols, :]
+        x_hi, y_hi = tf32(x), tf32(y)
+        x_lo, y_lo = tf32(x - x_hi), tf32(y - y_hi)
+        parts.append(x_hi @ y_hi + x_hi @ y_lo + x_lo @ y_hi)
+    return parts[0] + parts[1]
+
+
+def attention_with(matmul, q, k, v, causal, window, scores=None):
     """Dense softmax attention in fp32 with both products through
-    `matmul`; q [b, tq, h, hd], k / v [b, tkv, kvh, hd]."""
+    `matmul` (S through `scores` where given); q [b, tq, h, hd], k / v
+    [b, tkv, kvh, hd]."""
     h, kvh, hd = q.shape[2], k.shape[2], q.shape[3]
     qf = q.permute(0, 2, 1, 3)
     kf = k.repeat_interleave(h // kvh, dim=2).permute(0, 2, 1, 3)
     vf = v.repeat_interleave(h // kvh, dim=2).permute(0, 2, 1, 3)
-    s = matmul(qf, kf.transpose(-1, -2)) / math.sqrt(hd)
+    s = (scores or matmul)(qf, kf.transpose(-1, -2)) / math.sqrt(hd)
     qpos = torch.arange(q.shape[1])[:, None]
     kpos = torch.arange(k.shape[1])[None, :]
     live = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool)
@@ -459,15 +483,17 @@ def attention_with(matmul, q, k, v, causal, window):
 @pytest.mark.parametrize("name", list(TF32_CASES))
 def test_tf32x3_split_meets_the_fp32_tolerance(name):
     """The 3xTF32 kernel's arithmetic, emulated on the CPU, stays within the
-    fp32 tolerance of `flash_attention_plain`; one TF32 pass does not, so
-    the tolerance tells the two apart."""
+    fp32 tolerance of `flash_attention_plain` (past hd 128 with S as the
+    fp32 sum of two half-width partials, one a consumer); one TF32 pass
+    does not, so the tolerance tells the two apart."""
     b, tq, tkv, h, kvh, hd, causal, window = TF32_CASES[name]
     q, k, v = (torch.from_numpy(x) for x in make(b, tq, tkv, h, kvh, hd,
                                                  seed=21))
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     atol, rtol = FP32_TOL
     bound = atol + rtol * want.abs()
-    got = attention_with(matmul_tf32x3, q, k, v, causal, window)
+    got = attention_with(matmul_tf32x3, q, k, v, causal, window,
+                         scores=scores_split_tf32x3 if hd > 128 else None)
     assert float(((got - want).abs() - bound).max()) <= 0
     one = attention_with(matmul_tf32, q, k, v, causal, window)
     assert bool(((one - want).abs() > bound).any())

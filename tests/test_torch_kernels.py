@@ -648,8 +648,7 @@ def test_cpu_tensors_never_launch_and_counts_reset():
         "round_prologue", "fast_round", "slow_round", "round_epilogue",
         "seqlock_gather", "cas_apply_round",
         "cas_apply_rounds", "llsc_commit_round", "cachehash_probe",
-        "digest_rows", "flash_attention", "flash_attention_wgmma",
-        "flash_attention_tf32x3"}
+        "digest_rows", "flash_attention_wgmma", "flash_attention_tf32x3"}
     for _, call in _cpu_calls():
         call()
     assert not any(tk.launch_counts().values())
@@ -791,8 +790,7 @@ def test_library_path_hashes_the_included_header(monkeypatch, tmp_path):
 def test_library_paths_are_keyed_by_each_source():
     paths = {name: _build.library_path(name) for name in _build.SIGNATURES}
     assert set(paths) == {"engine_round", "table_ops", "scrub_digest",
-                          "flash_attention", "flash_attention_wgmma",
-                          "flash_attention_tf32x3"}
+                          "flash_attention_wgmma", "flash_attention_tf32x3"}
     for name, path in paths.items():
         assert path.parent == _build.BUILD_DIR
         assert re.fullmatch(rf"{name}_[0-9a-f]{{16}}\.so", path.name)
