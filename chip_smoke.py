@@ -40,21 +40,25 @@ package, and runs these phases:
              the numpy sequential oracle: results, links, logical values,
              versions and `read()` must agree exactly.
   3b. table ops
-             the raw-table layer (`kernels/ops.py`, `llsc_commit`): its five
+             the raw-table layer (`kernels/ops.py`, `llsc_commit`): its six
              kernels against their plain versions (k = 1, 3, 4, 5, 16,
-             CacheHash kw/vw = 1/1, 2/2, 4/2, and full width;
+             CacheHash kw/vw = 1/1, 2/2, 4/2, and full width; the find at
+             kw/vw = 1/1, 2/2, 4/2, 1/3 and the run-time 3/1, max_chain 8,
+             0 and 40 over chains with cycles and nexts past the pool;
              `cas_apply_rounds` against the round loop on uniform, Zipf
              0.99, one hot cell, LOAD lanes, truncated rounds and negative
              ranks), then, with the counts reset, `bigatomic_load`,
              `bigatomic_update_rounds` (uniform, Zipf 0.99, one hot cell:
              one `cas_apply_rounds` launch each, no `cas_apply_round`),
              `llsc_commit_round`, `commit_round` on cached_me and
-             `cachehash_find` at n = m = 2**22, p = q = 16384, each equal to
-             a numpy oracle; the path's four kernels must have run, and
-             `commit_round` must have taken the fast branch.  Then each
-             entry point's
-             and kernel's time, the plain versions', the round loop's it
-             replaced, and the device-busy share.
+             `cachehash_find` at n = m = 2**22, p = q = 16384 (one find
+             kernel launch, the bare probe none), each equal to a numpy
+             oracle; the path's four kernels must have run, and
+             `commit_round` must have taken the fast branch; then the find
+             kernel against its plain version at full width.  Then each
+             entry point's and kernel's time, the plain versions', the
+             round loop's it replaced, the device-busy share and device
+             operations; a `cachehash_find` call must make exactly one.
   4. timing  per layout and batch (a), (c), (d): one `apply` (donate)
              captured in a CUDA graph and replayed once, which must equal
              the eager `apply` and the numpy oracle (a capture that fails
@@ -244,6 +248,10 @@ KERNELS = {
                           "src/repro/kernels/llsc_commit.py:77"),
     "cachehash_probe": (TABLE_OPS_CU,
                         "src/repro/kernels/cachehash_probe.py:81"),
+    # the probe with the reference's hash and chain walk around it
+    # (`src/repro/kernels/ops.py::cachehash_find`) in one launch
+    "cachehash_find": (TABLE_OPS_CU,
+                       "src/repro/kernels/cachehash_probe.py:81"),
     "digest_rows": ("src/repro_torch/kernels/csrc/scrub_digest.cu",
                     "src/repro/guard/scrub.py:91"),
     "flash_attention_wgmma": (
@@ -256,9 +264,9 @@ KERNELS = {
 ROUND_KERNELS = ("round_prologue", "fast_round", "slow_round",
                  "round_epilogue")
 TABLE_KERNELS = ("seqlock_gather", "cas_apply_round", "cas_apply_rounds",
-                 "llsc_commit_round", "cachehash_probe")
+                 "llsc_commit_round", "cachehash_probe", "cachehash_find")
 TABLE_PATH_KERNELS = ("seqlock_gather", "cas_apply_rounds",
-                      "llsc_commit_round", "cachehash_probe")
+                      "llsc_commit_round", "cachehash_find")
 GUARD_STORES, GUARD_FAULTS = 4096, 64      # the scrub path's batch, faults
 M, KW, VW, MAX_CHAIN = 2 ** 22, 2, 2, 8     # CacheHash: buckets, key/value
 STORE, CAS, FULL = 1, 2, 1                  # words, chain depth; constants
@@ -1059,6 +1067,38 @@ def np_hash(keys, m):
     return (h % np.uint32(m)).astype(np.int32)
 
 
+def ref_find(ref, find_args):
+    """The find's plain version on the path's operands."""
+    return ref.cachehash_find_ref(*find_args, kw=KW, vw=VW,
+                                  max_chain=MAX_CHAIN)
+
+
+def find_walk(cells, pool, qk):
+    """The find's walk in numpy: (distinct buckets, distinct chain nodes
+    read, chain steps in all, the most steps of a lane), for the bound
+    and the report."""
+    bidx = np_hash(qk, cells.shape[0])
+    row = cells[bidx]
+    hit = (row[:, KW + VW + 1] == FULL) & (row[:, :KW] == qk).all(1)
+    cur = row[:, KW + VW].view(np.int32).copy()
+    walking = (row[:, KW + VW + 1] == FULL) & ~hit & (cur >= 0)
+    read, most = [], 0
+    for step in range(MAX_CHAIN):
+        lanes = np.flatnonzero(walking)
+        if not lanes.size:
+            break
+        most = step + 1
+        node = np.minimum(cur[lanes], len(pool) - 1)
+        read.append(node)
+        rows = pool[node]
+        nxt = rows[:, KW + VW].view(np.int32)
+        stop = (rows[:, :KW] == qk[lanes]).all(1) | (nxt < 0)
+        cur[lanes] = nxt
+        walking[lanes[stop]] = False
+    read = np.concatenate(read) if read else np.zeros(0, np.int64)
+    return (len(np.unique(bidx)), len(np.unique(read)), len(read), most)
+
+
 def longest_segment(torch, slot, n):
     """The most lanes on one cell among the lanes with a slot in [0, n)."""
     live = slot[(slot >= 0) & (slot < n)]
@@ -1241,13 +1281,51 @@ class TableOps:
         keys[take] = cells[bidx[take], :kw]
         return cells, bidx, keys
 
+    @staticmethod
+    def chain_inputs(rng, m, kw, vw, q):
+        """A bucket array, a chain pool of m nodes and q queries for the find:
+        buckets full (80 %) or empty with flags 0 or 2, nodes whose next
+        ends the chain, links to a random node (cycles included) or points
+        past the pool's end; a third of the queries inline in their hashed
+        bucket, a third placed 1 to 14 steps down its chain, the rest
+        absent."""
+        cw = kw + vw + 3
+        cells = rng.integers(0, 2 ** 32, (m, cw), dtype=np.uint32)
+        cells[:, kw + vw] = np.where(rng.random(m) < 0.3, NEXT_END,
+                                     rng.integers(0, m, m))
+        cells[:, kw + vw + 1] = np.where(rng.random(m) < 0.8, FULL,
+                                         rng.choice([0, 2], m))
+        pool = rng.integers(0, 2 ** 32, (m, cw), dtype=np.uint32)
+        pool[:, kw + vw] = rng.choice(
+            np.array([NEXT_END, 0, m, m + 9], np.uint32), m,
+            p=[0.08, 0.8, 0.06, 0.06])
+        link = pool[:, kw + vw] == 0
+        pool[link, kw + vw] = rng.integers(0, m, int(link.sum()))
+        keys = rng.integers(0, 2 ** 32, (q, kw), dtype=np.uint32)
+        bucket = np_hash(keys, m)
+        for i in range(q):
+            b, place = bucket[i], i % 3
+            if place == 0:
+                cells[b, :kw], cells[b, kw + vw + 1] = keys[i], FULL
+            elif place == 1 and cells[b, kw + vw] != NEXT_END:
+                cur = int(cells[b, kw + vw])
+                for _ in range(int(rng.integers(0, 14))):
+                    nxt = pool[min(cur, m - 1), kw + vw]
+                    if nxt == NEXT_END:
+                        break
+                    cur = int(nxt)
+                pool[min(cur, m - 1), :kw] = keys[i]
+        return cells, pool, keys
+
     # -- kernels against their plain versions -----------------------------------
 
     def kernel_vs_plain(self):
         """Bit for bit on every output and on the updated tables: k = 1, 3,
         4, 5, 16 at q = p = 1003 (not a multiple of 8), locked / marked /
         wrapping rows, dead lanes on row n and out of range, three CacheHash
-        layouts, and the full-width shapes.  Returns the case count."""
+        layouts, and the full-width shapes; the find on five layouts at
+        max_chain 8, 0 and 40 (cycles, nexts past the pool's end).
+        Returns the case count."""
         tk, ref, w, ints = self.tk, self.ref, self.w, self.ints
         rng = np.random.default_rng(2000)
         cases = 0
@@ -1277,6 +1355,18 @@ class TableOps:
             self.s.compare("cachehash_probe",
                            tk.cachehash_probe(*args, kw=kw, vw=vw),
                            ref.cachehash_probe_ref(*args, kw=kw, vw=vw))
+            cases += 1
+        # the find at the shapes it is instantiated for and one it runs at
+        # run-time widths (3 / 1); the full width is held in main_path
+        for kw, vw in [(1, 1), (2, 2), (4, 2), (1, 3), (3, 1)]:
+            args = tuple(map(w, self.chain_inputs(rng, 4099, kw, vw, 1003)))
+            for max_chain in (MAX_CHAIN, 0, 40):
+                self.s.compare(
+                    "cachehash_find",
+                    tk.cachehash_find(*args, kw=kw, vw=vw,
+                                      max_chain=max_chain),
+                    ref.cachehash_find_ref(*args, kw=kw, vw=vw,
+                                           max_chain=max_chain))
             cases += 1
         self.torch.cuda.synchronize()
         return cases
@@ -1460,8 +1550,12 @@ class TableOps:
         op["find"] = (cells_t, pool_t, w(qk))
         bidx = np_hash(qk, M)
         self.same("hash_keys", ops.hash_keys(op["find"][2], M), bidx)
+        before = tk.cachehash_find.launches
         found, val = ops.cachehash_find(*op["find"], kw=KW, vw=VW,
                                         max_chain=MAX_CHAIN)
+        if tk.cachehash_find.launches - before != 1:
+            self.fail(f"cachehash_find: {tk.cachehash_find.launches - before}"
+                      " find kernel launches, expected 1")
         sorted_k = np.argsort(k64)
         pos = np.minimum(np.searchsorted(k64[sorted_k], q64), len(k64) - 1)
         hit = k64[sorted_k][pos] == q64
@@ -1471,6 +1565,7 @@ class TableOps:
         self.same("cachehash_find value", val, want)
         op["probe"] = (cells_t, ints(bidx), op["find"][2])
         op["find_mix"] = [int(hit.sum()), int((~hit).sum())]
+        op["find_walk"] = find_walk(cells, pool, qk)
 
         torch.cuda.synchronize()
         counts = tk.launch_counts()
@@ -1479,8 +1574,16 @@ class TableOps:
                 self.fail(f"{name} never launched on the table-ops path")
         if counts["cas_apply_round"] != 0:
             self.fail("bigatomic_update_rounds launched cas_apply_round")
+        if counts["cachehash_probe"] != 0:
+            self.fail("cachehash_find launched the bare probe")
         if fast_in_commit != "fast":
             self.fail("commit_round did not take the fast branch")
+        # the find kernel at full width against its plain version (after
+        # the counts: a comparison is not the path)
+        self.s.compare("cachehash_find",
+                       tk.cachehash_find(*op["find"], kw=KW, vw=VW,
+                                         max_chain=MAX_CHAIN),
+                       ref_find(self.ref, op["find"]))
         return counts, fast_in_commit, op
 
     # -- timing ------------------------------------------------------------------
@@ -1533,7 +1636,14 @@ class TableOps:
                 fn(*args)
                 torch.cuda.synchronize()
             entries[name] = {"ms": s.time_ms(fn, setup=setup),
-                             "profile": s.device_busy(run, setup=setup)}
+                             "profile": s.device_busy(run, setup=setup,
+                                                      tries=3)}
+        # a find is one launch of the find kernel and nothing else
+        find_ops = entries["cachehash_find"]["profile"].get(
+            "device_ops_per_apply")
+        if find_ops != 1:
+            self.fail(f"a cachehash_find call made {find_ops} device "
+                      "operations, expected 1")
         # `bigatomic_update_rounds` as it was (a launch per round), for the
         # comparison in this run; the hot cell's 16384 rounds once
         for name, reps in (("uniform", 20), ("zipf099", 5), ("hot", 1)):
@@ -1562,6 +1672,13 @@ class TableOps:
                 lambda cells: ref.cachehash_probe_ref(cells, *op["probe"][1:],
                                                       kw=KW, vw=VW),
                 lambda: (op["probe"][0].clone(),), 5),
+            "cachehash_find": (
+                lambda pool, cells: tk.cachehash_find(
+                    cells, pool, op["find"][2], kw=KW, vw=VW,
+                    max_chain=MAX_CHAIN),
+                lambda pool, cells: ref_find(ref, (cells, pool,
+                                                   op["find"][2])),
+                lambda: (op["find"][1].clone(), op["find"][0].clone()), 5),
         }
         for key, name, reps in (("zipf099", "cas_apply_rounds", 5),
                                 ("uniform", "cas_apply_rounds_uniform", 5),
@@ -1607,6 +1724,15 @@ class TableOps:
             q = bidx.shape[0]
             return (q * (4 + 4 * KW) + q * (12 + 4 * VW)
                     + distinct(bidx) * 4 * (KW + VW + 2)), 0
+        if name == "cachehash_find":
+            # the query words; found (a byte) and the value; each bucket
+            # row probed (key, value, next, flags) and each chain node
+            # read (key, value, next) once
+            q = op["find"][2].shape[0]
+            buckets, nodes = op["find_walk"][:2]
+            return (q * 4 * KW + q * (1 + 4 * VW)
+                    + buckets * 4 * (KW + VW + 2)
+                    + nodes * 4 * (KW + VW + 1)), 0
         if name.startswith("cas_apply_rounds"):
             key = {"cas_apply_rounds": "zipf099"}.get(
                 name, name.rsplit("_", 1)[-1])
@@ -4088,8 +4214,9 @@ def main() -> int:
     table = TableOps(smoke, tk, ops, llsc_commit, ref)
     t0 = time.perf_counter()
     n_cases = table.kernel_vs_plain()
-    log(f"[table-ops] {n_cases} cases x 4 kernels bit-identical to their "
-        f"plain versions in {time.perf_counter() - t0:.1f} s")
+    log(f"[table-ops] {n_cases} cases (seqlock_gather, cas_apply_round, "
+        f"llsc_commit_round, cachehash_probe, cachehash_find) bit-identical "
+        f"to their plain versions in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     rounds_cases = table.rounds_vs_plain()
     log(f"[table-ops] cas_apply_rounds bit-identical to the round loop in "
@@ -4104,14 +4231,18 @@ def main() -> int:
         launches_main[name] = counts[name]
     log(f"[table-ops] path in {table_wall:.2f} s (CacheHash build "
         f"{op['build_cachehash_s']:.2f} s, chains <= {op['max_depth']}, "
-        f"queries hit/miss {op['find_mix']}), update rounds (= longest "
+        f"queries hit/miss {op['find_mix']}, find's distinct buckets / "
+        f"nodes / chain steps / most steps a lane {op['find_walk']}), "
+        f"update rounds (= longest "
         f"segment) {op['rounds']}, launches {counts}, commit_round's "
         f"branch {fast_in_commit}; oracle-equal")
     table_entries, table_kernels = table.timing(op)
     for name, row in table_entries.items():
         prof = row.get("profile", {})
         log(f"[table-timing] {name:32s} {row['ms']:.4f} ms, device busy "
-            f"{prof.get('device_busy_share', prof.get('error'))}")
+            f"{prof.get('device_busy_share', prof.get('error'))}, device "
+            f"operations {prof.get('device_ops_per_apply')} "
+            f"({prof.get('device_us_per_apply')} us)")
     for name, row in table_kernels.items():
         log(f"[table-timing] kernel {name:24s} {row['ms']:.5f} ms device / "
             f"{row['with_launch_ms']:.4f} ms with launch, plain "

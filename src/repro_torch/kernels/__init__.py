@@ -12,8 +12,10 @@
                    `slow_round`: `csrc/segment_replay.cuh`)
   llsc_commit      fused validate + commit SC round, and the spec-routed
                    `commit_round` over the engine round
-  cachehash_probe  CacheHash bucket probe with the inlined first link
-                   (the last four: `csrc/table_ops.cu`)
+  cachehash_probe  CacheHash bucket probe with the inlined first link,
+                   and the whole lookup in one launch (`cachehash_find`:
+                   hash, probe, chain walk; the last four:
+                   `csrc/table_ops.cu`)
   scrub_digest     the integrity scrub's per-cell FNV-1a digest,
                    `digest_rows` (`csrc/scrub_digest.cu`)
   flash_attention  forward attention with an online softmax: the wgmma
@@ -29,7 +31,9 @@ names `fast_round_pallas` / `slow_round_pallas` stand for `fast_round` /
 `slow_round`.
 """
 
-from repro_torch.kernels.cachehash_probe import cachehash_probe  # noqa: F401
+from repro_torch.kernels.cachehash_probe import (  # noqa: F401
+    cachehash_find, cachehash_probe,
+)
 from repro_torch.kernels.cas_apply import (  # noqa: F401
     cas_apply_round, cas_apply_rounds,
 )
@@ -50,7 +54,7 @@ slow_round_pallas = slow_round
 WRAPPERS = {fn.__name__: fn for fn in (
     round_prologue, fast_round, slow_round, round_epilogue, seqlock_gather,
     cas_apply_round, cas_apply_rounds, llsc_commit_round, cachehash_probe,
-    digest_rows)} \
+    cachehash_find, digest_rows)} \
     | _ATTENTION
 
 

@@ -60,6 +60,8 @@ SIGNATURES = {
                               _I, _P],
         "cachehash_probe": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                             _I, _P],
+        "cachehash_find": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P,
+                           _I, _P],
     },
     "scrub_digest": {"digest_rows": [_P, _P, _I, _I, _P, _I, _P]},
     "flash_attention_wgmma": {

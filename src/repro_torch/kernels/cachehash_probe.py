@@ -7,10 +7,15 @@ costs ONE memory access: one read of the bucket row
     cell = [key kw | value vw | next | flags | version | pad]
 
 at a bucket index the caller hashed.  `cachehash_probe` replaces the
-reference's Pallas kernel with the CUDA kernel `cachehash_probe_kernel`
-(`csrc/table_ops.cu`): one thread per query compares the inlined key and
-emits (hit, empty, value, next).  The chain walk for the rare collision
-case stays in plain tensor code (`ops.cachehash_find`).
+reference's Pallas kernel with the CUDA kernel `cachehash_kernel`
+(`csrc/table_ops.cu`, FIND = false): one thread per query compares the
+inlined key and emits (hit, empty, value, next).  `cachehash_find` is the
+whole lookup of the reference's `ops.cachehash_find` in one launch of the
+same kernel (FIND = true): one thread per query hashes its key, probes its
+bucket and walks the chain for the rare collision case.  The reference
+left the hash to the host and the walk to jnp because a TPU grid step is
+one row DMA and a dependent pointer chase a separate gather wave; a CUDA
+thread follows `next` itself.
 """
 
 from __future__ import annotations
@@ -19,9 +24,17 @@ import torch
 
 from repro_torch.core.layout import WORD_DTYPE
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import EMPTY, FULL, cachehash_probe_ref
+from repro_torch.kernels.ref import (
+    EMPTY, FULL, cachehash_find_ref, cachehash_probe_ref,
+)
 
-__all__ = ["EMPTY", "FULL", "cachehash_probe"]
+__all__ = ["EMPTY", "FULL", "cachehash_find", "cachehash_probe"]
+
+
+def _check_widths(who, cw, kw, vw):
+    if kw < 1 or vw < 0 or cw < kw + vw + 2:
+        raise ValueError(f"{who}: a {cw}-word cell cannot hold kw={kw} key "
+                         f"words, vw={vw} value words, next and flags")
 
 
 def cachehash_probe(cells, bucket_idx, query_keys, *, kw: int, vw: int):
@@ -37,10 +50,7 @@ def cachehash_probe(cells, bucket_idx, query_keys, *, kw: int, vw: int):
     kernel or raise."""
     m, cw = cells.shape
     q = bucket_idx.shape[0]
-    if kw < 1 or vw < 0 or cw < kw + vw + 2:
-        raise ValueError(f"cachehash_probe: a {cw}-word cell cannot hold "
-                         f"kw={kw} key words, vw={vw} value words, next and "
-                         "flags")
+    _check_widths("cachehash_probe", cw, kw, vw)
     dev = cells.device
     _build.check(dev, ("cells", cells, WORD_DTYPE, (m, cw)),
                  ("bucket_idx", bucket_idx, torch.int32, (q,)),
@@ -62,4 +72,47 @@ def cachehash_probe(cells, bucket_idx, query_keys, *, kw: int, vw: int):
     return hit, empty, value, nxt
 
 
+def cachehash_find(cells, chain_pool, query_keys, *, kw: int, vw: int,
+                   max_chain: int = 8):
+    """Full CacheHash lookup: the key hashed (`ref.hash_keys`), the inlined
+    first link of its bucket probed, then a chain walk of at most
+    `max_chain` steps for the rare collision case.
+
+    cells: word[m, cw]; chain_pool: word[c, cw] (same layout); query_keys:
+    word[q, kw].  Returns (found bool[q], value word[q, vw]).  On a miss
+    the value is the bucket's inlined value, as in the reference; chain
+    nodes match on the key alone, and a `next` past the pool's end reads
+    its last node.
+
+    CPU tensors run `ref.cachehash_find_ref`; CUDA tensors launch the find
+    kernel once and nothing else, or raise (an empty table, or an empty
+    pool with max_chain > 0, raises as the plain version does)."""
+    m, cw = cells.shape
+    c = chain_pool.shape[0]
+    q = query_keys.shape[0]
+    _check_widths("cachehash_find", cw, kw, vw)
+    dev = cells.device
+    _build.check(dev, ("cells", cells, WORD_DTYPE, (m, cw)),
+                 ("chain_pool", chain_pool, WORD_DTYPE, (c, cw)),
+                 ("query_keys", query_keys, WORD_DTYPE, (q, kw)))
+    if _build.runs_plain(dev, "cachehash_find"):
+        return cachehash_find_ref(cells, chain_pool, query_keys, kw=kw,
+                                  vw=vw, max_chain=max_chain)
+    max_chain = max(0, min(int(max_chain), 2 ** 31 - 1))
+    if q and m == 0:                      # the plain version's `% m`
+        raise RuntimeError("ZeroDivisionError")
+    if q and c == 0 and max_chain:        # its gather from an empty pool
+        raise IndexError("index is out of bounds for dimension with size 0")
+    found = torch.empty((q,), dtype=torch.bool, device=dev)
+    value = torch.empty((q, vw), dtype=WORD_DTYPE, device=dev)
+    if q:
+        _build.launch("table_ops", "cachehash_find", dev, cells.data_ptr(),
+                      m, cw, chain_pool.data_ptr(), c,
+                      query_keys.data_ptr(), q, kw, vw, max_chain,
+                      found.data_ptr(), value.data_ptr())
+        cachehash_find.launches += 1
+    return found, value
+
+
 cachehash_probe.launches = 0
+cachehash_find.launches = 0

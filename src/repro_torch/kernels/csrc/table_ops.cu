@@ -13,10 +13,13 @@
 //                             launch
 //   llsc_commit_round_kernel  replaces src/repro/kernels/llsc_commit.py::
 //                             llsc_commit_round (one SC commit round)
-//   cachehash_probe_kernel    replaces src/repro/kernels/cachehash_probe.py::
-//                             cachehash_probe (inlined first-link probe)
+//   cachehash_kernel          <KW, VW, false> replaces src/repro/kernels/
+//                             cachehash_probe.py::cachehash_probe (inlined
+//                             first-link probe); <KW, VW, true> is the whole
+//                             of src/repro/kernels/ops.py::cachehash_find
+//                             (hash, probe, chain walk) in one launch
 //
-// Plain PyTorch versions of all five sit in src/repro_torch/kernels/ref.py;
+// Plain PyTorch versions of all six sit in src/repro_torch/kernels/ref.py;
 // the wrappers (seqlock_gather.py, cas_apply.py, llsc_commit.py,
 // cachehash_probe.py) validate every operand, allocate the outputs and
 // launch these functions through a plain C interface (kernels/_build.py).
@@ -34,7 +37,15 @@
 // design is the simplest one that keeps them all in flight: one thread per
 // lane, 128 threads a block (128 blocks at p = 16384, about one per SM), the
 // row streamed through registers in 16-byte vectors where k % 4 == 0 and
-// the pointers are 16-byte aligned, else word by word.
+// the pointers are 16-byte aligned, else word by word.  A lane's time is
+// its chain of dependent memory trips, so every load that does not depend
+// on an earlier one is issued with the first: the commit rounds take two
+// trips (the lane's words with its slot, then the row with its version),
+// the probe two (the key with the bucket index, then the whole row), the
+// find one for the key, one for the bucket row and one a chain step.  The
+// CacheHash kernel is instantiated for the (kw, vw) the port uses, so a
+// row's words are loaded as one batch; any other shape runs at run-time
+// widths.
 //
 // The round kernels (cas_apply, llsc_commit) update the table in place.
 // The Pallas kernels wrote every lane's row back, failed and dead lanes
@@ -128,6 +139,16 @@ __global__ void __launch_bounds__(kThreads) seqlock_gather_kernel(
 //   SC round:   ok = live != 0 && meta[s, 0] == link_ver
 // ---------------------------------------------------------------------------
 
+// A lane holds up to 16 words of each row it needs in registers (kHeld
+// vectors of V words); the words of a wider row past those are read where
+// they are used.
+template <int V>
+constexpr int kHeld = 16 / V;
+
+// Two memory trips a lane: first the slot with every lane word that
+// depends only on i (the flag, link_ver or the expected row, the desired
+// row), then the row with its version, together.  The stores follow the
+// test.
 template <int V, bool SC>
 __device__ __forceinline__ void commit_lane(
     int i, uint32_t* __restrict__ data, uint32_t* __restrict__ meta, int n1,
@@ -135,37 +156,56 @@ __device__ __forceinline__ void commit_lane(
     const uint32_t* __restrict__ operand, const uint32_t* __restrict__ desired,
     int* __restrict__ succ, uint32_t* __restrict__ wit) {
   using T = typename Vec<V>::T;
-  const int s = slot[i];
+  constexpr int H = kHeld<V>;
   const int kv = k / V;
+  // trip 1: operand = link_ver[p], flag = live (SC); operand =
+  // expected[p, k], flag = kind (CAS)
+  const int s = slot[i];
+  const int flag = lane_flag[i];
+  const uint32_t link = SC ? operand[i] : 0u;
+  const T* des = reinterpret_cast<const T*>(desired + (size_t)i * k);
+  const T* exp = reinterpret_cast<const T*>(operand + (size_t)i * k);
+  T d[H], e[H];
+#pragma unroll
+  for (int j = 0; j < H; ++j)
+    if (j < kv) {
+      d[j] = des[j];
+      if constexpr (!SC) e[j] = exp[j];
+    }
   T* w = reinterpret_cast<T*>(wit + (size_t)i * k);
   if (s < 0 || s >= n1) {
     for (int j = 0; j < kv; ++j) w[j] = Vec<V>::zero();
     succ[i] = 0;
     return;
   }
+  // trip 2: the row and its version
   T* row = reinterpret_cast<T*>(data + (size_t)s * k);
-  const int flag = lane_flag[i];
-  bool ok;
-  if constexpr (SC) {
-    // operand = link_ver[p]; flag = live
-    for (int j = 0; j < kv; ++j) w[j] = row[j];
-    ok = flag != 0 && meta[2 * (size_t)s] == operand[i];
-  } else {
-    // operand = expected[p, k]; flag = kind
-    const T* exp = reinterpret_cast<const T*>(operand + (size_t)i * k);
-    bool match = true;
-    for (int j = 0; j < kv; ++j) {
-      const T r = row[j];
-      w[j] = r;
-      match &= Vec<V>::eq(r, exp[j]);
+  const uint32_t ver = meta[2 * (size_t)s];
+  T r[H];
+#pragma unroll
+  for (int j = 0; j < H; ++j)
+    if (j < kv) r[j] = row[j];
+  bool match = true;
+#pragma unroll
+  for (int j = 0; j < H; ++j)
+    if (j < kv) {
+      w[j] = r[j];
+      if constexpr (!SC) match &= Vec<V>::eq(r[j], e[j]);
     }
-    ok = flag == kStore || (flag == kCas && match);
+  for (int j = H; j < kv; ++j) {             // a row wider than 16 words
+    const T x = row[j];
+    w[j] = x;
+    if constexpr (!SC) match &= Vec<V>::eq(x, exp[j]);
   }
+  const bool ok = SC ? flag != 0 && ver == link
+                     : flag == kStore || (flag == kCas && match);
   succ[i] = ok ? 1 : 0;
   if (ok) {
-    const T* des = reinterpret_cast<const T*>(desired + (size_t)i * k);
-    for (int j = 0; j < kv; ++j) row[j] = des[j];
-    meta[2 * (size_t)s] += 2u;  // wraps modulo 2^32; the mark is untouched
+#pragma unroll
+    for (int j = 0; j < H; ++j)
+      if (j < kv) row[j] = d[j];
+    for (int j = H; j < kv; ++j) row[j] = des[j];
+    meta[2 * (size_t)s] = ver + 2u;  // wraps modulo 2^32; the mark is untouched
   }
 }
 
@@ -235,36 +275,157 @@ struct RoundsOp {
 };
 
 // ---------------------------------------------------------------------------
-// cachehash_probe: one bucket row [key kw | value vw | next | flags | ...]
-// per query.  hit = flags == FULL && key == query; empty = flags != FULL;
-// value = the inlined value; next = the next word as int32 (-1 ends).
+// CacheHash: bucket rows and chain nodes [key kw | value vw | next | flags |
+// ...], cw words each.
+//   probe (FIND = false): the bucket index given; hit = flags == FULL &&
+//     key == query; empty = flags != FULL; value = the inlined value; next
+//     = the next word as int32 (-1 ends).  A bucket outside [0, m) is a
+//     dead lane: hit 0, empty 1, zero value, next -1.
+//   find (FIND = true): ops.cachehash_find in one thread.  The key hashed
+//     in registers (ops.hash_keys), the bucket probed as above, then the
+//     chain walked for at most max_chain steps: a node is
+//     pool[min(cur, c - 1)] (the plain version's clamped gather), a step
+//     hits on the key alone, and the walk ends on a hit or a next < 0.
+//     found = a hit anywhere; value = the hit's value, else the bucket's
+//     inlined value.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads) cachehash_probe_kernel(
-    const uint32_t* __restrict__ cells, int m, int cw,
-    const int* __restrict__ bucket_idx, const uint32_t* __restrict__ query,
-    int q, int kw, int vw, int* __restrict__ hit, int* __restrict__ empty,
-    uint32_t* __restrict__ value, int* __restrict__ next) {
+constexpr uint32_t kGolden = 0x9E3779B1u;
+
+struct HashArgs {
+  const uint32_t* cells;
+  int m, cw;
+  const uint32_t* pool;          // find: c chain nodes of cw words
+  int c, max_chain;
+  const int* bucket_idx;         // probe
+  const uint32_t* query;
+  int q, kw, vw;
+  int* hit;                      // probe
+  int* empty;
+  int* next;
+  bool* found;                   // find
+  uint32_t* value;
+};
+
+// The lane's key.  With the widths as template arguments (KW > 0) its words
+// sit in registers; at run-time widths (KW = 0) each is read where it is
+// used.
+template <int KW>
+struct Key {
+  uint32_t w[KW];
+  __device__ explicit Key(const uint32_t* p) {
+#pragma unroll
+    for (int j = 0; j < KW; ++j) w[j] = p[j];
+  }
+  __device__ uint32_t operator[](int j) const { return w[j]; }
+};
+template <>
+struct Key<0> {
+  const uint32_t* p;
+  __device__ explicit Key(const uint32_t* q) : p(q) {}
+  __device__ uint32_t operator[](int j) const { return p[j]; }
+};
+
+// A row the lane reads.  With the widths known, all KW + VW + 2 words are
+// loaded before the first is used, one batch of independent loads: a row
+// across a 32-byte sector costs one memory trip, not two.
+template <int KW, int VW>
+struct Row {
+  uint32_t w[KW + VW + 2];
+  __device__ Row(const uint32_t* p, int, int) {
+#pragma unroll
+    for (int j = 0; j < KW + VW + 2; ++j) w[j] = p[j];
+  }
+  __device__ bool holds(const Key<KW>& key) const {
+    bool eq = true;
+#pragma unroll
+    for (int j = 0; j < KW; ++j) eq &= w[j] == key[j];
+    return eq;
+  }
+  // r's words where `yes`, a select and not a branch: nvcc sinks the loads
+  // a branch guards behind the compare, one more trip
+  __device__ void take(const Row& r, bool yes) {
+#pragma unroll
+    for (int j = 0; j < KW + VW + 2; ++j) w[j] = yes ? r.w[j] : w[j];
+  }
+  __device__ uint32_t value(int j) const { return w[KW + j]; }
+  __device__ int next() const { return static_cast<int>(w[KW + VW]); }
+  __device__ uint32_t flags() const { return w[KW + VW + 1]; }
+};
+template <int VW>
+struct Row<0, VW> {
+  const uint32_t* p;
+  int kw, vw;
+  __device__ Row(const uint32_t* r, int kw_, int vw_)
+      : p(r), kw(kw_), vw(vw_) {}
+  __device__ bool holds(const Key<0>& key) const {
+    bool eq = true;
+    for (int j = 0; j < kw; ++j) eq &= p[j] == key[j];
+    return eq;
+  }
+  __device__ void take(const Row& r, bool yes) { p = yes ? r.p : p; }
+  __device__ uint32_t value(int j) const { return p[kw + j]; }
+  __device__ int next() const { return static_cast<int>(p[kw + vw]); }
+  __device__ uint32_t flags() const { return p[kw + vw + 1]; }
+};
+
+template <int KW, int VW, bool FIND>
+__global__ void __launch_bounds__(kThreads) cachehash_kernel(
+    const HashArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= q) return;
-  const int b = bucket_idx[i];
-  uint32_t* val = value + (size_t)i * vw;
-  if (b < 0 || b >= m) {
+  if (i >= a.q) return;
+  const int kw = KW ? KW : a.kw, vw = KW ? VW : a.vw;
+  // the lane's own words first: its key, and the probe's bucket index
+  const Key<KW> key(a.query + (size_t)i * kw);
+  int b;
+  if constexpr (FIND) {
+    uint32_t h = 0u;
+    for (int j = 0; j < kw; ++j) {
+      h = (h ^ key[j]) * kGolden;
+      h ^= h >> 15;
+    }
+    b = static_cast<int>(h % static_cast<uint32_t>(a.m));
+  } else {
+    b = a.bucket_idx[i];
+  }
+  uint32_t* val = a.value + (size_t)i * vw;
+  if (!FIND && (b < 0 || b >= a.m)) {
     for (int j = 0; j < vw; ++j) val[j] = 0u;
-    hit[i] = 0;
-    empty[i] = 1;
-    next[i] = -1;
+    a.hit[i] = 0;
+    a.empty[i] = 1;
+    a.next[i] = -1;
     return;
   }
-  const uint32_t* row = cells + (size_t)b * cw;
-  const uint32_t* key = query + (size_t)i * kw;
-  const bool full = row[kw + vw + 1] == kFull;
-  bool match = full;
-  for (int j = 0; j < kw; ++j) match &= row[j] == key[j];
-  for (int j = 0; j < vw; ++j) val[j] = row[kw + j];
-  hit[i] = match ? 1 : 0;
-  empty[i] = full ? 0 : 1;
-  next[i] = static_cast<int>(row[kw + vw]);
+  const Row<KW, VW> row(a.cells + (size_t)b * a.cw, kw, vw);
+  // `&`, not `&&`: with `&&` nvcc loads the key words only once the flags
+  // word is in, a third trip
+  const bool full = row.flags() == kFull;
+  bool hit = full & row.holds(key);
+  if constexpr (!FIND) {
+    for (int j = 0; j < vw; ++j) val[j] = row.value(j);
+    a.hit[i] = hit ? 1 : 0;
+    a.empty[i] = full ? 0 : 1;
+    a.next[i] = row.next();
+  } else {
+    Row<KW, VW> src = row;           // the row the value comes from
+    int cur = row.next();
+    if (full && !hit && cur >= 0) {
+      for (int t = 0; t < a.max_chain; ++t) {  // a dependent trip a step
+        const Row<KW, VW> node(a.pool + (size_t)min(cur, a.c - 1) * a.cw, kw,
+                               vw);
+        const bool step_hit = node.holds(key);
+        src.take(node, step_hit);
+        if (step_hit) {
+          hit = true;
+          break;
+        }
+        cur = node.next();
+        if (cur < 0) break;
+      }
+    }
+    for (int j = 0; j < vw; ++j) val[j] = src.value(j);
+    a.found[i] = hit;
+  }
 }
 
 // Clear any error left by an earlier call and select the device.
@@ -274,6 +435,25 @@ cudaError_t begin(int device) {
 }
 
 dim3 grid_for(int lanes) { return dim3((lanes + kThreads - 1) / kThreads); }
+
+// The kernel for (kw, vw): one of each shape the port uses, the run-time
+// widths for any other.
+template <bool FIND>
+int launch_hash(const HashArgs& a, cudaStream_t stream) {
+  using Kernel = void (*)(const HashArgs);
+  static const struct {
+    int kw, vw;
+    Kernel kern;
+  } kShapes[] = {{1, 1, cachehash_kernel<1, 1, FIND>},
+                 {2, 2, cachehash_kernel<2, 2, FIND>},
+                 {4, 2, cachehash_kernel<4, 2, FIND>},
+                 {1, 3, cachehash_kernel<1, 3, FIND>}};
+  Kernel kern = cachehash_kernel<0, 0, FIND>;
+  for (const auto& shape : kShapes)
+    if (shape.kw == a.kw && shape.vw == a.vw) kern = shape.kern;
+  kern<<<grid_for(a.q), kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
 
 template <bool SC>
 int commit_round(void* data, void* meta, int n1, int k, const void* slot,
@@ -382,13 +562,48 @@ int cachehash_probe(const void* cells, int m, int cw, const void* bucket_idx,
   cudaError_t err = begin(device);
   if (err != cudaSuccess) return (int)err;
   if (q <= 0) return 0;
-  cachehash_probe_kernel<<<grid_for(q), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(cells), m, cw,
-      static_cast<const int*>(bucket_idx), static_cast<const uint32_t*>(query),
-      q, kw, vw, static_cast<int*>(hit), static_cast<int*>(empty),
-      static_cast<uint32_t*>(value), static_cast<int*>(next));
-  return (int)cudaGetLastError();
+  HashArgs a{};
+  a.cells = static_cast<const uint32_t*>(cells);
+  a.m = m;
+  a.cw = cw;
+  a.bucket_idx = static_cast<const int*>(bucket_idx);
+  a.query = static_cast<const uint32_t*>(query);
+  a.q = q;
+  a.kw = kw;
+  a.vw = vw;
+  a.hit = static_cast<int*>(hit);
+  a.empty = static_cast<int*>(empty);
+  a.next = static_cast<int*>(next);
+  a.value = static_cast<uint32_t*>(value);
+  return launch_hash<false>(a, static_cast<cudaStream_t>(stream));
+}
+
+// cells[m, cw], chain_pool[c, cw]; query[q, kw] -> found[q] (bool),
+// value[q, vw]: the whole lookup, chains walked for at most max_chain
+// steps.  An empty table (m = 0), or an empty pool with max_chain > 0, is
+// an invalid value (the wrapper raises first, as the plain version does).
+int cachehash_find(const void* cells, int m, int cw, const void* chain_pool,
+                   int c, const void* query, int q, int kw, int vw,
+                   int max_chain, void* found, void* value, int device,
+                   void* stream) {
+  cudaError_t err = begin(device);
+  if (err != cudaSuccess) return (int)err;
+  if (q <= 0) return 0;
+  if (m <= 0 || (c <= 0 && max_chain > 0)) return (int)cudaErrorInvalidValue;
+  HashArgs a{};
+  a.cells = static_cast<const uint32_t*>(cells);
+  a.m = m;
+  a.cw = cw;
+  a.pool = static_cast<const uint32_t*>(chain_pool);
+  a.c = c;
+  a.max_chain = max_chain;
+  a.query = static_cast<const uint32_t*>(query);
+  a.q = q;
+  a.kw = kw;
+  a.vw = vw;
+  a.found = static_cast<bool*>(found);
+  a.value = static_cast<uint32_t*>(value);
+  return launch_hash<true>(a, static_cast<cudaStream_t>(stream));
 }
 
 const char* table_ops_error_string(int err) {

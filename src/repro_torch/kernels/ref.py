@@ -5,7 +5,10 @@ Each function computes exactly what the corresponding CUDA kernel in
 `csrc/table_ops.cu` computes, with vectorised gathers and `where`: within a
 round the live slots are distinct, so gathering every lane's pre-round row
 at once is the sequential order.  `cas_apply_rounds_ref` is the round loop
-that the one-launch `cas_apply_rounds` kernel replays per segment.  The wrappers run these on CPU tensors,
+that the one-launch `cas_apply_rounds` kernel replays per segment;
+`cachehash_find_ref` is `hash_keys`, the probe and the chain walk as
+tensor code, each lane walking in step with the others, that the find
+kernel runs in one thread a query.  The wrappers run these on CPU tensors,
 and the tests hold them bit for bit against the reference's Pallas kernels
 and numpy oracles.  Words are int32 bits (see `core/layout.py`).
 
@@ -20,13 +23,15 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.layout import scatter_set
+from repro_torch.core.layout import as_u64, scatter_set
 
 STORE = 1
 CAS = 2
 # flags word values of a CacheHash cell (matches core.cachehash)
 EMPTY = 0
 FULL = 1
+_GOLDEN = 0x9E3779B1
+_MASK = 0xFFFFFFFF
 
 
 def _rows(table: torch.Tensor, idx: torch.Tensor):
@@ -113,3 +118,51 @@ def cachehash_probe_ref(cells, bucket_idx, query_keys, *, kw, vw):
     i32 = torch.int32
     return (hit.to(i32)[:, None], (~is_full).to(i32)[:, None],
             cell[:, kw:kw + vw].contiguous(), nxt[:, None])
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """h * c modulo 2^32 for int64 h in [0, 2^32), without int64 overflow:
+    c is split into 16-bit halves."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK
+
+
+def hash_keys(keys: torch.Tensor, m: int) -> torch.Tensor:
+    """Fibonacci-style multiplicative hash of word[q, kw] -> bucket
+    int32[q], in uint32 arithmetic: the words are widened to int64 as
+    unsigned values, so `>>` is logical and `% m` unsigned."""
+    h = torch.zeros(keys.shape[0], dtype=torch.int64, device=keys.device)
+    for j in range(keys.shape[1]):
+        h = _mul32(h ^ as_u64(keys[:, j]), _GOLDEN)
+        h = h ^ (h >> 15)
+    return (h % m).to(torch.int32)
+
+
+def cachehash_find_ref(cells, chain_pool, query_keys, *, kw, vw,
+                       max_chain=8):
+    """(found bool[q], value word[q, vw]): the probe of the hashed bucket's
+    inlined first link, then a chain walk of at most `max_chain` steps for
+    every lane at once; a node is chain_pool[clamp(cur, 0, c - 1)], a step
+    hits on the key alone, and on a miss the value is the bucket's
+    inlined value."""
+    m = cells.shape[0]
+    last = chain_pool.shape[0] - 1
+    bidx = hash_keys(query_keys, m)
+    hit, empty, value, nxt = cachehash_probe_ref(cells, bidx, query_keys,
+                                                 kw=kw, vw=vw)
+    found = hit[:, 0] != 0
+    cur = nxt[:, 0]
+    done = found | (empty[:, 0] != 0) | (cur < 0)
+    val = value
+    for _ in range(max_chain):                      # slow path: chain walk
+        node = chain_pool[cur.clamp(0, last).to(torch.int64)]
+        nkey = node[:, :kw]
+        nval = node[:, kw:kw + vw]
+        nnxt = node[:, kw + vw]
+        step_hit = ~done & (cur >= 0) & (nkey == query_keys).all(1)
+        val = torch.where(step_hit[:, None], nval, val)
+        found = found | step_hit
+        done = done | step_hit | (nnxt < 0) | (cur < 0)
+        cur = torch.where(done, cur, nnxt)
+    return found, val

@@ -152,6 +152,33 @@ def build_cachehash(rng, m, kw, vw, n_keys, max_chain=8):
     return cells, pool, keys, vals, depth
 
 
+def chain_case(rng, m, kw, vw, n_keys, shape):
+    """A CacheHash table of `n_keys` keys in m buckets (chains up to 8
+    deep) and queries: placed keys inline and chained, and absent ones.
+    shape "clamp": each chain's last node points past the pool's end (the
+    walk reads the pool's last node), and so does the link to the pool's
+    last node, whose key is queried; "cycle": each chain's last node
+    points back at its first; "plain": as built."""
+    cells, pool, keys, _, depth = build_cachehash(rng, m, kw, vw, n_keys)
+    c = len(pool)
+    if shape == "clamp":
+        cells[cells[:, kw + vw] == c - 1, kw + vw] = c + 3
+        pool[pool[:, kw + vw] == c - 1, kw + vw] = c + 3
+    heads = (cells[:, kw + vw + 1] == FULL) & (cells[:, kw + vw] < c)
+    for b in np.flatnonzero(heads):
+        head = tail = int(cells[b, kw + vw])
+        while pool[tail, kw + vw] < c:
+            tail = int(pool[tail, kw + vw])
+        if shape == "clamp":
+            pool[tail, kw + vw] = c + 3
+        elif shape == "cycle":
+            pool[tail, kw + vw] = head
+    absent = rng.integers(0, 2 ** 32, (20, kw), dtype=np.uint32)
+    qk = np.concatenate([keys[depth == 0][:15], keys[depth > 0][:25],
+                         absent, pool[-1:, :kw]])
+    return cells, pool, qk
+
+
 def update_case(rng, n, k, p, zipf, update_frac, one_cell=False,
                 chain=0.0):
     """A random_batch-style STORE/CAS/LOAD batch, sorted by slot and ranked
@@ -257,6 +284,12 @@ def _cases():
                              absent])
         cases[f"cachehash_find-m{m}-kw{kw}-vw{vw}"] = (
             "cachehash_find", dict(kw=kw, vw=vw),
+            dict(cells=cells, chain_pool=pool, query_keys=qk))
+    for shape, max_chain in [("clamp", 8), ("cycle", 8), ("cycle", 30),
+                             ("plain", 0)]:
+        cells, pool, qk = chain_case(rng, 16, 2, 2, 60, shape)
+        cases[f"cachehash_find-{shape}-max_chain{max_chain}"] = (
+            "cachehash_find", dict(kw=2, vw=2, max_chain=max_chain),
             dict(cells=cells, chain_pool=pool, query_keys=qk))
     for strategy in ("seqlock", "indirect", "cached_wf", "cached_me"):
         cases[f"commit_round-{strategy}"] = (
@@ -639,6 +672,11 @@ def _cpu_calls():
         ("llsc_commit_round", lambda: port_call(tk.llsc_commit_round, b)),
         ("cachehash_probe", lambda: port_call(tk.cachehash_probe, c, kw=2,
                                               vw=2)),
+        ("cachehash_find", lambda: port_call(
+            tk.cachehash_find, dict(cells=c["cells"],
+                                    chain_pool=c["cells"][:3],
+                                    query_keys=c["query_keys"]),
+            kw=2, vw=2)),
     ]
 
 
@@ -648,7 +686,7 @@ def test_cpu_tensors_never_launch_and_counts_reset():
         "round_prologue", "fast_round", "slow_round", "round_epilogue",
         "seqlock_gather", "cas_apply_round",
         "cas_apply_rounds", "llsc_commit_round", "cachehash_probe",
-        "digest_rows", "flash_attention_wgmma", "flash_attention_tf32x3"}
+        "cachehash_find", "digest_rows", "flash_attention_wgmma", "flash_attention_tf32x3"}
     for _, call in _cpu_calls():
         call()
     assert not any(tk.launch_counts().values())
@@ -667,6 +705,9 @@ def _meta_args(name, device_of):
     if name == "cachehash_probe":
         return (t("cells", (4, 7)), t("bucket_idx", (3,)),
                 t("query_keys", (3, 2)))
+    if name == "cachehash_find":
+        return (t("cells", (4, 7)), t("chain_pool", (2, 7)),
+                t("query_keys", (3, 2)))
     rounds = (t("upd_rank", (3,)),) if name == "cas_apply_rounds" else ()
     return (t("data", (5, 2)), t("meta", (5, 2)), t("slot", (3,)),
             t("flag", (3,)), t("operand", (3, 2) if name.startswith(
@@ -675,17 +716,18 @@ def _meta_args(name, device_of):
 
 @pytest.mark.parametrize("name", ["seqlock_gather", "cas_apply_round",
                                   "cas_apply_rounds", "llsc_commit_round",
-                                  "cachehash_probe"])
+                                  "cachehash_probe", "cachehash_find"])
 def test_wrappers_reject_meta_and_mixed_devices(name):
     fn = getattr(tk, name)
     if name == "cas_apply_rounds":           # rounds between the tensors
         def fn(*args):
             return tk.cas_apply_rounds(*args[:6], 2, args[6])
-    static = dict(kw=2, vw=2) if name == "cachehash_probe" else {}
+    static = dict(kw=2, vw=2) if name.startswith("cachehash") else {}
     before = tk.launch_counts()
     with pytest.raises(ValueError, match="unsupported device"):
         fn(*_meta_args(name, lambda _: "meta"), **static)
-    for odd in ("idx", "slot", "desired", "query_keys", "meta", "upd_rank"):
+    for odd in ("idx", "slot", "desired", "query_keys", "meta", "upd_rank",
+                "chain_pool"):
         args = _meta_args(name, lambda arg: "meta" if arg == odd else "cpu")
         if all(a.device.type == "cpu" for a in args):
             continue
@@ -723,6 +765,15 @@ def test_wrappers_reject_bad_shapes_and_dtypes():
                            torch.zeros(2, dtype=torch.int32),
                            torch.zeros((2, 2), dtype=torch.int32), kw=2,
                            vw=2)
+    cells = torch.zeros((4, 7), dtype=torch.int32)
+    keys = torch.zeros((2, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="cannot hold"):
+        tk.cachehash_find(cells, cells, keys, kw=2, vw=4)
+    with pytest.raises(ValueError, match="chain_pool"):
+        tk.cachehash_find(cells, torch.zeros((3, 6), dtype=torch.int32), keys,
+                          kw=2, vw=2)
+    with pytest.raises(ValueError, match="query_keys"):
+        tk.cachehash_find(cells, cells, keys, kw=1, vw=2)
 
 
 def test_out_of_range_rows_are_dead_lanes():
@@ -814,3 +865,41 @@ def test_c_entry_points_match_declared_signatures():
                        "float" if t is ctypes.c_float else "int"
                        for t in argtypes]
             assert c_args == py_args, fn
+
+
+def test_find_on_a_card_is_one_launch_and_raises_as_plain(monkeypatch):
+    """The find's card branch, its launch recorded instead of made: one
+    `cachehash_find` launch of `table_ops` with the declared arguments and
+    nothing else, its count up by one; an empty pool with max_chain > 0
+    and an empty table raise what the plain version raises, before any
+    launch; max_chain = 0 over an empty pool launches."""
+    calls = []
+    monkeypatch.setattr(_build, "runs_plain", lambda dev, who: False)
+    monkeypatch.setattr(_build, "launch",
+                        lambda lib, fn, dev, *args: calls.append((lib, fn,
+                                                                  args)))
+    cells = torch.zeros((8, 7), dtype=torch.int32)
+    keys = torch.zeros((3, 2), dtype=torch.int32)
+    empty_pool = cells[:0]
+    tk.reset_launch_counts()
+    found, value = ops.cachehash_find(cells, cells[:4], keys, kw=2, vw=2,
+                                      max_chain=-5)
+    assert found.dtype == torch.bool and tuple(value.shape) == (3, 2)
+    assert [c[:2] for c in calls] == [("table_ops", "cachehash_find")]
+    assert len(calls[0][2]) == len(
+        _build.SIGNATURES["table_ops"]["cachehash_find"]) - 2
+    assert calls[0][2][1:3] == (8, 7) and calls[0][2][4] == 4
+    assert calls[0][2][6:10] == (3, 2, 2, 0)        # max_chain clamped
+    assert tk.launch_counts()["cachehash_find"] == 1
+    for pool, static, err in [
+            (empty_pool, dict(max_chain=8), IndexError),
+            (cells, dict(), RuntimeError)]:
+        table = cells[:0] if err is RuntimeError else cells
+        with pytest.raises(err):
+            ref.cachehash_find_ref(table, pool, keys, kw=2, vw=2, **static)
+        with pytest.raises(err):
+            ops.cachehash_find(table, pool, keys, kw=2, vw=2, **static)
+    ops.cachehash_find(cells, empty_pool, keys, kw=2, vw=2, max_chain=0)
+    ops.cachehash_find(cells, empty_pool, keys[:0], kw=2, vw=2)
+    assert len(calls) == 2 and tk.launch_counts()["cachehash_find"] == 2
+    tk.reset_launch_counts()

@@ -1,9 +1,11 @@
 """The engine-round and table kernels compiled for the CPU and held bit for
 bit against their plain versions: the segment replay
 (`kernels/csrc/segment_replay.cuh`, behind `slow_round` in
-`engine_round.cu` and `cas_apply_rounds` in `table_ops.cu`), and the
+`engine_round.cu` and `cas_apply_rounds` in `table_ops.cu`), the
 round's prologue (its radix sort against `torch.sort(stable=True)`), fast
-round and epilogue (`engine_round.cu`).
+round and epilogue (`engine_round.cu`), and the one-round table kernels
+of `table_ops.cu`: the SC and STORE/CAS commit rounds, the CacheHash probe
+and find (`ref.*_ref`).
 
 There is no CUDA compiler or card here, so `tests/cuda_emu/cuda_runtime.h`
 stands in for the CUDA runtime: a block runs as one thread per CUDA thread,
@@ -18,9 +20,11 @@ sort (the digit histograms, the ranks within a tile, the look-back between
 tiles, the passes it skips), gathers and predicate; the fast round's
 results and links; the epilogue's lanes put back, its block-wide scans and
 the look-back between its tiles that carries the stats, its dirty-slot
-list; that the prologue leaves the epilogue's scratch ready; and that
+list; that the prologue leaves the epilogue's scratch ready; that
 every kernel leaves everything alone when the predicate says its branch
-is not taken.  Their speed, and what nvcc makes of them,
+is not taken; the commit rounds' two trips at every k (rows past the 16
+words a lane holds), the CacheHash kernel at its instantiated widths and
+at run-time ones, the find's hash, clamp, cycles and max_chain.  Their speed, and what nvcc makes of them,
 only a card can show (`chip_smoke.py`).  Tolerance is zero."""
 
 import ctypes
@@ -536,3 +540,245 @@ def test_kernel_round_matches_plain_round(libs, p, k, spectrum):
                (part if isinstance(part, tuple) else (part,))],
          f"p={p} k={k} {spectrum}")
     assert bool(pro.fast) == (spectrum in ("none", "read"))
+
+
+# ---------------------------------------------------------------------------
+# The one-round table kernels: the SC and STORE/CAS commit rounds, the
+# CacheHash probe and find.
+# ---------------------------------------------------------------------------
+
+ROUND_KS = [1, 3, 4, 5, 16, 17, 20]        # 17, 20: rows past 16 words
+# (kw, vw): the shapes the CacheHash kernel is instantiated for, then two
+# it runs at run-time widths
+HASH_SHAPES = [(1, 1), (2, 2), (4, 2), (1, 3), (3, 1), (2, 0)]
+FULL, NEXT_END = ref.FULL, np.uint32(2 ** 32 - 1)
+
+
+def commit_table(rng, n, k):
+    """data[n + 1, k] and meta[n + 1, 2]: even versions, a quarter odd
+    (locked), a quarter of the rows marked, versions about to wrap."""
+    data = rng.integers(0, 2 ** 32, (n + 1, k), dtype=np.uint32)
+    meta = np.stack([rng.integers(0, 2 ** 31, n + 1) * 2
+                     + (rng.random(n + 1) < 0.25),
+                     rng.random(n + 1) < 0.25], 1).astype(np.uint32)
+    meta[rng.random(n + 1) < 0.2, 0] = 2 ** 32 - 2
+    return data, meta
+
+
+def commit_lanes(rng, n, p):
+    """Distinct live slots for most lanes, the dummy row n for some, and
+    slots out of range (-1, n + 1, the int32 extremes)."""
+    slot = np.full(p, n, np.int32)
+    live = rng.random(p) < 0.8
+    slot[live] = rng.choice(n, int(live.sum()), replace=False)
+    bad = np.flatnonzero(~live)[:4]
+    slot[bad] = [-1, n + 1, -2 ** 31, 2 ** 31 - 1][:len(bad)]
+    return slot
+
+
+@pytest.mark.parametrize("round_kind", ["llsc_commit_round",
+                                        "cas_apply_round"])
+@pytest.mark.parametrize("k", ROUND_KS)
+def test_commit_round_matches_plain(libs, k, round_kind):
+    """The SC round and one STORE/CAS round over 300 lanes (the last
+    block partial): live lanes on distinct rows, locked and marked ones
+    among them, dead lanes on the dummy row and outside [0, n + 1),
+    versions that wrap; half the links or comparands current.  Table,
+    meta, success and witness bit for bit against the plain round, on the
+    16-byte path (k % 4 == 0) and the word path, rows past the 16 words a
+    lane holds included."""
+    n, p = 400, 300
+    rng = np.random.default_rng(k * 7 + len(round_kind))
+    data, meta = commit_table(rng, n, k)
+    slot = commit_lanes(rng, n, p)
+    cur = np.clip(slot, 0, n)
+    desired = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
+    if round_kind == "llsc_commit_round":
+        flag = (rng.random(p) < 0.85).astype(np.int32)
+        operand = np.where(rng.random(p) < 0.5, meta[cur, 0],
+                           meta[cur, 0] + np.uint32(2)).astype(np.uint32)
+        plain = ref.llsc_commit_round_ref
+    else:
+        flag = rng.choice(np.array([0, ref.STORE, ref.CAS, 5], np.int32), p,
+                          p=[0.1, 0.3, 0.5, 0.1])
+        operand = rng.integers(0, 2 ** 32, (p, k), dtype=np.uint32)
+        take = rng.random(p) < 0.5
+        operand[take] = data[cur[take]]
+        plain = ref.cas_apply_round_ref
+    flag[slot == n] = 0               # the dummy row's lanes only read it
+    args = (ints(slot), ints(flag), words(operand), words(desired))
+    d, m = words(data), words(meta)
+    want = plain(d.clone(), m.clone(), *args)
+    got_d, got_m = d.clone(), m.clone()
+    succ = torch.full((p, 1), 7, dtype=torch.int32)
+    wit = torch.full((p, k), 7, dtype=torch.int32)
+    assert getattr(libs["table_ops"], round_kind)(
+        got_d.data_ptr(), got_m.data_ptr(), n + 1, k,
+        *(a.data_ptr() for a in args), p, succ.data_ptr(), wit.data_ptr(),
+        0, None) == 0
+    same((got_d, got_m, succ, wit), want, f"{round_kind} k={k}")
+    assert want[2].any() and not want[2].all()
+    assert (want[1][:, 0] == 0).any()                   # a version wrapped
+
+
+@pytest.mark.parametrize("kw,vw", HASH_SHAPES)
+def test_cachehash_probe_matches_plain(libs, kw, vw):
+    """The bare probe over 300 queries: full rows with a terminated or
+    chained next, empty rows with flags 0 or 2, half the queries carrying
+    their bucket's key, dead lanes at buckets -1, m, m + 5 and the int32
+    extremes; hit, empty, value and next bit for bit."""
+    m, q = 257, 300
+    rng = np.random.default_rng(kw * 10 + vw)
+    cw = kw + vw + 3
+    cells = rng.integers(0, 2 ** 32, (m, cw), dtype=np.uint32)
+    cells[:, kw + vw] = np.where(rng.random(m) < 0.5, NEXT_END,
+                                 rng.integers(0, 64, m))
+    cells[:, kw + vw + 1] = np.where(rng.random(m) < 0.6, FULL,
+                                     rng.choice([0, 2], m))
+    bidx = rng.integers(0, m, q).astype(np.int32)
+    bidx[:5] = [-1, m, m + 5, -2 ** 31, 2 ** 31 - 1]
+    keys = rng.integers(0, 2 ** 32, (q, kw), dtype=np.uint32)
+    take = rng.random(q) < 0.5
+    keys[take] = cells[np.clip(bidx[take], 0, m - 1), :kw]
+    args = (words(cells), ints(bidx), words(keys))
+    want = ref.cachehash_probe_ref(*args, kw=kw, vw=vw)
+    got = [torch.full(x.shape, 7, dtype=torch.int32) for x in want]
+    assert libs["table_ops"].cachehash_probe(
+        args[0].data_ptr(), m, cw, args[1].data_ptr(), args[2].data_ptr(), q,
+        kw, vw, *(x.data_ptr() for x in got), 0, None) == 0
+    same(got, want, f"kw={kw} vw={vw}")
+    assert want[0].any() and not want[0].all()
+
+
+def bucket_of(keys, m):
+    """Each key's bucket by `ref.hash_keys` (held to the reference's hash in
+    tests/test_torch_kernels.py)."""
+    return ref.hash_keys(words(keys), m).numpy()
+
+
+def find_case(rng, m, kw, vw, q, shape):
+    """A CacheHash table and q queries: the queries' keys placed by the
+    hash inline or at chain depths 1 to 11 in front of their bucket's
+    chain (so chains run from 0 to 20 nodes deep), some left out; rows
+    empty with flags 0 or 2.  `shape`: "plain"; "clamp" (some nexts past
+    the pool's end, one of them in front of the pool's last node, which
+    holds query 0's key); "cycle" (some chains loop back to their first
+    node)."""
+    cw = kw + vw + 3
+    cells = rng.integers(0, 2 ** 32, (m, cw), dtype=np.uint32)
+    cells[:, kw + vw] = NEXT_END
+    cells[:, kw + vw + 1] = np.where(rng.random(m) < 0.85, FULL,
+                                     rng.choice([0, 2], m))
+    keys = rng.integers(0, 2 ** 32, (q, kw), dtype=np.uint32)
+    bucket = bucket_of(keys, m)
+    pool = []
+
+    def node(key, nxt):
+        row = rng.integers(0, 2 ** 32, cw, dtype=np.uint32)
+        row[:kw], row[kw + vw] = key, nxt
+        pool.append(row)
+        return len(pool) - 1
+
+    first = {}                               # bucket -> its chain's head
+    for i in range(q):
+        depth, b = int(rng.integers(-1, 12)), bucket[i]
+        if depth == 0:
+            cells[b, :kw], cells[b, kw + vw + 1] = keys[i], FULL
+        elif depth > 0:
+            nxt = node(keys[i], cells[b, kw + vw])
+            for _ in range(depth - 1):
+                nxt = node(rng.integers(0, 2 ** 32, kw, dtype=np.uint32), nxt)
+            cells[b, kw + vw] = nxt
+            first.setdefault(b, nxt)
+    if shape == "clamp":                 # query 0's key: past the end
+        b = bucket[0]
+        cells[b, kw + vw + 1] = FULL
+        cells[b, :kw] = ~keys[0]
+        cells[b, kw + vw] = node(~keys[0], len(pool) + 6)
+        node(keys[0], NEXT_END)
+    pool = np.array(pool, np.uint32).reshape(-1, cw)
+    c = len(pool)
+    if shape == "clamp":
+        ends = np.flatnonzero(pool[:, kw + vw] == NEXT_END)
+        pick = ends[rng.random(len(ends)) < 0.5]
+        pool[pick, kw + vw] = rng.choice(np.array([c, c + 7, 2 ** 31 - 1],
+                                                  np.uint32), len(pick))
+    if shape == "cycle":
+        for b, head in first.items():
+            tail = head
+            while pool[tail, kw + vw] != NEXT_END:
+                tail = int(pool[tail, kw + vw])
+            if rng.random() < 0.5:
+                pool[tail, kw + vw] = head
+    return cells, pool, keys
+
+
+def call_find(lib, cells, pool, keys, kw, vw, max_chain):
+    q = keys.shape[0]
+    found = torch.ones((q,), dtype=torch.bool)
+    value = torch.full((q, vw), 7, dtype=torch.int32)
+    err = lib.cachehash_find(
+        cells.data_ptr(), cells.shape[0], cells.shape[1], pool.data_ptr(),
+        pool.shape[0], keys.data_ptr(), q, kw, vw, max_chain,
+        found.data_ptr(), value.data_ptr(), 0, None)
+    return err, (found, value)
+
+
+@pytest.mark.parametrize("shape", ["plain", "clamp", "cycle"])
+@pytest.mark.parametrize("kw,vw", HASH_SHAPES)
+def test_cachehash_find_matches_plain(libs, kw, vw, shape):
+    """The find kernel against `ref.cachehash_find_ref` over 300 queries
+    in m = 97 buckets (not a power of two: the hash's `% m` unsigned):
+    inline hits, chain hits at depths 1 to 11, keys left out, buckets
+    whose chain ends past the pool (the clamp) or loops back on itself;
+    max_chain = 8, 3 (chain hits deeper than it missed), 0 (the probe
+    alone) and 40 (every cycle walked until max_chain runs out).  found
+    and value bit for bit."""
+    m, q = 97, 300
+    rng = np.random.default_rng(kw * 100 + vw * 10 + len(shape))
+    cells, pool, keys = map(words, find_case(rng, m, kw, vw, q, shape))
+    hits = {}
+    for max_chain in (8, 3, 0, 40):
+        want = ref.cachehash_find_ref(cells, pool, keys, kw=kw, vw=vw,
+                                      max_chain=max_chain)
+        err, got = call_find(libs["table_ops"], cells, pool, keys, kw, vw,
+                             max_chain)
+        assert err == 0
+        same(got, want, f"kw={kw} vw={vw} {shape} max_chain={max_chain}")
+        hits[max_chain] = int(want[0].sum())
+    assert 0 < hits[0] < hits[3] < hits[8] <= hits[40] < q, hits
+
+
+def test_cachehash_find_edges(libs):
+    """A large table (m = 2^20 + 7: buckets past 2^19, the hash's top bits
+    in play), no query, and an empty pool: with max_chain = 0 it equals
+    the plain version, with max_chain > 0 the entry point refuses it
+    (cudaErrorInvalidValue) where the plain version raises, as it does
+    for an empty table."""
+    rng = np.random.default_rng(31)
+    lib = libs["table_ops"]
+    m, kw, vw = 2 ** 20 + 7, 2, 2
+    keys = rng.integers(0, 2 ** 32, (260, kw), dtype=np.uint32)
+    cells = np.zeros((m, kw + vw + 3), np.uint32)
+    bucket = bucket_of(keys, m)
+    cells[bucket[::2], :kw] = keys[::2]
+    cells[bucket[::2], kw + vw + 1] = FULL
+    cells[bucket, kw:kw + vw] = rng.integers(0, 2 ** 32, (260, vw),
+                                             dtype=np.uint32)
+    cells[:, kw + vw] = NEXT_END
+    cells, keys = words(cells), words(keys)
+    pool = words(np.zeros((0, kw + vw + 3), np.uint32))
+    want = ref.cachehash_find_ref(cells, pool, keys, kw=kw, vw=vw,
+                                  max_chain=0)
+    err, got = call_find(lib, cells, pool, keys, kw, vw, 0)
+    assert err == 0 and int(want[0].sum()) == 130
+    same(got, want, "m = 2^20 + 7")
+    assert call_find(lib, cells, pool, keys[:0], kw, vw, 8)[0] == 0
+    with pytest.raises(IndexError):
+        ref.cachehash_find_ref(cells, pool, keys, kw=kw, vw=vw, max_chain=8)
+    assert call_find(lib, cells, pool, keys, kw, vw, 8)[0] != 0
+    empty = cells[:0]
+    with pytest.raises(RuntimeError, match="ZeroDivision"):
+        ref.cachehash_find_ref(empty, cells, keys, kw=kw, vw=vw)
+    assert call_find(lib, empty, cells, keys, kw, vw, 8)[0] != 0
+
