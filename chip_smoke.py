@@ -42,7 +42,9 @@ package, and runs these phases:
   3b. table ops
              the raw-table layer (`kernels/ops.py`, `llsc_commit`): its six
              kernels against their plain versions (k = 1, 3, 4, 5, 16,
-             CacheHash kw/vw = 1/1, 2/2, 4/2, and full width; the find at
+             the gather also at k = 2 and 8 and at k = 4 and 16 on tables
+             one word off 16 bytes, CacheHash kw/vw = 1/1, 2/2, 4/2, and
+             full width; the find at
              kw/vw = 1/1, 2/2, 4/2, 1/3 and the run-time 3/1, max_chain 8,
              0 and 40 over chains with cycles and nexts past the pool;
              `cas_apply_rounds` against the round loop on uniform, Zipf
@@ -58,7 +60,10 @@ package, and runs these phases:
              kernel against its plain version at full width.  Then each
              entry point's and kernel's time, the plain versions', the
              round loop's it replaced, the device-busy share and device
-             operations; a `cachehash_find` call must make exactly one.
+             operations; a `cachehash_find` call must make exactly one;
+             and `seqlock_gather` at k = 1, 4, 8, 16 on n = 2**22 tables
+             (`gather_sweep`), each width held to its plain version once
+             and timed beside it, its bound and `index_select`.
   4. timing  per layout and batch (a), (c), (d): one `apply` (donate)
              captured in a CUDA graph and replayed once, which must equal
              the eager `apply` and the numpy oracle (a capture that fails
@@ -293,6 +298,7 @@ LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy",
 ROUND_FIRST_KERNELS = ("round_prologue_kernel", "round_epilogue_kernel")
 SORT_SPECTRA = ("uniform", "zipf", "all_same", "all_idle", "out_of_range",
                 "int32")
+GATHER_WIDTHS = (1, 4, 8, 16)       # of bench_atomics.py's k sweep
 
 
 def log(*args):
@@ -1319,12 +1325,22 @@ class TableOps:
 
     # -- kernels against their plain versions -----------------------------------
 
+    def shifted(self, t, off):
+        """A copy of t on the card starting `off` words past a 16-byte
+        boundary."""
+        buf = self.torch.empty(t.numel() + 4, dtype=t.dtype, device=self.dev)
+        out = buf[off:off + t.numel()].view(t.shape)
+        out.copy_(t)
+        return out
+
     def kernel_vs_plain(self):
         """Bit for bit on every output and on the updated tables: k = 1, 3,
         4, 5, 16 at q = p = 1003 (not a multiple of 8), locked / marked /
         wrapping rows, dead lanes on row n and out of range, three CacheHash
-        layouts, and the full-width shapes; the find on five layouts at
-        max_chain 8, 0 and 40 (cycles, nexts past the pool's end).
+        layouts, and the full-width shapes; the gather also at k = 2 and 8,
+        and at k = 4 and 16 with data and meta one word off 16 bytes (its
+        word path); the find on five layouts at max_chain 8, 0 and 40
+        (cycles, nexts past the pool's end).
         Returns the case count."""
         tk, ref, w, ints = self.tk, self.ref, self.w, self.ints
         rng = np.random.default_rng(2000)
@@ -1348,6 +1364,14 @@ class TableOps:
                 want = plain(d.clone(), m.clone(), *args)
                 self.s.compare(name, got, want)
             cases += 3
+        for k, off in ((2, 0), (8, 0), (4, 1), (16, 1)):
+            data, meta = self.table(rng, 4097, k)
+            d, m = (self.shifted(w(a), off) for a in (data, meta))
+            idx = rng.integers(0, 4096, 1003).astype(np.int32)
+            idx[:2] = [-1, 4097]
+            self.s.compare("seqlock_gather", tk.seqlock_gather(d, m, ints(idx)),
+                           ref.seqlock_gather_ref(d, m, ints(idx)))
+            cases += 1
         for m_, kw, vw, q in [(4096, 1, 1, 1003), (4096, 2, 2, 1003),
                               (4096, 4, 2, 1003), (M, KW, VW, P)]:
             cells, bidx, keys = self.probe_inputs(rng, m_, kw, vw, q)
@@ -1702,6 +1726,8 @@ class TableOps:
         rows["seqlock_gather"]["index_select_ms"] = s.device_ms(
             lambda d, m: d.index_select(0, idx64),
             setup=fresh("pre_update_uniform"))
+        rows["seqlock_gather"]["widths"] = gather_sweep(
+            s, tk.seqlock_gather, ref.seqlock_gather_ref)
         return entries, rows
 
     def kernel_bytes(self, name, op):
@@ -1763,6 +1789,54 @@ class TableOps:
         return (p * (12 + 4 * k) + p * (4 + 4 * k)   # slot, live, link, des.
                 + distinct(args[0]) * (4 * k + 4)
                 + written * (4 * k + 4)), written
+
+
+def gather_sweep(smoke, gather, plain):
+    """`gather` (a checkout's `seqlock_gather`) at each row width k of
+    `GATHER_WIDTHS` on a table of n = 2**22 rows, q = 16384 uniform lanes:
+    held to `plain` once, then its device ms (each rep on a fresh copy of
+    the table: rows left in L2 by the rep before would halve its time),
+    the kernel's own duration in a profiler trace (`trace_us`, without the
+    gaps between launches), its ms with the launch, the plain version's
+    ms, `index_select` of the same rows, and its bound: the index, each
+    distinct row with its meta pair, and the outputs, over 3.35 TB/s.
+    Returns {k: row}."""
+    torch = smoke.torch
+    gen = torch.Generator(device=smoke.dev).manual_seed(4000)
+    idx = torch.randint(0, N, (P,), generator=gen, device=smoke.dev,
+                        dtype=torch.int32)
+    idx64 = idx.to(torch.int64)
+    distinct = int(torch.unique(idx).numel())
+    rows = {}
+    for k in GATHER_WIDTHS:
+        data = torch.randint(-2 ** 31, 2 ** 31, (N, k), generator=gen,
+                             device=smoke.dev, dtype=torch.int32)
+        meta = torch.randint(0, 2 ** 31, (N, 2), generator=gen,
+                             device=smoke.dev, dtype=torch.int32)
+        meta[:, 1] = torch.rand(N, generator=gen, device=smoke.dev) < 0.05
+        smoke.compare("seqlock_gather", gather(data, meta, idx),
+                      plain(data, meta, idx))
+
+        def fresh():
+            return data.clone(), meta.clone()
+
+        nbytes = P * 4 + distinct * (4 * k + 8) + P * (4 * k + 4)
+        rows[k] = {
+            "ms": smoke.device_ms(lambda d, m: gather(d, m, idx),
+                                  setup=fresh),
+            "with_launch_ms": smoke.time_ms(lambda d, m: gather(d, m, idx),
+                                            setup=fresh),
+            "plain_ms": smoke.time_ms(lambda d, m: plain(d, m, idx), reps=5,
+                                      warmup=1, setup=fresh),
+            "index_select_ms": smoke.device_ms(
+                lambda d, m: d.index_select(0, idx64), setup=fresh),
+            "trace_us": smoke.device_busy(
+                lambda d, m: (gather(d, m, idx), torch.cuda.synchronize()),
+                reps=10, setup=fresh).get("device_us_per_apply"),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        del data, meta
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4250,6 +4324,13 @@ def main() -> int:
             f"({row['bytes']} B, {row['written_rows']} rows written)")
     log(f"[table-timing] note: data.index_select(0, idx) "
         f"{table_kernels['seqlock_gather']['index_select_ms']:.5f} ms device")
+    for k, row in table_kernels["seqlock_gather"]["widths"].items():
+        log(f"[table-timing] seqlock_gather k={k:<2d} n=2**22 "
+            f"{row['ms']:.5f} ms device / {row['with_launch_ms']:.4f} ms with "
+            f"launch ({row['trace_us']} us in a trace), plain "
+            f"{row['plain_ms']:.4f} ms, index_select "
+            f"{row['index_select_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms "
+            f"({row['bytes']} B)")
     log(f"[table-timing] longest segment: {op['rounds']}")
     del op, table
     torch.cuda.empty_cache()

@@ -108,6 +108,10 @@ bool aligned16(const void* p) {
 
 // ---------------------------------------------------------------------------
 // seqlock_gather: vals[i] = data[idx[i]]; ok[i] = version even && mark == 0.
+// One memory trip after the index: nvcc issues the row's loads and the
+// meta pair together, before the first store.  Fixed row widths, an
+// 8-byte meta load, `__ldg` / `__stcs` and a select for dead lanes were
+// no faster on an H100 (PERF.md §6).
 // ---------------------------------------------------------------------------
 
 template <int V>

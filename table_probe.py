@@ -11,18 +11,22 @@ It builds `kernels/csrc/table_ops.cu` (and `engine_round.cu`, which
 `chiprun_out/<tag>.sass`), then runs the phase as `chip_smoke.py` does
 (`TableOps.kernel_vs_plain`, `main_path`, `timing`: every check and gate
 of the phase holds) and prints one JSON line: each entry point's ms,
-device-busy share, device operations and device µs, and each kernel's
-device, with-launch, plain and bound times.
+device-busy share, device operations and device µs, each kernel's
+device, with-launch, plain and bound times, and `seqlock_gather` at each
+width of `gather_sweep` (k = 1, 4, 8, 16 at n = 2**22).
 
 `--from DIR` runs the phase of another checkout (`DIR/chip_smoke.py` over
 `DIR/src/repro_torch`, e.g. the parent commit unpacked with `git
-archive`), its kernels built in its own `build/`.  Run two checkouts in
-turns in one call to compare them on the same card.
+archive`), its kernels built in its own `build/`; where its phase does
+not sweep the gather's widths, this checkout's `gather_sweep` times its
+kernel on the same inputs.  Run two checkouts in turns in one call to
+compare them on the same card.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -77,12 +81,21 @@ def main(argv) -> int:
     print(f"[{opts.tag}] {cases} kernel-vs-plain cases equal; path launches "
           f"{ {k: v for k, v in counts.items() if v} }", flush=True)
     entries, kernels = table.timing(op)
+    widths = kernels["seqlock_gather"].get("widths")
+    if widths is None:               # a phase without the sweep: this one's
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_here", ROOT / "chip_smoke.py")
+        here = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(here)
+        widths = here.gather_sweep(smoke, tk.seqlock_gather,
+                                   ref.seqlock_gather_ref)
     print(f"[{opts.tag}] " + json.dumps({
         "entries": {name: {"ms": row["ms"], **{
             k: row.get("profile", {}).get(k) for k in PROFILE_KEYS}}
             for name, row in entries.items()},
         "kernels": {name: {k: row[k] for k in KERNEL_KEYS}
-                    for name, row in kernels.items()}}), flush=True)
+                    for name, row in kernels.items()},
+        "seqlock_gather_widths": widths}), flush=True)
     return 0
 
 

@@ -4,8 +4,8 @@ bit against their plain versions: the segment replay
 `engine_round.cu` and `cas_apply_rounds` in `table_ops.cu`), the
 round's prologue (its radix sort against `torch.sort(stable=True)`), fast
 round and epilogue (`engine_round.cu`), and the one-round table kernels
-of `table_ops.cu`: the SC and STORE/CAS commit rounds, the CacheHash probe
-and find (`ref.*_ref`).
+of `table_ops.cu`: the gather, the SC and STORE/CAS commit rounds, the
+CacheHash probe and find (`ref.*_ref`).
 
 There is no CUDA compiler or card here, so `tests/cuda_emu/cuda_runtime.h`
 stands in for the CUDA runtime: a block runs as one thread per CUDA thread,
@@ -22,7 +22,8 @@ results and links; the epilogue's lanes put back, its block-wide scans and
 the look-back between its tiles that carries the stats, its dirty-slot
 list; that the prologue leaves the epilogue's scratch ready; that
 every kernel leaves everything alone when the predicate says its branch
-is not taken; the commit rounds' two trips at every k (rows past the 16
+is not taken; the gather at the swept widths and between them, on
+16-byte vectors and word by word; the commit rounds' two trips at every k (rows past the 16
 words a lane holds), the CacheHash kernel at its instantiated widths and
 at run-time ones, the find's hash, clamp, cycles and max_chain.  Their speed, and what nvcc makes of them,
 only a card can show (`chip_smoke.py`).  Tolerance is zero."""
@@ -548,6 +549,8 @@ def test_kernel_round_matches_plain_round(libs, p, k, spectrum):
 # ---------------------------------------------------------------------------
 
 ROUND_KS = [1, 3, 4, 5, 16, 17, 20]        # 17, 20: rows past 16 words
+# the widths bench_atomics.py sweeps (1, 2, 4, 8, 16) and three others
+GATHER_KS = [1, 2, 3, 4, 5, 8, 16, 20]
 # (kw, vw): the shapes the CacheHash kernel is instantiated for, then two
 # it runs at run-time widths
 HASH_SHAPES = [(1, 1), (2, 2), (4, 2), (1, 3), (3, 1), (2, 0)]
@@ -619,6 +622,47 @@ def test_commit_round_matches_plain(libs, k, round_kind):
     same((got_d, got_m, succ, wit), want, f"{round_kind} k={k}")
     assert want[2].any() and not want[2].all()
     assert (want[1][:, 0] == 0).any()                   # a version wrapped
+
+
+def placed(t, off):
+    """A copy of t in fresh memory, `off` words past a 64-byte boundary."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype)
+    assert buf.data_ptr() % 64 == 0
+    out = buf[off:off + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+GATHER_OFFSETS = ["none", "data", "vals", "meta"]
+
+
+@pytest.mark.parametrize("offset", GATHER_OFFSETS)
+@pytest.mark.parametrize("k", GATHER_KS)
+def test_seqlock_gather_matches_plain(libs, k, offset):
+    """The gather over 300 lanes (the last block partial): locked, marked
+    and wrapping rows, dead lanes at -1, n and n + 7; values and ok bit for
+    bit against the plain gather.  With every operand aligned it reads
+    16-byte row vectors where k % 4 == 0; data or vals one word off
+    (`offset`) makes it read the row word by word.  (A 16-byte access
+    that is not aligned faults on the card, not here: `chip_smoke.py`
+    runs the word path on shifted tables there.)"""
+    q = 300
+    rng = np.random.default_rng(k * 13 + GATHER_OFFSETS.index(offset))
+    data, meta = commit_table(rng, 400, k)
+    n = data.shape[0]
+    idx = rng.integers(0, n, q).astype(np.int32)
+    idx[[0, 150, 299]] = [-1, n, n + 7]
+    d, m, ix = words(data), words(meta), ints(idx)
+    want = ref.seqlock_gather_ref(d, m, ix)
+    vals, ok = (torch.full((q, k), 7, dtype=torch.int32),
+                torch.full((q, 1), 7, dtype=torch.int32))
+    d, m, vals = (placed(t, int(offset == name)) for t, name in
+                  ((d, "data"), (m, "meta"), (vals, "vals")))
+    assert libs["table_ops"].seqlock_gather(
+        d.data_ptr(), m.data_ptr(), n, k, ix.data_ptr(), q, vals.data_ptr(),
+        ok.data_ptr(), 0, None) == 0
+    same((vals, ok), want, f"k={k} offset={offset}")
+    assert want[1].any() and not want[1][1:150].all()
 
 
 @pytest.mark.parametrize("kw,vw", HASH_SHAPES)
