@@ -60,10 +60,9 @@ package, and runs these phases:
              kernel against its plain version at full width.  Then each
              entry point's and kernel's time, the plain versions', the
              round loop's it replaced, the device-busy share and device
-             operations; a `cachehash_find` call must make exactly one;
-             and `seqlock_gather` at k = 1, 4, 8, 16 on n = 2**22 tables
-             (`gather_sweep`), each width held to its plain version once
-             and timed beside it, its bound and `index_select`.
+             operations; a `cachehash_find` call must make exactly one.
+             (`table_probe.py` runs this phase alone, and times
+             `seqlock_gather` at k = 1, 4, 8, 16 on n = 2**22 tables.)
   4. timing  per layout and batch (a), (c), (d): one `apply` (donate)
              captured in a CUDA graph and replayed once, which must equal
              the eager `apply` and the numpy oracle (a capture that fails
@@ -203,7 +202,39 @@ package, and runs these phases:
              one-crossing step's reads gated to the CPU's pinned 4 and
              15, three plain decode steps profiled for their device
              operations and busy share) and a split run (FIND, gather,
-             forward, append, bookkeeping, sampling).
+             forward, append, bookkeeping, sampling).  Between them,
+             with the counts reset, `run_to_completion` and
+             `run_pipelined` (`runtime.Executor`: admission and decode as
+             two streams) on fresh engines: tokens identical to the
+             checked run's, wall time and tokens/s of each; the pipelined
+             run's round and `flash_attention_wgmma` launches join the
+             kernels line.
+  12. runtime
+             the oversubscribed executor (`runtime.Executor` over
+             `LocalTarget`) on the four lock-free layouts at
+             `AtomicSpec(2**22, 4, p_max=2048)`, initial words from a seed,
+             with the counts reset just before and read just after (the
+             four round kernels and `digest_rows` must have run; their
+             launches join the kernels line): `bench_oversub.py`'s sweep at
+             card scale (slots 2, factor 1 / 2 / 4 / 8, so 2 / 4 / 8 / 16
+             `SyntheticStream`s, 96 batches of 2048 lanes split evenly,
+             uniform and hot: 4 cells, half the lanes), per cell a checked
+             run (host syncs seen by `torch.cuda.set_sync_debug_mode` and
+             tensor-to-host reads counted: must be 0 per issue), two timed
+             runs (wall, Mops/s, `x_of_f1`) and a profiled one (device-busy
+             share), every run ending in the first run's table and
+             versions; the factor-4 hot history replayed through
+             `runtime.replay_history` (every delivered value and success,
+             the final table and versions); one `McasStream` (T = 4096, W
+             = 4 on the lower half of `AtomicSpec(2**22, 4, p_max=16384)`)
+             beside two ops streams on the upper half, equal to `mcas`
+             alone and to the replay; with BIGATOMIC_GUARD=on
+             `guard.chaos.run_chaos` (3 streams, 8 batches, one checkpoint
+             fault, a temporary `checkpoint_dir`) with `verify_chaos` ok,
+             the scrub pause per boundary; a `preempt` fault, a fresh
+             executor resumed from the disk checkpoint ending in the
+             uninterrupted run's table; a checkpoint's write and restore
+             times.
 
 Exits non-zero on any failure, without the result line.  On success the
 last lines are the card (nvidia-smi), a JSON line with one entry per
@@ -298,7 +329,6 @@ LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy",
 ROUND_FIRST_KERNELS = ("round_prologue_kernel", "round_epilogue_kernel")
 SORT_SPECTRA = ("uniform", "zipf", "all_same", "all_idle", "out_of_range",
                 "int32")
-GATHER_WIDTHS = (1, 4, 8, 16)       # of bench_atomics.py's k sweep
 
 
 def log(*args):
@@ -1726,8 +1756,6 @@ class TableOps:
         rows["seqlock_gather"]["index_select_ms"] = s.device_ms(
             lambda d, m: d.index_select(0, idx64),
             setup=fresh("pre_update_uniform"))
-        rows["seqlock_gather"]["widths"] = gather_sweep(
-            s, tk.seqlock_gather, ref.seqlock_gather_ref)
         return entries, rows
 
     def kernel_bytes(self, name, op):
@@ -1791,54 +1819,6 @@ class TableOps:
                 + written * (4 * k + 4)), written
 
 
-def gather_sweep(smoke, gather, plain):
-    """`gather` (a checkout's `seqlock_gather`) at each row width k of
-    `GATHER_WIDTHS` on a table of n = 2**22 rows, q = 16384 uniform lanes:
-    held to `plain` once, then its device ms (each rep on a fresh copy of
-    the table: rows left in L2 by the rep before would halve its time),
-    the kernel's own duration in a profiler trace (`trace_us`, without the
-    gaps between launches), its ms with the launch, the plain version's
-    ms, `index_select` of the same rows, and its bound: the index, each
-    distinct row with its meta pair, and the outputs, over 3.35 TB/s.
-    Returns {k: row}."""
-    torch = smoke.torch
-    gen = torch.Generator(device=smoke.dev).manual_seed(4000)
-    idx = torch.randint(0, N, (P,), generator=gen, device=smoke.dev,
-                        dtype=torch.int32)
-    idx64 = idx.to(torch.int64)
-    distinct = int(torch.unique(idx).numel())
-    rows = {}
-    for k in GATHER_WIDTHS:
-        data = torch.randint(-2 ** 31, 2 ** 31, (N, k), generator=gen,
-                             device=smoke.dev, dtype=torch.int32)
-        meta = torch.randint(0, 2 ** 31, (N, 2), generator=gen,
-                             device=smoke.dev, dtype=torch.int32)
-        meta[:, 1] = torch.rand(N, generator=gen, device=smoke.dev) < 0.05
-        smoke.compare("seqlock_gather", gather(data, meta, idx),
-                      plain(data, meta, idx))
-
-        def fresh():
-            return data.clone(), meta.clone()
-
-        nbytes = P * 4 + distinct * (4 * k + 8) + P * (4 * k + 4)
-        rows[k] = {
-            "ms": smoke.device_ms(lambda d, m: gather(d, m, idx),
-                                  setup=fresh),
-            "with_launch_ms": smoke.time_ms(lambda d, m: gather(d, m, idx),
-                                            setup=fresh),
-            "plain_ms": smoke.time_ms(lambda d, m: plain(d, m, idx), reps=5,
-                                      warmup=1, setup=fresh),
-            "index_select_ms": smoke.device_ms(
-                lambda d, m: d.index_select(0, idx64), setup=fresh),
-            "trace_us": smoke.device_busy(
-                lambda d, m: (gather(d, m, idx), torch.cuda.synchronize()),
-                reps=10, setup=fresh).get("device_us_per_apply"),
-            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
-        del data, meta
-        torch.cuda.empty_cache()
-    return rows
-
-
 # ---------------------------------------------------------------------------
 # Phase 5: the integrity-scrub path (guard, runtime.LocalTarget).
 # ---------------------------------------------------------------------------
@@ -1898,7 +1878,7 @@ class GuardPhase:
         target = self.runtime.LocalTarget(spec, initial, device=dev)
         ctx = atomics.init_ctx(P, K, device=dev)
         batch_a = s.main_batch("a_distinct_all_kinds", rng, initial, None)
-        target.issue(convert.op_batch(batch_a, dev), ctx)
+        target.issue(s.engine.OpBatch(*batch_a), ctx)
         scrubber = self.guard.Scrubber(spec, device=dev)
         ckpt = target.snapshot()
         scrubber.set_checkpoint(ckpt)
@@ -1906,9 +1886,10 @@ class GuardPhase:
 
         # a STORE batch to distinct cells
         dirty = rng.choice(N, GUARD_STORES, replace=False).astype(np.int32)
-        stores = atomics.stores(dirty, rng.integers(
-            0, 2 ** 32, (GUARD_STORES, K), dtype=np.uint32), k=K, device=dev)
-        store_success = target.issue(stores, None).result.success
+        stores = s.engine.OpBatch(*convert.to_numpy(atomics.stores(
+            dirty, rng.integers(0, 2 ** 32, (GUARD_STORES, K),
+                                dtype=np.uint32), k=K, device="cpu")))
+        store_success = target.issue(stores, None).wait().host_result()[1]
         scrubber.note_results(stores, store_success)
         baseline = scrubber.digest_of(target)
         snap = target.snapshot()
@@ -1961,9 +1942,9 @@ class GuardPhase:
         slot = np.concatenate([dirty_v, rng.choice(N, P - half)])
         slot = slot[rng.permutation(P)].astype(np.int32)
         ops = s.update_mix(rng, slot, P, K, logical)
-        masked, bad = scrubber.mask_ops(convert.op_batch(ops, dev))
+        masked, bad = scrubber.mask_ops(s.engine.OpBatch(*ops))
         want_bad = np.isin(slot, dirty_v) & (ops[0] != 3)
-        if bad is None or not np.array_equal(bad.cpu().numpy(), want_bad):
+        if bad is None or not np.array_equal(bad, want_bad):
             self.fail(f"{strategy}: mask_ops masked the wrong lanes")
         h = target.issue(masked, None)
         masked_np = (np.where(want_bad, 3, ops[0]).astype(np.int32),
@@ -1972,18 +1953,18 @@ class GuardPhase:
                 np.zeros((P, K), np.uint32), np.zeros(P, bool))
         o_data, o_ver, _, o_res = s.engine.apply_ops_reference(
             logical, versions, ctx0, masked_np)
-        success = h.result.success.cpu().numpy()
+        value, success = h.wait().host_result()
         if success[want_bad].any():
             self.fail(f"{strategy}: a poisoned lane reported success")
-        if not (np.array_equal(success, o_res.success) and np.array_equal(
-                s.np_words(h.result.value), o_res.value)):
+        if not (np.array_equal(success, o_res.success)
+                and np.array_equal(value, o_res.value)):
             self.fail(f"{strategy}: mask_ops batch differs from the oracle")
         snap = target.snapshot()
         if not (np.array_equal(s.np_words(snap["logical"]), o_data)
                 and np.array_equal(s.np_words(snap["versions"]), o_ver)):
             self.fail(f"{strategy}: table after the batch differs from the "
                       "oracle")
-        scrubber.note_results(masked, h.result.success)
+        scrubber.note_results(masked, success)
         second = scrubber.scrub(target, round_idx=2,
                                 baseline=scrubber.digest_of(target))
         if not second.clean or second.poisoned_total != half:
@@ -3533,6 +3514,383 @@ def txn_phase(smoke, tk, prefill, launches_main):
 # CacheHash page table, the BigQueue rings and the transactional map).
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 12: the oversubscribed executor (runtime, checkpoint, guard.chaos).
+# ---------------------------------------------------------------------------
+
+RT_P, RT_SLOTS, RT_BATCHES = 2048, 2, 96     # bench_oversub.py at card scale
+RT_FACTORS = (1, 2, 4, 8)                     # S = 2, 4, 8, 16 streams
+RT_MIXES = {"uniform": (0, 0.0), "hot": (4, 0.5)}   # baseline.py:120-121
+RT_CHAOS_STREAMS, RT_CHAOS_BATCHES = 3, 8
+RT_MCAS_OPS_BATCHES = 12                      # each ops stream beside MCAS
+
+
+class RuntimePhase:
+    """Phase 12: `runtime.Executor` over `LocalTarget` at the main path's
+    table size, per layout (see `runtime_phase`)."""
+
+    def __init__(self, smoke, mods):
+        self.s, self.torch, self.dev = smoke, smoke.torch, smoke.dev
+        self.runtime, self.chaos, self.mcas = mods
+        # launches of the comparison runs (`mcas` alone), which the
+        # phase's count leaves out
+        self.uncounted = {}
+
+    def fail(self, what):
+        raise SystemExit(f"runtime: {what}")
+
+    def spec(self, strategy):
+        return self.s.atomics.AtomicSpec(N, K, strategy, p_max=RT_P)
+
+    def table(self, target):
+        """(logical, versions) of a target as numpy uint32."""
+        return (self.s.np_words(self.s.engine.logical(target.spec,
+                                                      target.state)),
+                self.s.np_words(target.state.version))
+
+    def streams(self, factor, mix, seed, **kw):
+        hot_cells, hot_frac = RT_MIXES[mix]
+        n_streams = RT_SLOTS * factor
+        return [self.runtime.SyntheticStream(
+            f"s{i}", seed=seed + i, n=N, k=K, width=RT_P,
+            n_batches=RT_BATCHES // n_streams, hot_cells=hot_cells,
+            hot_frac=hot_frac, **kw) for i in range(n_streams)]
+
+    def executor(self, strategy, init_dev, factor, mix, seed, **kw):
+        target = self.runtime.LocalTarget(self.spec(strategy),
+                                          init_dev.clone(), device=self.dev)
+        return self.runtime.Executor(
+            target, self.streams(factor, mix, seed), slots=RT_SLOTS,
+            oversubscription=factor, **kw)
+
+    def counted_run(self, ex):
+        """`ex.run()` with every host sync the card sees counted
+        (`set_sync_debug_mode("warn")`: reads and blocking uploads) and
+        every tensor-to-host read (`counting_host_reads`); waits on the
+        rounds' own events are neither.  Returns (report, syncs, reads,
+        wall s)."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught, \
+                counting_host_reads(torch) as reads:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rep = ex.run()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        syncs = [str(w.message) for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        return rep, syncs, reads["n"], wall
+
+    # -- 1 and 2: the sweep, its syncs, its replay ---------------------------
+
+    def sweep(self, strategy, si):
+        """Every (factor, mix) cell of the layout: a checked run (host syncs
+        and reads counted, must be 0; the factor-4 hot run replayed through
+        `runtime.replay_history`), two timed runs (the faster counts), a
+        profiled run (device-busy share); every run must end in the first
+        run's table and versions."""
+        rng = np.random.default_rng(12000 + si)
+        init = rng.integers(0, 2 ** 32, (N, K), dtype=np.uint32)
+        init_dev = self.s.words(init)
+        rows = {}
+        for mix in RT_MIXES:
+            base = None
+            for factor in RT_FACTORS:
+                name = f"f{factor}_{mix}"
+                seed = 100 * si + 10 * factor
+                ex = self.executor(strategy, init_dev, factor, mix, seed)
+                rep, syncs, reads, _ = self.counted_run(ex)
+                issues = rep["issues"]
+                if issues != RT_BATCHES:
+                    self.fail(f"{strategy} {name}: {issues} issues, not "
+                              f"{RT_BATCHES}")
+                if syncs or reads:
+                    self.fail(f"{strategy} {name}: {len(syncs)} host syncs "
+                              f"and {reads} host reads over {issues} "
+                              f"issues, not 0: {syncs[:3]}")
+                want = self.table(ex.target)
+                replay_s = None
+                if factor == 4 and mix == "hot":
+                    t = time.perf_counter()
+                    oracle = self.runtime.replay_history(
+                        N, K, [RT_P] * len(ex.streams), ex.history,
+                        initial=init)
+                    replay_s = time.perf_counter() - t
+                    if not (np.array_equal(oracle.data, want[0])
+                            and np.array_equal(oracle.version, want[1])):
+                        self.fail(f"{strategy} {name}: the table differs "
+                                  "from the replay of its history")
+                del ex
+                walls = []
+                for _ in range(2):
+                    ex = self.executor(strategy, init_dev, factor, mix, seed)
+                    self.torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    ex.run()
+                    self.torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t)
+                    self.same_table(ex, want, f"{strategy} {name} repeat")
+                    del ex
+                holder = {}
+
+                def setup():
+                    holder["ex"] = self.executor(strategy, init_dev, factor,
+                                                 mix, seed)
+                    return ()
+
+                def run():
+                    holder["ex"].run()
+                    self.torch.cuda.synchronize()
+
+                prof = self.s.device_busy(
+                    run, reps=1, setup=setup,
+                    trace=ROOT / "chiprun_out" / "runtime_trace.tmp.json")
+                self.same_table(holder.pop("ex"), want,
+                                f"{strategy} {name} profiled")
+                wall = min(walls)
+                mops = RT_BATCHES * RT_P / wall / 1e6
+                base = base or mops
+                rows[name] = {
+                    "factor": factor, "streams": RT_SLOTS * factor,
+                    "budget": RT_SLOTS * factor, "mix": mix,
+                    "wall_s": wall, "walls_s": walls, "mops_s": mops,
+                    "x_of_f1": mops / base,
+                    "device_busy_share": prof.get("device_busy_share",
+                                                  prof.get("error")),
+                    "device_us_per_run": prof.get("device_us_per_apply"),
+                    "issues": issues, "host_syncs_per_issue": 0.0,
+                    "host_reads_per_issue": 0.0,
+                    "replay_s": replay_s}
+        del init_dev
+        self.torch.cuda.empty_cache()
+        return rows
+
+    def same_table(self, ex, want, what):
+        got = self.table(ex.target)
+        if not (np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1])):
+            self.fail(f"{what}: the table or versions differ from the "
+                      "first run's")
+
+    # -- 3: a round stream beside two ops streams ------------------------------
+
+    def mcas_stream(self, strategy, si):
+        """One `McasStream` (T = 4096 txns of W = 4 uniform slots in the
+        lower half of the table, `TXN_MATCH` expecting the live values, on
+        the txn phase's `AtomicSpec(2**22, 4, p_max=16384)`)
+        with two `SyntheticStream`s on the upper half: its result equals
+        `mcas` alone on the same txns and table; the lower half equals
+        that run's, the upper half the replay of the ops streams."""
+        torch, engine = self.torch, self.s.engine
+        rng = np.random.default_rng(12100 + si)
+        init = rng.integers(0, 2 ** 32, (N, K), dtype=np.uint32)
+        half = N // 2
+        slot = txn_slots(rng, TXN_T, TXN_W, half)
+        expected = rng.integers(0, 2 ** 32, (TXN_T, TXN_W, K),
+                                dtype=np.uint32)
+        fresh = rng.random(TXN_T) < TXN_MATCH
+        expected[fresh] = init[slot[fresh]]
+        desired = rng.integers(0, 2 ** 32, (TXN_T, TXN_W, K),
+                               dtype=np.uint32)
+        txns = self.mcas.make_txns(slot, expected, desired, k=K,
+                                   device=self.dev)
+        # the txn phase's table: a round's batch is all T * W lanes
+        spec = self.s.atomics.AtomicSpec(N, K, strategy,
+                                         p_max=TXN_T * TXN_W)
+        before = self.s.tk.launch_counts()
+        alone_state, alone = self.mcas.mcas(
+            spec, engine.init(spec, init, device=self.dev), txns)
+        for name, c in self.s.tk.launch_counts().items():
+            self.uncounted[name] = self.uncounted.get(name, 0) \
+                + c - before[name]
+        alone_logical = self.s.np_words(engine.logical(spec, alone_state))
+        del alone_state
+        target = self.runtime.LocalTarget(spec, init, device=self.dev)
+        ops_streams = [self.runtime.SyntheticStream(
+            f"ops{i}", seed=12200 + i, n=N, k=K, width=RT_P,
+            n_batches=RT_MCAS_OPS_BATCHES, slot_lo=half) for i in range(2)]
+        mc = self.runtime.McasStream("mcas", txns)
+        ex = self.runtime.Executor(target, ops_streams + [mc],
+                                   slots=RT_SLOTS, oversubscription=4)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rep = ex.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        res = mc.result()
+        for field in ("success", "witness", "round", "attempts", "rounds"):
+            got, want = getattr(res, field), getattr(alone, field)
+            if not torch.equal(got, want):
+                self.fail(f"{strategy}: McasStream {field} differs from "
+                          "mcas alone")
+        logical, versions = self.table(target)
+        if not np.array_equal(logical[:half], alone_logical[:half]):
+            self.fail(f"{strategy}: the MCAS half differs from mcas alone")
+        oracle = self.runtime.replay_history(
+            N, K, [RT_P, RT_P], ex.history, initial=init)
+        if not (np.array_equal(oracle.data[half:], logical[half:])
+                and np.array_equal(oracle.version[half:],
+                                   versions[half:])):
+            self.fail(f"{strategy}: the ops half differs from the replay")
+        return {"wall_s": wall, "issues": rep["issues"],
+                "mcas_rounds": mc.rounds_run,
+                "committed": int(res.success.sum()),
+                "rounds": int(alone.rounds)}
+
+    # -- 4: faults, checkpoints, recovery ----------------------------------------
+
+    def faults(self, strategy, si, tmp):
+        """`run_chaos` (BIGATOMIC_GUARD=on) at n = 2**22, k = 4, width
+        2048, 3 streams, 8 batches, one checkpoint fault: `verify_chaos`
+        ok.  Then a preempt fault, a fresh executor that resumes from the
+        disk checkpoint, and a table equal to an uninterrupted run's; the
+        times of a disk checkpoint and of a restore."""
+        rng = np.random.default_rng(12300 + si)
+        init = rng.integers(0, 2 ** 32, (N, K), dtype=np.uint32)
+        ckdir = os.path.join(tmp, f"chaos_{strategy}")
+        t = time.perf_counter()
+        res = self.chaos.run_chaos(
+            si, strategy, n=N, k=K, width=RT_P,
+            n_streams=RT_CHAOS_STREAMS, n_batches=RT_CHAOS_BATCHES,
+            ckpt_faults=1, checkpoint_dir=ckdir, initial=init,
+            device=self.dev)
+        self.torch.cuda.synchronize()
+        chaos_s = time.perf_counter() - t
+        t = time.perf_counter()
+        verdict = self.chaos.verify_chaos(res)
+        verify_s = time.perf_counter() - t
+        if not verdict["ok"]:
+            self.fail(f"{strategy}: chaos verdict not ok: " + json.dumps(
+                {k: v for k, v in verdict.items()
+                 if k != "scrub_reports"}, default=str))
+        rep = res["report"]
+        scrubs = [s["latency_s"] for s in rep["scrubs"]]
+        del res
+        init_dev = self.s.words(init)
+
+        def run(ckpt=None, **kw):
+            ex = self.executor(strategy, init_dev, 2, "hot", 500 + si,
+                               checkpoint_dir=ckpt, **kw)
+            return ex, ex.run()
+
+        full, _ = run()
+        want = self.table(full.target)
+        del full
+        pdir = os.path.join(tmp, f"preempt_{strategy}")
+        ex1, rep1 = run(pdir, injector=self.runtime.FaultInjector(
+            [self.runtime.Fault(round=3, kind="preempt")]))
+        if not rep1["stopped"]:
+            self.fail(f"{strategy}: the preempted run did not stop")
+        self.torch.cuda.synchronize()
+        t = time.perf_counter()
+        ex1.checkpoint()                 # one more disk write, timed alone
+        ckpt_write_s = time.perf_counter() - t
+        del ex1
+        ex2 = self.executor(strategy, init_dev, 2, "hot", 500 + si,
+                            checkpoint_dir=pdir)
+        t = time.perf_counter()
+        resumed = ex2.resume()
+        self.torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        rep2 = ex2.run()
+        if rep2["stopped"]:
+            self.fail(f"{strategy}: the resumed run stopped")
+        self.same_table(ex2, want, f"{strategy} preempt + resume")
+        step_bytes = sum(
+            os.path.getsize(os.path.join(pdir, f"step_{resumed:08d}", f))
+            for f in os.listdir(os.path.join(pdir, f"step_{resumed:08d}")))
+        del ex2, init_dev
+        self.torch.cuda.empty_cache()
+        return {"chaos_s": chaos_s, "verify_s": verify_s,
+                "injected_data_faults": verdict["injected_data_faults"],
+                "quarantined": verdict["quarantined"],
+                "shed_streams": verdict["shed_streams"],
+                "erased_injections": len(verdict["erased_injections"]),
+                "scrubs": len(scrubs), "scrub_pause_s": scrubs,
+                "checkpoints": rep["checkpoints"],
+                "data_faults": [d["kind"] for d in rep["data_faults"]],
+                "resumed_round": resumed, "checkpoint_write_s": ckpt_write_s,
+                "restore_s": restore_s, "checkpoint_bytes": step_bytes}
+
+
+def runtime_phase(smoke, tk, launches_main):
+    """Phase 12, the oversubscribed executor on each lock-free layout at
+    `AtomicSpec(2**22, 4, p_max=2048)`: the sweep (slots 2, factor 1 / 2
+    / 4 / 8, uniform and hot, 96 batches of 2048 lanes; 0 host syncs per
+    issue), the factor-4 hot history replayed, a `McasStream` beside two
+    ops streams, then with the guard on the chaos run, preempt and
+    resume.  The launch counts are reset just before the checked path and
+    read just after, less those of `mcas` run alone for comparison: the
+    four round kernels and `digest_rows` must have run in the executor's
+    runs; their launches join `launches_main`."""
+    torch = smoke.torch
+    import tempfile
+    from repro_torch import runtime
+    from repro_torch.guard import chaos
+    from repro_torch.txn import mcas
+    rp = RuntimePhase(smoke, (runtime, chaos, mcas))
+    t0 = time.perf_counter()
+    out = {"sweep": {}, "mcas_stream": {}, "faults": {}}
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="runtime_ck_") as tmp:
+        for si, strategy in enumerate(STRATEGIES):
+            out["sweep"][strategy] = rows = rp.sweep(strategy, si)
+            for name, r in rows.items():
+                log(f"[runtime] {strategy:9s} {name:11s} S={r['streams']:2d} "
+                    f"budget {r['budget']:2d}: {r['wall_s'] * 1e3:.2f} ms "
+                    f"({r['mops_s']:.3f} Mops/s, x_of_f1 "
+                    f"{r['x_of_f1']:.3f}), device busy "
+                    f"{r['device_busy_share']}, host syncs / reads per "
+                    f"issue 0 / 0 over {r['issues']}"
+                    + (f"; replayed equal in {r['replay_s']:.1f} s"
+                       if r["replay_s"] is not None else ""))
+            out["mcas_stream"][strategy] = m = rp.mcas_stream(strategy, si)
+            log(f"[runtime] {strategy:9s} McasStream (T={TXN_T}, W={TXN_W}) "
+                f"beside 2 ops streams: {m['mcas_rounds']} rounds "
+                f"(mcas alone {m['rounds']}), {m['committed']} committed, "
+                f"equal to mcas alone; ops half equal to the replay; "
+                f"{m['wall_s'] * 1e3:.1f} ms, {m['issues']} issues")
+            prev = os.environ.get("BIGATOMIC_GUARD")
+            os.environ["BIGATOMIC_GUARD"] = "on"
+            try:
+                out["faults"][strategy] = f = rp.faults(strategy, si, tmp)
+            finally:
+                if prev is None:
+                    os.environ.pop("BIGATOMIC_GUARD", None)
+                else:
+                    os.environ["BIGATOMIC_GUARD"] = prev
+            log(f"[runtime] {strategy:9s} chaos ok: "
+                f"{f['injected_data_faults']} data faults {f['data_faults']}"
+                f", {f['quarantined']} quarantined, {f['scrubs']} scrubs "
+                f"(pause median {statistics.median(f['scrub_pause_s']) * 1e3:.2f}"
+                f" ms, max {max(f['scrub_pause_s']) * 1e3:.2f}), run "
+                f"{f['chaos_s']:.2f} s, verified in {f['verify_s']:.2f} s; "
+                f"preempt at round 3, resumed from round "
+                f"{f['resumed_round']} equal to the uninterrupted run; "
+                f"checkpoint write {f['checkpoint_write_s'] * 1e3:.1f} ms, "
+                f"restore {f['restore_s'] * 1e3:.1f} ms "
+                f"({f['checkpoint_bytes'] / 2 ** 20:.1f} MiB)")
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = {k: v - rp.uncounted.get(k, 0)
+                for k, v in tk.launch_counts().items()}
+    launches = {k: v for k, v in launches.items() if v}
+    for kname in ROUND_KERNELS + ("digest_rows",):
+        if not launches.get(kname):
+            raise SystemExit(f"runtime: {kname} never launched on the path")
+        launches_main[kname] += launches[kname]
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[runtime] phase in {out['phase_s']:.1f} s, launches {launches}")
+    return out
+
+
 SERVE_ARCH = "glm4_9b"                    # full width and depth, bf16
 SERVE_SEED = 11000
 SERVE_ENGINE = {"max_batch": 4, "page_size": 16, "n_pages": 256,
@@ -3724,6 +4082,39 @@ class ServingPhase:
         out = {rid: r.out_tokens for rid, r in eng.requests.items()}
         steps["retires"] = sum(r.done for r in eng.requests.values())
         return out, by_pos, steps, model
+
+    def pipelined(self, cfg, params, prompts, want):
+        """`run_to_completion` then `run_pipelined`, each on a fresh engine
+        over the six requests: both must give the checked run's tokens
+        (`want`).  Wall time, tokens/s and fused decode dispatches of
+        each.  The launch counts are set to 0 just before `run_pipelined`
+        and read just after: "launches" are that run's alone."""
+        tk = self.s.tk
+        runs = {}
+        for name in ("run_to_completion", "run_pipelined"):
+            eng = self.new_engine(cfg, params)
+            self.submit_all(eng, prompts)
+            self.torch.cuda.synchronize()
+            pipelined = name == "run_pipelined"
+            if pipelined:
+                tk.reset_launch_counts()
+            t = time.perf_counter()
+            got = getattr(eng, name)()
+            self.torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            if pipelined:
+                launches = {k: v for k, v in tk.launch_counts().items()
+                            if v}
+            if got != want:
+                diff = [rid for rid in want if got.get(rid) != want[rid]]
+                self.fail(f"{name}: tokens of requests {diff} differ from "
+                          "the checked run's")
+            new_tokens = sum(len(toks) for toks in got.values())
+            runs[name] = {"wall_s": wall, "new_tokens": new_tokens,
+                          "tokens_per_s": new_tokens / wall,
+                          "dispatches": eng.dispatch_count}
+            del eng
+        return {"runs": runs, "launches": launches}
 
     def check_table(self, eng, model):
         """The page table's contents equal the model's mapping; no physical
@@ -4149,6 +4540,21 @@ def serving_phase(smoke, tk, launches_main):
     log(f"[serving] reduced fp32 deepseek_7b engine on {', '.join(STRATEGIES)}: "
         f"greedy tokens ({fp32} per request) equal the dense path's "
         f"({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    pipelined = sp.pipelined(cfg, params, prompts, out)
+    pipe_launches = pipelined["launches"]
+    for kname in ROUND_KERNELS + (WGMMA,):
+        if not pipe_launches.get(kname):
+            raise SystemExit(f"serving: {kname} never launched in "
+                             "run_pipelined")
+        launches_main[kname] += pipe_launches[kname]
+    log(f"[serving] run_pipelined (runtime.Executor: admission and decode "
+        f"as two streams) tokens identical to run_to_completion and the "
+        f"checked run: " + ", ".join(
+            f"{name} {r['wall_s']:.2f} s ({r['tokens_per_s']:.1f} tokens/s, "
+            f"{r['dispatches']} fused decode dispatches)"
+            for name, r in pipelined["runs"].items())
+        + f"; launches {pipe_launches} ({time.perf_counter() - t:.1f} s)")
     timing = sp.timed_run(cfg, params, prompts)
     log(f"[serving-timing] prefill ms (t): " + ", ".join(
         f"{r['ms']:.1f} ({r['t']})" for r in timing["prefill_ms"]))
@@ -4184,7 +4590,7 @@ def serving_phase(smoke, tk, launches_main):
             "steps": steps_seen, "launches": serve_launches,
             "dense": dense, "tolerance": [SERVE_ATOL, SERVE_RTOL],
             "prefill_route": route, "fp32_layouts": fp32,
-            "timing": timing, "split": split, "phase_s": phase_s}
+            "pipelined": pipelined, "timing": timing, "split": split, "phase_s": phase_s}
 
 
 def main() -> int:
@@ -4324,13 +4730,6 @@ def main() -> int:
             f"({row['bytes']} B, {row['written_rows']} rows written)")
     log(f"[table-timing] note: data.index_select(0, idx) "
         f"{table_kernels['seqlock_gather']['index_select_ms']:.5f} ms device")
-    for k, row in table_kernels["seqlock_gather"]["widths"].items():
-        log(f"[table-timing] seqlock_gather k={k:<2d} n=2**22 "
-            f"{row['ms']:.5f} ms device / {row['with_launch_ms']:.4f} ms with "
-            f"launch ({row['trace_us']} us in a trace), plain "
-            f"{row['plain_ms']:.4f} ms, index_select "
-            f"{row['index_select_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms "
-            f"({row['bytes']} B)")
     log(f"[table-timing] longest segment: {op['rounds']}")
     del op, table
     torch.cuda.empty_cache()
@@ -4556,6 +4955,9 @@ def main() -> int:
     # -- 11. serving -------------------------------------------------------------
     serving_out = serving_phase(smoke, tk, launches_main)
 
+    # -- 12. runtime -------------------------------------------------------------
+    runtime_out = runtime_phase(smoke, tk, launches_main)
+
     # -- report ----------------------------------------------------------------
     ref = timings["cached_me"]
     rows = []
@@ -4620,6 +5022,7 @@ def main() -> int:
                              "variants": hash_out},
                "txn": txn_out,
                "serving": serving_out,
+               "runtime": runtime_out,
                "kernels": rows}
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     log(card)

@@ -24,7 +24,10 @@ device):
     L.
 The kernel tier's round (`kernels/engine_round.py`) and the layouts'
 `commit` read nothing back, so a kernel-tier `apply` on kinds that are the
-caller's contract can be captured in a CUDA graph.
+caller's contract can be captured in a CUDA graph.  `apply_round` takes
+host (numpy) ops, checks their kinds on the host, uploads them through
+pinned buffers and copies its results back the same way: such a round
+waits for nothing on the stream (the executor's issue path).
 
 Telemetry (`repro_torch.obs`, BIGATOMIC_OBS=counters): a round given
 `telem=` counts its batch into the device counters after it resolves it,
@@ -203,14 +206,17 @@ def sync_ops(kind, slots, desired=None, *, k: int, device="cuda") -> OpBatch:
 # Sequential oracle (numpy) — THE definition of correctness.
 # ---------------------------------------------------------------------------
 
-def apply_ops_reference(data: np.ndarray, version: np.ndarray, ctx, ops):
+def apply_ops_reference(data: np.ndarray, version: np.ndarray, ctx, ops, *,
+                        copy: bool = True):
     """Apply mixed table ops one at a time in lane order.  Pure numpy.
 
     Inputs are numpy arrays (words as uint32; see `repro_torch.convert`) or
     NamedTuples of them.  Returns (new_data, new_version, new_ctx,
-    ApplyResult-as-numpy)."""
-    data = np.array(data, copy=True)
-    version = np.array(version, copy=True)
+    ApplyResult-as-numpy).  `copy=False` updates `data` and `version` in
+    place (and returns them): for a long replay over a large table."""
+    if copy:
+        data = np.array(data, copy=True)
+        version = np.array(version, copy=True)
     c_slot = np.array(ctx[0], copy=True)
     c_ver = np.array(ctx[1], copy=True)
     c_val = np.array(ctx[2], copy=True)
@@ -701,6 +707,14 @@ def apply(spec: AtomicSpec, state: TableState, ops: OpBatch,
 
     Returns (state', ctx', ApplyResult, ApplyStats, Traffic)."""
     check_kinds(ops.kind, TABLE_KINDS, "table")
+    return apply_checked(spec, state, ops, ctx, donate=donate)
+
+
+def apply_checked(spec: AtomicSpec, state: TableState, ops: OpBatch,
+                  ctx: LinkCtx | None = None, *, donate: bool = False):
+    """`apply` after its kind check, which the caller has made (on the
+    host, before uploading the ops): reads nothing back to the host on the
+    kernel tier with `donate=True`, whatever device the kinds are on."""
     device = state.data.device
     ops = canonicalize_ops(ops, device)
     ctx = (init_ctx(ops.p, spec.k, device=device) if ctx is None
@@ -731,24 +745,50 @@ def run_round(impl, round_fn, state: TableState, ctx: LinkCtx, ops: OpBatch,
     return new_state, new_ctx, result, stats
 
 
+def upload_ops(ops: OpBatch, device) -> tuple[OpBatch, tuple]:
+    """Host ops (numpy) as canonical tensors on `device`; returns (ops,
+    staged buffers).
+
+    On a card each array is copied into a pinned host buffer and uploaded
+    with `non_blocking=True`, so the upload waits for nothing already
+    queued on the stream (a pageable upload waits for all of it).  The
+    staged buffers are returned: keep them referenced until the round that
+    reads them has run.  On the CPU the arrays are copied plainly."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return canonicalize_ops(ops, device), ()
+    staged = tuple(x.pin_memory() for x in canonicalize_ops(ops, "cpu"))
+    return OpBatch(*(t.to(device, non_blocking=True) for t in staged)), staged
+
+
 class RoundHandle:
     """A dispatched-but-not-awaited engine round.
 
     The outputs of `apply_round` may still be computing on the card; the
-    handle names the five outputs and records a CUDA event after them, so
-    an executor can chain `state`/`ctx` into the next round (same stream)
-    and `wait()` only when it needs the values on the host."""
+    handle names the five outputs, queues copies of the per-lane results
+    into pinned host buffers behind the round (non-blocking) and records a
+    CUDA event after them.  An executor can chain `state`/`ctx` into the
+    next round (same stream), and `wait()` then `host_result()` read the
+    results without touching the card: waiting on one round never waits
+    for rounds issued after it.  `staged` keeps the round's uploaded
+    inputs alive until the handle is dropped."""
 
-    __slots__ = ("state", "ctx", "result", "stats", "traffic", "_event")
+    __slots__ = ("state", "ctx", "result", "stats", "traffic", "_event",
+                 "_host", "_staged")
 
-    def __init__(self, state, ctx, result, stats, traffic):
+    def __init__(self, state, ctx, result, stats, traffic, *, staged=()):
         self.state = state
         self.ctx = ctx
         self.result = result
         self.stats = stats
         self.traffic = traffic
+        self._staged = staged
+        self._host = (result.value, result.success)
         self._event = None
         if state.data.is_cuda:
+            self._host = tuple(
+                torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                .copy_(x, non_blocking=True) for x in self._host)
             self._event = torch.cuda.Event()
             self._event.record()
 
@@ -761,13 +801,29 @@ class RoundHandle:
             self._event.synchronize()
         return self
 
+    def host_result(self) -> tuple[np.ndarray, np.ndarray]:
+        """(value uint32[p, k], success bool[p]) as numpy copies; call
+        after `wait()`."""
+        value, success = (x.numpy() for x in self._host)
+        return value.view(np.uint32).copy(), success.copy()
+
 
 def apply_round(spec: AtomicSpec, state, ops: OpBatch,
                 ctx: LinkCtx | None = None, *, donate: bool = False
                 ) -> RoundHandle:
-    """`apply` as an overlappable round: identical semantics, the outputs
-    wrapped in a `RoundHandle`."""
-    return RoundHandle(*apply(spec, state, ops, ctx, donate=donate))
+    """`apply` on host (numpy) ops as an overlappable round: identical
+    semantics, the outputs wrapped in a `RoundHandle`.  The ops are
+    kind-checked on the host and uploaded without waiting on the stream
+    (`upload_ops`), and the results come back the same way
+    (`host_result`): on the kernel tier with `donate=True`, the round
+    reads nothing back.  Ops already on a device go through `apply`."""
+    if isinstance(ops.kind, torch.Tensor):
+        raise TypeError("apply_round takes host (numpy) ops; `apply` takes "
+                        "tensors")
+    check_kinds(ops.kind, TABLE_KINDS, "table")
+    ops, staged = upload_ops(ops, state.data.device)
+    return RoundHandle(*apply_checked(spec, state, ops, ctx, donate=donate),
+                       staged=staged)
 
 
 def init(spec: AtomicSpec, initial=None, *, device="cuda") -> TableState:

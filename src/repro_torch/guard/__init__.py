@@ -17,12 +17,19 @@ garbage.
                kernel on a CUDA table).
   inject       seeded bit flips and torn writes, on the table or on a
                snapshot.
+  chaos        seeded harness composing random scheduling + data-plane
+               fault schedules over executor runs, replayed through the
+               port's sequential history replay (`runtime.replay`): the
+               zero-undetected-corruptions gate.
 
-The `BIGATOMIC_GUARD` gate and the chaos harness come with the runtime
-slice, which reads them.
+Gate: `BIGATOMIC_GUARD` = off (default) | on, read per executor
+construction.  Off, the executor builds no `Scrubber` and its issue path
+runs exactly the operations it runs without the guard.
 """
 
 from __future__ import annotations
+
+import os
 
 from repro_torch.guard.invariants import (  # noqa: F401
     check_invariants, check_version_list, violation_mask,
@@ -31,3 +38,14 @@ from repro_torch.guard.scrub import (  # noqa: F401
     ScrubReport, Scrubber, cell_digest, scrub,
 )
 
+
+def configured() -> str:
+    mode = os.environ.get("BIGATOMIC_GUARD", "off")
+    if mode not in ("off", "on"):
+        raise ValueError(f"BIGATOMIC_GUARD={mode!r}; expected off|on")
+    return mode
+
+
+def enabled() -> bool:
+    """True when the guard tier is requested (read per call)."""
+    return configured() == "on"

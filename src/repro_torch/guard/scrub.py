@@ -29,8 +29,15 @@ so every layout runs it through `kernels.scrub_digest.digest_rows`: the
 CUDA kernel on a CUDA table, the plain PyTorch digest on a CPU one.  The
 reference ties the kernel tier to the layouts that lower the engine round,
 a TPU-era coupling the port drops.  Masks, digests and
-the scrubber's poison and dirty sets stay on the table's device; only the
-slot lists of a report go to the host.
+the scrubber's poison set stay on the table's device; only the slot lists
+of a report go to the host.
+
+The ops of an issue are numpy arrays on the host until the target uploads
+them, and the scrubber works on them there: `mask_ops` masks host ops
+against a host copy of `poison` (refreshed by the drained scrub that
+changes it), and `note_results` of host results marks the `dirty` set,
+which lives on the host and goes to the device once a scrub.  An issue
+with the guard on therefore reads nothing back from the card.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch import convert
-from repro_torch.core.engine import CAS, IDLE, SC, STORE, canonicalize_ops
+from repro_torch.core.engine import CAS, IDLE, SC, STORE
 from repro_torch.core.layout import as_words, resolve_device
 from repro_torch.core.registry import get_strategy
 from repro_torch.guard import invariants as _inv
@@ -144,10 +151,11 @@ def scrub(spec, state, *, baseline=None, round_idx: int = 0) -> ScrubReport:
 # ---------------------------------------------------------------------------
 
 class Scrubber:
-    """Owns the guard state a run threads through: the sticky poison mask,
-    dirty-since-checkpoint tracking (what repair may touch), and the last
-    checkpoint's logical plane (what repair splices from).  All three are
-    tensors on `device`, the table's."""
+    """Owns the guard state a run threads through: the sticky poison mask
+    (a tensor on `device`, the table's, with a host copy for `mask_ops`),
+    dirty-since-checkpoint tracking (what repair may touch; a numpy mask
+    on the host) and the last checkpoint's logical plane (what repair
+    splices from, on `device`)."""
 
     def __init__(self, spec, *, n: int | None = None, device="cuda"):
         self.spec = spec
@@ -155,9 +163,9 @@ class Scrubber:
         self.device = resolve_device(device)
         self.poison = torch.zeros((self.n,), dtype=torch.bool,
                                   device=self.device)
+        self.poison_host = np.zeros((self.n,), bool)
         # no checkpoint yet: every cell is dirty
-        self.dirty = torch.ones((self.n,), dtype=torch.bool,
-                                device=self.device)
+        self.dirty = np.ones((self.n,), bool)
         self._ckpt = None                       # {"logical","versions"}
         self.reports: list[ScrubReport] = []
 
@@ -175,38 +183,36 @@ class Scrubber:
         and every cell becomes clean relative to it."""
         snap = convert.snapshot(table_snap, self.device)
         self._ckpt = {name: x.clone() for name, x in snap.items()}
-        self.dirty.zero_()
+        self.dirty[:] = False
 
     def note_results(self, ops, success) -> None:
         """Mark cells written by a retired batch dirty (STORE/CAS/SC that
-        reported success; failed writes don't move the cell).  No host
-        sync: lanes that wrote nothing mark a spare row."""
-        ops = canonicalize_ops(ops, self.device)
-        success = torch.as_tensor(success, device=self.device).bool()
-        kind, slot = ops.kind, ops.slot
-        wrote = ((kind == STORE) | (kind == CAS) | (kind == SC)) & success \
+        reported success; failed writes don't move the cell).  `ops` and
+        `success` are host (numpy) arrays."""
+        kind = np.asarray(ops.kind)
+        slot = np.asarray(ops.slot)
+        wrote = np.isin(kind, (STORE, CAS, SC)) & np.asarray(success, bool) \
             & (slot >= 0) & (slot < self.n)
-        hit = torch.zeros((self.n + 1,), dtype=torch.bool,
-                          device=self.device)
-        hit[torch.where(wrote, slot, self.n).long()] = True
-        self.dirty |= hit[:self.n]
+        self.dirty[slot[wrote]] = True
 
     def note_untracked(self) -> None:
         """A mutation the journal can't attribute per slot: conservatively
         dirty the whole table."""
-        self.dirty.fill_(True)
+        self.dirty[:] = True
 
     # -- poison contract ---------------------------------------------------
     def mask_ops(self, ops):
-        """Rewrite lanes aimed at quarantined cells to IDLE; returns
-        (masked_ops, bool[q] poisoned-lane mask or None).  The MASKED ops
-        are what gets issued, so those lanes report success=False."""
-        ops = canonicalize_ops(ops, self.device)
-        kind, slot = ops.kind, ops.slot
-        bad = self.poison[slot.clamp(0, self.n - 1).long()] & (kind != IDLE)
-        if not bool(bad.any()):                  # host sync
+        """Rewrite lanes of host (numpy) ops aimed at quarantined cells to
+        IDLE, on the host before any upload; returns (masked_ops, numpy
+        bool[q] poisoned-lane mask or None).  The MASKED ops are what gets
+        issued, so those lanes report success=False."""
+        kind = np.asarray(ops.kind)
+        slot = np.asarray(ops.slot)
+        bad = self.poison_host[np.clip(slot, 0, self.n - 1)] & (kind != IDLE)
+        if not bad.any():
             return ops, None
-        return ops._replace(kind=torch.where(bad, IDLE, kind)), bad
+        return ops._replace(
+            kind=np.where(bad, IDLE, kind).astype(kind.dtype)), bad
 
     # -- the pass ----------------------------------------------------------
     def scrub(self, target, *, round_idx: int, baseline) -> ScrubReport:
@@ -237,7 +243,8 @@ class Scrubber:
 
         detected = anomaly & ~self.poison
         contained = anomaly & self.poison
-        repairable = detected & ~self.dirty if self._ckpt is not None \
+        dirty = torch.from_numpy(self.dirty).to(self.device)
+        repairable = detected & ~dirty if self._ckpt is not None \
             else torch.zeros_like(anomaly)
         quarantine = detected & ~repairable
 
@@ -254,6 +261,7 @@ class Scrubber:
             # quarantined cell is structurally sound, just untrusted
             target.load({"logical": logical, "versions": versions})
             self.poison |= quarantine
+            self.poison_host = self.poison.cpu().numpy()
 
         report = ScrubReport(
             round=round_idx,

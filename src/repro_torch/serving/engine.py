@@ -28,11 +28,11 @@ same tokens as the reference from the same weights.  Temperature > 0 draws
 by Gumbel-max from a `torch.Generator` seeded with `seed`, on the engine's
 device: the draws cannot equal `jax.random`'s.
 
-Not ported yet: `run_pipelined` and the decoupled decode halves its
-streams drive (`dispatch_decode` / `finish_decode`; they need
-`runtime.Executor` and `runtime.streams`, ROADMAP Queue 1 item 7) and the
-mesh-sharded engine (`mesh=`, ROADMAP Queue 1 item 8).  Scope, as the reference's: causal
-full-attention archs.
+`run_pipelined` serves through `runtime.Executor`: admission
+(`admit_compute` / `commit_admissions`) and decode (`dispatch_decode` /
+`finish_decode`) as two decoupled streams, so prefills overlap the decode
+in flight.  Not ported yet: the mesh-sharded engine (`mesh=`, ROADMAP
+Queue 1 item 8).  Scope, as the reference's: causal full-attention archs.
 """
 
 from __future__ import annotations
@@ -142,6 +142,7 @@ class ServingEngine:
         # `_pending_retire` holds them meanwhile.
         self.txn_bookkeeping = txn_bookkeeping
         self._pending_retire: list[tuple[int, int]] = []
+        self._decode_inflight = False
         self.overload = overload
         self._overload_streak = 0
         self.shed_count = 0
@@ -210,10 +211,17 @@ class ServingEngine:
         return {r.rid: r.out_tokens for r in self.requests.values()}
 
     def run_pipelined(self, max_steps: int = 1000):
-        """Serving through `runtime.Executor`: not ported yet."""
-        raise NotImplementedError(
-            "run_pipelined needs runtime.Executor and runtime.streams, which "
-            "repro_torch does not port yet (ROADMAP Queue 1 item 7)")
+        """Serve through `runtime.Executor`: admission and decode run as
+        two DECOUPLED streams, so prefill forwards (device compute) overlap
+        the in-flight decode instead of serializing in front of it as
+        `step()` does.  Greedy sampling is batch-composition independent,
+        so per-request tokens are identical to `run_to_completion`."""
+        from repro_torch.runtime.executor import Executor
+        from repro_torch.runtime.streams import serving_streams
+        decode, admission = serving_streams(self)
+        ex = Executor(None, [admission, decode], slots=1, oversubscription=2)
+        ex.run(max_rounds=max_steps)
+        return {r.rid: r.out_tokens for r in self.requests.values()}
 
     # -- admission / prefill -------------------------------------------------
 
@@ -409,6 +417,34 @@ class ServingEngine:
             slot.new_tokens += 1
             if slot.new_tokens >= req.max_new_tokens:
                 self._retire(i)
+
+    # -- pipelined halves (runtime.streams drives these) ---------------------
+
+    @property
+    def decode_inflight(self) -> bool:
+        return self._decode_inflight
+
+    def dispatch_decode(self, live):
+        """Issue the fused decode for `live` slots WITHOUT consuming the
+        logits: the paged state is committed (chained for whatever issues
+        next) and the returned logits are a tensor still computing on the
+        card.  `finish_decode` completes the step; exactly one decode may be
+        in flight (the next step's input tokens depend on this one's)."""
+        if not self.fused:
+            raise RuntimeError("pipelined decode needs fused=True (the v1 "
+                               "4-dispatch path has nothing to overlap)")
+        if self._decode_inflight:
+            raise RuntimeError("a decode is already in flight; finish it "
+                               "before dispatching the next")
+        self._decode_inflight = True
+        return self._dispatch_decode(live)
+
+    def finish_decode(self, live, logits) -> None:
+        """Host half of a dispatched decode: sample, append tokens, retire
+        finished slots (their page-table deletes defer to the next
+        bookkeeping transaction, exactly as in `step()`)."""
+        self._finish_decode(live, logits)
+        self._decode_inflight = False
 
     # -- the decoupled admission halves -------------------------------------
 

@@ -13,20 +13,19 @@ It builds `kernels/csrc/table_ops.cu` (and `engine_round.cu`, which
 of the phase holds) and prints one JSON line: each entry point's ms,
 device-busy share, device operations and device µs, each kernel's
 device, with-launch, plain and bound times, and `seqlock_gather` at each
-width of `gather_sweep` (k = 1, 4, 8, 16 at n = 2**22).
+width of `gather_sweep` (k = 1, 4, 8, 16 at n = 2**22, held to its plain
+version at each width, then timed).
 
 `--from DIR` runs the phase of another checkout (`DIR/chip_smoke.py` over
 `DIR/src/repro_torch`, e.g. the parent commit unpacked with `git
-archive`), its kernels built in its own `build/`; where its phase does
-not sweep the gather's widths, this checkout's `gather_sweep` times its
-kernel on the same inputs.  Run two checkouts in turns in one call to
-compare them on the same card.
+archive`), its kernels built in its own `build/`; this script's
+`gather_sweep` times that checkout's kernel on the same inputs.  Run two
+checkouts in turns in one call to compare them on the same card.
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import subprocess
 import sys
@@ -38,6 +37,57 @@ PROFILE_KEYS = ("device_busy_share", "device_ops_per_apply",
                 "device_us_per_apply", "error")
 KERNEL_KEYS = ("ms", "with_launch_ms", "plain_ms", "bound_ms", "bytes",
                "written_rows")
+GATHER_WIDTHS = (1, 4, 8, 16)       # of bench_atomics.py's k sweep
+
+
+def gather_sweep(cs, smoke, gather, plain):
+    """`gather` (a checkout's `seqlock_gather`, with that checkout's
+    `chip_smoke` as `cs` and its `Smoke` as `smoke`) at each row width k
+    of `GATHER_WIDTHS` on a table of n = 2**22 rows, q = 16384 uniform
+    lanes: held to `plain` once, then its device ms (each rep on a fresh copy of
+    the table: rows left in L2 by the rep before would halve its time),
+    the kernel's own duration in a profiler trace (`trace_us`, without the
+    gaps between launches), its ms with the launch, the plain version's
+    ms, `index_select` of the same rows, and its bound: the index, each
+    distinct row with its meta pair, and the outputs, over 3.35 TB/s.
+    Returns {k: row}."""
+    torch = smoke.torch
+    N, P = cs.N, cs.P
+    gen = torch.Generator(device=smoke.dev).manual_seed(4000)
+    idx = torch.randint(0, N, (P,), generator=gen, device=smoke.dev,
+                        dtype=torch.int32)
+    idx64 = idx.to(torch.int64)
+    distinct = int(torch.unique(idx).numel())
+    rows = {}
+    for k in GATHER_WIDTHS:
+        data = torch.randint(-2 ** 31, 2 ** 31, (N, k), generator=gen,
+                             device=smoke.dev, dtype=torch.int32)
+        meta = torch.randint(0, 2 ** 31, (N, 2), generator=gen,
+                             device=smoke.dev, dtype=torch.int32)
+        meta[:, 1] = torch.rand(N, generator=gen, device=smoke.dev) < 0.05
+        smoke.compare("seqlock_gather", gather(data, meta, idx),
+                      plain(data, meta, idx))
+
+        def fresh():
+            return data.clone(), meta.clone()
+
+        nbytes = P * 4 + distinct * (4 * k + 8) + P * (4 * k + 4)
+        rows[k] = {
+            "ms": smoke.device_ms(lambda d, m: gather(d, m, idx),
+                                  setup=fresh),
+            "with_launch_ms": smoke.time_ms(lambda d, m: gather(d, m, idx),
+                                            setup=fresh),
+            "plain_ms": smoke.time_ms(lambda d, m: plain(d, m, idx), reps=5,
+                                      warmup=1, setup=fresh),
+            "index_select_ms": smoke.device_ms(
+                lambda d, m: d.index_select(0, idx64), setup=fresh),
+            "trace_us": smoke.device_busy(
+                lambda d, m: (gather(d, m, idx), torch.cuda.synchronize()),
+                reps=10, setup=fresh).get("device_us_per_apply"),
+            "bytes": nbytes, "bound_ms": nbytes / cs.HBM_BYTES_PER_S * 1e3}
+        del data, meta
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main(argv) -> int:
@@ -81,14 +131,8 @@ def main(argv) -> int:
     print(f"[{opts.tag}] {cases} kernel-vs-plain cases equal; path launches "
           f"{ {k: v for k, v in counts.items() if v} }", flush=True)
     entries, kernels = table.timing(op)
-    widths = kernels["seqlock_gather"].get("widths")
-    if widths is None:               # a phase without the sweep: this one's
-        spec = importlib.util.spec_from_file_location(
-            "chip_smoke_here", ROOT / "chip_smoke.py")
-        here = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(here)
-        widths = here.gather_sweep(smoke, tk.seqlock_gather,
-                                   ref.seqlock_gather_ref)
+    widths = gather_sweep(cs, smoke, tk.seqlock_gather,
+                          ref.seqlock_gather_ref)
     print(f"[{opts.tag}] " + json.dumps({
         "entries": {name: {"ms": row["ms"], **{
             k: row.get("profile", {}).get(k) for k in PROFILE_KEYS}}

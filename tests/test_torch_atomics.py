@@ -120,7 +120,8 @@ def test_apply_round_donate_and_fast_tier_counts():
                           device="cpu")
     ref = tatomics.apply(spec, tatomics.init(spec, device="cpu"), ops)
     state = tatomics.init(spec, device="cpu")
-    handle = tatomics.apply_round(spec, state, ops, donate=True)
+    handle = tatomics.apply_round(
+        spec, state, tatomics.OpBatch(*convert.to_numpy(ops)), donate=True)
     assert handle.ready() and handle.wait() is handle
     np.testing.assert_array_equal(handle.state.data.numpy(),
                                   ref[0].data.numpy())

@@ -421,16 +421,22 @@ _JAX_SCRIPT = textwrap.dedent("""
 """)
 
 
+def host_ops(kind, slot, expected=None, desired=None, k=2):
+    """A checked op batch as the host (numpy) arrays the scrubber's
+    `mask_ops` / `note_results` and `LocalTarget.issue` take."""
+    return engine.OpBatch(*convert.to_numpy(engine.make_ops(
+        kind, slot, expected, desired, k=k, device="cpu")))
+
+
 def port_api():
     return dict(
         AtomicSpec=atomics.AtomicSpec,
         LocalTarget=functools.partial(LocalTarget, device="cpu"),
         Scrubber=functools.partial(Scrubber, device="cpu"), scrub=scrub,
         inject_table_fault=inject.inject_table_fault, Fault=Fault,
-        make_ops=lambda kind, slot, exp, des, k: engine.make_ops(
-            kind, slot, exp, des, k=k, device="cpu"),
+        make_ops=host_ops,
         words=lambda x: convert.array(x, word=True),
-        bools=lambda x: x.numpy())
+        bools=lambda x: np.asarray(x, bool))
 
 
 @pytest.fixture(scope="module")
@@ -470,23 +476,25 @@ def test_scrubber_scenario_matches_reference(jax_scenarios, strategy):
 
 
 def test_scrubber_tracks_dirty_cells_on_device():
+    """Host ops and results mark the host `dirty` mask; `mask_ops` masks
+    host ops against the host copy of the device `poison`."""
     spec = atomics.AtomicSpec(8, 2, "cached_me", p_max=4)
     sc = Scrubber(spec, device="cpu")
-    assert sc.dirty.all() and sc.dirty.device.type == "cpu"
+    assert sc.dirty.all() and isinstance(sc.dirty, np.ndarray)
+    assert sc.poison.device.type == "cpu"
     target = LocalTarget(spec, device="cpu")
     sc.set_checkpoint(target.snapshot())
     assert not sc.dirty.any()
-    ops = engine.make_ops([1, 2, 0, 1], [3, 5, 6, 3], None,
-                          np.ones((4, 2), np.uint32), k=2, device="cpu")
-    sc.note_results(ops, torch.tensor([True, False, True, True]))
-    assert sc.dirty.nonzero().flatten().tolist() == [3]
+    ops = host_ops([1, 2, 0, 1], [3, 5, 6, 3], None,
+                   np.ones((4, 2), np.uint32))
+    sc.note_results(ops, np.array([True, False, True, True]))
+    assert np.flatnonzero(sc.dirty).tolist() == [3]
     sc.note_untracked()
     assert sc.dirty.all()
     masked, bad = sc.mask_ops(ops)
     assert bad is None and masked.kind.tolist() == [1, 2, 0, 1]
-    sc.poison[3] = True
-    masked, bad = sc.mask_ops(engine.make_ops(
-        [1, 3, 0], [3, 3, 99], None, None, k=2, device="cpu"))
+    sc.poison[3] = sc.poison_host[3] = True
+    masked, bad = sc.mask_ops(host_ops([1, 3, 0], [3, 3, 99]))
     assert bad.tolist() == [True, False, False]   # IDLE stays; 99 clamps
     assert masked.kind.tolist() == [engine.IDLE, engine.IDLE, 0]
 
@@ -497,10 +505,10 @@ def test_local_target_snapshot_and_load_copy():
                          device="cpu")
     assert (target.kind, target.width, target.n_shards) == ("local", 8, 1)
     snap = target.snapshot()
-    target.issue(atomics.stores([1], [[7, 7]], k=2, device="cpu"), None)
+    target.issue(host_ops([1], [1], None, [[7, 7]]), None)
     assert snap["logical"][1].tolist() == [2, 3]        # a copy
     target.load(snap)
-    target.issue(atomics.stores([2], [[9, 9]], k=2, device="cpu"), None)
+    target.issue(host_ops([1], [2], None, [[9, 9]]), None)
     assert snap["logical"][2].tolist() == [4, 5]        # never aliased
     assert int(target.state.version[2]) == 2
     with pytest.raises(RuntimeError, match="fatal"):

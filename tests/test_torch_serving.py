@@ -2,8 +2,8 @@
 CacheHash page table, the BigQueue rings and the transactional map;
 `ServingEngine`) against the JAX reference.
 
-Each scenario of tests/test_serving.py (all but the pipelined one, which
-needs the executor) is written once against a small adapter (`_Pkg`) and
+Each scenario of tests/test_serving.py (the pipelined one through the
+port's `runtime.Executor`) is written once against a small adapter (`_Pkg`) and
 run twice: in one subprocess on the reference (with the jax alias its
 Pallas modules need, 4 threads: its time is XLA compiles), which also
 saves the weights its `init_params` drew; then in this process on the
@@ -17,7 +17,7 @@ results, the verdict of a failed admission and the verdicts of
 
 In process: the host reads of a decode step pinned (every way a tensor
 reaches the host counted), the greedy rule on ties, the seeded sampler,
-and the NotImplementedError stubs."""
+and the NotImplementedError stub of the mesh-sharded engine."""
 
 import dataclasses
 import os
@@ -302,6 +302,38 @@ def scenario_overload(P):
     return out
 
 
+def scenario_pipelined(P):
+    """test_pipelined_engine_matches_run_to_completion: the executor-driven
+    loop (`run_pipelined`, admission and decode as two streams) against
+    the sequential one on fresh engines over the same requests."""
+    cfg = P.cfg()
+    params = P.params("pipelined", cfg, 4)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, t).astype(np.int32)
+               for t in (13, 7, 5)]
+
+    def fresh():
+        eng = P.engine(cfg, params, max_batch=2, n_pages=24, page_size=4,
+                       max_pages_per_seq=8)
+        for rid, p in enumerate(prompts):
+            eng.submit(P.Request(rid=rid, prompt=p, max_new_tokens=4 + rid))
+        return eng
+
+    a = fresh()
+    want = a.run_to_completion()
+    b = fresh()
+    free0 = len(b.paged.free)
+    got = b.run_pipelined()
+    out = {"dispatch_sequential": np.asarray(a.dispatch_count),
+           "free_change": np.asarray(len(b.paged.free) - free0),
+           "pending_retire": np.asarray(len(b._pending_retire))}
+    for rid in sorted(want):
+        tokens(out, f"sequential{rid}", want[rid])
+        tokens(out, f"pipelined{rid}", got[rid])
+    P.record_engine(out, "engine", b)
+    return out
+
+
 SCENARIOS = {
     "dense_match": (scenario_dense_match, ()),
     "two_concurrent": (scenario_two_concurrent, ()),
@@ -311,6 +343,7 @@ SCENARIOS = {
     "frees_before_admission": (scenario_frees_before_admission, ()),
     "failed_admission": (scenario_failed_admission, ()),
     "overload": (scenario_overload, ()),
+    "pipelined": (scenario_pipelined, ()),
 }
 
 
@@ -371,6 +404,16 @@ def test_scenario_matches_reference(name, reference, monkeypatch):
     for key in got:                       # the reference test's own checks
         if key.startswith("paged") and f"dense{key[5:]}" in got:
             np.testing.assert_array_equal(got[key], got[f"dense{key[5:]}"])
+        if key.startswith("pipelined"):
+            np.testing.assert_array_equal(got[key],
+                                          got[f"sequential{key[9:]}"])
+    if name == "pipelined":
+        # decoupling may cost at most one extra fused step per admission
+        # wave, never fewer; every page recycled
+        seq = int(got["dispatch_sequential"])
+        assert seq <= int(got["engine/dispatch"]) <= seq + 2
+        assert int(got["free_change"]) == 0
+        assert int(got["pending_retire"]) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -476,13 +519,33 @@ def test_temperature_sampling_draws_from_the_seeded_generator():
     assert len(np.unique(draws[0])) > 20            # spread over the vocab
 
 
+def test_run_pipelined_serves_requests_waiting_when_every_slot_retires():
+    """Every slot retires in one step while requests wait: the admission
+    stream stays not done until its commit lands, so the waiting requests
+    are decoded to the end, as `run_to_completion` decodes them.  (The
+    reference's `run_pipelined` stops with them at their first token:
+    ROADMAP.md, Queue 3.)"""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 64, t).astype(np.int32) for t in (5, 6, 7, 8)]
+
+    def fresh():
+        eng = _engine()
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=3))
+        return eng
+
+    want = fresh().run_to_completion()
+    eng = fresh()
+    assert eng.run_pipelined() == want
+    assert all(len(toks) == 3 for toks in want.values())
+    assert not eng.decode_inflight and not eng._pending_retire
+
+
 def test_unported_serving_paths_raise_not_implemented():
-    """run_pipelined (ROADMAP Queue 1 item 7), a mesh-sharded engine or
-    page table (item 8)."""
+    """A mesh-sharded engine or page table (ROADMAP Queue 1 item 8)."""
     from repro_torch.serving import paged_kv as pk
     eng = _engine()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        eng.run_pipelined()
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         pk.make_spec(eng.cfg, 16, 4, 2, n_shards=2)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
