@@ -235,6 +235,34 @@ package, and runs these phases:
              executor resumed from the disk checkpoint ending in the
              uninterrupted run's table; a checkpoint's write and restore
              times.
+  13. model families
+             the MoE, SSM and hybrid configs at their published widths
+             through `launch.steps` (`make_prefill_step`, then 8 greedy
+             `make_serve_step` steps), weights drawn on the card from a
+             seeded generator at the reference's scales, one config at a
+             time, freed before the next: mixtral_8x7b (16 of 32 layers,
+             bf16, b 1, t 6144 past its window 4096: a ring cache; cf
+             1.25, C = 1920) and in fp32 at 2 layers, llama4_maverick (1
+             of 48 layers: 128 experts, top-1, b 2, t 2048, C = 40),
+             mamba2_780m (48 layers, b 2, t 2048: 8 SSD chunks) in bf16
+             and fp32, recurrentgemma_9b (38 layers, b 2, t 3072 past its
+             window 2048, hd 256) and in fp32 at one period (3 layers, b
+             1, t 4096, the 3xTF32 kernel past hd 128).  With the counts
+             reset just before each served run and read just after, each
+             config's attention kernel must have launched once an
+             attention layer (mamba2: none); the phase's
+             `flash_attention_wgmma` and `flash_attention_tf32x3`
+             launches join the kernels line.  Each decode is held to
+             `forward(mode="train")` over the prompt and the fed tokens
+             (`FAMILY_TOL`; MoE dropless, teacher-forced, positions whose
+             experts moved exempt within `ROUTE_NOISE`), greedy tokens
+             equal where the margin is clear; one MoE layer at mixtral's
+             full width in fp32 against the port on the CPU (capacity,
+             two groups, dropless: routing equal, outputs within
+             `MOE_TOL`).  Prefill ms (warm, and the first call), decode ms
+             a step, tokens/s, peak memory (above what the earlier phases
+             hold), and a decode step profiled (device operations, device
+             ms, busy share).
 
 Exits non-zero on any failure, without the result line.  On success the
 last lines are the card (nvidia-smi), a JSON line with one entry per
@@ -245,6 +273,7 @@ kernel, and `{"ok": true, "device": {...}}`.  Details go to
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -4593,6 +4622,541 @@ def serving_phase(smoke, tk, launches_main):
             "pipelined": pipelined, "timing": timing, "split": split, "phase_s": phase_s}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the model families (models/moe.py, ssm.py, rglru.py) served
+# through launch.steps (make_prefill_step + make_serve_step).
+# ---------------------------------------------------------------------------
+
+class FamilyCase(NamedTuple):
+    arch: str
+    layers: int           # depth kept of the config's published depth
+    b: int
+    t: int                # prompt length
+    dtype: str
+    kernel: str | None    # the attention kernel its prefill launches
+
+
+# Published widths; depth cut only where the weights would not fit the
+# card's 80 GB: mixtral's 32 layers are ~93 GB in bf16, one layer of
+# llama4's 128 experts ~32 GB (two layers with the embeddings ~69 GB);
+# in fp32 mixtral keeps 2 layers and recurrentgemma one period (rglru,
+# rglru, attn): ~13 and ~10 GB.
+FAMILY_CASES = {
+    # t > window 4096: the prefill keeps a ring cache; cf 1.25, C = 1920
+    "mixtral_8x7b": FamilyCase("mixtral_8x7b", 16, 1, 6144, "bfloat16",
+                               WGMMA),
+    # the same in fp32 at 2 layers (~13 GB): decode held to the full
+    # forward where bf16 noise cannot move an expert; 3xTF32 at hd 128
+    "mixtral_8x7b_fp32": FamilyCase("mixtral_8x7b", 2, 1, 6144, "float32",
+                                    TF32X3),
+    # 128 experts, top-1, C = 40
+    "llama4_maverick_400b_a17b": FamilyCase(
+        "llama4_maverick_400b_a17b", 1, 2, 2048, "bfloat16", WGMMA),
+    # 8 chunks of 256: the inter-chunk scan runs; no attention
+    "mamba2_780m": FamilyCase("mamba2_780m", 48, 2, 2048, "bfloat16",
+                              None),
+    # the same in fp32 (~3 GB): the SSD decode held to 1e-3
+    "mamba2_780m_fp32": FamilyCase("mamba2_780m", 48, 2, 2048, "float32",
+                                   None),
+    # t > window 2048; hd 256 on the wgmma kernel
+    "recurrentgemma_9b": FamilyCase("recurrentgemma_9b", 38, 2, 3072,
+                                    "bfloat16", WGMMA),
+    # the fp32 3xTF32 kernel past hd 128 (row 7c) on a client path
+    "recurrentgemma_9b_fp32": FamilyCase("recurrentgemma_9b", 3, 1, 4096,
+                                         "float32", TF32X3),
+}
+FAMILY_SEED = 13000
+FAMILY_STEPS = 8                     # greedy decode steps a config
+# Decode against the full forward over the same tokens, (atol, rtol,
+# row): |got - want| <= atol + rtol |want| + row * rms(want's row); tokens
+# must agree wherever the full forward's top-2 margin exceeds twice the
+# bound.  The bounds lie between what a sound decode and a faulty one read
+# (`families_probe.py` plants the faults; a reading is the row factor the
+# worst position needs, H100 80GB HBM3 at 700 W).  bf16: the serving
+# phase's SERVE_ATOL + SERVE_RTOL |want| alone fails sound runs (mamba2,
+# 48 layers: each rounds the residual to bf16 after another sum, and its
+# tied embedding of scale 1 gives logits an RMS of ~35), so a row term:
+# 2^-4, above the largest sound reading (mamba2 0.040; the others < 0.001)
+# and below the smallest fault one (mamba2 with the SSD state not written
+# back 0.078, with no recurrent entry written back 2.0).  recurrentgemma's
+# 38 bf16 layers dilute a stale RG-LRU state below bf16 noise (both faults
+# read 0); its fp32 twin catches both (errors 0.0017 and 0.098 against
+# 3.9e-5 sound).  fp32: 1e-3 + 1e-3 |want| (cuBLAS's products at M = 1 and
+# M = t + 8 and the 3xTF32 attention differ by ~1e-5 relative).
+FAMILY_TOL = {"bfloat16": (SERVE_ATOL, SERVE_RTOL, 2 ** -4),
+              "float32": (1e-3, 1e-3, 0.0)}
+# MoE: a position's decode is compared with the full forward only where
+# every layer chose the same experts for it.  At the reference's scales
+# (expert weights 1/sqrt(E)) a MoE layer's output has an RMS of ~7.7e3, so
+# the bf16 residual rounds in steps of hundreds: the router's
+# probabilities in decode and in the full forward differ by up to 0.0105
+# (mixtral, 16 layers), two experts that close may trade places, and the
+# position's logits then differ by O(1) (a row reading of 1.5).  A
+# position whose expert sets differ is exempt only if, at the first layer
+# where they do, the full forward's k-th and (k+1)-th probabilities are
+# within ROUTE_NOISE of its dtype: bf16 0.02, about twice that noise
+# (moves seen at gaps to 0.0047), so a wrong expert at a gap under it is
+# not seen in bf16 (one planted at 0.0195 passed); fp32 1e-4, 26 times
+# the fp32 noise (3.8e-6): a wrong expert planted at a gap of 0.0234 fails
+# there.
+ROUTE_NOISE = {"bfloat16": 0.02, "float32": 1e-4}
+# One MoE layer at mixtral's full width in fp32, on the card against the
+# port on the CPU: routing equal wherever each token's gaps between its
+# top k + 1 probabilities exceed MOE_MARGIN (ranks, keeps and dests up to
+# the first token that does not); outputs within MOE_TOL = (a, r):
+# a * rms(want) + r |want| (sums of 4096 and 14336 fp32 products in other
+# orders).
+MOE_LAYER_SHAPE = (2, 128)           # b, s: 256 tokens
+MOE_MARGIN = 1e-6
+MOE_TOL = (1e-4, 1e-4)
+
+
+class FamiliesPhase:
+    """Phase 13: mixtral_8x7b, llama4_maverick_400b_a17b, mamba2_780m and
+    recurrentgemma_9b (bf16; mixtral, mamba2 and recurrentgemma also in
+    fp32) at their published widths through `make_prefill_step` +
+    `make_serve_step` (see `families_phase`)."""
+
+    def __init__(self, smoke, mods):
+        self.s, self.torch, self.dev = smoke, smoke.torch, smoke.dev
+        (self.configs, self.tm, self.steps, self.moe, self.ssm,
+         self.common) = mods
+
+    def fail(self, what):
+        raise SystemExit(f"families: {what}")
+
+    def config(self, case):
+        return dataclasses.replace(
+            self.configs.get_config(case.arch), n_layers=case.layers,
+            param_dtype=case.dtype, compute_dtype=case.dtype)
+
+    def case(self, name, case, seed):
+        """Weights drawn on the card; the served run (prefill, then
+        FAMILY_STEPS greedy decode steps) with the launch counts reset
+        just before and read just after; then the decode held to the full
+        forward."""
+        torch = self.torch
+        cfg = self.config(case)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()     # by the earlier phases
+        t = time.perf_counter()
+        params = self.tm.init_params(cfg, seed=seed, device=self.dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        leaves = self.common.tree_leaves(params)
+        n_params = sum(x.numel() for x in leaves)
+        weight_gib = sum(x.numel() * x.element_size() for x in leaves) \
+            / 2 ** 30
+        del leaves
+        prompt = self.prompt(cfg, case, seed)
+        served = self.served_run(cfg, params, prompt)
+        served_peak = torch.cuda.max_memory_allocated()
+        n_attn = sum(k == "attn" for k in cfg.layer_kinds)
+        launched = served["launches"]
+        if case.kernel is not None and launched.get(case.kernel) != n_attn:
+            self.fail(f"{name}: {launched.get(case.kernel, 0)} launches of "
+                      f"{case.kernel}, not one per attention layer "
+                      f"({n_attn})")
+        if case.kernel is None and launched:
+            self.fail(f"{name}: launched {launched} without attention")
+        cfg_c, rows, routes = cfg, served["rows"], None
+        if cfg.is_moe:
+            cfg_c, rows, routes = self.decode_rows(cfg, params, prompt,
+                                                   served["tokens"])
+        check = self.consistency(cfg_c, params, prompt, served["tokens"],
+                                 rows, FAMILY_TOL[case.dtype], name, routes)
+        peak = torch.cuda.max_memory_allocated()
+        del params, rows, served["rows"]
+        torch.cuda.empty_cache()
+        steps_ms = served["step_ms"]
+        return {
+            "config": {"arch": case.arch, "layers": case.layers,
+                       "published_layers": self.configs.get_config(
+                           case.arch).n_layers,
+                       "d_model": cfg.d_model, "dtype": case.dtype,
+                       "b": case.b, "t": case.t},
+            "n_params": n_params, "weight_gib": weight_gib,
+            "init_s": init_s,
+            "prefill_ms": served["prefill_ms"],
+            "prefill_cold_ms": served["prefill_cold_ms"],
+            "decode_ms": steps_ms, "decode_profile": served["profile"],
+            "decode_ms_median": statistics.median(steps_ms),
+            "decode_tokens_per_s": case.b * len(steps_ms)
+            / (sum(steps_ms) / 1e3),
+            "prefill_tokens_per_s": case.b * case.t
+            / (served["prefill_ms"] / 1e3),
+            "peak_gib_served": (served_peak - held) / 2 ** 30,
+            "peak_gib": (peak - held) / 2 ** 30,
+            "held_by_earlier_phases_gib": held / 2 ** 30,
+            "launches": launched, "tokens": served["tokens"].tolist(),
+            "consistency": check}
+
+    def prompt(self, cfg, case, seed):
+        rng = np.random.default_rng(seed)
+        return self.torch.as_tensor(rng.integers(
+            0, cfg.vocab, (case.b, case.t)).astype(np.int32)).to(self.dev)
+
+    def decode_rows(self, cfg, params, prompt, tokens):
+        """(the config checked, the rows, the routing log or None): the
+        prefill's and each decode step's logits, teacher-forced with
+        `tokens`.  MoE: the full forward drops tokens and decode does not,
+        so the prefill and decode run dropless, to be held to a dropless
+        full forward, with each layer's expert choices logged."""
+        if not cfg.is_moe:
+            return cfg, self.teacher_forced(cfg, params, prompt, tokens), None
+        cfg = dataclasses.replace(cfg, moe_dropless=True)
+        with self.routing_log() as routes:
+            rows = self.teacher_forced(cfg, params, prompt, tokens)
+        return cfg, rows, routes
+
+    def served_run(self, cfg, params, prompt):
+        """make_prefill_step, then FAMILY_STEPS greedy make_serve_step
+        steps, each synchronised and timed on the host clock; the counts
+        reset just before and read just after.  Returns the prefill's and
+        each step's logits (fp32, for the consistency check), the tokens
+        fed ([b, FAMILY_STEPS]) and the times."""
+        torch, tk = self.torch, self.s.tk
+        b, t = prompt.shape
+        prefill = self.steps.make_prefill_step(cfg, max_len=t + FAMILY_STEPS)
+        serve = self.steps.make_serve_step(cfg)
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": prompt})          # warm-up, not counted
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": prompt})
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        rows, toks, step_ms = [logits[:, -1].float()], [], []
+        for d in range(FAMILY_STEPS):
+            toks.append(tok)
+            t0 = time.perf_counter()
+            logits, cache = serve(params, cache, {
+                "tokens": tok[:, None],
+                "pos": torch.full((b,), t + d, dtype=torch.int32,
+                                  device=self.dev)})
+            tok = torch.argmax(logits[:, 0], -1).to(torch.int32)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append(logits[:, 0].float())
+        launches = {k: v for k, v in tk.launch_counts().items() if v}
+        # the last step again, three times from its cache, profiled
+        batch = {"tokens": tok[:, None],
+                 "pos": torch.full((b,), t + FAMILY_STEPS - 1,
+                                   dtype=torch.int32, device=self.dev)}
+        prof = self.s.device_busy(
+            lambda: (serve(params, cache, batch), torch.cuda.synchronize()),
+            reps=3, trace=ROOT / "chiprun_out" / "family_trace.tmp.json")
+        del cache, logits
+        return {"prefill_ms": prefill_ms, "prefill_cold_ms": cold_ms,
+                "step_ms": step_ms, "rows": rows,
+                "tokens": torch.stack(toks, 1), "launches": launches,
+                "profile": {k: v for k, v in prof.items()
+                            if k not in ("device_ops", "device_ops_by_call")}}
+
+    def teacher_forced(self, cfg, params, prompt, tokens):
+        """The prefill's and each decode step's logits with `tokens` fed."""
+        torch = self.torch
+        b, t = prompt.shape
+        logits, cache = self.steps.make_prefill_step(
+            cfg, max_len=t + FAMILY_STEPS)(params, {"tokens": prompt})
+        rows = [logits[:, -1].float()]
+        serve = self.steps.make_serve_step(cfg)
+        for d in range(tokens.shape[1]):
+            logits, cache = serve(params, cache, {
+                "tokens": tokens[:, d:d + 1],
+                "pos": torch.full((b,), t + d, dtype=torch.int32,
+                                  device=self.dev)})
+            rows.append(logits[:, 0].float())
+        return rows
+
+    @contextlib.contextmanager
+    def routing_log(self):
+        """Log each `moe.route` call's expert choices and router
+        probabilities (one entry a MoE layer, in order) while the block
+        runs."""
+        torch, moe = self.torch, self.moe
+        entries, route = [], moe.route
+
+        def logged(xg, router_w, cfg, C):
+            r = route(xg, router_w, cfg, C)
+            probs = torch.softmax(torch.matmul(xg.float(),
+                                               router_w.float()), -1)
+            entries.append((r.expert_idx.reshape(-1, cfg.top_k),
+                            probs.reshape(-1, probs.shape[-1])))
+            return r
+        moe.route = logged
+        try:
+            yield entries
+        finally:
+            moe.route = route
+
+    def consistency(self, cfg, params, prompt, tokens, rows, tol, name,
+                    routes=None):
+        """`forward(mode="train")` over the prompt and the fed tokens (an
+        SSD stack padded to a multiple of its chunk: positions after the
+        last compared one change nothing before it): its logits at
+        positions t - 1 ... t + FAMILY_STEPS - 1 against the prefill's and
+        the decode steps'.  With `routes` (MoE: the decode's routing log),
+        positions whose experts differ somewhere are exempt as
+        ROUTE_NOISE says."""
+        torch = self.torch
+        b, t = prompt.shape
+        seq = torch.cat([prompt, tokens], 1)
+        if "ssm" in cfg.layer_kinds:
+            pad = (-seq.shape[1]) % self.ssm.CHUNK
+            seq = torch.nn.functional.pad(seq, (0, pad))
+        with (self.routing_log() if routes is not None
+              else contextlib.nullcontext()) as full_routes:
+            full, _, _ = self.tm.forward(params, cfg, {"tokens": seq},
+                                         mode="train")
+        n = tokens.shape[1] + 1
+        want = full[:, t - 1:t - 1 + n].float()
+        del full
+        got = torch.stack(rows, 1)
+        moved = torch.zeros((b, n), dtype=torch.bool, device=got.device)
+        route_out = {}
+        if routes is not None:
+            moved, route_out = self.moved_positions(
+                cfg, routes, full_routes, b, t, seq.shape[1], n, name)
+        atol, rtol, row = tol
+        rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+        bound = atol + rtol * want.abs() + row * rms
+        raw = (got - want).abs()
+        # the row factor each position would need to pass: the reading
+        # that FAMILY_TOL's row term is set against
+        need = ((raw - atol - rtol * want.abs()).clamp(min=0) / rms).amax(-1)
+        err = torch.where(moved[..., None], 0.0, raw)
+        if not torch.isfinite(got).all() or bool((err > bound).any()):
+            bad = (err > bound).nonzero()[:4].tolist()
+            self.fail(f"{name}: decode differs from the full forward by "
+                      f"{float(err.max()):.4f} (at [b, step, vocab] {bad})")
+        top2 = torch.topk(want, 2, dim=-1)
+        margin = top2.values[..., 0] - top2.values[..., 1]
+        held = (margin > 2 * torch.gather(bound, -1, top2.indices[..., :1])
+                [..., 0]) & ~moved
+        same = got.argmax(-1) == top2.indices[..., 0]
+        if bool((held & ~same).any()):
+            self.fail(f"{name}: greedy tokens differ from the full forward "
+                      f"at {(held & ~same).nonzero().tolist()}")
+        return {"max_abs_err": float(err.max()),
+                "max_abs_err_by_step": err.amax((0, 2)).tolist(),
+                "row_reading": float(need[~moved].max()),
+                "row_reading_moved": float(need[moved].max())
+                if bool(moved.any()) else None,
+                "rms_err": float(err[~moved].pow(2).mean().sqrt()),
+                "logits_rms": float(rms.mean()),
+                "positions": int(b * n),
+                "positions_compared": int((~moved).sum()),
+                "tokens_held_by_margin": int(held.sum()),
+                "tolerance": list(tol), "full_forward_t": seq.shape[1],
+                **route_out}
+
+    def moved_positions(self, cfg, dec_log, full_log, b, t, T, n, name):
+        """[b, n] bool: the positions whose expert sets differ at some MoE
+        layer between the decode (prefill's last row, then each step) and
+        the full forward (T tokens a row), each allowed only if the full
+        forward's k-th and (k+1)-th probabilities are within the dtype's
+        ROUTE_NOISE at the first such layer.  With the gaps seen there."""
+        torch = self.torch
+        L, k = len(full_log), cfg.top_k
+        if len(dec_log) != L * n:
+            self.fail(f"{name}: {len(dec_log)} routing entries for the "
+                      f"decode, not {L} x {n}")
+        # decode: the prefill's rows b * t + t - 1, then one row a step
+        pos = torch.arange(b, device=self.dev) * t + t - 1
+        sel = [pos if j == 0 else slice(None)
+               for j in range(n) for _ in range(L)]
+        dec_idx, dec_p = (
+            torch.stack([e[f][s] for e, s in zip(dec_log, sel)])
+            .view(n, L, b, -1).permute(2, 0, 1, 3) for f in (0, 1))
+        rows = (torch.arange(b, device=self.dev)[:, None] * T + t - 1
+                + torch.arange(n, device=self.dev)[None]).reshape(-1)
+        full_idx = torch.stack([e[0][rows] for e in full_log])  # [L, b*n, k]
+        full_p = torch.stack([e[1][rows] for e in full_log])    # [L, b*n, E]
+        full_idx = full_idx.view(L, b, n, k).permute(1, 2, 0, 3)
+        full_p = full_p.view(L, b, n, -1).permute(1, 2, 0, 3)
+        differ = (dec_idx.sort(-1).values
+                  != full_idx.sort(-1).values).any(-1)          # [b, n, L]
+        moved = differ.any(-1)
+        first = differ.int().argmax(-1)                          # [b, n]
+        top = full_p.sort(-1, descending=True).values[..., k - 1:k + 1]
+        gap = (top[..., 0] - top[..., 1]).gather(-1, first[..., None])[..., 0]
+        gaps = gap[moved]
+        limit = ROUTE_NOISE[cfg.compute_dtype]
+        # the router's noise: the largest difference between the decode's
+        # and the full forward's probabilities at the layers where both
+        # still chose alike, and at the first where they did not
+        upto = (torch.arange(L, device=self.dev)
+                <= torch.where(moved, first, L - 1)[..., None])  # [b, n, L]
+        noise = (dec_p - full_p).abs().amax(-1)[upto].max()
+        if bool((gaps > limit).any()):
+            self.fail(f"{name}: the decode chose other experts than the "
+                      f"full forward where their probabilities were "
+                      f"{gaps.max():.4f} apart (> {limit})")
+        return moved, {"positions_moved_by_routing": int(moved.sum()),
+                       "first_moved_layer": first[moved].tolist(),
+                       "moved_gaps": gaps.tolist(),
+                       "router_noise": float(noise)}
+
+    def moe_layer(self, seed):
+        """One MoE layer at mixtral_8x7b's full width (d 4096, f 14336, 8
+        experts, top-2) in fp32 on the card against the same port on the
+        CPU, in capacity dispatch (cf 1.25), with two groups, and
+        dropless."""
+        torch, moe = self.torch, self.moe
+        base = dataclasses.replace(self.configs.get_config("mixtral_8x7b"),
+                                   param_dtype="float32",
+                                   compute_dtype="float32")
+        d, f, E = base.d_model, base.d_ff, base.n_experts
+        gen = torch.Generator(device=self.dev).manual_seed(seed)
+
+        def draw(shape):
+            return self.common.dense_init(gen, shape, torch.float32,
+                                          device=self.dev)
+        w = {"router": draw((d, E)), "w_gate": draw((E, d, f)),
+             "w_up": draw((E, d, f)), "w_down": draw((E, f, d))}
+        b, s = MOE_LAYER_SHAPE
+        x = torch.randn((b, s, d), generator=gen, device=self.dev)
+        w_cpu = {k: v.cpu() for k, v in w.items()}
+        x_cpu = x.cpu()
+        out = {}
+        for mode, cfg in (("capacity", base),
+                          ("groups", dataclasses.replace(base,
+                                                         moe_groups=2)),
+                          ("dropless", base)):
+            dropless = mode == "dropless"
+            G, C = moe.group_capacity(cfg, b * s, dropless)
+            runs = []
+            for xx, ww in ((x, w), (x_cpu, w_cpu)):
+                r = moe.route(xx.reshape(G, -1, d), ww["router"], cfg, C)
+                y, _ = moe.moe_ffn(xx, ww["router"], ww["w_gate"],
+                                   ww["w_up"], ww["w_down"], cfg,
+                                   dropless=dropless)
+                runs.append((r, y.reshape(G, -1, d).cpu()))
+            (rd, yd), (rc, yc) = runs
+            # each token's smallest gap between its top k + 1 probabilities
+            probs = torch.softmax(x_cpu.reshape(G, -1, d) @ w_cpu["router"],
+                                  -1)
+            top = torch.sort(probs, -1, descending=True).values[
+                ..., :cfg.top_k + 1]
+            margin = (top[..., :-1] - top[..., 1:]).min(-1).values  # [G, Tg]
+            clear = margin > MOE_MARGIN
+            # tokens compared per group: those before its first near tie
+            first = [c.numel() if bool(c.all())
+                     else int((~c).nonzero()[0, 0]) for c in clear]
+            if not bool((rd.expert_idx.cpu() == rc.expert_idx)[clear].all()):
+                self.fail(f"moe layer {mode}: expert_idx differs on the card")
+            max_err, rms = 0.0, float(yc.pow(2).mean().sqrt())
+            for g, n in enumerate(first):
+                for field in ("rank", "keep", "dest"):
+                    a = getattr(rd, field)[g, :n].cpu()
+                    if not torch.equal(a, getattr(rc, field)[g, :n]):
+                        self.fail(f"moe layer {mode}: {field} differs on "
+                                  f"the card (group {g})")
+                err = (yd[g, :n] - yc[g, :n]).abs()
+                bound = MOE_TOL[0] * rms + MOE_TOL[1] * yc[g, :n].abs()
+                if not torch.isfinite(yd).all() or bool((err > bound).any()):
+                    self.fail(f"moe layer {mode}: output differs from the "
+                              f"CPU's by {float(err.max())} (rms {rms})")
+                max_err = max(max_err, float(err.max()) if n else 0.0)
+            out[mode] = {"G": G, "C": C, "dropped": int((~rc.keep).sum()),
+                         "near_ties": int((~clear).sum()),
+                         "tokens_compared": sum(first),
+                         "max_abs_err": max_err, "rms": rms}
+        del w, x
+        torch.cuda.empty_cache()
+        return out
+
+
+def families_phase(smoke, tk, launches_main):
+    """Phase 13: each config of FAMILY_CASES in turn, at its published
+    widths (weights drawn on the card from a seeded generator), through
+    `make_prefill_step` + `make_serve_step`, held to `forward(mode=
+    "train")`, then freed; the launch counts reset just before each served
+    run and read just after (the attention kernel of each config with
+    attention must have run once a layer; `flash_attention_wgmma` and
+    `flash_attention_tf32x3` join the kernels line); after mixtral, one
+    MoE layer at full width in fp32 on the card against the CPU."""
+    torch = smoke.torch
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models import common, moe, ssm, transformer
+    fp = FamiliesPhase(smoke, (configs, transformer, steps, moe, ssm,
+                               common))
+    t0 = time.perf_counter()
+    out, launches = {"cases": {}}, {}
+    for i, (name, case) in enumerate(FAMILY_CASES.items()):
+        out["cases"][name] = row = fp.case(name, case, FAMILY_SEED + 10 * i)
+        for k, v in row["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        c = row["consistency"]
+        log(f"[families] {name}: {case.layers} of "
+            f"{row['config']['published_layers']} layers, {case.dtype}, b "
+            f"{case.b}, t {case.t}: {row['n_params'] / 1e9:.2f} G "
+            f"parameters ({row['weight_gib']:.1f} GiB) drawn on the card in "
+            f"{row['init_s']:.1f} s; "
+            f"prefill {row['prefill_ms']:.1f} ms "
+            f"({row['prefill_tokens_per_s']:.0f} tokens/s; first call "
+            f"{row['prefill_cold_ms']:.1f} ms), decode "
+            f"{row['decode_ms_median']:.2f} ms a step (median of "
+            f"{FAMILY_STEPS}; {row['decode_tokens_per_s']:.1f} tokens/s), "
+            f"peak memory {row['peak_gib_served']:.1f} GiB served / "
+            f"{row['peak_gib']:.1f} GiB with the check (above the "
+            f"{row['held_by_earlier_phases_gib']:.1f} GiB held before); "
+            f"launches "
+            f"{row['launches']}")
+        log(f"[families] {name}: decode vs forward(mode=\"train\") over "
+            f"{c['full_forward_t']} tokens: {c['positions_compared']} of "
+            f"{c['positions']} positions within {c['tolerance'][0]} + "
+            f"{c['tolerance'][1]} |want| + {c['tolerance'][2]} rms (logits "
+            f"rms {c['logits_rms']:.2f}), max abs err "
+            f"{c['max_abs_err']:.4f} (by step "
+            f"{[round(e, 4) for e in c['max_abs_err_by_step']]}, rms "
+            f"{c['rms_err']:.4f}; the row factor needed "
+            f"{c['row_reading']:.5f}); tokens equal at the "
+            f"{c['tokens_held_by_margin']} positions whose margin exceeds "
+            f"twice that"
+            + (f"; {c['positions_moved_by_routing']} positions whose experts "
+               f"moved (first at layers {c['first_moved_layer']}, the full "
+               f"forward's gaps there "
+               f"{[round(g, 5) for g in c['moved_gaps']]}, the row factor "
+               f"they would need {c['row_reading_moved']}); router noise "
+               f"{c['router_noise']:.5f}"
+               if "moved_gaps" in c else ""))
+        p = row["decode_profile"]
+        log(f"[families] {name}: a decode step profiled: "
+            f"{p.get('device_ops_per_apply')} device operations, "
+            f"{p.get('device_us_per_apply', 0) / 1e3:.2f} ms device, busy "
+            f"{p.get('device_busy_share', p.get('error'))}; top "
+            + json.dumps({k: round(v, 1) for k, v in
+                          p.get("top_device_us_per_apply", {}).items()}))
+        if name == "mixtral_8x7b":
+            t = time.perf_counter()
+            out["moe_layer"] = layer = fp.moe_layer(FAMILY_SEED + 99)
+            log(f"[families] one MoE layer at mixtral_8x7b's full width, "
+                f"fp32, card vs CPU ({time.perf_counter() - t:.1f} s): "
+                + "; ".join(
+                    f"{mode} G {r['G']} C {r['C']}: {r['dropped']} pairs "
+                    f"dropped, routing equal ({r['near_ties']} near ties), "
+                    f"max abs err {r['max_abs_err']:.3g} (rms "
+                    f"{r['rms']:.3g}) over {r['tokens_compared']} tokens"
+                    for mode, r in layer.items()))
+    for kname in (WGMMA, TF32X3):
+        if not launches.get(kname):
+            raise SystemExit(f"families: {kname} never launched on the "
+                             "path")
+        launches_main[kname] += launches[kname]
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[families] phase in {out['phase_s']:.1f} s, launches {launches}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4958,6 +5522,9 @@ def main() -> int:
     # -- 12. runtime -------------------------------------------------------------
     runtime_out = runtime_phase(smoke, tk, launches_main)
 
+    # -- 13. model families -------------------------------------------------------
+    families_out = families_phase(smoke, tk, launches_main)
+
     # -- report ----------------------------------------------------------------
     ref = timings["cached_me"]
     rows = []
@@ -5023,6 +5590,7 @@ def main() -> int:
                "txn": txn_out,
                "serving": serving_out,
                "runtime": runtime_out,
+               "families": families_out,
                "kernels": rows}
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     log(card)

@@ -13,13 +13,6 @@ import math
 
 import torch
 
-# ROADMAP Queue 1 item 5: the model families this slice does not port yet.
-UNPORTED_FAMILIES = {
-    "moe": "models/moe.py (mixture of experts)",
-    "ssm": "models/ssm.py (the mamba2 SSD block)",
-    "rglru": "models/rglru.py (the RG-LRU block)",
-}
-
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -122,20 +115,6 @@ class ModelConfig:
             * expert_p
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config that needs a model family
-    this port does not have yet (ROADMAP Queue 1 item 5)."""
-    needs = []
-    if cfg.is_moe:
-        needs.append(UNPORTED_FAMILIES["moe"])
-    needs += [UNPORTED_FAMILIES[k] for k in sorted(set(cfg.layer_kinds))
-              if k != "attn"]
-    if needs:
-        raise NotImplementedError(
-            f"{cfg.name} needs {', '.join(needs)}, which repro_torch does "
-            f"not port yet (ROADMAP Queue 1 item 5)")
-
-
 def tree_leaves(tree) -> list:
     """The tensors of a nested dict / tuple / list, in insertion order."""
     if isinstance(tree, dict):
@@ -218,18 +197,43 @@ def make_mrope_positions(batch: int, seq: int, *, device="cuda"):
 # Parameter init helpers
 # ---------------------------------------------------------------------------
 
-def dense_init(generator, shape, dtype, scale=None, *, device=None):
+def dense_init(generator, shape, dtype, scale=None, *, device=None,
+               out=None):
     """The reference's `dense_init` scales: a normal truncated to [-2, 2]
     (drawn in fp32 from `generator`), times `scale` or 1/sqrt(fan_in),
-    cast to `dtype`.  The draws are torch's, not `jax.random`'s: weights
-    that must equal the reference's are converted from its `init_params`
-    (`repro_torch.convert.model_params`).  `generator=None` on the meta
-    device allocates nothing."""
+    cast to `dtype` (into `out` when given).  The draws are torch's, not
+    `jax.random`'s: weights that must equal the reference's are converted
+    from its `init_params` (`repro_torch.convert.model_params`).
+    `generator=None` on the meta device allocates nothing."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     s = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-    out = torch.empty(shape, dtype=torch.float32, device=device)
-    if out.device.type != "meta":
-        torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0,
-                                    generator=generator)
-        out.mul_(s)
-    return out.to(dtype)
+    return _draw(shape, dtype, device, out,
+                 lambda t: torch.nn.init.trunc_normal_(
+                     t, 0.0, 1.0, -2.0, 2.0, generator=generator).mul_(s))
+
+
+def normal_init(generator, shape, dtype, std, *, device=None, out=None):
+    """A normal of standard deviation `std` (drawn in fp32 from
+    `generator`), cast to `dtype`: the reference's `jax.random.normal(...)
+    * std` weights of the recurrent blocks."""
+    return _draw(shape, dtype, device, out,
+                 lambda t: t.normal_(0.0, std, generator=generator))
+
+
+# The largest fp32 draw made at once; a larger tensor is drawn in slices
+# along its first axis (a layer of llama4's experts is 21 GB in fp32).
+DRAW_BYTES = 1 << 30
+
+
+def _draw(shape, dtype, device, out, fill):
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type == "meta":
+        return out
+    rows = max(1, DRAW_BYTES // (4 * math.prod(shape[1:])))
+    for i in range(0, shape[0], rows):
+        n = min(rows, shape[0] - i)
+        out[i:i + n] = fill(torch.empty((n, *shape[1:]),
+                                        dtype=torch.float32,
+                                        device=out.device))
+    return out

@@ -1,17 +1,18 @@
 """The LM stack: one `forward()` for train / prefill / decode.
 
-The port of the JAX package's `models/transformer.py`, for the configs
-whose layers are all attention without experts (dense decoders, the
-qwen2-vl backbone, the hubert encoder).  Parameters are a nested dict in
-the reference's tree: the layers of each block-pattern period stacked
-along a leading axis (`params["stack"]`, a tuple with one dict per period
-position), remainder layers unstacked (`params["tail"]`).  The reference
-scans over the stack; here a Python loop indexes it, one layer at a time.
-`dist.shard` is the identity on one device and is dropped.
+The port of the JAX package's `models/transformer.py`, for all ten
+configs: dense decoders, MoE (llama4-maverick top-1, mixtral top-2 +
+sliding window), SSM (mamba2's SSD), the hybrid (recurrentgemma: RG-LRU,
+RG-LRU, local attention), the hubert encoder and the qwen2-vl backbone.
+Parameters are a nested dict in the reference's tree: the layers of each
+block-pattern period stacked along a leading axis (`params["stack"]`, a
+tuple with one dict per period position), remainder layers unstacked
+(`params["tail"]`).  The reference scans over the stack; here a Python
+loop indexes it, one layer at a time.  `dist.shard` is the identity on
+one device and is dropped.
 
-Not ported yet, each raising NotImplementedError (ROADMAP Queue 1 item
-5): mixture-of-experts MLPs, SSM and RG-LRU blocks, and `lm_loss` (the
-training path).
+Not ported yet: `lm_loss` (the training path, ROADMAP Queue 1 item 5d),
+which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,8 +23,11 @@ import torch
 
 from repro_torch.core.layout import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (ModelConfig, check_ported, dense_init,
-                                       norm, rope_tables)
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.common import (ModelConfig, dense_init, norm,
+                                       normal_init, rope_tables)
 
 MODES = ("train", "prefill", "decode")
 
@@ -35,22 +39,37 @@ def _generator(seed: int, device) -> torch.Generator | None:
 
 
 class _Init:
-    """`dense_init` over one generator, drawn in the reference's order of
-    leaves; a stacked leaf draws each layer's slice in turn."""
+    """The weight draws (`dense_init`, `normal_init`) over one generator,
+    in the reference's order of leaves; a stacked leaf draws each layer's
+    slice in turn, in place."""
 
     def __init__(self, seed: int, device):
         self.device = resolve_device(device)
         self.gen = _generator(seed, self.device)
 
     def __call__(self, shape, dtype, scale=None, *, layers: int = 0):
+        return self._stacked(lambda out: dense_init(
+            self.gen, shape, dtype, scale, device=self.device, out=out),
+            shape, dtype, layers)
+
+    def normal(self, shape, dtype, std, *, layers: int = 0):
+        """A normal of standard deviation `std` (the recurrent blocks')."""
+        return self._stacked(lambda out: normal_init(
+            self.gen, shape, dtype, std, device=self.device, out=out),
+            shape, dtype, layers)
+
+    def const(self, value: torch.Tensor, *, layers: int = 0):
+        """`value` (made on the CPU, fp32) on the device, per layer."""
+        value = value.to(self.device)
+        return value.expand(layers, *value.shape).clone() if layers \
+            else value
+
+    def _stacked(self, draw, shape, dtype, layers):
         if not layers:
-            return dense_init(self.gen, shape, dtype, scale,
-                              device=self.device)
+            return draw(None)
         out = torch.empty((layers, *shape), dtype=dtype, device=self.device)
-        if self.device.type != "meta":
-            for i in range(layers):
-                out[i] = dense_init(self.gen, shape, dtype, scale,
-                                    device=self.device)
+        for i in range(layers):
+            draw(out[i])
         return out
 
 
@@ -58,11 +77,26 @@ class _Init:
 # Parameter init
 # ---------------------------------------------------------------------------
 
-def _init_layer(init: _Init, cfg: ModelConfig, dtype,
+def _init_mlp(init: _Init, cfg: ModelConfig, dtype, layers: int) -> dict:
+    """The MLP's weights, or with experts the fp32 router and [E, ...]
+    expert weights."""
+    d, f = cfg.d_model, cfg.d_ff
+    lead = (cfg.n_experts,) if cfg.is_moe else ()
+    p = {}
+    if cfg.is_moe:
+        p["router"] = init((d, cfg.n_experts), torch.float32, layers=layers)
+    p["w_up"] = init((*lead, d, f), dtype, layers=layers)
+    p["w_down"] = init((*lead, f, d), dtype, layers=layers)
+    if cfg.mlp == "swiglu":
+        p["w_gate"] = init((*lead, d, f), dtype, layers=layers)
+    return p
+
+
+def _init_layer(init: _Init, kind: str, cfg: ModelConfig, dtype,
                 layers: int = 0) -> dict:
-    """One attention layer's parameters (`layers` of them stacked)."""
-    d, h, kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                       cfg.d_ff)
+    """One layer's parameters of block kind `kind` (`layers` of them
+    stacked): its mixer, then (d_ff > 0) its MLP or MoE."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     lead = (layers,) if layers else ()
 
     def zeros(*shape):
@@ -70,17 +104,20 @@ def _init_layer(init: _Init, cfg: ModelConfig, dtype,
                            device=init.device)
 
     p: dict[str, Any] = {"norm_mix": zeros(d)}
-    p["attn"] = {"wq": init((d, h, hd), dtype, layers=layers),
-                 "wk": init((d, kv, hd), dtype, layers=layers),
-                 "wv": init((d, kv, hd), dtype, layers=layers),
-                 "wo": init((h, hd, d), dtype, layers=layers)}
+    if kind == "attn":
+        p["attn"] = {"wq": init((d, h, hd), dtype, layers=layers),
+                     "wk": init((d, kv, hd), dtype, layers=layers),
+                     "wv": init((d, kv, hd), dtype, layers=layers),
+                     "wo": init((h, hd, d), dtype, layers=layers)}
+    elif kind == "ssm":
+        p["ssm"] = ssm_mod.init_ssm_params(init, cfg, dtype, layers)
+    elif kind == "rglru":
+        p["rglru"] = rglru_mod.init_rglru_params(init, cfg, dtype, layers)
+    else:
+        raise ValueError(kind)
     if cfg.d_ff > 0:
         p["norm_mlp"] = zeros(d)
-        mlp = {"w_up": init((d, f), dtype, layers=layers),
-               "w_down": init((f, d), dtype, layers=layers)}
-        if cfg.mlp == "swiglu":
-            mlp["w_gate"] = init((d, f), dtype, layers=layers)
-        p["mlp"] = mlp
+        p["mlp"] = _init_mlp(init, cfg, dtype, layers)
     return p
 
 
@@ -91,7 +128,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     port to the reference, convert its `init_params` with
     `repro_torch.convert.model_params`).  `device="meta"` gives the
     shapes alone."""
-    check_ported(cfg)
     dtype = cfg.pdtype()
     period = len(cfg.block_pattern)
     n_full, tail_n = cfg.n_layers // period, cfg.n_layers % period
@@ -104,11 +140,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     if cfg.family == "vlm":
         params["vision_proj"] = init((cfg.d_model, cfg.d_model), dtype)
     if n_full:
-        params["stack"] = tuple(_init_layer(init, cfg, dtype, n_full)
-                                for _ in range(period))
+        params["stack"] = tuple(_init_layer(init, kind, cfg, dtype, n_full)
+                                for kind in cfg.block_pattern)
     if tail_n:
-        params["tail"] = tuple(_init_layer(init, cfg, dtype)
-                               for _ in range(tail_n))
+        params["tail"] = tuple(
+            _init_layer(init, cfg.block_pattern[j % period], cfg, dtype)
+            for j in range(tail_n))
     params["final_norm"] = torch.zeros((cfg.d_model,), dtype=torch.float32,
                                        device=init.device)
     if not cfg.tie_embeddings:
@@ -124,7 +161,7 @@ def _index(tree, i: int):
 
 
 # ---------------------------------------------------------------------------
-# KV caches
+# KV / state caches
 # ---------------------------------------------------------------------------
 
 def _attn_cache_len(cfg: ModelConfig, max_len: int) -> int:
@@ -133,8 +170,12 @@ def _attn_cache_len(cfg: ModelConfig, max_len: int) -> int:
 
 def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                      dtype, *, device="cuda"):
+    if kind == "ssm":
+        return ssm_mod.init_ssm_cache(batch, cfg, dtype, device=device)
+    if kind == "rglru":
+        return rglru_mod.init_rglru_cache(batch, cfg, dtype, device=device)
     if kind != "attn":
-        check_ported(cfg)
+        raise ValueError(kind)
     shape = (batch, _attn_cache_len(cfg, max_len), cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -142,7 +183,6 @@ def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> dict:
-    check_ported(cfg)
     device = resolve_device(device)
     dtype = cfg.cdtype()
     period = len(cfg.block_pattern)
@@ -168,7 +208,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def _mlp_apply(x, p, cfg: ModelConfig, mode: str = "train"):
     if cfg.is_moe:
-        check_ported(cfg)
+        # Decode never drops tokens (serving must be exact); train and
+        # prefill use capacity-factor dispatch unless the config is
+        # dropless.
+        dropless = cfg.moe_dropless or mode == "decode"
+        return moe_mod.moe_ffn(x, p["router"], p.get("w_gate"), p["w_up"],
+                               p["w_down"], cfg, dropless=dropless)
     u = attn.project(x, p["w_up"])
     if cfg.mlp == "swiglu":
         g = attn.project(x, p["w_gate"])
@@ -242,13 +287,22 @@ _DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def apply_layer(x, p, kind: str, cfg: ModelConfig, positions, cache, mode,
                 max_len: int = 0, rope=None):
-    """Pre-norm temporal mixer + (optional) MLP, residual wiring.  `rope`:
-    the forward's `rope_tables`, shared by its layers, or None."""
-    if kind != "attn":
-        check_ported(cfg)
+    """Pre-norm temporal mixer + (optional) MLP / MoE, residual wiring.
+    `rope`: the forward's `rope_tables`, shared by its layers, or None.
+    In decode every mixer writes its new state into `cache` in place;
+    prefill returns the new state, train None."""
     h = norm(x, p["norm_mix"], cfg)
-    y, new_cache = _attn_apply(h, p["attn"], cfg, positions, cache, mode,
-                               max_len, rope)
+    if kind == "attn":
+        y, new_cache = _attn_apply(h, p["attn"], cfg, positions, cache,
+                                   mode, max_len, rope)
+    elif kind in ("ssm", "rglru"):
+        block = ssm_mod.ssm_block if kind == "ssm" else rglru_mod.rglru_block
+        y, new_cache = block(h, p[kind], cfg,
+                             cache=cache if mode == "decode" else None)
+        if mode == "train":
+            new_cache = None
+    else:
+        raise ValueError(kind)
     x = x + y
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.d_ff > 0:
@@ -302,7 +356,6 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str = "train",
     stays valid (the reference's functional update).
 
     Returns (logits, new_cache, aux_loss)."""
-    check_ported(cfg)
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     x, positions = embed_inputs(params, cfg, batch, mode)
@@ -324,7 +377,8 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str = "train",
                 x, nc, aux = apply_layer(x, _index(params["stack"][j], i),
                                          kind, cfg, positions, c_in, mode,
                                          max_len, rope)
-                per_pos[j].append(nc)
+                if mode != "decode":     # decode wrote its views in place
+                    per_pos[j].append(nc)
                 aux_acc = aux_acc + aux
         if mode == "decode":
             stack_cache = cache["stack"]        # written in place
@@ -375,4 +429,4 @@ def _clone(tree):
 def lm_loss(params, cfg: ModelConfig, batch: dict):
     """Next-token CE: the training path, not ported yet."""
     raise NotImplementedError(
-        "lm_loss and training are not ported yet (ROADMAP Queue 1 item 5)")
+        "lm_loss and training are not ported yet (ROADMAP Queue 1 item 5d)")

@@ -44,7 +44,7 @@ import torch
 
 from repro_torch.core.layout import resolve_device
 from repro_torch.core.specs import DEFAULT_STRATEGY
-from repro_torch.models.common import ModelConfig, check_ported
+from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import forward
 from repro_torch.obs import telemetry as obs_telemetry
 from repro_torch.serving import paged_kv as pk
@@ -103,11 +103,10 @@ class ServingEngine:
                  max_queue: int = 256, seed: int = 0, fused: bool = True,
                  mesh=None, txn_bookkeeping: bool = True,
                  overload: OverloadPolicy | None = None, device="cuda"):
-        check_ported(cfg)
         assert all(k == "attn" for k in cfg.layer_kinds) and \
             cfg.causal and cfg.window == 0, \
             "paged engine serves causal full-attention archs; use " \
-            "make_serve_step for SWA / encoder"
+            "make_serve_step for SSM / hybrid / SWA / encoder"
         if mesh is not None:
             raise NotImplementedError(
                 "the mesh-sharded engine needs core/distributed.py, which "

@@ -14,8 +14,10 @@ valid, as the reference's.
 
 One shard only: a mesh-sharded page table (`n_shards > 1`) needs
 `core/distributed.py` and raises NotImplementedError (ROADMAP Queue 1 item
-8).  Recurrent layers (ssm / rglru) have no dense slot states here: their
-models are not ported (ROADMAP Queue 1 item 5).
+8).  Recurrent layers (ssm / rglru) get no dense slot states here: the
+reference builds them, but its engine serves only full-attention configs
+and nothing reads them (recurrent configs serve through
+`launch.steps.make_serve_step`).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from repro_torch.core import cachehash as ch
 from repro_torch.core import engine
 from repro_torch.core.layout import as_u64, resolve_device, to_word
 from repro_torch.core.specs import DEFAULT_STRATEGY, HashSpec, QueueSpec
-from repro_torch.models.common import ModelConfig, check_ported
+from repro_torch.models.common import ModelConfig
 from repro_torch.sync.queue import BigQueue
 
 SEQ_SHIFT = 20                     # key = seq_id << 20 | page_no
@@ -125,7 +127,6 @@ def init(cfg: ModelConfig, spec: PagedSpec, mesh=None, *,
     every physical page on the free ring (in descending order, as the
     reference's)."""
     _not_sharded(spec.n_shards, mesh)
-    check_ported(cfg)
     dev = resolve_device(device)
     l_attn = sum(k == "attn" for k in cfg.layer_kinds)
     kv = (l_attn, spec.n_pages, spec.page_size, cfg.n_kv_heads, cfg.hd)

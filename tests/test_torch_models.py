@@ -469,30 +469,18 @@ def test_rope_and_mrope_positions_match_reference():
 
 
 def test_unported_paths_raise_not_implemented():
-    """moe / ssm / rglru configs, lm_loss and the train step raise
-    NotImplementedError naming ROADMAP Queue 1 item 5."""
-    from repro_torch.configs import UNPORTED, get_config
+    """lm_loss and the train step (training, not ported yet) raise
+    NotImplementedError naming ROADMAP Queue 1 item 5, for every family."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import steps
     from repro_torch.models import transformer as tt
-    from repro_torch.models.common import ModelConfig
-    for arch in UNPORTED:
+    for arch in ("deepseek_7b", "mixtral_8x7b", "mamba2_780m",
+                 "recurrentgemma_9b"):
+        cfg = get_config(arch, reduced=True)
         with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            get_config(arch, reduced=True)
-    moe = ModelConfig(name="moe", family="moe", n_layers=1, d_model=8,
-                      n_heads=2, n_kv_heads=2, d_ff=8, vocab=16,
-                      n_experts=4, top_k=2)
-    ssm = dataclasses.replace(moe, n_experts=0, top_k=0, family="ssm",
-                              block_pattern=("ssm",))
-    for cfg in (moe, ssm):
+            tt.lm_loss({}, cfg, {})
         with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            tt.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            tt.forward({}, cfg, {"tokens": torch.zeros((1, 2), dtype=torch.int32)})
-    cfg = get_config("deepseek_7b", reduced=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tt.lm_loss({}, cfg, {})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        steps.make_train_step(cfg, None)
+            steps.make_train_step(cfg, None)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
