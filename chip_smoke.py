@@ -263,6 +263,31 @@ package, and runs these phases:
              a step, tokens/s, peak memory (above what the earlier phases
              hold), and a decode step profiled (device operations, device
              ms, busy share).
+  14. training
+             the attention backward kernel (`flash_attention_bwd`,
+             `csrc/flash_attention_bwd.cu`) against its plain twin at
+             glm4_9b (b 2, t 4096, kv 2, causal), mixtral_8x7b (t 6144,
+             window 4096, kv 8), recurrentgemma_9b (hd 256, kv 1, window
+             2048), hubert_xlarge (hd 80, non-causal, t 1000) and ragged hd
+             7 / 100 at b 2, each in bf16 and fp32, within `BWD_TOL`; three
+             faults planted in the kernel (`BWD_FAULTS`) must each fail it;
+             its time beside the plain twin, SDPA's backward and the bound.
+             Then `launch.train.train` on glm4_9b at its published width
+             (TRAIN_LAYERS of 40 layers, b 2, t 4096, bf16, remat, AdamW
+             with fp32 moments, the versioned store publishing every step):
+             TRAIN_CKPT steps and a checkpoint there, restored
+             (CRC-verified) into a fresh template on the host and equal bit
+             for bit to the state the run returned, then resumed from it to
+             TRAIN_STEPS; finite losses that fall; with the counts reset
+             just before and read just after, the forward kernel launched
+             twice an attention layer and step (remat) and the backward
+             once (both join the kernels line); ms a step, tokens/s, peak
+             memory, a step profiled.  One bf16 step of mixtral_8x7b (2
+             layers, t 6144, capacity drops), mamba2_780m (whole) and
+             recurrentgemma_9b (one period): loss, every gradient leaf and
+             the updated state finite.  One fp32 step of every reduced
+             config on the card (the kernels) against the CPU (the plain
+             versions) within the STEP_* tolerances.
 
 Exits non-zero on any failure, without the result line.  On success the
 last lines are the card (nvidia-smi), a JSON line with one entry per
@@ -275,6 +300,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -325,6 +351,11 @@ KERNELS = {
     "flash_attention_tf32x3": (
         "src/repro_torch/kernels/csrc/flash_attention_tf32x3.cu",
         "src/repro/kernels/flash_attention.py:120"),
+    # no Pallas backward: XLA differentiates the reference's plain
+    # pair-list attention on its training path
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/models/attention.py:46"),
 }
 ROUND_KERNELS = ("round_prologue", "fast_round", "slow_round",
                  "round_epilogue")
@@ -5157,6 +5188,497 @@ def families_phase(smoke, tk, launches_main):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: training (models/transformer.py::lm_loss, optim/, data/,
+# launch/steps.py::make_train_step, launch/train.py::train) and the
+# attention backward kernel (kernels/csrc/flash_attention_bwd.cu).
+# ---------------------------------------------------------------------------
+
+BWD = "flash_attention_bwd"
+# The backward against its plain twin, as a share of each gradient's
+# largest entry.  fp32: sums of up to 6144 products in other orders; bf16:
+# dq, dk, dv rounded to bf16 (one ulp, 2^-8 relative) on top of that.  Set
+# between the sound readings and the planted faults' (`BWD_FAULTS`), see
+# PERF.md §6.
+BWD_TOL = {"bfloat16": 2 ** -7, "float32": 1e-4}
+# (b, tq, tkv, h, kvh, hd, causal, window), each in bf16 and fp32
+BWD_SHAPES = {
+    "glm4_9b_b2_t4096": (2, 4096, 4096, 32, 2, 128, True, 0),
+    "mixtral_8x7b_t6144_w4096": (1, 6144, 6144, 32, 8, 128, True, 4096),
+    "recurrentgemma_9b_t4096_w2048": (1, 4096, 4096, 16, 1, 256, True, 2048),
+    "hubert_xlarge_b2_t1000": (2, 1000, 1000, 16, 16, 80, False, 0),
+    "hd7_b2_t1000": (2, 1000, 1000, 32, 8, 7, True, 0),
+    "hd100_b2_t1000": (2, 1000, 1000, 32, 8, 100, True, 0),
+}
+# the faults `csrc/flash_attention_bwd.cu` can plant: each must fail
+# BWD_TOL on the glm4_9b case (causal, 16 query heads a kv head)
+BWD_FAULTS = {1: "D left out", 2: "the GQA sum over one head only",
+              3: "the causal mask off by one"}
+BWD_ROW = "glm4_9b_b2_t4096/bfloat16"   # the kernels line's timing case
+TRAIN_ARCH = "glm4_9b"
+# Depth and batch cut so the train state, one copy of it in the versioned
+# store (TRAIN_SLOTS), the update's new state and the loss's fp32 logits
+# fit the card (PERF.md §4): 4 of 40 layers, b 2, t 4096 (train_4k's).
+TRAIN_LAYERS, TRAIN_B, TRAIN_T = 4, 2, 4096
+TRAIN_STEPS, TRAIN_CKPT = 6, 3
+TRAIN_SLOTS = 1
+TRAIN_OPT = {"lr": 3e-4, "warmup": 1, "total_steps": TRAIN_STEPS}
+TRAIN_SEED = 14000
+# One train step of each family at its published width, bf16: (arch,
+# layers, b, t): mixtral past its window with capacity drops, mamba2 whole
+# (the SSD and the scan through autograd), recurrentgemma one period
+# (RG-LRU, RG-LRU, the hd-256 backward); llama4 stays on the CPU (one
+# layer's 16 G expert parameters need ~190 GB with AdamW's state).
+TRAIN_FAMILIES = {"mixtral_8x7b": ("mixtral_8x7b", 2, 1, 6144),
+                  "mamba2_780m": ("mamba2_780m", 48, 2, 2048),
+                  "recurrentgemma_9b": ("recurrentgemma_9b", 3, 1, 4096)}
+# Whole fp32 step, card (kernels) against CPU (plain versions), every
+# reduced config, from an AdamW state as after 5 steps (so the update is
+# m / sqrt(v), not the sign of g): loss within STEP_RTOL, grad norm within
+# 1e-3 relative, moments within 1e-3 of their largest entry, parameters
+# within STEP_PARAM_ATOL (lr x an update error of ~1e-3 relative is
+# ~1e-6: the 3xTF32 forward agrees with fp32 to ~1e-4 relative).
+STEP_RTOL, STEP_PARAM_ATOL = 1e-4, 1e-5
+
+
+def bwd_bound(b, tq, tkv, h, kvh, hd, causal, window, dtype):
+    """(flops, bytes, bound ms, bound_by) of the backward: 2.5 x the
+    forward's 4 b h hd pairs over the type's fastest route; q, k, v, o,
+    dO and the LSE read once, dq, dk, dv written once."""
+    es = 2 if dtype == "bfloat16" else 4
+    flops = 10 * b * h * hd * live_pairs(tq, tkv, causal, window)
+    nbytes = (4 * b * tq * h * hd + 4 * b * tkv * kvh * hd) * es \
+        + b * h * tq * 4
+    peak, passes = DTYPE_PEAK[dtype]
+    ops_ms, bytes_ms = passes * flops / peak * 1e3, \
+        nbytes / HBM_BYTES_PER_S * 1e3
+    return flops, nbytes, max(ops_ms, bytes_ms), \
+        "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+class TrainPhase:
+    """Phase 14 (see `train_phase`)."""
+
+    def __init__(self, smoke, mods):
+        self.s, self.torch, self.dev = smoke, smoke.torch, smoke.dev
+        (self.fa, self.configs, self.shapes, self.tm, self.steps,
+         self.train_mod, self.optim, self.data, self.ckpt,
+         self.common) = mods
+
+    def fail(self, what):
+        raise SystemExit(f"training: {what}")
+
+    # -- the backward kernel against its plain twin ---------------------------
+
+    def bwd_inputs(self, shape, dtype, seed):
+        """q, k, v, dO drawn on the card and o = the forward kernel's."""
+        torch = self.torch
+        b, tq, tkv, h, kvh, hd, causal, window = shape
+        gen = torch.Generator(device=self.dev).manual_seed(seed)
+        dt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn(s, generator=gen, device=self.dev).to(dt)
+                       for s in ((b, tq, h, hd), (b, tkv, kvh, hd),
+                                 (b, tkv, kvh, hd), (b, tq, h, hd)))
+        o = self.fa.flash_attention(q, k, v, causal=causal, window=window)
+        return q, k, v, o, do
+
+    @staticmethod
+    def reading(got, want):
+        """max |got - want| / max |want| of each of dq, dk, dv."""
+        return [float((g.float() - w.float()).abs().max())
+                / max(float(w.float().abs().max()), 1e-30)
+                for g, w in zip(got, want)]
+
+    def bwd_check(self):
+        """Every case in both dtypes: the kernel (through
+        `flash_attention_bwd`) within BWD_TOL of the plain backward; then
+        each planted fault on the glm4_9b case outside it.  Returns
+        {case: readings}, {fault: readings}, the largest abs errors."""
+        torch, fa = self.torch, self.fa
+        sound, faults, max_abs = {}, {}, 0.0
+        for i, (name, shape) in enumerate(BWD_SHAPES.items()):
+            b, tq, tkv, h, kvh, hd, causal, window = shape
+            for dtype in ("bfloat16", "float32"):
+                q, k, v, o, do = self.bwd_inputs(shape, dtype, 14100 + i)
+                got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                             window=window)
+                want = fa.flash_attention_bwd_plain(q, k, v, o, do,
+                                                    causal=causal,
+                                                    window=window)
+                torch.cuda.synchronize()
+                for g in got:
+                    if g.dtype != q.dtype or not torch.isfinite(
+                            g.float()).all():
+                        self.fail(f"backward {name}/{dtype}: not finite or "
+                                  "not in q's dtype")
+                r = self.reading(got, want)
+                sound[f"{name}/{dtype}"] = r
+                max_abs = max(max_abs, max(
+                    float((g.float() - w.float()).abs().max())
+                    for g, w in zip(got, want)))
+                if max(r) > BWD_TOL[dtype]:
+                    self.fail(f"backward {name}/{dtype} differs from the "
+                              f"plain version: {r} of the largest entries "
+                              f"(tolerance {BWD_TOL[dtype]})")
+                if name == "glm4_9b_b2_t4096":
+                    for fault in BWD_FAULTS:
+                        bad = tuple(torch.empty_like(t) for t in (q, k, v))
+                        lse = torch.empty((b, h, tq), device=self.dev)
+                        fa._bwd_kernel(q, k, v, o, do, *bad, lse,
+                                       torch.empty_like(lse), causal,
+                                       window, fault=fault)
+                        rf = self.reading(bad, want)
+                        faults[f"{BWD_FAULTS[fault]}/{dtype}"] = rf
+                        if max(rf) <= BWD_TOL[dtype]:
+                            self.fail(f"the planted fault '{BWD_FAULTS[fault]}'"
+                                      f" ({dtype}) passes the tolerance: "
+                                      f"{rf}")
+                del q, k, v, o, do, got, want
+                torch.cuda.empty_cache()
+        return sound, faults, max_abs
+
+    def bwd_timing(self, name, dtype, seed):
+        """Device ms of the kernel, the plain twin's ms, SDPA's backward
+        (its forward + backward less its forward; a dense mask where there
+        is a window) and the bound."""
+        torch, fa, s = self.torch, self.fa, self.s
+        shape = BWD_SHAPES[name]
+        b, tq, tkv, h, kvh, hd, causal, window = shape
+        q, k, v, o, do = self.bwd_inputs(shape, dtype, seed)
+        row = {"ms": s.device_ms(lambda: fa.flash_attention_bwd(
+                   q, k, v, o, do, causal=causal, window=window), reps=5),
+               "plain_ms": s.time_ms(lambda: fa.flash_attention_bwd_plain(
+                   q, k, v, o, do, causal=causal, window=window), reps=3,
+                   warmup=1)}
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2)
+        mask = None
+        if window > 0:
+            qpos = torch.arange(tq, device=self.dev)[:, None]
+            kpos = torch.arange(tkv, device=self.dev)[None, :]
+            mask = (kpos <= qpos) & (kpos > qpos - window)
+
+        def fwd():
+            return sdpa(qt, kt, vt, attn_mask=mask,
+                        is_causal=causal and mask is None, enable_gqa=True)
+        try:                          # a yardstick, not part of the port
+            both = s.device_ms(lambda: torch.autograd.grad(
+                fwd(), (qt, kt, vt), dot), reps=5)
+            with torch.no_grad():
+                alone = s.device_ms(fwd, reps=5)
+            row["library_ms"] = both - alone
+            row["library_fwd_bwd_ms"] = both
+        except RuntimeError as err:
+            row["library_ms"] = None
+            row["library_error"] = f"not measured: {err!r}"[:300]
+        flops, nbytes, bound, by = bwd_bound(*shape, dtype)
+        row.update(flops=flops, bytes=nbytes, bound_ms=bound, bound_by=by)
+        return row
+
+    # -- glm4_9b trained at its published width --------------------------------
+
+    def train_config(self):
+        return dataclasses.replace(self.configs.get_config(TRAIN_ARCH),
+                                   n_layers=TRAIN_LAYERS)
+
+    def glm4(self, tmp):
+        """`train()` for TRAIN_CKPT steps with a checkpoint there, the
+        checkpoint restored (CRC-verified) into a fresh template on the
+        host and held bit for bit to the state the run returned; then
+        `train()` again to TRAIN_STEPS, resumed from it.  The launch
+        counts reset just before the first call and read just after the
+        second."""
+        torch, tk = self.torch, self.s.tk
+        cfg = self.train_config()
+        shape = self.shapes.Shape("train_4k", TRAIN_T, TRAIN_B, "train")
+        opt = self.optim.AdamWConfig(**TRAIN_OPT)
+        kw = dict(ckpt_dir=str(tmp), ckpt_every=TRAIN_CKPT, seed=TRAIN_SEED,
+                  opt_cfg=opt, snapshot_slots=TRAIN_SLOTS, log_every=1,
+                  device=self.dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, state, first = self.train_mod.train(cfg, shape,
+                                                    steps=TRAIN_CKPT, **kw)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        steps = self.ckpt.list_steps(str(tmp))
+        if steps != [TRAIN_CKPT]:
+            self.fail(f"checkpoints {steps}, expected [{TRAIN_CKPT}]")
+        t0 = time.perf_counter()
+        template = self.steps.init_train_state(cfg, opt, 0, device="meta")
+        restored, meta = self.ckpt.restore_checkpoint(
+            str(tmp), TRAIN_CKPT, template, device="cpu", verify=True)
+        restore_s = time.perf_counter() - t0
+        saved = self.common.tree_leaves((params, state))
+        back = self.common.tree_leaves(restored)
+        if len(saved) != len(back) or meta.get("next_step") != TRAIN_CKPT:
+            self.fail("the restored checkpoint's tree or meta differs")
+        for x, y in zip(saved, back):
+            if x.dtype != y.dtype or not torch.equal(x.cpu(), y):
+                self.fail("the restored checkpoint differs from the saved "
+                          "state")
+        n_params = sum(x.numel() for x in self.common.tree_leaves(params))
+        state_gib = sum(x.numel() * x.element_size() for x in saved) / 2 ** 30
+        del params, state, restored, saved, back, template
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params, state, second = self.train_mod.train(cfg, shape,
+                                                     steps=TRAIN_STEPS, **kw)
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+        launches = {k: v for k, v in tk.launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        losses = first["loss"] + second["loss"]
+        norms = first["grad_norm"] + second["grad_norm"]
+        step_s = first["step_time"] + second["step_time"]
+        if len(losses) != TRAIN_STEPS or not all(
+                math.isfinite(x) for x in losses + norms):
+            self.fail(f"losses {losses}, grad norms {norms}")
+        if not losses[-1] < losses[0]:
+            self.fail(f"the loss did not fall: {losses}")
+        n_steps = TRAIN_STEPS * TRAIN_LAYERS
+        want = {WGMMA: 2 * n_steps, BWD: n_steps}     # remat: fwd twice
+        if any(launches.get(k) != v for k, v in want.items()):
+            self.fail(f"launches {launches}, expected {want} (forward twice "
+                      "an attention layer and step under remat, backward "
+                      "once)")
+        # one more step profiled, from the final state
+        step = self.steps.make_train_step(cfg, opt)
+        batch = self.data.to_device(self.data.DataPipeline(
+            cfg, shape, seed=TRAIN_SEED).batch(TRAIN_STEPS), self.dev)
+        prof = self.s.device_busy(
+            lambda: (step(params, state, batch), torch.cuda.synchronize()),
+            reps=1, trace=ROOT / "chiprun_out" / "train_trace.tmp.json")
+        del params, state, batch
+        torch.cuda.empty_cache()
+        warm = step_s[1:TRAIN_CKPT] + step_s[TRAIN_CKPT + 1:]
+        ms = statistics.median(warm) * 1e3
+        return {"config": {"arch": TRAIN_ARCH, "layers": TRAIN_LAYERS,
+                           "published_layers": self.configs.get_config(
+                               TRAIN_ARCH).n_layers, "b": TRAIN_B,
+                           "t": TRAIN_T, "dtype": cfg.param_dtype,
+                           "remat": cfg.remat, "opt": TRAIN_OPT,
+                           "snapshot_slots": TRAIN_SLOTS},
+                "n_params": n_params, "state_gib": state_gib,
+                "losses": losses, "grad_norms": norms,
+                "step_ms": [x * 1e3 for x in step_s],
+                "step_ms_median_warm": ms,
+                "tokens_per_s": TRAIN_B * TRAIN_T / (ms / 1e3),
+                "first_call_s": first_s, "resumed_call_s": second_s,
+                "restore_verify_s": restore_s,
+                "peak_gib": (peak - held) / 2 ** 30,
+                "held_before_gib": held / 2 ** 30, "launches": launches,
+                "profile": {k: v for k, v in prof.items()
+                            if k not in ("device_ops", "device_ops_by_call")}}
+
+    # -- the families, one step each; every reduced config card vs CPU ---------
+
+    def family_step(self, name, seed):
+        """One bf16 train step at the published width: the loss and every
+        gradient leaf finite (from autograd over the leaves, as
+        `make_train_step` takes them), then the AdamW update's state
+        finite."""
+        torch = self.torch
+        arch, layers, b, t = TRAIN_FAMILIES[name]
+        cfg = dataclasses.replace(self.configs.get_config(arch),
+                                  n_layers=layers)
+        opt = self.optim.AdamWConfig(**TRAIN_OPT)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        params, state = self.steps.init_train_state(cfg, opt, seed,
+                                                    device=self.dev)
+        shape = self.shapes.Shape("train_4k", t, b, "train")
+        batch = self.data.to_device(self.data.DataPipeline(
+            cfg, shape, seed=seed).batch(0), self.dev)
+        t0 = time.perf_counter()
+        live = [p.detach().requires_grad_()
+                for p in self.common.tree_leaves(params)]
+        loss = self.tm.lm_loss(self.common.tree_unflatten(params, live), cfg,
+                               batch)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        del live
+        bad = [i for i, g in enumerate(grads)
+               if g is not None and not torch.isfinite(g.float()).all()]
+        unused = sum(g is None for g in grads)
+        grads = self.common.tree_unflatten(params, [
+            g if g is not None else torch.zeros_like(p) for g, p in
+            zip(grads, self.common.tree_leaves(params))])
+        new_p, new_s, metrics = self.optim.adamw_update(params, grads, state,
+                                                        opt)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        finite = all(bool(torch.isfinite(x.float()).all()) for x in
+                     self.common.tree_leaves((new_p, new_s["m"],
+                                              new_s["v"])))
+        out = {"arch": arch, "layers": layers, "b": b, "t": t,
+               "loss": float(loss.detach()),
+               "grad_norm": float(metrics["grad_norm"]),
+               "leaves": len(self.common.tree_leaves(params)),
+               "unused_leaves": unused, "step_ms": step_ms,
+               "peak_gib": (torch.cuda.max_memory_allocated() - held)
+               / 2 ** 30}
+        del params, state, grads, new_p, new_s, batch, loss
+        torch.cuda.empty_cache()
+        if bad or not finite or not math.isfinite(out["loss"]):
+            self.fail(f"{name}: gradient leaves {bad} not finite, state "
+                      f"finite {finite}, loss {out['loss']}")
+        return out
+
+    def card_vs_cpu(self, arch, seed):
+        """One fp32 train step of the reduced config on the card (the
+        kernels) and on the CPU (the plain versions), from the same
+        weights, AdamW state and batch: loss, grad norm, moments and every
+        parameter after the step within the STEP_* tolerances."""
+        torch = self.torch
+        cfg = dataclasses.replace(self.configs.get_config(arch, reduced=True),
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        opt = self.optim.AdamWConfig(**TRAIN_OPT)
+        params, state = self.steps.init_train_state(cfg, opt, seed,
+                                                    device="cpu")
+        rng = np.random.default_rng(seed)
+        mv = {k: self.common.tree_map(lambda p, k=k: torch.from_numpy(
+            (rng.standard_normal(p.shape) * 1e-3 if k == "m"
+             else rng.uniform(0.5, 1.5, p.shape) * 1e-5).astype(np.float32)),
+            params) for k in ("m", "v")}
+        state = {**mv, "step": torch.tensor(5, dtype=torch.int32)}
+        shape = self.shapes.reduced_shape(self.shapes.SHAPES["train_4k"])
+        raw = self.data.DataPipeline(cfg, shape, seed=seed).batch(0)
+        step = self.steps.make_train_step(cfg, opt)
+        outs = {}
+        for dev in ("cpu", self.dev):
+            def move(tree, dev=dev):
+                return self.common.tree_map(lambda x: x.to(dev), tree)
+            outs[str(dev)] = step(move(params), move(state),
+                                  self.data.to_device(raw, dev))
+        (pc, sc, mc), (pg, sg, mg) = outs["cpu"], outs[str(self.dev)]
+        err = {"loss": abs(float(mg["loss"]) - float(mc["loss"]))
+               / abs(float(mc["loss"])),
+               "grad_norm": abs(float(mg["grad_norm"])
+                                - float(mc["grad_norm"]))
+               / float(mc["grad_norm"])}
+        err["params"] = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            self.common.tree_leaves(pg), self.common.tree_leaves(pc)))
+        err["moments"] = max(
+            float((a.cpu() - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+            for k in ("m", "v") for a, b in zip(
+                self.common.tree_leaves(sg[k]),
+                self.common.tree_leaves(sc[k])))
+        if err["loss"] > STEP_RTOL or err["grad_norm"] > 1e-3 or \
+                err["params"] > STEP_PARAM_ATOL or err["moments"] > 1e-3 or \
+                int(sg["step"]) != int(sc["step"]):
+            self.fail(f"{arch}: the card's fp32 step differs from the CPU's: "
+                      f"{err}")
+        return err
+
+
+def train_phase(smoke, tk, launches_main):
+    """Phase 14: the backward kernel against its plain twin (and the
+    planted faults) and its timing; glm4_9b trained at its published width
+    through `launch.train.train` (the counts reset just before and read
+    just after: `flash_attention_wgmma` and `flash_attention_bwd` join the
+    kernels line); one step of mixtral, mamba2 and recurrentgemma; every
+    reduced config's fp32 step card vs CPU."""
+    import gc
+    import shutil
+    import tempfile
+    torch = smoke.torch
+    from repro_torch import checkpoint, configs
+    from repro_torch import data, optim
+    from repro_torch.configs import shapes
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import common, transformer
+    gc.collect()                     # what earlier phases left in cycles
+    torch.cuda.empty_cache()
+    # the train state's tensors come and go in sizes of GBs: segments that
+    # grow keep the freed ones from fragmenting the card
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    tp = TrainPhase(smoke, (fa, configs, shapes, transformer, steps,
+                            train_mod, optim, data, checkpoint, common))
+    t0 = time.perf_counter()
+    out = {"held_at_start_gib": torch.cuda.memory_allocated() / 2 ** 30}
+    log(f"[training] {out['held_at_start_gib']:.2f} GiB held by the earlier "
+        "phases")
+    sound, faults, max_abs = tp.bwd_check()
+    smoke.max_err[BWD] = max_abs
+    out["backward"] = {"tolerance": BWD_TOL, "readings": sound,
+                       "faults": faults}
+    log(f"[training] backward kernel vs plain, max err / largest entry "
+        f"(dq, dk, dv): " + "; ".join(
+            f"{k} {[f'{x:.2e}' for x in v]}" for k, v in sound.items()))
+    log(f"[training] planted faults on glm4_9b_b2_t4096: " + "; ".join(
+        f"{k} {[f'{x:.2e}' for x in v]}" for k, v in faults.items())
+        + f" (tolerance {BWD_TOL}); all fail it")
+    timing = {}
+    for i, name in enumerate(BWD_SHAPES):
+        for dtype in ("bfloat16", "float32"):
+            timing[f"{name}/{dtype}"] = row = tp.bwd_timing(name, dtype,
+                                                            14200 + i)
+            log(f"[training-timing] backward {name}/{dtype}: kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, SDPA "
+                f"backward {row['library_ms']} ms (fwd + bwd "
+                f"{row.get('library_fwd_bwd_ms')}), bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            torch.cuda.empty_cache()
+    out["backward"]["timing"] = timing
+    tmp = Path(tempfile.mkdtemp(prefix="train_ckpt_"))
+    try:
+        out["glm4_9b"] = g = tp.glm4(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    p = g["profile"]
+    log(f"[training] {TRAIN_ARCH}: {TRAIN_LAYERS} of "
+        f"{g['config']['published_layers']} layers, b {TRAIN_B}, t "
+        f"{TRAIN_T}, bf16, remat, AdamW fp32 moments, {TRAIN_SLOTS} "
+        f"snapshot slot: {g['n_params'] / 1e9:.3f} G parameters "
+        f"({g['state_gib']:.1f} GiB of state); losses "
+        f"{[round(x, 4) for x in g['losses']]}, grad norms "
+        f"{[round(x, 3) for x in g['grad_norms']]}; "
+        f"{g['step_ms_median_warm']:.1f} ms a step (median, warm; all "
+        f"{[round(x, 1) for x in g['step_ms']]}), "
+        f"{g['tokens_per_s']:.0f} tokens/s, peak {g['peak_gib']:.1f} GiB "
+        f"above {g['held_before_gib']:.1f}; checkpoint at step {TRAIN_CKPT} "
+        f"restored (CRC-verified) into a fresh template in "
+        f"{g['restore_verify_s']:.1f} s and equal bit for bit; calls "
+        f"{g['first_call_s']:.1f} s + {g['resumed_call_s']:.1f} s (resumed); "
+        f"launches {g['launches']}")
+    log(f"[training] a step profiled: {p.get('device_ops_per_apply')} device "
+        f"operations, {p.get('device_us_per_apply', 0) / 1e3:.1f} ms device, "
+        f"busy {p.get('device_busy_share', p.get('error'))}; top "
+        + json.dumps({k: round(v, 1) for k, v in
+                      p.get("top_device_us_per_apply", {}).items()}))
+    out["families"] = {}
+    for i, name in enumerate(TRAIN_FAMILIES):
+        out["families"][name] = r = tp.family_step(name, TRAIN_SEED + 10 + i)
+        log(f"[training] {name} ({r['layers']} layers, b {r['b']}, t "
+            f"{r['t']}, bf16): loss {r['loss']:.4f}, grad norm "
+            f"{r['grad_norm']:.3f}, {r['leaves']} leaves finite "
+            f"({r['unused_leaves']} unused), step {r['step_ms']:.0f} ms, "
+            f"peak {r['peak_gib']:.1f} GiB")
+    out["card_vs_cpu"] = {}
+    for i, arch in enumerate(configs.ARCHS):
+        out["card_vs_cpu"][arch] = tp.card_vs_cpu(arch, TRAIN_SEED + 50 + i)
+    log(f"[training] one fp32 step card vs CPU, all ten reduced configs: "
+        + "; ".join(f"{a} " + json.dumps({k: float(f'{v:.2e}') for k, v in
+                                          e.items()})
+                    for a, e in out["card_vs_cpu"].items()))
+    for kname, n in g["launches"].items():
+        launches_main[kname] = launches_main.get(kname, 0) + n
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[training] phase in {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5525,6 +6047,9 @@ def main() -> int:
     # -- 13. model families -------------------------------------------------------
     families_out = families_phase(smoke, tk, launches_main)
 
+    # -- 14. training --------------------------------------------------------------
+    train_out = train_phase(smoke, tk, launches_main)
+
     # -- report ----------------------------------------------------------------
     ref = timings["cached_me"]
     rows = []
@@ -5565,6 +6090,13 @@ def main() -> int:
             "max_abs_err": smoke.max_err[name], "ms": a["ms"],
             "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
             "bound_by": a["bound_by"], "library_ms": a["library_ms"]})
+    b = train_out["backward"]["timing"][BWD_ROW]
+    rows.append({
+        "name": BWD, "route": "cuda", "source": KERNELS[BWD][0],
+        "replaces": KERNELS[BWD][1], "launches": launches_main[BWD],
+        "max_abs_err": smoke.max_err[BWD], "ms": b["ms"],
+        "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"], "library_ms": b["library_ms"]})
     details = {"card": card, "build_s": build_s, "n": N, "k": K, "p": P,
                "sort_passes": passes,
                "launches_main_path": launches_main, "timing": timings,
@@ -5591,6 +6123,7 @@ def main() -> int:
                "serving": serving_out,
                "runtime": runtime_out,
                "families": families_out,
+               "training": train_out,
                "kernels": rows}
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     log(card)

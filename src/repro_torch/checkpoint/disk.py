@@ -169,7 +169,8 @@ def _signed_tensor(raw: np.ndarray) -> torch.Tensor:
     as the signed type of its width)."""
     if raw.dtype.kind == "u" and raw.itemsize > 1:
         raw = raw.view(np.dtype(f"i{raw.itemsize}"))
-    return torch.from_numpy(np.ascontiguousarray(raw))
+    # (np.ascontiguousarray would make a 0-d leaf, e.g. AdamW's step, 1-d)
+    return torch.from_numpy(np.ascontiguousarray(raw).reshape(raw.shape))
 
 
 def _leaf_tensor(raw: np.ndarray, name: str, dtype: torch.dtype, device

@@ -113,6 +113,18 @@ def model_params(tree, device="cuda"):
     return torch.from_numpy(np.array(arr, order="C")).to(device)
 
 
+def opt_state(tree, device="cuda") -> dict:
+    """The reference's AdamW state (`adamw_init` / `adamw_update`'s
+    `{"m", "v", "step"}`, leaves as numpy arrays or anything `np.asarray`
+    takes) as the port's on `device`: `m` and `v` in the params' tree,
+    moments in their dtype (bfloat16 bits kept), `step` an int32 0-d
+    tensor."""
+    return {"m": model_params(tree["m"], device),
+            "v": model_params(tree["v"], device),
+            "step": torch.as_tensor(np.asarray(tree["step"]),
+                                    dtype=torch.int32).to(device)}
+
+
 def model_params_to_numpy(params):
     """The reverse of `model_params`: the port's params as numpy arrays in
     the same tree (bfloat16 as `ml_dtypes.bfloat16` when that package is

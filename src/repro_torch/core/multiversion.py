@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.core.layout import as_u64, as_words, to_word
 from repro_torch.core.specs import VersionSpec
+from repro_torch.models.common import tree_map  # noqa: F401 (mv.tree_map)
 from repro_torch.txn import versionlist as vl
 
 # The head table stores one word of payload per ring slot (the training
@@ -48,19 +49,6 @@ _STRATEGY = "seqlock"          # the layout whose protocol this module is
 def _vspec(n_slots: int) -> VersionSpec:
     return VersionSpec(n=n_slots, k=_K, depth=_DEPTH, strategy=_STRATEGY,
                        p_max=64)
-
-
-def tree_map(fn, tree, *rest):
-    """`fn` over the leaves (tensors) of a nested dict / list / tuple
-    (NamedTuples included), with `rest` trees of the same structure."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        out = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
-        return type(tree)(*out) if hasattr(tree, "_fields") \
-            else type(tree)(out)
-    return fn(tree, *rest)
 
 
 def _at(buf: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:

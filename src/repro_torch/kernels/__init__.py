@@ -22,7 +22,9 @@
                    kernel for bf16 at every head dim 1-256
                    (`csrc/flash_attention_wgmma.cu`), the 3xTF32 kernel
                    for fp32 at every head dim 1-256
-                   (`csrc/flash_attention_tf32x3.cu`)
+                   (`csrc/flash_attention_tf32x3.cu`); its backward
+                   (`csrc/flash_attention_bwd.cu`), behind the autograd
+                   Function `FlashAttention`
 
 `ops.py` holds the raw-table layer around them, `ref.py` the plain versions
 of the table kernels.  Importing the package builds nothing: each kernel
@@ -41,6 +43,7 @@ from repro_torch.kernels.engine_round import (  # noqa: F401
     fast_path_ok, fast_round, make_round, round_epilogue, round_prologue,
     slow_round,
 )
+from repro_torch.kernels.flash_attention import BACKWARD as _ATTENTION_BWD
 from repro_torch.kernels.flash_attention import KERNELS as _ATTENTION
 from repro_torch.kernels.llsc_commit import llsc_commit_round  # noqa: F401
 from repro_torch.kernels.scrub_digest import digest_rows  # noqa: F401
@@ -55,7 +58,7 @@ WRAPPERS = {fn.__name__: fn for fn in (
     round_prologue, fast_round, slow_round, round_epilogue, seqlock_gather,
     cas_apply_round, cas_apply_rounds, llsc_commit_round, cachehash_probe,
     cachehash_find, digest_rows)} \
-    | _ATTENTION
+    | _ATTENTION | _ATTENTION_BWD
 
 
 def launch_counts() -> dict[str, int]:

@@ -7,7 +7,8 @@ raw-table kernels; both include `segment_replay.cuh`, the segment
 replay), `scrub_digest.cu` (the scrub's cell digest),
 `flash_attention_wgmma.cu` (forward attention on the tensor cores, bf16)
 and `flash_attention_tf32x3.cu` (the same, fp32 as three TF32 products;
-both include `tma_wgmma.cuh`, their TMA and wgmma building blocks).
+both include `tma_wgmma.cuh`, their TMA and wgmma building blocks), and
+`flash_attention_bwd.cu` (the backward of attention, on the CUDA cores).
 A build happens at first use, into `build/kernels/` at the root of the
 checkout, under `<name>_<hash of the source and the headers it
 includes>.so`, so an edited source or header rebuilds and an unchanged one
@@ -71,6 +72,11 @@ SIGNATURES = {
     "flash_attention_tf32x3": {
         "flash_attention_tf32x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _F, _I, _I, _I, _P],
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
+                                _P],
     },
 }
 

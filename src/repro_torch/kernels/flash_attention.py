@@ -36,6 +36,13 @@ and the kernel path.
 PyTorch, over query and key blocks of 512 in fp32, so its memory stays
 bounded at long sequences.  `hbm_bytes_model` is the reference's traffic
 model.
+
+The gradient: `FlashAttention` (a `torch.autograd.Function`) saves q, k,
+v and the output, and its backward `flash_attention_bwd` launches the
+backward kernel `csrc/flash_attention_bwd.cu` (no TPU kernel: the
+reference differentiates its plain attention with XLA) on a card, or its
+plain twin `flash_attention_bwd_plain` on the CPU.  A query row with no
+live key has no gradient: the backward raises there.
 """
 
 from __future__ import annotations
@@ -133,6 +140,27 @@ def fill_dead_rows(out, v, *, causal: bool, window: int, q_block: int,
     return out
 
 
+def _heads_first(q, k, v, g: int):
+    """q, k, v as [b, heads, t, hd] in the plain versions' arithmetic type
+    (fp32; fp64 for fp64 inputs), k and v repeated to the query heads."""
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    return (q.to(dt).permute(0, 2, 1, 3),
+            k.to(dt).repeat_interleave(g, dim=2).permute(0, 2, 1, 3),
+            v.to(dt).repeat_interleave(g, dim=2).permute(0, 2, 1, 3))
+
+
+def _key_blocks(q_lo: int, q_hi: int, tkv: int, causal: bool, window: int):
+    """The plain versions' key blocks [k_lo, k_hi) that may hold a live
+    key for query rows [q_lo, q_hi)."""
+    for k_lo in range(0, tkv, BLOCK):
+        k_hi = min(k_lo + BLOCK, tkv)
+        if causal and k_lo > q_hi - 1:
+            break
+        if window > 0 and k_hi - 1 <= q_lo - window:
+            continue
+        yield k_lo, k_hi
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           q_block: int = 512, kv_block: int = 512):
     """q: [b, tq, h, hd]; k, v: [b, tkv, kvh, hd].  Returns [b, tq, h, hd]
@@ -145,24 +173,20 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     g = h // kvh
     scale = 1.0 / math.sqrt(hd)
     dev = q.device
-    # [b, h, t, hd] in fp32; kv head of query head i is i // g
-    qf = q.float().permute(0, 2, 1, 3)
-    kf = k.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
-    vf = v.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
-    out = torch.empty((b, h, tq, hd), dtype=torch.float32, device=dev)
+    # [b, h, t, hd] in fp32 (fp64 for fp64 inputs); kv head of query head
+    # i is i // g
+    qf, kf, vf = _heads_first(q, k, v, g)
+    out = torch.empty((b, h, tq, hd), dtype=qf.dtype, device=dev)
     for q_lo in range(0, tq, BLOCK):
         q_hi = min(q_lo + BLOCK, tq)
         qpos = torch.arange(q_lo, q_hi, device=dev)
         qb = qf[:, :, q_lo:q_hi]
-        m = torch.full((b, h, q_hi - q_lo), NEG_INF, device=dev)
-        l = torch.zeros((b, h, q_hi - q_lo), device=dev)
-        acc = torch.zeros((b, h, q_hi - q_lo, hd), device=dev)
-        for k_lo in range(0, tkv, BLOCK):
-            k_hi = min(k_lo + BLOCK, tkv)
-            if causal and k_lo > q_hi - 1:
-                break
-            if window > 0 and k_hi - 1 <= q_lo - window:
-                continue
+        m = torch.full((b, h, q_hi - q_lo), NEG_INF, dtype=qf.dtype,
+                       device=dev)
+        l = torch.zeros((b, h, q_hi - q_lo), dtype=qf.dtype, device=dev)
+        acc = torch.zeros((b, h, q_hi - q_lo, hd), dtype=qf.dtype,
+                          device=dev)
+        for k_lo, k_hi in _key_blocks(q_lo, q_hi, tkv, causal, window):
             kpos = torch.arange(k_lo, k_hi, device=dev)
             mask = _live(qpos, kpos, tkv, causal, window)
             s = torch.matmul(qb, kf[:, :, k_lo:k_hi].transpose(-1, -2)) \
@@ -182,19 +206,18 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_block: int = 512, kv_block: int = 512):
-    """q: [b, tq, h, hd]; k, v: [b, tkv, kvh, hd]; fp32 or bf16, one dtype,
-    h % kvh == 0, 1 <= hd <= 256, q_block, kv_block >= 1.  Returns
-    [b, tq, h, hd] in q's dtype.
+    """q: [b, tq, h, hd]; k, v: [b, tkv, kvh, hd]; fp32 or bf16 (on the
+    CPU also fp64), one dtype, h % kvh == 0, 1 <= hd <= 256, q_block,
+    kv_block >= 1.  Returns [b, tq, h, hd] in q's dtype.
 
     CPU tensors run `flash_attention_plain`; CUDA tensors launch the kernel
-    that `kernel_for(dtype, hd)` names, or raise."""
+    that `kernel_for(dtype, hd)` names, or raise.  No autograd graph: the
+    gradient goes through `FlashAttention`."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be [b, t, heads, hd]")
     b, tq, h, hd = q.shape
     tkv, kvh = k.shape[1], k.shape[2]
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"flash_attention: dtype {q.dtype}; expected "
-                         "float32 or bfloat16")
+    _check_dtype("flash_attention", q)
     if not 1 <= hd <= 256:
         raise ValueError(f"flash_attention: head dim {hd} not in [1, 256]")
     if kvh == 0 or h % kvh:
@@ -215,6 +238,171 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         KERNELS[kernel_for(q.dtype, hd)](q, k, v, out, causal, window)
     return fill_dead_rows(out, v, causal=causal, window=window,
                           q_block=q_block, kv_block=kv_block)
+
+
+def _check_dtype(who: str, q) -> None:
+    """fp32 or bf16; fp64 too on the CPU (the plain versions, for
+    gradcheck)."""
+    ok = (torch.float32, torch.bfloat16) + \
+        ((torch.float64,) if q.device.type == "cpu" else ())
+    if q.dtype not in ok:
+        raise ValueError(f"{who}: dtype {q.dtype}; expected float32 or "
+                         "bfloat16")
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, *, causal: bool = True,
+                              window: int = 0):
+    """The FlashAttention-2 backward in plain PyTorch, the kernel's twin:
+    over query blocks of 512, each row's log-sum-exp over its live keys,
+    then per live key block P = exp(S - LSE) recomputed, dV += P^T dO,
+    dS = P o (dO V^T - D) with D = rowsum(dO o O), dQ += scale dS K,
+    dK += scale dS^T Q; dk and dv summed over each kv head's g query heads.
+    fp32 (fp64 for fp64 inputs); returns (dq, dk, dv) in the inputs'
+    dtypes.  Raises where a row has no live key."""
+    b, tq, h, hd = q.shape
+    tkv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    _no_dead_rows(tq, tkv, window)
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    qf, kf, vf = _heads_first(q, k, v, g)
+    of = out.to(qf.dtype).permute(0, 2, 1, 3)
+    dof = dout.to(qf.dtype).permute(0, 2, 1, 3)
+    dsum = (dof * of).sum(-1)                                 # D [b, h, tq]
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for q_lo in range(0, tq, BLOCK):
+        q_hi = min(q_lo + BLOCK, tq)
+        qpos = torch.arange(q_lo, q_hi, device=dev)
+        qb, dob = qf[:, :, q_lo:q_hi], dof[:, :, q_lo:q_hi]
+        blocks = list(_key_blocks(q_lo, q_hi, tkv, causal, window))
+
+        def scores(k_lo, k_hi):
+            kpos = torch.arange(k_lo, k_hi, device=dev)
+            mask = _live(qpos, kpos, tkv, causal, window)
+            s = torch.matmul(qb, kf[:, :, k_lo:k_hi].transpose(-1, -2)) \
+                * scale
+            return torch.where(mask, s, NEG_INF), mask
+
+        m = torch.full((b, h, q_hi - q_lo), NEG_INF, dtype=qf.dtype,
+                       device=dev)
+        l = torch.zeros_like(m)
+        for k_lo, k_hi in blocks:
+            s, mask = scores(k_lo, k_hi)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+            l = l * torch.exp(m - m_new) + p.sum(-1)
+            m = m_new
+        lse = m + torch.log(l)
+        for k_lo, k_hi in blocks:
+            s, mask = scores(k_lo, k_hi)
+            p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+            kb, vb = kf[:, :, k_lo:k_hi], vf[:, :, k_lo:k_hi]
+            dv[:, :, k_lo:k_hi] += torch.matmul(p.transpose(-1, -2), dob)
+            dp = torch.matmul(dob, vb.transpose(-1, -2))
+            ds = p * (dp - dsum[:, :, q_lo:q_hi, None])
+            dq[:, :, q_lo:q_hi] += torch.matmul(ds, kb) * scale
+            dk[:, :, k_lo:k_hi] += torch.matmul(ds.transpose(-1, -2), qb) \
+                * scale
+
+    def per_kv_head(x, like):        # [b, h, tkv, hd] -> [b, tkv, kvh, hd]
+        x = x.reshape(b, kvh, g, tkv, hd).sum(2)
+        return x.permute(0, 2, 1, 3).to(like.dtype).contiguous()
+    return (dq.permute(0, 2, 1, 3).to(q.dtype).contiguous(),
+            per_kv_head(dk, k), per_kv_head(dv, v))
+
+
+def _no_dead_rows(tq: int, tkv: int, window: int) -> None:
+    """The backward is defined where every query row has a live key; a
+    row with none (`fill_dead_rows`' value) has no gradient, and no
+    self-attention training reaches one."""
+    if tq and (tkv == 0 or first_dead_row(tq, tkv, window) < tq):
+        raise ValueError(
+            f"flash_attention backward: query rows from "
+            f"{first_dead_row(tq, tkv, window) if tkv else 0} of {tq} have "
+            f"no live key (tkv {tkv}, window {window}); their value is "
+            "filled, not attended, and has no gradient")
+
+
+def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
+                        window: int = 0):
+    """(dq, dk, dv) of `flash_attention(q, k, v, causal=, window=)` = out,
+    for the output gradient `dout` [b, tq, h, hd].  Operands as the
+    forward's, `out` and `dout` shaped and typed as q; all contiguous.
+
+    CPU tensors run `flash_attention_bwd_plain`; CUDA tensors launch the
+    kernel `csrc/flash_attention_bwd.cu`, or raise.  Raises where a query
+    row has no live key."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("flash_attention_bwd: q, k, v must be "
+                         "[b, t, heads, hd]")
+    b, tq, h, hd = q.shape
+    tkv, kvh = k.shape[1], k.shape[2]
+    _check_dtype("flash_attention_bwd", q)
+    if not 1 <= hd <= 256:
+        raise ValueError(f"flash_attention_bwd: head dim {hd} not in "
+                         "[1, 256]")
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"flash_attention_bwd: {h} query heads are not a "
+                         f"multiple of {kvh} kv heads")
+    dev = q.device
+    _build.check(dev, ("q", q, q.dtype, (b, tq, h, hd)),
+                 ("k", k, q.dtype, (b, tkv, kvh, hd)),
+                 ("v", v, q.dtype, (b, tkv, kvh, hd)),
+                 ("out", out, q.dtype, (b, tq, h, hd)),
+                 ("dout", dout, q.dtype, (b, tq, h, hd)))
+    _no_dead_rows(tq, tkv, window)
+    if _build.runs_plain(dev, "flash_attention_bwd"):
+        return flash_attention_bwd_plain(q, k, v, out, dout, causal=causal,
+                                         window=window)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=dev)
+    dsum = torch.empty_like(lse)
+    if q.numel():
+        _bwd_kernel(q, k, v, out, dout, dq, dk, dv, lse, dsum, causal,
+                    window)
+    return dq, dk, dv
+
+
+def _bwd_kernel(q, k, v, out, dout, dq, dk, dv, lse, dsum, causal, window,
+                fault: int = 0):
+    """Launch `flash_attention_bwd` (`csrc/flash_attention_bwd.cu`: its
+    three kernels in turn).  `fault` plants one of the source's `Fault`s,
+    for a check that the comparison with the plain version catches it; 0
+    on every path."""
+    b, tq, h, hd = q.shape
+    _build.launch("flash_attention_bwd", "flash_attention_bwd", q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), lse.data_ptr(), dsum.data_ptr(), b, tq,
+                  k.shape[1], h, k.shape[2], hd, 1.0 / math.sqrt(hd),
+                  int(causal), int(window), int(q.dtype == torch.bfloat16),
+                  int(fault))
+    _bwd_kernel.launches += 1
+
+
+class FlashAttention(torch.autograd.Function):
+    """`flash_attention` with a gradient: the forward is the wrapper's
+    (the forward kernel on a card, the plain version on the CPU), saving
+    q, k, v and the output; the backward is `flash_attention_bwd` (the
+    backward kernel on a card, its plain twin on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_block, kv_block):
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              q_block=q_block, kv_block=kv_block)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None, None, None
 
 
 def _tma_launch(name, q, k, v, out, causal, window):
@@ -257,9 +445,12 @@ def _tf32x3_kernel(q, k, v, out, causal, window):
 
 _wgmma_kernel.launches = 0
 _tf32x3_kernel.launches = 0
-# Each CUDA kernel's launcher, by the name its launches are counted under.
+_bwd_kernel.launches = 0
+# Each forward kernel's launcher, by the name its launches are counted
+# under; the backward's in BACKWARD.
 KERNELS = {"flash_attention_wgmma": _wgmma_kernel,
            "flash_attention_tf32x3": _tf32x3_kernel}
+BACKWARD = {"flash_attention_bwd": _bwd_kernel}
 
 
 def hbm_bytes_model(b, t, h, kvh, hd, *, dtype_bytes=2, train=True) -> float:

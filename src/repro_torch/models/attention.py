@@ -12,9 +12,11 @@ On a card, `flash_attention` launches the port's CUDA attention kernels
 (`repro_torch.kernels.flash_attention`, the kernel `kernel_for` names:
 the wgmma kernel for bf16 at the dense configs' head dims) whenever the
 options are ones the kernels compute: no query offset, no softcap and fp32
-scores (`kernel_route`).  The rule is static: any other options run the
-plain pair-list version, and a kernel that fails to build or launch
-raises.  On the CPU the plain pair-list version runs.
+scores (`kernel_route`), through the autograd Function `FlashAttention`,
+whose backward is the backward kernel: training's gradient follows the
+kernels.  The rule is static: any other options run the plain pair-list
+version (differentiated by autograd), and a kernel that fails to build or
+launch raises.  On the CPU the plain pair-list version runs.
 `decode_attention` is plain PyTorch in the reference's form (no TPU
 kernel backs it).
 """
@@ -68,10 +70,9 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
     if kernel_route(q, q_offset=q_offset, softcap=softcap,
                     score_dtype=score_dtype):
         from repro_torch.kernels import flash_attention as fa
-        return fa.flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=causal,
-                                  window=window, q_block=q_block,
-                                  kv_block=kv_block)
+        return fa.FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), causal, window,
+                                       q_block, kv_block)
     return flash_attention_pairs(q, k, v, causal=causal, window=window,
                                  q_block=q_block, kv_block=kv_block,
                                  q_offset=q_offset, softcap=softcap,
@@ -110,11 +111,13 @@ def flash_attention_pairs(q, k, v, *, causal: bool, window: int = 0,
     qb = q.reshape(b, nq, q_block, h, hd)
     kb = k.reshape(b, nkv, kv_block, kvh, hd)
     vb = v.reshape(b, nkv, kv_block, kvh, hd)
-    acc = torch.zeros((b, nq, q_block, h, hd), dtype=torch.float32,
-                      device=dev)
-    m = torch.full((b, nq, q_block, h), NEG_INF, dtype=torch.float32,
-                   device=dev)
-    l = torch.zeros((b, nq, q_block, h), dtype=torch.float32, device=dev)
+    # each q block's online-softmax state, replaced (never written in
+    # place, so autograd can differentiate the recurrence)
+    acc = [torch.zeros((b, q_block, h, hd), dtype=torch.float32,
+                       device=dev)] * nq
+    m = [torch.full((b, q_block, h), NEG_INF, dtype=torch.float32,
+                    device=dev)] * nq
+    l = [torch.zeros((b, q_block, h), dtype=torch.float32, device=dev)] * nq
     q_pos_in_block = torch.arange(q_block, dtype=torch.int32, device=dev)
     k_pos_in_block = torch.arange(kv_block, dtype=torch.int32, device=dev)
 
@@ -136,17 +139,18 @@ def flash_attention_pairs(q, k, v, *, causal: bool, window: int = 0,
                         torch.tensor(NEG_INF, dtype=s.dtype, device=dev))
         s = s.reshape(b, q_block, kvh * group, kv_block)
         m_blk = s.float().amax(-1)
-        m_cur, l_cur, a_cur = m[:, qi], l[:, qi], acc[:, qi]
+        m_cur, l_cur, a_cur = m[qi], l[qi], acc[qi]
         m_new = torch.maximum(m_cur, m_blk)
         corr = torch.exp(m_cur - m_new)
         p = torch.exp(s.float() - m_new[..., None]).to(sd)
         pg = p.reshape(b, q_block, kvh, group, kv_block)
         pv = _einsum("bqkgs,bskd->bqkgd", pg, vb[:, kj].to(sd),
                      torch.float32).reshape(b, q_block, kvh * group, hd)
-        acc[:, qi] = a_cur * corr[..., None] + pv
-        l[:, qi] = l_cur * corr + p.float().sum(-1)
-        m[:, qi] = m_new
-    out = acc / torch.clamp(l[..., None], min=1e-30)
+        acc[qi] = a_cur * corr[..., None] + pv
+        l[qi] = l_cur * corr + p.float().sum(-1)
+        m[qi] = m_new
+    out = torch.stack(acc, 1) / torch.clamp(torch.stack(l, 1)[..., None],
+                                            min=1e-30)
     out = out.reshape(b, tq, h, hd)
     if q_pad:
         out = out[:, :tq_orig]

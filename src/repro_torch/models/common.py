@@ -124,6 +124,33 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(like, flat):
+    """The inverse of `tree_leaves`: the leaves `flat` (in its order) in
+    the structure of `like`."""
+    it = iter(flat)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+    return build(like)
+
+
+def tree_map(fn, tree, *rest):
+    """`fn` over the leaves (tensors) of a nested dict / list / tuple
+    (NamedTuples included), with `rest` trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
+    return fn(tree, *rest)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------

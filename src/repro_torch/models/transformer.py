@@ -8,11 +8,18 @@ Parameters are a nested dict in the reference's tree: the layers of each
 block-pattern period stacked along a leading axis (`params["stack"]`, a
 tuple with one dict per period position), remainder layers unstacked
 (`params["tail"]`).  The reference scans over the stack; here a Python
-loop indexes it, one layer at a time.  `dist.shard` is the identity on
-one device and is dropped.
+loop takes one layer at a time, from views that `unbind` makes once a
+forward (indexing `stack[i]` per layer would make each layer's backward
+write a zero tensor the size of the whole stack).  `dist.shard` is the
+identity on one device and is dropped.
 
-Not ported yet: `lm_loss` (the training path, ROADMAP Queue 1 item 5d),
-which raises NotImplementedError.
+Training: `lm_loss` (next-token CE, or per-position CE for the encoder,
+plus 0.01 x the MoE load-balancing loss), monolithic through
+`forward(mode="train")` or, with `cfg.loss_chunk > 0`, the head and the
+CE chunk by chunk (`_trunk`).  `cfg.remat` checkpoints each block-pattern
+period (`torch.utils.checkpoint`, non-reentrant), as the reference's
+`jax.checkpoint` of its scan body: only the period's input is kept, and
+the period runs again in the backward.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.layout import resolve_device
 from repro_torch.models import attention as attn
@@ -158,6 +166,15 @@ def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unbind(tree, n: int) -> list:
+    """The `n` layers of a stacked subtree, each leaf `unbind` once (views,
+    no copy; one backward node a leaf, whose gradient is stacked once)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 # ---------------------------------------------------------------------------
@@ -368,15 +385,18 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str = "train",
                        cfg.mrope_sections)
 
     stack_cache = None
-    if n_full:
+    if n_full and mode == "train":
+        x, aux_acc = _train_stack(params, cfg, x, positions, rope)
+    elif n_full:
+        layers = [_unbind(p, n_full) for p in params["stack"]]
         per_pos = [[] for _ in range(period)]
         for i in range(n_full):
             for j, kind in enumerate(cfg.block_pattern):
                 c_in = (_index(cache["stack"][j], i) if mode == "decode"
                         else None)
-                x, nc, aux = apply_layer(x, _index(params["stack"][j], i),
-                                         kind, cfg, positions, c_in, mode,
-                                         max_len, rope)
+                x, nc, aux = apply_layer(x, layers[j][i], kind, cfg,
+                                         positions, c_in, mode, max_len,
+                                         rope)
                 if mode != "decode":     # decode wrote its views in place
                     per_pos[j].append(nc)
                 aux_acc = aux_acc + aux
@@ -426,7 +446,119 @@ def _clone(tree):
     return tree.clone()
 
 
+# ---------------------------------------------------------------------------
+# Training: the layer stack under remat, and the losses
+# ---------------------------------------------------------------------------
+
+def _train_stack(params, cfg: ModelConfig, x, positions, rope):
+    """The stacked periods in train mode, each under `checkpoint` when
+    `cfg.remat` (the reference's `jax.checkpoint` of its scan body).
+    Returns (x, the periods' aux loss summed)."""
+    period = len(cfg.block_pattern)
+    n_full = cfg.n_layers // period
+    layers = [_unbind(p, n_full) for p in params["stack"]]
+
+    def period_body(x, layer_ps):
+        aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        for j, kind in enumerate(cfg.block_pattern):
+            x, _, aux = apply_layer(x, layer_ps[j], kind, cfg, positions,
+                                    None, "train", 0, rope)
+            aux_tot = aux_tot + aux
+        return x, aux_tot
+
+    aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_full):
+        layer_ps = [layers[j][i] for j in range(period)]
+        if cfg.remat:
+            x, aux = checkpoint(period_body, x, layer_ps,
+                                use_reentrant=False)
+        else:
+            x, aux = period_body(x, layer_ps)
+        aux_acc = aux_acc + aux
+    return x, aux_acc
+
+
+def _trunk(params, cfg: ModelConfig, x, positions):
+    """Train-mode layer stack + final norm, head NOT applied.
+    Returns (hidden [b,t,d], aux_loss)."""
+    period = len(cfg.block_pattern)
+    n_full, tail_n = cfg.n_layers // period, cfg.n_layers % period
+    rope = rope_tables(positions, cfg.hd, cfg.rope_theta,
+                       cfg.mrope_sections)
+    aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
+    if n_full:
+        x, aux_acc = _train_stack(params, cfg, x, positions, rope)
+    for j in range(tail_n):
+        x, _, aux = apply_layer(x, params["tail"][j],
+                                cfg.block_pattern[j % period], cfg,
+                                positions, None, "train", 0, rope)
+        aux_acc = aux_acc + aux
+    return norm(x, params["final_norm"], cfg), aux_acc
+
+
+def _ce_terms(logits, targets):
+    """logsumexp - gold logit per position, in fp32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return logz - gold
+
+
+def _ce_from_logits(logits, targets):
+    """The summed CE of `logits` [..., vocab] against int `targets`
+    [...], in fp32."""
+    return torch.sum(_ce_terms(logits, targets))
+
+
+def _head(params, cfg: ModelConfig):
+    return (params["embed"].T if cfg.tie_embeddings
+            else params["head"]).to(cfg.cdtype())
+
+
+def _chunk_ce(h, targets, valid, head, softcap: float):
+    """One loss chunk: the head projection and its CE, summed over the
+    valid positions."""
+    logits = torch.matmul(h, head)
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits.float() / softcap)
+    return torch.sum(torch.where(valid[None, :],
+                                 _ce_terms(logits, targets), 0.0))
+
+
 def lm_loss(params, cfg: ModelConfig, batch: dict):
-    """Next-token CE: the training path, not ported yet."""
-    raise NotImplementedError(
-        "lm_loss and training are not ported yet (ROADMAP Queue 1 item 5d)")
+    """Next-token CE (causal) / per-position CE (encoder).  Scalar mean,
+    plus 0.01 x the MoE load-balancing loss.
+
+    With cfg.loss_chunk > 0 (causal) the sequence is cut into that many
+    chunks, and each chunk's head projection and CE run under
+    `checkpoint`, so the [b, t, vocab] logits never materialise, forward
+    or backward (the reference maps over the chunks with `lax.map`)."""
+    targets = batch["tokens"] if cfg.input_mode == "tokens"         else batch["labels"]
+    if cfg.loss_chunk and cfg.causal:
+        x, positions = embed_inputs(params, cfg, batch, "train")
+        h, aux = _trunk(params, cfg, x, positions)
+        head = _head(params, cfg)
+        targets = targets[:, 1:]
+        h = h[:, :-1]
+        b, tm1, d = h.shape
+        nc = cfg.loss_chunk
+        pad = (-tm1) % nc
+        if pad:
+            h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+            targets = torch.nn.functional.pad(targets, (0, pad))
+        per = (tm1 + pad) // nc
+        valid = (torch.arange(tm1 + pad, device=h.device) < tm1).reshape(
+            nc, per)
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for j in range(nc):
+            sl = slice(j * per, (j + 1) * per)
+            total = total + checkpoint(
+                _chunk_ce, h[:, sl], targets[:, sl], valid[j], head,
+                cfg.logit_softcap, use_reentrant=False)
+        return total / (b * tm1) + 0.01 * aux
+
+    logits, _, aux = forward(params, cfg, batch, mode="train")
+    if cfg.causal:
+        targets = targets[:, 1:]
+        logits = logits[:, :-1]
+    return torch.mean(_ce_terms(logits, targets)) + 0.01 * aux

@@ -103,7 +103,8 @@ class BigQueue:
         if mesh is not None and n_shards > 1:
             raise NotImplementedError(
                 "the sharded BigQueue routes through core/distributed.py, "
-                "which repro_torch does not port yet")
+                "which repro_torch does not port yet (ROADMAP Queue 1 item "
+                "8)")
         self.spec = spec
         self._tspec = spec.table_spec()
         self.policy = policy

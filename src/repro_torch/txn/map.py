@@ -283,7 +283,7 @@ def transact_dist(mesh, dspec, dstate, txns: MapTxns, fn, *,
     `core/distributed.py`, which is not there yet."""
     raise NotImplementedError(
         "transact_dist needs repro_torch.core.distributed, which is not "
-        "ported yet; run transact on one device")
+        "ported yet (ROADMAP Queue 1 item 8); run transact on one device")
 
 
 def linearization_order(result: MapResult) -> np.ndarray:

@@ -12,8 +12,8 @@
 // kernel at once, so a cooperative kernel's blocks take several tiles each
 // in the tests, and the epilogue's blocks take tickets past two tiles.  Launches `kernel<<<grid, block, smem, stream>>>(args)` are
 // rewritten by the test into `EmuLaunch(grid, block, smem,
-// stream)(kernel)(args)`.  Only what the engine-round and table kernels use
-// is here.
+// stream)(kernel)(args)`.  Only what the engine-round, table and
+// attention-backward kernels use is here (`cuda_bf16.h` beside it).
 #pragma once
 
 #include <atomic>
@@ -42,6 +42,12 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+// Every block gets the dynamic shared memory its launch asks for.
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
 inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
   *value = 2;
   return cudaSuccess;
@@ -169,6 +175,11 @@ T __shfl_sync(unsigned mask, T v, int src, int = 32) {
   return emu_exchange(v, src & 31);
 }
 template <class T>
+T __shfl_xor_sync(unsigned mask, T v, int lane_mask, int = 32) {
+  emu_full(mask);
+  return emu_exchange(v, (emu_lane ^ lane_mask) & 31);
+}
+template <class T>
 T __shfl_up_sync(unsigned mask, T v, unsigned d) {
   emu_full(mask);
   const int src = emu_lane - (int)d;
@@ -225,6 +236,10 @@ struct EmuLaunch {
     return [g = grid, b = block, smem = smem, together = together,
             kernel](auto... args) {
       const unsigned step = together ? g.x : 1;
+      // a cooperative launch is one-dimensional; any other grid runs
+      // block by block, x fastest
+      for (unsigned bz = 0; bz < (together ? 1 : g.z); ++bz)
+      for (unsigned by = 0; by < (together ? 1 : g.y); ++by)
       for (unsigned b0 = 0; b0 < g.x; b0 += step) {
         std::vector<std::vector<EmuWarp>> warps;
         std::vector<std::unique_ptr<EmuBlock>> blocks;
@@ -238,7 +253,7 @@ struct EmuLaunch {
         for (unsigned bx = 0; bx < step; ++bx)
           for (unsigned t = 0; t < b.x; ++t)
             threads.emplace_back([&, bx, t] {
-              blockIdx = dim3(b0 + bx);
+              blockIdx = dim3(b0 + bx, by, bz);
               blockDim = b;
               gridDim = g;
               threadIdx = dim3(t);

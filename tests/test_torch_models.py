@@ -469,18 +469,29 @@ def test_rope_and_mrope_positions_match_reference():
 
 
 def test_unported_paths_raise_not_implemented():
-    """lm_loss and the train step (training, not ported yet) raise
-    NotImplementedError naming ROADMAP Queue 1 item 5, for every family."""
+    """The stubs that remain, all of ROADMAP Queue 1 item 8 (distribution),
+    raise NotImplementedError naming it: the serving engine's `mesh=`, the
+    sharded page table, the sharded `BigQueue`, `transact_dist` and
+    `train(mesh=...)`.  (Training, item 5d, runs since it was ported:
+    tests/test_torch_train.py.)"""
     from repro_torch.configs import get_config
-    from repro_torch.launch import steps
-    from repro_torch.models import transformer as tt
-    for arch in ("deepseek_7b", "mixtral_8x7b", "mamba2_780m",
-                 "recurrentgemma_9b"):
-        cfg = get_config(arch, reduced=True)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            tt.lm_loss({}, cfg, {})
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            steps.make_train_step(cfg, None)
+    from repro_torch.configs.shapes import SHAPES, reduced_shape
+    from repro_torch.launch.train import train
+    from repro_torch.serving import engine, paged_kv
+    from repro_torch.sync.queue import BigQueue
+    from repro_torch.txn import map as tmap
+    cfg = get_config("deepseek_7b", reduced=True)
+    for stub in (
+            lambda: engine.ServingEngine(cfg, {}, mesh=object(),
+                                         device="cpu"),
+            lambda: paged_kv._not_sharded(2),
+            lambda: paged_kv._not_sharded(1, mesh=object()),
+            lambda: BigQueue(8, mesh=object(), n_shards=2, device="cpu"),
+            lambda: tmap.transact_dist(None, None, None, None, None),
+            lambda: train(cfg, reduced_shape(SHAPES["train_4k"]), steps=1,
+                          mesh=object(), device="cpu")):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+            stub()
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
