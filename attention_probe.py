@@ -5,7 +5,8 @@
     python3 attention_probe.py [--kernels-from DIR] [CASE ...]
 
 Run from the root of a checkout on a machine with a CUDA card and `nvcc`.
-It builds the attention libraries (`kernels/csrc/flash_attention*.cu`)
+It builds the forward attention libraries (`flash_attention.KERNELS`:
+`kernels/csrc/flash_attention_wgmma.cu`, `flash_attention_tf32x3.cu`)
 and prints what `ptxas -v` said of each kernel (registers, spills), then
 runs each case of `chip_smoke.ATTENTION_CASES` (all, or those named):
 which kernel it launched, its largest error against
@@ -56,17 +57,18 @@ def main(argv) -> int:
 
     print(cs.card_line(), f"kernels from {fa.__file__}", flush=True)
     t0 = time.perf_counter()
-    libs = [n for n in _build.SIGNATURES if n.startswith("flash_attention")]
-    for lib in libs:
+    for lib in fa.KERNELS:                  # the forward kernels' libraries
         _build.build(lib)
         print(f"[build] {lib} {time.perf_counter() - t0:.1f} s", flush=True)
         log = _build.library_path(lib).with_suffix(".log").read_text()
         for line in log.splitlines():
-            if "Compiling entry" in line:    # <name>_kernelI<args>EEv...
-                end = line.index("_kernelI")
+            if "Compiling entry" in line and "_kernelI" in line:
+                end = line.index("_kernelI")     # <name>_kernelI<args>EEv...
                 start = line.rfind("flash_attention", 0, end)
                 args = line[end + 8:line.index("EEv", end)]
                 print(f"  {line[start:end]}_kernel<{args}>")
+            elif "Compiling entry" in line:      # a helper kernel
+                print("  " + line.split("'")[1] if "'" in line else line)
             elif "registers" in line or "spill" in line:
                 print("    " + line.strip())
     phase = cs.AttentionPhase(cs.Smoke(torch, atomics, engine, er, convert,

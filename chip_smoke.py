@@ -352,7 +352,11 @@ KERNELS = {
         "src/repro_torch/kernels/csrc/flash_attention_tf32x3.cu",
         "src/repro/kernels/flash_attention.py:120"),
     # no Pallas backward: XLA differentiates the reference's plain
-    # pair-list attention on its training path
+    # pair-list attention on its training path; bf16 on the tensor cores,
+    # fp32 on the CUDA cores
+    "flash_attention_bwd_wgmma": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
+        "src/repro/models/attention.py:46"),
     "flash_attention_bwd": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/models/attention.py:46"),
@@ -5191,10 +5195,13 @@ def families_phase(smoke, tk, launches_main):
 # ---------------------------------------------------------------------------
 # Phase 14: training (models/transformer.py::lm_loss, optim/, data/,
 # launch/steps.py::make_train_step, launch/train.py::train) and the
-# attention backward kernel (kernels/csrc/flash_attention_bwd.cu).
+# attention backward kernels (kernels/csrc/flash_attention_bwd_wgmma.cu,
+# bf16; kernels/csrc/flash_attention_bwd.cu, fp32).
 # ---------------------------------------------------------------------------
 
-BWD = "flash_attention_bwd"
+# each dtype's backward kernel (`flash_attention.bwd_kernel_for`)
+BWD = {"bfloat16": "flash_attention_bwd_wgmma",
+       "float32": "flash_attention_bwd"}
 # The backward against its plain twin, as a share of each gradient's
 # largest entry.  fp32: sums of up to 6144 products in other orders; bf16:
 # dq, dk, dv rounded to bf16 (one ulp, 2^-8 relative) on top of that.  Set
@@ -5210,11 +5217,19 @@ BWD_SHAPES = {
     "hd7_b2_t1000": (2, 1000, 1000, 32, 8, 7, True, 0),
     "hd100_b2_t1000": (2, 1000, 1000, 32, 8, 100, True, 0),
 }
-# the faults `csrc/flash_attention_bwd.cu` can plant: each must fail
-# BWD_TOL on the glm4_9b case (causal, 16 query heads a kv head)
+# the faults both backward kernels can plant: each must fail BWD_TOL on the
+# glm4_9b case (causal, 16 query heads a kv head)
 BWD_FAULTS = {1: "D left out", 2: "the GQA sum over one head only",
               3: "the causal mask off by one"}
-BWD_ROW = "glm4_9b_b2_t4096/bfloat16"   # the kernels line's timing case
+BWD_CASE = "glm4_9b_b2_t4096"           # the kernels line's timing case
+# The bf16 forward kernel's LSE (natural log units of the scaled scores)
+# against the plain forward's, as the largest absolute difference: the
+# backward's P is exp(scale S - LSE), so an LSE off by d moves P by a share
+# d.  Set between the sound readings and the planted errors (the LSE
+# rounded to bf16; in log2 units), see PERF.md §6.
+LSE_TOL = 2 ** -10
+LSE_FAULTS = {"rounded to bf16": lambda lse: lse.bfloat16().float(),
+              "in log2 units": lambda lse: lse * 1.4426950408889634}
 TRAIN_ARCH = "glm4_9b"
 # Depth and batch cut so the train state, one copy of it in the versioned
 # store (TRAIN_SLOTS), the update's new state and the loss's fp32 logits
@@ -5271,7 +5286,9 @@ class TrainPhase:
     # -- the backward kernel against its plain twin ---------------------------
 
     def bwd_inputs(self, shape, dtype, seed):
-        """q, k, v, dO drawn on the card and o = the forward kernel's."""
+        """q, k, v, dO drawn on the card, o and the LSE the forward
+        kernel's (the LSE None in fp32: the 3xTF32 kernel writes none and
+        the fp32 backward recomputes it)."""
         torch = self.torch
         b, tq, tkv, h, kvh, hd, causal, window = shape
         gen = torch.Generator(device=self.dev).manual_seed(seed)
@@ -5279,8 +5296,9 @@ class TrainPhase:
         q, k, v, do = (torch.randn(s, generator=gen, device=self.dev).to(dt)
                        for s in ((b, tq, h, hd), (b, tkv, kvh, hd),
                                  (b, tkv, kvh, hd), (b, tq, h, hd)))
-        o = self.fa.flash_attention(q, k, v, causal=causal, window=window)
-        return q, k, v, o, do
+        o, lse = self.fa.flash_attention(q, k, v, causal=causal,
+                                         window=window, with_lse=True)
+        return q, k, v, o, do, lse
 
     @staticmethod
     def reading(got, want):
@@ -5289,19 +5307,40 @@ class TrainPhase:
                 / max(float(w.float().abs().max()), 1e-30)
                 for g, w in zip(got, want)]
 
-    def bwd_check(self):
-        """Every case in both dtypes: the kernel (through
-        `flash_attention_bwd`) within BWD_TOL of the plain backward; then
-        each planted fault on the glm4_9b case outside it.  Returns
-        {case: readings}, {fault: readings}, the largest abs errors."""
+    def planted(self, dtype, q, k, v, o, do, lse, causal, window, fault):
+        """(dq, dk, dv) of the dtype's backward kernel with `fault`
+        planted."""
         torch, fa = self.torch, self.fa
-        sound, faults, max_abs = {}, {}, 0.0
+        bad = tuple(torch.empty_like(t) for t in (q, k, v))
+        if dtype == "bfloat16":
+            fa._bwd_wgmma_kernel(q, k, v, o, do, lse, *bad, causal, window,
+                                 fault=fault)
+        else:
+            b, tq, h, _ = q.shape
+            stats = torch.empty((2, b, h, tq), device=self.dev)
+            fa._bwd_kernel(q, k, v, o, do, *bad, stats[0], stats[1],
+                           causal, window, fault=fault)
+        return bad
+
+    def bwd_check(self):
+        """Every case in both dtypes: the dtype's kernel (through
+        `flash_attention_bwd`, bf16 from the forward kernel's LSE) within
+        BWD_TOL of the plain backward; then each planted fault on the
+        glm4_9b case outside it.  At each bf16 case the forward kernel's
+        LSE within LSE_TOL of the plain forward's, and each of
+        LSE_FAULTS outside it.  Returns {case: readings}, {fault:
+        readings}, {case: LSE reading}, {LSE fault: reading} and the
+        largest abs errors by kernel."""
+        torch, fa = self.torch, self.fa
+        sound, faults, lse_sound, lse_faults = {}, {}, {}, {}
+        max_abs = dict.fromkeys(BWD.values(), 0.0)
         for i, (name, shape) in enumerate(BWD_SHAPES.items()):
             b, tq, tkv, h, kvh, hd, causal, window = shape
             for dtype in ("bfloat16", "float32"):
-                q, k, v, o, do = self.bwd_inputs(shape, dtype, 14100 + i)
+                q, k, v, o, do, lse = self.bwd_inputs(shape, dtype,
+                                                      14100 + i)
                 got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                             window=window)
+                                             window=window, lse=lse)
                 want = fa.flash_attention_bwd_plain(q, k, v, o, do,
                                                     causal=causal,
                                                     window=window)
@@ -5313,43 +5352,57 @@ class TrainPhase:
                                   "not in q's dtype")
                 r = self.reading(got, want)
                 sound[f"{name}/{dtype}"] = r
-                max_abs = max(max_abs, max(
+                max_abs[BWD[dtype]] = max(max_abs[BWD[dtype]], max(
                     float((g.float() - w.float()).abs().max())
                     for g, w in zip(got, want)))
                 if max(r) > BWD_TOL[dtype]:
                     self.fail(f"backward {name}/{dtype} differs from the "
                               f"plain version: {r} of the largest entries "
                               f"(tolerance {BWD_TOL[dtype]})")
-                if name == "glm4_9b_b2_t4096":
+                if name == BWD_CASE:
                     for fault in BWD_FAULTS:
-                        bad = tuple(torch.empty_like(t) for t in (q, k, v))
-                        lse = torch.empty((b, h, tq), device=self.dev)
-                        fa._bwd_kernel(q, k, v, o, do, *bad, lse,
-                                       torch.empty_like(lse), causal,
-                                       window, fault=fault)
-                        rf = self.reading(bad, want)
+                        rf = self.reading(self.planted(
+                            dtype, q, k, v, o, do, lse, causal, window,
+                            fault), want)
                         faults[f"{BWD_FAULTS[fault]}/{dtype}"] = rf
                         if max(rf) <= BWD_TOL[dtype]:
                             self.fail(f"the planted fault '{BWD_FAULTS[fault]}'"
                                       f" ({dtype}) passes the tolerance: "
                                       f"{rf}")
-                del q, k, v, o, do, got, want
+                if dtype == "bfloat16":
+                    _, plain = fa.flash_attention_plain(
+                        q, k, v, causal=causal, window=window, with_lse=True)
+                    lse_sound[name] = float((lse - plain).abs().max())
+                    if lse_sound[name] > LSE_TOL:
+                        self.fail(f"the forward kernel's LSE at {name} "
+                                  f"differs from the plain one's by "
+                                  f"{lse_sound[name]} (tolerance {LSE_TOL})")
+                    for what, plant in LSE_FAULTS.items():
+                        rf = float((plant(lse) - plain).abs().max())
+                        lse_faults[f"{what}/{name}"] = rf
+                        if rf <= LSE_TOL:
+                            self.fail(f"the LSE {what} passes the tolerance "
+                                      f"at {name}: {rf}")
+                    del plain
+                del q, k, v, o, do, lse, got, want
                 torch.cuda.empty_cache()
-        return sound, faults, max_abs
+        return sound, faults, lse_sound, lse_faults, max_abs
 
     def bwd_timing(self, name, dtype, seed):
-        """Device ms of the kernel, the plain twin's ms, SDPA's backward
-        (its forward + backward less its forward; a dense mask where there
-        is a window) and the bound."""
+        """Device ms of the dtype's kernel, its plain twin's ms (from the
+        same LSE), SDPA's backward (its forward + backward less its
+        forward; a dense mask where there is a window) and the bound."""
         torch, fa, s = self.torch, self.fa, self.s
         shape = BWD_SHAPES[name]
         b, tq, tkv, h, kvh, hd, causal, window = shape
-        q, k, v, o, do = self.bwd_inputs(shape, dtype, seed)
-        row = {"ms": s.device_ms(lambda: fa.flash_attention_bwd(
-                   q, k, v, o, do, causal=causal, window=window), reps=5),
+        q, k, v, o, do, lse = self.bwd_inputs(shape, dtype, seed)
+        row = {"kernel": BWD[dtype],
+               "ms": s.device_ms(lambda: fa.flash_attention_bwd(
+                   q, k, v, o, do, causal=causal, window=window, lse=lse),
+                   reps=5),
                "plain_ms": s.time_ms(lambda: fa.flash_attention_bwd_plain(
-                   q, k, v, o, do, causal=causal, window=window), reps=3,
-                   warmup=1)}
+                   q, k, v, o, do, causal=causal, window=window, lse=lse),
+                   reps=3, warmup=1)}
         sdpa = torch.nn.functional.scaled_dot_product_attention
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
@@ -5442,11 +5495,13 @@ class TrainPhase:
         if not losses[-1] < losses[0]:
             self.fail(f"the loss did not fall: {losses}")
         n_steps = TRAIN_STEPS * TRAIN_LAYERS
-        want = {WGMMA: 2 * n_steps, BWD: n_steps}     # remat: fwd twice
+        # remat: the forward twice; bf16 never reaches the fp32 backward
+        want = {WGMMA: 2 * n_steps, BWD["bfloat16"]: n_steps,
+                BWD["float32"]: None}
         if any(launches.get(k) != v for k, v in want.items()):
             self.fail(f"launches {launches}, expected {want} (forward twice "
                       "an attention layer and step under remat, backward "
-                      "once)")
+                      "once, the bf16 kernel)")
         # one more step profiled, from the final state
         step = self.steps.make_train_step(cfg, opt)
         batch = self.data.to_device(self.data.DataPipeline(
@@ -5580,12 +5635,14 @@ class TrainPhase:
 
 
 def train_phase(smoke, tk, launches_main):
-    """Phase 14: the backward kernel against its plain twin (and the
-    planted faults) and its timing; glm4_9b trained at its published width
-    through `launch.train.train` (the counts reset just before and read
-    just after: `flash_attention_wgmma` and `flash_attention_bwd` join the
-    kernels line); one step of mixtral, mamba2 and recurrentgemma; every
-    reduced config's fp32 step card vs CPU."""
+    """Phase 14: the backward kernels against their plain twin (and the
+    planted faults), the forward kernel's LSE against the plain one's, and
+    their timing; glm4_9b trained at its published width through
+    `launch.train.train` (the counts reset just before and read just
+    after: `flash_attention_wgmma` and `flash_attention_bwd_wgmma` join
+    the kernels line); one step of mixtral, mamba2 and recurrentgemma;
+    every reduced config's fp32 step card vs CPU (its counts likewise:
+    `flash_attention_tf32x3` and `flash_attention_bwd` join the line)."""
     import gc
     import shutil
     import tempfile
@@ -5608,22 +5665,30 @@ def train_phase(smoke, tk, launches_main):
     out = {"held_at_start_gib": torch.cuda.memory_allocated() / 2 ** 30}
     log(f"[training] {out['held_at_start_gib']:.2f} GiB held by the earlier "
         "phases")
-    sound, faults, max_abs = tp.bwd_check()
-    smoke.max_err[BWD] = max_abs
+    sound, faults, lse_sound, lse_faults, max_abs = tp.bwd_check()
+    smoke.max_err.update(max_abs)
     out["backward"] = {"tolerance": BWD_TOL, "readings": sound,
-                       "faults": faults}
-    log(f"[training] backward kernel vs plain, max err / largest entry "
-        f"(dq, dk, dv): " + "; ".join(
-            f"{k} {[f'{x:.2e}' for x in v]}" for k, v in sound.items()))
-    log(f"[training] planted faults on glm4_9b_b2_t4096: " + "; ".join(
+                       "faults": faults, "lse_tolerance": LSE_TOL,
+                       "lse_readings": lse_sound, "lse_faults": lse_faults}
+    log(f"[training] backward kernels vs plain (bf16 {BWD['bfloat16']}, "
+        f"fp32 {BWD['float32']}), max err / largest entry (dq, dk, dv): "
+        + "; ".join(f"{k} {[f'{x:.2e}' for x in v]}"
+                    for k, v in sound.items()))
+    log(f"[training] planted faults on {BWD_CASE}: " + "; ".join(
         f"{k} {[f'{x:.2e}' for x in v]}" for k, v in faults.items())
         + f" (tolerance {BWD_TOL}); all fail it")
+    log(f"[training] the forward kernel's LSE vs plain, max abs err: "
+        + "; ".join(f"{k} {v:.3e}" for k, v in lse_sound.items())
+        + f"; planted: " + "; ".join(f"{k} {v:.3e}"
+                                     for k, v in lse_faults.items())
+        + f" (tolerance {LSE_TOL}); all fail it")
     timing = {}
     for i, name in enumerate(BWD_SHAPES):
         for dtype in ("bfloat16", "float32"):
             timing[f"{name}/{dtype}"] = row = tp.bwd_timing(name, dtype,
                                                             14200 + i)
-            log(f"[training-timing] backward {name}/{dtype}: kernel "
+            log(f"[training-timing] backward {name}/{dtype} "
+                f"({row['kernel']}): kernel "
                 f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, SDPA "
                 f"backward {row['library_ms']} ms (fwd + bwd "
                 f"{row.get('library_fwd_bwd_ms')}), bound "
@@ -5665,14 +5730,26 @@ def train_phase(smoke, tk, launches_main):
             f"({r['unused_leaves']} unused), step {r['step_ms']:.0f} ms, "
             f"peak {r['peak_gib']:.1f} GiB")
     out["card_vs_cpu"] = {}
+    # the fp32 step's kernels (the 3xTF32 forward, the fp32 backward): the
+    # counts reset just before the ten steps and read just after
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
     for i, arch in enumerate(configs.ARCHS):
         out["card_vs_cpu"][arch] = tp.card_vs_cpu(arch, TRAIN_SEED + 50 + i)
+    fp32_launches = {k: v for k, v in tk.launch_counts().items() if v}
+    if not fp32_launches.get(BWD["float32"]) or \
+            fp32_launches.get(BWD["bfloat16"]):
+        tp.fail(f"the fp32 steps launched {fp32_launches}: expected the "
+                "fp32 backward kernel, and not the bf16 one")
+    out["card_vs_cpu_launches"] = fp32_launches
     log(f"[training] one fp32 step card vs CPU, all ten reduced configs: "
         + "; ".join(f"{a} " + json.dumps({k: float(f'{v:.2e}') for k, v in
                                           e.items()})
-                    for a, e in out["card_vs_cpu"].items()))
-    for kname, n in g["launches"].items():
-        launches_main[kname] = launches_main.get(kname, 0) + n
+                    for a, e in out["card_vs_cpu"].items())
+        + f"; launches {fp32_launches}")
+    for launched in (g["launches"], fp32_launches):
+        for kname, n in launched.items():
+            launches_main[kname] = launches_main.get(kname, 0) + n
     torch.cuda.memory._set_allocator_settings("expandable_segments:False")
     out["phase_s"] = time.perf_counter() - t0
     log(f"[training] phase in {out['phase_s']:.1f} s")
@@ -6090,13 +6167,14 @@ def main() -> int:
             "max_abs_err": smoke.max_err[name], "ms": a["ms"],
             "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
             "bound_by": a["bound_by"], "library_ms": a["library_ms"]})
-    b = train_out["backward"]["timing"][BWD_ROW]
-    rows.append({
-        "name": BWD, "route": "cuda", "source": KERNELS[BWD][0],
-        "replaces": KERNELS[BWD][1], "launches": launches_main[BWD],
-        "max_abs_err": smoke.max_err[BWD], "ms": b["ms"],
-        "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
-        "bound_by": b["bound_by"], "library_ms": b["library_ms"]})
+    for dtype, name in BWD.items():
+        b = train_out["backward"]["timing"][f"{BWD_CASE}/{dtype}"]
+        rows.append({
+            "name": name, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1], "launches": launches_main[name],
+            "max_abs_err": smoke.max_err[name], "ms": b["ms"],
+            "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": b["library_ms"]})
     details = {"card": card, "build_s": build_s, "n": N, "k": K, "p": P,
                "sort_passes": passes,
                "launches_main_path": launches_main, "timing": timings,

@@ -22,9 +22,11 @@
                    kernel for bf16 at every head dim 1-256
                    (`csrc/flash_attention_wgmma.cu`), the 3xTF32 kernel
                    for fp32 at every head dim 1-256
-                   (`csrc/flash_attention_tf32x3.cu`); its backward
-                   (`csrc/flash_attention_bwd.cu`), behind the autograd
-                   Function `FlashAttention`
+                   (`csrc/flash_attention_tf32x3.cu`); its backward,
+                   bf16 on the tensor cores from the forward's LSE
+                   (`csrc/flash_attention_bwd_wgmma.cu`), fp32 on the
+                   CUDA cores (`csrc/flash_attention_bwd.cu`), behind the
+                   autograd Function `FlashAttention`
 
 `ops.py` holds the raw-table layer around them, `ref.py` the plain versions
 of the table kernels.  Importing the package builds nothing: each kernel

@@ -5,10 +5,15 @@ into its own shared library with a plain C interface, which `ctypes`
 loads: `engine_round.cu` (the fused engine round), `table_ops.cu` (the
 raw-table kernels; both include `segment_replay.cuh`, the segment
 replay), `scrub_digest.cu` (the scrub's cell digest),
-`flash_attention_wgmma.cu` (forward attention on the tensor cores, bf16)
-and `flash_attention_tf32x3.cu` (the same, fp32 as three TF32 products;
-both include `tma_wgmma.cuh`, their TMA and wgmma building blocks), and
-`flash_attention_bwd.cu` (the backward of attention, on the CUDA cores).
+`flash_attention_wgmma.cu` (forward attention on the tensor cores, bf16,
+writing each row's LSE where asked) and `flash_attention_tf32x3.cu` (the
+same, fp32 as three TF32 products), `flash_attention_bwd_wgmma.cu` (the
+backward of attention for bf16, on the tensor cores, from that LSE; it
+also includes `flash_attention_bwd_prep.cuh`, its D and dK/dV-sum passes)
+and `flash_attention_bwd.cu` (the backward for fp32, on the CUDA cores).
+The tensor-core kernels include `tma_wgmma.cuh`, their TMA and wgmma
+building blocks, and the two bf16 ones `wgmma_bf16.cuh`, their bf16
+wgmma instructions.
 A build happens at first use, into `build/kernels/` at the root of the
 checkout, under `<name>_<hash of the source and the headers it
 includes>.so`, so an edited source or header rebuilds and an unchanged one
@@ -66,17 +71,20 @@ SIGNATURES = {
     },
     "scrub_digest": {"digest_rows": [_P, _P, _I, _I, _P, _I, _P]},
     "flash_attention_wgmma": {
-        "flash_attention_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                                  _I, _I, _I, _P],
+        "flash_attention_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _F, _I, _I, _I, _P],
     },
     "flash_attention_tf32x3": {
         "flash_attention_tf32x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _F, _I, _I, _I, _P],
     },
+    "flash_attention_bwd_wgmma": {
+        "flash_attention_bwd_wgmma": [_P] * 11 + [_I] * 6 + [_F]
+        + [_I] * 5 + [_P],
+    },
     "flash_attention_bwd": {
-        "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
-                                _P],
+        "flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_F] + [_I] * 4
+        + [_P],
     },
 }
 

@@ -1,7 +1,8 @@
-// Hand-written Hopper (sm_90a) kernels for the backward of attention
+// Hand-written Hopper (sm_90a) kernels for the fp32 backward of attention
 // (src/repro_torch/kernels/flash_attention.py::flash_attention_bwd): the
-// gradients dq, dk and dv of the forward that flash_attention_wgmma.cu
-// (bf16) and flash_attention_tf32x3.cu (fp32) compute.
+// gradients dq, dk and dv of the forward that flash_attention_tf32x3.cu
+// computes.  bf16 goes to flash_attention_bwd_wgmma.cu (the tensor cores,
+// from the LSE its forward kernel writes).
 //
 // It replaces no TPU kernel: the JAX package's Pallas attention
 // (src/repro/kernels/flash_attention.py::flash_attention_tpu) is forward
@@ -14,8 +15,8 @@
 //
 // The FlashAttention-2 backward, with S = scale * Q K^T, P = exp(S - LSE):
 //   attn_bwd_stats  one block per (b, head, q tile): each row's
-//                   log-sum-exp over its live keys (recomputed: the forward
-//                   kernels write no LSE) and D = rowsum(dO o O), fp32
+//                   log-sum-exp over its live keys (recomputed: the fp32
+//                   forward kernel writes no LSE) and D = rowsum(dO o O)
 //   attn_bwd_dkdv   one block per (b, kv head, kv tile): over the group's
 //                   g query heads and their live q tiles, dV += P^T dO,
 //                   dS = P o (dO V^T - D), dK += scale dS^T Q; dK and dV
@@ -26,21 +27,21 @@
 // Masks: causal (key <= query), a sliding window (key > query - window),
 // ragged tq and tkv; whole tiles that no live pair touches are skipped.
 // GQA: query head i reads kv head i / (h / kvh).  hd 1-256, run at the
-// padded width HD = 32, 64, 128 or 256 (zero columns past hd).  bf16 or
-// fp32 inputs, fp32 arithmetic, outputs in the inputs' type.  A row with
-// no live key has no gradient here: the wrapper raises before the launch.
+// padded width HD = 32, 64, 128 or 256 (zero columns past hd).  fp32
+// inputs, arithmetic and outputs.  A row with no live key has no gradient
+// here: the wrapper raises before the launch.
 //
 // What bounds it on an H100: operations.  The backward does 2.5 times the
 // forward's products (S and dP again, then dV, dK, dQ: 5 products of a
 // live pair's hd-long rows against the forward's 2): 0.69 TFLOP a glm4_9b
 // layer at b 2, t 4096, against ~0.29 GB moved in bf16 (q, k, v, o, dO
-// and the LSE read once, dq, dk, dv written once): 0.69 ms at 989
-// TFLOP/s, 0.09 ms at 3.35 TB/s.  This first
-// version runs on the CUDA cores: tiles of 64 x 64 (32 x 32 past HD 128)
-// in shared memory as fp32, each thread a 4 x 4 (2 x 2) block of S and dP
-// and a 4 x HD/16 block of the accumulated gradient in registers, so a
-// value read from shared memory serves several products.  The tensor
-// cores (wgmma, TMA, an LSE from the forward) are later work.
+// and the LSE read once, dq, dk, dv written once in bf16): 0.69 ms at 989
+// TFLOP/s bf16, 4.2 ms as 3xTF32 in fp32.  This version runs on the CUDA
+// cores: tiles of 64 x 64 (32 x 32 past HD 128) in shared memory as fp32,
+// each thread a 4 x 4 (2 x 2) block of S and dP and a 4 x HD/16 block of
+// the accumulated gradient in registers, so a value read from shared
+// memory serves several products.  3xTF32 on the tensor cores is later
+// work.
 //
 // Written with SHARED_BLOCK_MEMORY, __syncthreads and warp shuffles only,
 // so tests/cuda_emu/ compiles it with g++ for the CPU.
@@ -49,7 +50,6 @@
 #include <cstddef>
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #ifndef SHARED_BLOCK_MEMORY
@@ -75,18 +75,11 @@ struct Args {
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <class T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 __device__ __forceinline__ bool live(const Args& a, int qp, int kp) {
@@ -405,15 +398,15 @@ cudaError_t run_width(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // q, o, dout, dq [b, tq, h, hd]; k, v, dk, dv [b, tkv, kvh, hd], all
-// contiguous, bf16 (is_bf16) or fp32; lse, dsum fp32 [b, h, tq] scratch.
+// contiguous fp32; lse, dsum fp32 [b, h, tq] scratch.
 // Launches on `stream` of `device` and returns the cudaError_t of the
 // launches (0 = queued).  `fault` plants a fault for a check (0 in use).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, void* dq, void* dk,
                         void* dv, void* lse, void* dsum, int b, int tq,
                         int tkv, int h, int kvh, int hd, float scale,
-                        int causal, int window, int is_bf16, int fault,
-                        int device, void* stream) {
+                        int causal, int window, int fault, int device,
+                        void* stream) {
   cudaGetLastError();
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -423,9 +416,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   const Args a{q, k, v, o, dout, dq, dk, dv,
                static_cast<float*>(lse), static_cast<float*>(dsum),
                b, tq, tkv, h, kvh, hd, scale, causal, window, fault};
-  const auto st = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? run_width<__nv_bfloat16>(a, st)
-                       : run_width<float>(a, st));
+  return (int)run_width<float>(a, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_bwd_error_string(int err) {

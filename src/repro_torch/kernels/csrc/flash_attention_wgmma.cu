@@ -12,8 +12,14 @@
 // softmax statistics are fp32: the running max starts at the finite
 // NEG_INF = -1e30, a masked score is -inf and contributes p = 0, and the
 // output is O / max(l, 1e-30), so a row with no live key gives zeros here
-// (the wrapper then gives such rows the Pallas kernel's value).  fp32 goes
-// to flash_attention_tf32x3.cu.  The plain PyTorch version is
+// (the wrapper then gives such rows the Pallas kernel's value).  Where the
+// caller passes an `lse` buffer (training: the backward,
+// flash_attention_bwd_wgmma.cu, takes P = exp(scale S - LSE) from it
+// instead of recomputing S to find it), the epilogue also stores each
+// row's log-sum-exp of the scaled scores, ln 2 m + ln l from the online
+// softmax's log2-unit max m and sum l, fp32 [b, h, tq]; inference passes a
+// null pointer and stores nothing more.  fp32 goes to
+// flash_attention_tf32x3.cu.  The plain PyTorch version is
 // flash_attention.py::flash_attention_plain.
 //
 // What bounds it on an H100: operations.  At glm4_9b's widths (h = 32,
@@ -74,12 +80,14 @@
 namespace {
 
 #include "tma_wgmma.cuh"
+#include "wgmma_bf16.cuh"
 
 constexpr int kConsumers = 2;                      // consumer warpgroups
 constexpr int kThreads = 128 * (1 + kConsumers);
 constexpr int kTileQ = 64 * kConsumers;            // query rows per block
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // The widths the kernel is built for, each padded width W a template
 // instance: a call at head dim hd runs at the smallest W >= hd
@@ -105,103 +113,16 @@ struct Tile {
   static_assert(kSmem <= 232448, "shared memory of one block");
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// (a, b) as bf16 pairs hi = bf16(a, b) and lo = bf16((a, b) - hi).
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// The wgmma instructions this kernel issues (bf16 in, fp32 accumulators).
-
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128]: A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D[64 x N] (+)= A[64 x 16] B[16 x N] for N = 2 R: A in registers (bf16
-// pairs), B MN-major in shared memory (the transpose bit).
-#define WGMMA_RS_BF16(N, R) \
-  WGMMA_RS(R, "m64n" #N "k16.f32.bf16.bf16", "1, 1, 1")
-WGMMA_RS_BF16(16, 8)
-WGMMA_RS_BF16(32, 16)
-WGMMA_RS_BF16(64, 32)
-WGMMA_RS_BF16(80, 40)
-WGMMA_RS_BF16(96, 48)
-WGMMA_RS_BF16(112, 56)
-WGMMA_RS_BF16(128, 64)
-WGMMA_RS_BF16(160, 80)
-WGMMA_RS_BF16(192, 96)
-WGMMA_RS_BF16(224, 112)
-WGMMA_RS_BF16(256, 128)
-
-// hd <= W, hd % 8 == 0; TMA maps over q, k, v, which o shares the layout of.
-template <int W>
+// hd <= W, hd % 8 == 0; TMA maps over q, k, v, which o shares the layout of;
+// kLse: also each row's LSE into lse (an instance of its own, so that the
+// inference path's code is the same as without it).
+template <int W, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap map_q,
     const __grid_constant__ CUtensorMap map_k,
     const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o,
-    int tq, int tkv, int h, int kvh, int hd, float scale, int causal,
-    int window) {
+    float* __restrict__ lse, int tq, int tkv, int h, int kvh, int hd,
+    float scale, int causal, int window) {
   using T = Tile<W>;
   constexpr int kKeys = T::kKeys;
   constexpr int kStages = T::kStages;
@@ -380,6 +301,16 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       inv[r] = 1.f / fmaxf(l[r], 1e-30f);
     }
+    // Each row's log-sum-exp of the scaled scores, ln 2 m + ln l (m is in
+    // log2 units), where the caller asked for it: the backward's P.
+    if (kLse && lane % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row < tq)
+          lse[((size_t)bi * h + hi) * tq + row] = m[r] * kLn2 + logf(l[r]);
+      }
+    }
     uint8_t* const stage = smem + g * 64 * 128;   // its rows in each chunk
 #pragma unroll
     for (int j = 0; j < W / 8; ++j) {
@@ -404,10 +335,22 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
   }
 }
 
+// The LSE of a call with no keys: -inf on every row.
+__global__ void fill_neg_inf(float* x, size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) x[i] = -INFINITY;
+}
+
+cudaError_t launch_neg_inf(float* x, size_t n, cudaStream_t stream) {
+  if (n == 0) return cudaSuccess;
+  fill_neg_inf<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(x, n);
+  return cudaGetLastError();
+}
+
 template <int W>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int tq, int tkv, int h, int kvh, int hd, float scale, int causal,
-           int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int tq, int tkv, int h, int kvh, int hd, float scale,
+           int causal, int window, cudaStream_t stream) {
   using T = Tile<W>;
   constexpr auto kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap map_q{}, map_k{}, map_v{};
@@ -417,28 +360,29 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   if (err == 0)
     err = make_map(&map_v, kBf16, 2, v, b, tkv, kvh, hd, 64, T::kKeys);
   if (err != 0) return err;
-  auto kern = flash_attention_wgmma_kernel<W>;
+  auto kern = lse != nullptr ? flash_attention_wgmma_kernel<W, true>
+                             : flash_attention_wgmma_kernel<W, false>;
   const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(h, (tq + kTileQ - 1) / kTileQ, b);
   kern<<<grid, kThreads, T::kSmem, stream>>>(
-      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), tq, tkv, h, kvh,
-      hd, scale, causal, window);
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), lse, tq, tkv, h,
+      kvh, hd, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 // The launch at the smallest width W >= hd of the list.
 template <int W, int... Wider>
 int launch_padded(const void* q, const void* k, const void* v, void* o,
-                  int b, int tq, int tkv, int h, int kvh, int hd, float scale,
-                  int causal, int window, cudaStream_t stream) {
+                  float* lse, int b, int tq, int tkv, int h, int kvh, int hd,
+                  float scale, int causal, int window, cudaStream_t stream) {
   if (hd <= W)
-    return launch<W>(q, k, v, o, b, tq, tkv, h, kvh, hd, scale, causal,
+    return launch<W>(q, k, v, o, lse, b, tq, tkv, h, kvh, hd, scale, causal,
                      window, stream);
   if constexpr (sizeof...(Wider) > 0)
-    return launch_padded<Wider...>(q, k, v, o, b, tq, tkv, h, kvh, hd, scale,
-                                   causal, window, stream);
+    return launch_padded<Wider...>(q, k, v, o, lse, b, tq, tkv, h, kvh, hd,
+                                   scale, causal, window, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -448,23 +392,29 @@ extern "C" {
 
 // q[b, tq, h, hd], k and v[b, tkv, kvh, hd] bf16 -> o[b, tq, h, hd] bf16,
 // for hd in 8, 16, ... 256 (the wrapper pads any other hd); h % kvh == 0
-// and contiguous tensors aligned to 16 bytes (the wrapper checks).
-// Launches on `stream` of `device` and returns the cudaError_t of the
-// launch (0 = queued).
+// and contiguous tensors aligned to 16 bytes (the wrapper checks).  Where
+// `lse` is not null, also each row's log-sum-exp of the scaled scores,
+// fp32 [b, h, tq] (-inf on a row with no live key).  Launches on `stream`
+// of `device` and returns the cudaError_t of the launch (0 = queued).
 int flash_attention_wgmma(const void* q, const void* k, const void* v,
-                          void* o, int b, int tq, int tkv, int h, int kvh,
-                          int hd, float scale, int causal, int window,
-                          int device, void* stream) {
+                          void* o, void* lse, int b, int tq, int tkv, int h,
+                          int kvh, int hd, float scale, int causal,
+                          int window, int device, void* stream) {
   cudaGetLastError();
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (b <= 0 || tq <= 0 || h <= 0) return 0;
   if (hd < 8 || hd % 8) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (tkv <= 0)
-    return (int)cudaMemsetAsync(o, 0, (size_t)b * tq * h * hd * 2, s);
-  return launch_padded<WGMMA_WIDTHS>(q, k, v, o, b, tq, tkv, h, kvh, hd,
-                                     scale, causal, window, s);
+  if (tkv <= 0) {
+    cudaError_t err = cudaMemsetAsync(o, 0, (size_t)b * tq * h * hd * 2, s);
+    if (err == cudaSuccess && lse != nullptr)
+      err = launch_neg_inf(static_cast<float*>(lse), (size_t)b * h * tq, s);
+    return (int)err;
+  }
+  return launch_padded<WGMMA_WIDTHS>(q, k, v, o, static_cast<float*>(lse), b,
+                                     tq, tkv, h, kvh, hd, scale, causal,
+                                     window, s);
 }
 
 const char* flash_attention_wgmma_error_string(int err) {

@@ -38,11 +38,20 @@ bounded at long sequences.  `hbm_bytes_model` is the reference's traffic
 model.
 
 The gradient: `FlashAttention` (a `torch.autograd.Function`) saves q, k,
-v and the output, and its backward `flash_attention_bwd` launches the
-backward kernel `csrc/flash_attention_bwd.cu` (no TPU kernel: the
-reference differentiates its plain attention with XLA) on a card, or its
-plain twin `flash_attention_bwd_plain` on the CPU.  A query row with no
-live key has no gradient: the backward raises there.
+v, the output and, where autograd will use it, each row's log-sum-exp
+(LSE) of the scaled scores, which the bf16 forward kernel and the plain
+version write beside the output (`with_lse=True`).  Its backward
+`flash_attention_bwd` (no TPU kernel: the reference differentiates its
+plain attention with XLA) launches, on a card, one of two kernels by the
+dtype (`bwd_kernel_for`):
+
+  flash_attention_bwd_wgmma  bf16: tensor cores (wgmma), from the saved LSE
+                             (`csrc/flash_attention_bwd_wgmma.cu`)
+  flash_attention_bwd        fp32: CUDA cores, the LSE recomputed
+                             (`csrc/flash_attention_bwd.cu`)
+
+or its plain twin `flash_attention_bwd_plain` on the CPU.  A query row with
+no live key has no gradient: the backward raises there.
 """
 
 from __future__ import annotations
@@ -162,12 +171,15 @@ def _key_blocks(q_lo: int, q_hi: int, tkv: int, causal: bool, window: int):
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          q_block: int = 512, kv_block: int = 512):
+                          q_block: int = 512, kv_block: int = 512,
+                          with_lse: bool = False):
     """q: [b, tq, h, hd]; k, v: [b, tkv, kvh, hd].  Returns [b, tq, h, hd]
     in q's dtype, computed in fp32.  Key blocks masked for a whole query
     block are skipped; masked scores contribute p = 0; rows with no live
     key get the reference's value at `q_block` / `kv_block`
-    (`fill_dead_rows`)."""
+    (`fill_dead_rows`).  `with_lse`: returns (out, lse), lse each row's
+    log-sum-exp of the scaled live scores [b, h, tq] in the arithmetic
+    type (-inf on a row with no live key)."""
     b, tq, h, hd = q.shape
     tkv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -177,6 +189,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     # i is i // g
     qf, kf, vf = _heads_first(q, k, v, g)
     out = torch.empty((b, h, tq, hd), dtype=qf.dtype, device=dev)
+    lse = torch.empty((b, h, tq), dtype=qf.dtype, device=dev)
     for q_lo in range(0, tq, BLOCK):
         q_hi = min(q_lo + BLOCK, tq)
         qpos = torch.arange(q_lo, q_hi, device=dev)
@@ -199,16 +212,22 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
             acc = acc * corr[..., None] + torch.matmul(p, vf[:, :, k_lo:k_hi])
             m = m_new
         out[:, :, q_lo:q_hi] = acc / l.clamp(min=1e-30)[..., None]
+        lse[:, :, q_lo:q_hi] = m + torch.log(l)
     out = out.permute(0, 2, 1, 3).to(q.dtype).contiguous()
-    return fill_dead_rows(out, v, causal=causal, window=window,
-                          q_block=q_block, kv_block=kv_block)
+    out = fill_dead_rows(out, v, causal=causal, window=window,
+                         q_block=q_block, kv_block=kv_block)
+    return (out, lse) if with_lse else out
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    q_block: int = 512, kv_block: int = 512):
+                    q_block: int = 512, kv_block: int = 512,
+                    with_lse: bool = False):
     """q: [b, tq, h, hd]; k, v: [b, tkv, kvh, hd]; fp32 or bf16 (on the
     CPU also fp64), one dtype, h % kvh == 0, 1 <= hd <= 256, q_block,
-    kv_block >= 1.  Returns [b, tq, h, hd] in q's dtype.
+    kv_block >= 1.  Returns [b, tq, h, hd] in q's dtype; `with_lse`:
+    (out, lse), lse each row's log-sum-exp of the scaled scores [b, h, tq]
+    (`flash_attention_plain`'s; fp32 from the bf16 kernel; None from the
+    fp32 kernel, which writes none).
 
     CPU tensors run `flash_attention_plain`; CUDA tensors launch the kernel
     that `kernel_for(dtype, hd)` names, or raise.  No autograd graph: the
@@ -232,12 +251,21 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                  ("v", v, q.dtype, (b, tkv, kvh, hd)))
     if _build.runs_plain(dev, "flash_attention"):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_block=q_block, kv_block=kv_block)
+                                     q_block=q_block, kv_block=kv_block,
+                                     with_lse=with_lse)
     out = torch.empty_like(q)
+    lse = None
+    if with_lse and q.dtype == torch.bfloat16:
+        lse = torch.empty((b, h, tq), dtype=torch.float32, device=dev)
     if q.numel():
-        KERNELS[kernel_for(q.dtype, hd)](q, k, v, out, causal, window)
-    return fill_dead_rows(out, v, causal=causal, window=window,
-                          q_block=q_block, kv_block=kv_block)
+        kern = KERNELS[kernel_for(q.dtype, hd)]
+        if lse is None:
+            kern(q, k, v, out, causal, window)
+        else:
+            kern(q, k, v, out, causal, window, lse=lse)
+    out = fill_dead_rows(out, v, causal=causal, window=window,
+                         q_block=q_block, kv_block=kv_block)
+    return (out, lse) if with_lse else out
 
 
 def _check_dtype(who: str, q) -> None:
@@ -251,9 +279,10 @@ def _check_dtype(who: str, q) -> None:
 
 
 def flash_attention_bwd_plain(q, k, v, out, dout, *, causal: bool = True,
-                              window: int = 0):
-    """The FlashAttention-2 backward in plain PyTorch, the kernel's twin:
-    over query blocks of 512, each row's log-sum-exp over its live keys,
+                              window: int = 0, lse=None):
+    """The FlashAttention-2 backward in plain PyTorch, the kernels' twin:
+    over query blocks of 512, each row's log-sum-exp over its live keys
+    (`lse` [b, h, tq], the forward's, where given; recomputed where not),
     then per live key block P = exp(S - LSE) recomputed, dV += P^T dO,
     dS = P o (dO V^T - D) with D = rowsum(dO o O), dQ += scale dS K,
     dK += scale dS^T Q; dk and dv summed over each kv head's g query heads.
@@ -285,19 +314,22 @@ def flash_attention_bwd_plain(q, k, v, out, dout, *, causal: bool = True,
                 * scale
             return torch.where(mask, s, NEG_INF), mask
 
-        m = torch.full((b, h, q_hi - q_lo), NEG_INF, dtype=qf.dtype,
-                       device=dev)
-        l = torch.zeros_like(m)
+        if lse is None:
+            m = torch.full((b, h, q_hi - q_lo), NEG_INF, dtype=qf.dtype,
+                           device=dev)
+            l = torch.zeros_like(m)
+            for k_lo, k_hi in blocks:
+                s, mask = scores(k_lo, k_hi)
+                m_new = torch.maximum(m, s.amax(-1))
+                p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+                l = l * torch.exp(m - m_new) + p.sum(-1)
+                m = m_new
+            row_lse = m + torch.log(l)
+        else:
+            row_lse = lse[:, :, q_lo:q_hi].to(qf.dtype)
         for k_lo, k_hi in blocks:
             s, mask = scores(k_lo, k_hi)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
-            l = l * torch.exp(m - m_new) + p.sum(-1)
-            m = m_new
-        lse = m + torch.log(l)
-        for k_lo, k_hi in blocks:
-            s, mask = scores(k_lo, k_hi)
-            p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+            p = torch.where(mask, torch.exp(s - row_lse[..., None]), 0.0)
             kb, vb = kf[:, :, k_lo:k_hi], vf[:, :, k_lo:k_hi]
             dv[:, :, k_lo:k_hi] += torch.matmul(p.transpose(-1, -2), dob)
             dp = torch.matmul(dob, vb.transpose(-1, -2))
@@ -325,15 +357,25 @@ def _no_dead_rows(tq: int, tkv: int, window: int) -> None:
             "filled, not attended, and has no gradient")
 
 
+def bwd_kernel_for(dtype: torch.dtype) -> str:
+    """Name of the backward kernel a call with this dtype launches on the
+    card: the wgmma kernel for bf16, the CUDA-core kernel for fp32."""
+    if dtype == torch.bfloat16:
+        return "flash_attention_bwd_wgmma"
+    return "flash_attention_bwd"
+
+
 def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
-                        window: int = 0):
+                        window: int = 0, lse=None):
     """(dq, dk, dv) of `flash_attention(q, k, v, causal=, window=)` = out,
     for the output gradient `dout` [b, tq, h, hd].  Operands as the
-    forward's, `out` and `dout` shaped and typed as q; all contiguous.
+    forward's, `out` and `dout` shaped and typed as q; all contiguous;
+    `lse` the forward's (`with_lse=True`), fp32 [b, h, tq] on a card.
 
-    CPU tensors run `flash_attention_bwd_plain`; CUDA tensors launch the
-    kernel `csrc/flash_attention_bwd.cu`, or raise.  Raises where a query
-    row has no live key."""
+    CPU tensors run `flash_attention_bwd_plain` (from `lse` where given);
+    CUDA tensors launch the kernel `bwd_kernel_for(dtype)` names, or raise:
+    bf16 needs `lse`, fp32 recomputes it.  Raises where a query row has no
+    live key."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention_bwd: q, k, v must be "
                          "[b, t, heads, hd]")
@@ -355,62 +397,133 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
     _no_dead_rows(tq, tkv, window)
     if _build.runs_plain(dev, "flash_attention_bwd"):
         return flash_attention_bwd_plain(q, k, v, out, dout, causal=causal,
-                                         window=window)
+                                         window=window, lse=lse)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    lse = torch.empty((b, h, tq), dtype=torch.float32, device=dev)
-    dsum = torch.empty_like(lse)
-    if q.numel():
-        _bwd_kernel(q, k, v, out, dout, dq, dk, dv, lse, dsum, causal,
-                    window)
+    if not q.numel():
+        return dq, dk.zero_(), dv.zero_()
+    if q.dtype == torch.bfloat16:
+        if lse is None:
+            raise ValueError("flash_attention_bwd: the bf16 kernel takes the "
+                             "forward's LSE (flash_attention(..., "
+                             "with_lse=True))")
+        _build.check(dev, ("lse", lse, torch.float32, (b, h, tq)))
+        _bwd_wgmma_kernel(q, k, v, out, dout, lse, dq, dk, dv, causal,
+                          window)
+    else:
+        stats = torch.empty((2, b, h, tq), dtype=torch.float32, device=dev)
+        _bwd_kernel(q, k, v, out, dout, dq, dk, dv, stats[0], stats[1],
+                    causal, window)
     return dq, dk, dv
 
 
 def _bwd_kernel(q, k, v, out, dout, dq, dk, dv, lse, dsum, causal, window,
                 fault: int = 0):
     """Launch `flash_attention_bwd` (`csrc/flash_attention_bwd.cu`: its
-    three kernels in turn).  `fault` plants one of the source's `Fault`s,
-    for a check that the comparison with the plain version catches it; 0
-    on every path."""
+    three kernels in turn), fp32.  `fault` plants one of the source's
+    `Fault`s, for a check that the comparison with the plain version
+    catches it; 0 on every path."""
     b, tq, h, hd = q.shape
     _build.launch("flash_attention_bwd", "flash_attention_bwd", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                   dv.data_ptr(), lse.data_ptr(), dsum.data_ptr(), b, tq,
                   k.shape[1], h, k.shape[2], hd, 1.0 / math.sqrt(hd),
-                  int(causal), int(window), int(q.dtype == torch.bfloat16),
-                  int(fault))
+                  int(causal), int(window), int(fault))
     _bwd_kernel.launches += 1
+
+
+def bwd_splits(b: int, tkv: int, h: int, kvh: int, sms: int) -> int:
+    """How many blocks of the bf16 backward's dK/dV kernel share a kv
+    head's group of h / kvh query heads: the most, dividing the group, that
+    keep its grid within four waves of `sms` blocks (one block an SM).  Its
+    blocks take 64 keys."""
+    blocks = -(-tkv // 64) * kvh * b
+    g = h // kvh
+    return max(d for d in range(1, g + 1)
+               if g % d == 0 and (d == 1 or blocks * d <= 4 * sms))
+
+
+def _bwd_wgmma_kernel(q, k, v, out, dout, lse, dq, dk, dv, causal, window,
+                      fault: int = 0):
+    """Launch `flash_attention_bwd_wgmma` (`csrc/flash_attention_bwd_wgmma.cu`:
+    D, dK/dV's partials, their sum, dQ), bf16, from the forward's `lse`.
+    Its TMA maps need what the forward's do (`_tma_launch`): where hd is
+    below `aligned_head_dim` it runs on zero-padded copies of q, k, v,
+    out and dout, and dq, dk, dv take the first hd columns.  `fault`
+    plants one of the source's `Fault`s (as `_bwd_kernel`'s); 0 on every
+    path."""
+    b, tq, h, hd = q.shape
+    tkv, kvh = k.shape[1], k.shape[2]
+    hd_k = aligned_head_dim(q.dtype, hd)
+    ins, outs = (q, k, v, out, dout), (dq, dk, dv)
+    if hd_k != hd:
+        ins = tuple(F.pad(t, (0, hd_k - hd)) for t in ins)
+        outs = tuple(t.new_empty(t.shape[:-1] + (hd_k,)) for t in outs)
+    for arg, t in zip(("q", "k", "v", "out", "dout", "dq", "dk", "dv"),
+                      ins + outs):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {arg} is not 16-byte "
+                             "aligned")
+    dev = q.device
+    splits = bwd_splits(b, tkv, h, kvh, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    dsum = torch.empty((b, h, tq), dtype=torch.float32, device=dev)
+    parts = torch.empty((2, splits, b, tkv, kvh, hd_k), dtype=torch.float32,
+                        device=dev)
+    _build.launch("flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma",
+                  dev, *(t.data_ptr() for t in ins[:3]), ins[3].data_ptr(),
+                  ins[4].data_ptr(), lse.data_ptr(),
+                  *(t.data_ptr() for t in outs), dsum.data_ptr(),
+                  parts.data_ptr(), b, tq, tkv, h, kvh, hd_k,
+                  1.0 / math.sqrt(hd), int(causal), int(window), splits,
+                  int(fault))
+    for t, o in zip((dq, dk, dv), outs):
+        if o is not t:
+            t.copy_(o[..., :hd])
+    _bwd_wgmma_kernel.launches += 1
 
 
 class FlashAttention(torch.autograd.Function):
     """`flash_attention` with a gradient: the forward is the wrapper's
     (the forward kernel on a card, the plain version on the CPU), saving
-    q, k, v and the output; the backward is `flash_attention_bwd` (the
-    backward kernel on a card, its plain twin on the CPU)."""
+    q, k, v, the output and, where `keep_lse` and an input needs a
+    gradient, the forward's LSE; the backward is `flash_attention_bwd`
+    (the backward kernel on a card, its plain twin on the CPU).  Callers
+    pass `keep_lse=torch.is_grad_enabled()`: inside `forward` autograd has
+    turned grad mode off, and `ctx.needs_input_grad` follows the inputs'
+    `requires_grad` even under `torch.no_grad()`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_block, kv_block):
-        out = flash_attention(q, k, v, causal=causal, window=window,
-                              q_block=q_block, kv_block=kv_block)
-        ctx.save_for_backward(q, k, v, out)
+    def forward(ctx, q, k, v, causal, window, q_block, kv_block,
+                keep_lse=True):
+        lse = None
+        if keep_lse and any(ctx.needs_input_grad[:3]):
+            out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                       q_block=q_block, kv_block=kv_block,
+                                       with_lse=True)
+        else:
+            out = flash_attention(q, k, v, causal=causal, window=window,
+                                  q_block=q_block, kv_block=kv_block)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
                                          causal=ctx.causal,
-                                         window=ctx.window)
-        return dq, dk, dv, None, None, None, None
+                                         window=ctx.window, lse=lse)
+        return dq, dk, dv, None, None, None, None, None
 
 
-def _tma_launch(name, q, k, v, out, causal, window):
+def _tma_launch(name, q, k, v, out, causal, window, *extra):
     """Launch the TMA kernel `name` (`csrc/<name>.cu`), whose TMA maps need
     16-byte aligned tensors with rows of a multiple of 16 bytes: where hd
     is below `aligned_head_dim`, it runs on copies of q, k and v
     zero-padded to it, with the scale of the real hd, and `out` takes the
-    first hd columns of the padded output."""
+    first hd columns of the padded output.  `extra`: pointers passed after
+    the output's (the wgmma kernel's LSE)."""
     b, tq, h, hd = q.shape
     hd_k = aligned_head_dim(q.dtype, hd)
     o = out
@@ -423,16 +536,18 @@ def _tma_launch(name, q, k, v, out, causal, window):
                              "aligned")
     _build.launch(name, name, q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  b, tq, k.shape[1], h, k.shape[2], hd_k, 1.0 / math.sqrt(hd),
-                  int(causal), int(window))
+                  *extra, b, tq, k.shape[1], h, k.shape[2], hd_k,
+                  1.0 / math.sqrt(hd), int(causal), int(window))
     if o is not out:
         out.copy_(o[..., :hd])
 
 
-def _wgmma_kernel(q, k, v, out, causal, window):
+def _wgmma_kernel(q, k, v, out, causal, window, lse=None):
     """Launch `flash_attention_wgmma_kernel`
-    (`csrc/flash_attention_wgmma.cu`)."""
-    _tma_launch("flash_attention_wgmma", q, k, v, out, causal, window)
+    (`csrc/flash_attention_wgmma.cu`), writing each row's LSE into `lse`
+    (fp32 [b, h, tq]) where given: the pointer is null otherwise."""
+    _tma_launch("flash_attention_wgmma", q, k, v, out, causal, window,
+                None if lse is None else lse.data_ptr())
     _wgmma_kernel.launches += 1
 
 
@@ -446,11 +561,13 @@ def _tf32x3_kernel(q, k, v, out, causal, window):
 _wgmma_kernel.launches = 0
 _tf32x3_kernel.launches = 0
 _bwd_kernel.launches = 0
+_bwd_wgmma_kernel.launches = 0
 # Each forward kernel's launcher, by the name its launches are counted
-# under; the backward's in BACKWARD.
+# under; the backward's in BACKWARD (`bwd_kernel_for`).
 KERNELS = {"flash_attention_wgmma": _wgmma_kernel,
            "flash_attention_tf32x3": _tf32x3_kernel}
-BACKWARD = {"flash_attention_bwd": _bwd_kernel}
+BACKWARD = {"flash_attention_bwd_wgmma": _bwd_wgmma_kernel,
+            "flash_attention_bwd": _bwd_kernel}
 
 
 def hbm_bytes_model(b, t, h, kvh, hd, *, dtype_bytes=2, train=True) -> float:

@@ -13,7 +13,8 @@ On a card, `flash_attention` launches the port's CUDA attention kernels
 the wgmma kernel for bf16 at the dense configs' head dims) whenever the
 options are ones the kernels compute: no query offset, no softcap and fp32
 scores (`kernel_route`), through the autograd Function `FlashAttention`,
-whose backward is the backward kernel: training's gradient follows the
+whose backward is the backward kernels (the forward keeps each row's LSE
+for it only where grad mode is on): training's gradient follows the
 kernels.  The rule is static: any other options run the plain pair-list
 version (differentiated by autograd), and a kernel that fails to build or
 launch raises.  On the CPU the plain pair-list version runs.
@@ -72,7 +73,8 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
         from repro_torch.kernels import flash_attention as fa
         return fa.FlashAttention.apply(q.contiguous(), k.contiguous(),
                                        v.contiguous(), causal, window,
-                                       q_block, kv_block)
+                                       q_block, kv_block,
+                                       torch.is_grad_enabled())
     return flash_attention_pairs(q, k, v, causal=causal, window=window,
                                  q_block=q_block, kv_block=kv_block,
                                  q_offset=q_offset, softcap=softcap,

@@ -687,7 +687,7 @@ def test_cpu_tensors_never_launch_and_counts_reset():
         "seqlock_gather", "cas_apply_round",
         "cas_apply_rounds", "llsc_commit_round", "cachehash_probe",
         "cachehash_find", "digest_rows", "flash_attention_wgmma", "flash_attention_tf32x3",
-        "flash_attention_bwd"}
+        "flash_attention_bwd_wgmma", "flash_attention_bwd"}
     for _, call in _cpu_calls():
         call()
     assert not any(tk.launch_counts().values())
@@ -836,14 +836,15 @@ def test_library_path_hashes_the_included_header(monkeypatch, tmp_path):
         f.write("// edited\n")
     last = {name: _build.library_path(name) for name in _build.SIGNATURES}
     changed = {name for name in after if after[name] != last[name]}
-    assert changed == {"flash_attention_wgmma", "flash_attention_tf32x3"}
+    assert changed == {"flash_attention_wgmma", "flash_attention_tf32x3",
+                       "flash_attention_bwd_wgmma"}
 
 
 def test_library_paths_are_keyed_by_each_source():
     paths = {name: _build.library_path(name) for name in _build.SIGNATURES}
     assert set(paths) == {"engine_round", "table_ops", "scrub_digest",
                           "flash_attention_wgmma", "flash_attention_tf32x3",
-                          "flash_attention_bwd"}
+                          "flash_attention_bwd_wgmma", "flash_attention_bwd"}
     for name, path in paths.items():
         assert path.parent == _build.BUILD_DIR
         assert re.fullmatch(rf"{name}_[0-9a-f]{{16}}\.so", path.name)
