@@ -120,6 +120,7 @@ def split(smoke, fa, build, c, q, k, v):
     """Device ms of the padded route's parts: the tensor-core kernel alone
     on q, k, v padded to `aligned_head_dim`, the three pads, and the copy
     of the output's first hd columns."""
+    import ctypes
     import math
     import torch.nn.functional as F
     hd = c.hd
@@ -128,10 +129,15 @@ def split(smoke, fa, build, c, q, k, v):
     qp, kp, vp = (F.pad(t, (0, hd_k - hd)) for t in (q, k, v))
     o, out = q.new_empty(q.shape[:3] + (hd_k,)), q.new_empty(q.shape)
 
+    # a null LSE pointer where the kernel takes one (the instance without
+    # the LSE store, as inference runs it)
+    sig = build.SIGNATURES[name][name]
+    no_lse = [None] * (sig.index(ctypes.c_int) - 4)
+
     def kernel():
         build.launch(name, name, q.device, qp.data_ptr(), kp.data_ptr(),
-                     vp.data_ptr(), o.data_ptr(), c.b, c.tq, c.tkv, c.h,
-                     c.kvh, hd_k, 1.0 / math.sqrt(hd), int(c.causal),
+                     vp.data_ptr(), o.data_ptr(), *no_lse, c.b, c.tq, c.tkv,
+                     c.h, c.kvh, hd_k, 1.0 / math.sqrt(hd), int(c.causal),
                      int(c.window))
 
     return {"kernel_ms": smoke.device_ms(kernel),

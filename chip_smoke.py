@@ -264,14 +264,18 @@ package, and runs these phases:
              hold), and a decode step profiled (device operations, device
              ms, busy share).
   14. training
-             the attention backward kernel (`flash_attention_bwd`,
-             `csrc/flash_attention_bwd.cu`) against its plain twin at
+             the attention backward kernels (`BWD`: bf16
+             `csrc/flash_attention_bwd_wgmma.cu`, fp32
+             `csrc/flash_attention_bwd_tf32x3.cu`, both from the LSE their
+             forward kernel writes) against their plain twin at
              glm4_9b (b 2, t 4096, kv 2, causal), mixtral_8x7b (t 6144,
              window 4096, kv 8), recurrentgemma_9b (hd 256, kv 1, window
              2048), hubert_xlarge (hd 80, non-causal, t 1000) and ragged hd
              7 / 100 at b 2, each in bf16 and fp32, within `BWD_TOL`; three
-             faults planted in the kernel (`BWD_FAULTS`) must each fail it;
-             its time beside the plain twin, SDPA's backward and the bound.
+             faults planted in each kernel (`BWD_FAULTS`) must each fail it;
+             each forward kernel's LSE within its dtype's `LSE_TOL` of the
+             plain forward's, each of `LSE_FAULTS` outside it; their time
+             beside the plain twin, SDPA's backward and the bound.
              Then `launch.train.train` on glm4_9b at its published width
              (TRAIN_LAYERS of 40 layers, b 2, t 4096, bf16, remat, AdamW
              with fp32 moments, the versioned store publishing every step):
@@ -352,13 +356,13 @@ KERNELS = {
         "src/repro_torch/kernels/csrc/flash_attention_tf32x3.cu",
         "src/repro/kernels/flash_attention.py:120"),
     # no Pallas backward: XLA differentiates the reference's plain
-    # pair-list attention on its training path; bf16 on the tensor cores,
-    # fp32 on the CUDA cores
+    # pair-list attention on its training path; both on the tensor cores,
+    # fp32 as three TF32 products
     "flash_attention_bwd_wgmma": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
         "src/repro/models/attention.py:46"),
-    "flash_attention_bwd": (
-        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_tf32x3": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd_tf32x3.cu",
         "src/repro/models/attention.py:46"),
 }
 ROUND_KERNELS = ("round_prologue", "fast_round", "slow_round",
@@ -5196,14 +5200,15 @@ def families_phase(smoke, tk, launches_main):
 # Phase 14: training (models/transformer.py::lm_loss, optim/, data/,
 # launch/steps.py::make_train_step, launch/train.py::train) and the
 # attention backward kernels (kernels/csrc/flash_attention_bwd_wgmma.cu,
-# bf16; kernels/csrc/flash_attention_bwd.cu, fp32).
+# bf16; kernels/csrc/flash_attention_bwd_tf32x3.cu, fp32).
 # ---------------------------------------------------------------------------
 
 # each dtype's backward kernel (`flash_attention.bwd_kernel_for`)
 BWD = {"bfloat16": "flash_attention_bwd_wgmma",
-       "float32": "flash_attention_bwd"}
+       "float32": "flash_attention_bwd_tf32x3"}
 # The backward against its plain twin, as a share of each gradient's
-# largest entry.  fp32: sums of up to 6144 products in other orders; bf16:
+# largest entry.  fp32: 3xTF32 products (within 2^-21 of each; one TF32
+# pass misses it) summed in other orders; bf16:
 # dq, dk, dv rounded to bf16 (one ulp, 2^-8 relative) on top of that.  Set
 # between the sound readings and the planted faults' (`BWD_FAULTS`), see
 # PERF.md §6.
@@ -5222,13 +5227,24 @@ BWD_SHAPES = {
 BWD_FAULTS = {1: "D left out", 2: "the GQA sum over one head only",
               3: "the causal mask off by one"}
 BWD_CASE = "glm4_9b_b2_t4096"           # the kernels line's timing case
-# The bf16 forward kernel's LSE (natural log units of the scaled scores)
+# Each forward kernel's LSE (natural log units of the scaled scores)
 # against the plain forward's, as the largest absolute difference: the
 # backward's P is exp(scale S - LSE), so an LSE off by d moves P by a share
-# d.  Set between the sound readings and the planted errors (the LSE
-# rounded to bf16; in log2 units), see PERF.md §6.
-LSE_TOL = 2 ** -10
+# d.  Set by dtype between the sound readings and the planted errors (the
+# LSE rounded to bf16, or cut to one TF32 operand's top 19 bits; in log2
+# units), see PERF.md §6; fp32's stays under its BWD_TOL of 1e-4.
+LSE_TOL = {"bfloat16": 2 ** -10, "float32": 2 ** -14}
+
+
+def tf32_operand(x):
+    """fp32 x as one TF32 operand of the tensor cores keeps it: its low 13
+    mantissa bits cleared."""
+    import torch
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
 LSE_FAULTS = {"rounded to bf16": lambda lse: lse.bfloat16().float(),
+              "cut to one TF32 operand": tf32_operand,
               "in log2 units": lambda lse: lse * 1.4426950408889634}
 TRAIN_ARCH = "glm4_9b"
 # Depth and batch cut so the train state, one copy of it in the versioned
@@ -5287,8 +5303,7 @@ class TrainPhase:
 
     def bwd_inputs(self, shape, dtype, seed):
         """q, k, v, dO drawn on the card, o and the LSE the forward
-        kernel's (the LSE None in fp32: the 3xTF32 kernel writes none and
-        the fp32 backward recomputes it)."""
+        kernel's (`with_lse=True`: the instance that also stores it)."""
         torch = self.torch
         b, tq, tkv, h, kvh, hd, causal, window = shape
         gen = torch.Generator(device=self.dev).manual_seed(seed)
@@ -5312,22 +5327,17 @@ class TrainPhase:
         planted."""
         torch, fa = self.torch, self.fa
         bad = tuple(torch.empty_like(t) for t in (q, k, v))
-        if dtype == "bfloat16":
-            fa._bwd_wgmma_kernel(q, k, v, o, do, lse, *bad, causal, window,
-                                 fault=fault)
-        else:
-            b, tq, h, _ = q.shape
-            stats = torch.empty((2, b, h, tq), device=self.dev)
-            fa._bwd_kernel(q, k, v, o, do, *bad, stats[0], stats[1],
-                           causal, window, fault=fault)
+        launch = fa._bwd_wgmma_kernel if dtype == "bfloat16" \
+            else fa._bwd_tf32x3_kernel
+        launch(q, k, v, o, do, lse, *bad, causal, window, fault=fault)
         return bad
 
     def bwd_check(self):
         """Every case in both dtypes: the dtype's kernel (through
-        `flash_attention_bwd`, bf16 from the forward kernel's LSE) within
+        `flash_attention_bwd`, from the forward kernel's LSE) within
         BWD_TOL of the plain backward; then each planted fault on the
-        glm4_9b case outside it.  At each bf16 case the forward kernel's
-        LSE within LSE_TOL of the plain forward's, and each of
+        glm4_9b case outside it.  At each case the forward kernel's LSE
+        within the dtype's LSE_TOL of the plain forward's, and each of
         LSE_FAULTS outside it.  Returns {case: readings}, {fault:
         readings}, {case: LSE reading}, {LSE fault: reading} and the
         largest abs errors by kernel."""
@@ -5369,21 +5379,21 @@ class TrainPhase:
                             self.fail(f"the planted fault '{BWD_FAULTS[fault]}'"
                                       f" ({dtype}) passes the tolerance: "
                                       f"{rf}")
-                if dtype == "bfloat16":
-                    _, plain = fa.flash_attention_plain(
-                        q, k, v, causal=causal, window=window, with_lse=True)
-                    lse_sound[name] = float((lse - plain).abs().max())
-                    if lse_sound[name] > LSE_TOL:
-                        self.fail(f"the forward kernel's LSE at {name} "
-                                  f"differs from the plain one's by "
-                                  f"{lse_sound[name]} (tolerance {LSE_TOL})")
-                    for what, plant in LSE_FAULTS.items():
-                        rf = float((plant(lse) - plain).abs().max())
-                        lse_faults[f"{what}/{name}"] = rf
-                        if rf <= LSE_TOL:
-                            self.fail(f"the LSE {what} passes the tolerance "
-                                      f"at {name}: {rf}")
-                    del plain
+                _, plain = fa.flash_attention_plain(
+                    q, k, v, causal=causal, window=window, with_lse=True)
+                case = f"{name}/{dtype}"
+                lse_sound[case] = float((lse - plain).abs().max())
+                if lse_sound[case] > LSE_TOL[dtype]:
+                    self.fail(f"the forward kernel's LSE at {case} differs "
+                              f"from the plain one's by {lse_sound[case]} "
+                              f"(tolerance {LSE_TOL[dtype]})")
+                for what, plant in LSE_FAULTS.items():
+                    rf = float((plant(lse) - plain).abs().max())
+                    lse_faults[f"{what}/{case}"] = rf
+                    if rf <= LSE_TOL[dtype]:
+                        self.fail(f"the LSE {what} passes the tolerance at "
+                                  f"{case}: {rf}")
+                del plain
                 del q, k, v, o, do, lse, got, want
                 torch.cuda.empty_cache()
         return sound, faults, lse_sound, lse_faults, max_abs
@@ -5636,13 +5646,14 @@ class TrainPhase:
 
 def train_phase(smoke, tk, launches_main):
     """Phase 14: the backward kernels against their plain twin (and the
-    planted faults), the forward kernel's LSE against the plain one's, and
+    planted faults), the forward kernels' LSE against the plain one's, and
     their timing; glm4_9b trained at its published width through
     `launch.train.train` (the counts reset just before and read just
     after: `flash_attention_wgmma` and `flash_attention_bwd_wgmma` join
     the kernels line); one step of mixtral, mamba2 and recurrentgemma;
     every reduced config's fp32 step card vs CPU (its counts likewise:
-    `flash_attention_tf32x3` and `flash_attention_bwd` join the line)."""
+    `flash_attention_tf32x3` and `flash_attention_bwd_tf32x3` join the
+    line)."""
     import gc
     import shutil
     import tempfile
@@ -5677,7 +5688,7 @@ def train_phase(smoke, tk, launches_main):
     log(f"[training] planted faults on {BWD_CASE}: " + "; ".join(
         f"{k} {[f'{x:.2e}' for x in v]}" for k, v in faults.items())
         + f" (tolerance {BWD_TOL}); all fail it")
-    log(f"[training] the forward kernel's LSE vs plain, max abs err: "
+    log(f"[training] the forward kernels' LSE vs plain, max abs err: "
         + "; ".join(f"{k} {v:.3e}" for k, v in lse_sound.items())
         + f"; planted: " + "; ".join(f"{k} {v:.3e}"
                                      for k, v in lse_faults.items())

@@ -7,13 +7,14 @@ raw-table kernels; both include `segment_replay.cuh`, the segment
 replay), `scrub_digest.cu` (the scrub's cell digest),
 `flash_attention_wgmma.cu` (forward attention on the tensor cores, bf16,
 writing each row's LSE where asked) and `flash_attention_tf32x3.cu` (the
-same, fp32 as three TF32 products), `flash_attention_bwd_wgmma.cu` (the
-backward of attention for bf16, on the tensor cores, from that LSE; it
-also includes `flash_attention_bwd_prep.cuh`, its D and dK/dV-sum passes)
-and `flash_attention_bwd.cu` (the backward for fp32, on the CUDA cores).
-The tensor-core kernels include `tma_wgmma.cuh`, their TMA and wgmma
-building blocks, and the two bf16 ones `wgmma_bf16.cuh`, their bf16
-wgmma instructions.
+same, fp32 as three TF32 products), `flash_attention_bwd_wgmma.cu` and
+`flash_attention_bwd_tf32x3.cu` (the backward of attention for bf16 and
+fp32, on the tensor cores, from that LSE; both include
+`flash_attention_bwd_prep.cuh`, their parameters, masks and the D and
+dK/dV-sum passes).  The tensor-core kernels include `tma_wgmma.cuh`, their
+TMA and wgmma building blocks, the two bf16 ones `wgmma_bf16.cuh` and the
+two fp32 ones `wgmma_tf32.cuh`, their wgmma instructions, and
+`tf32_convert.cuh`, the TF32 split and the stages' converters.
 A build happens at first use, into `build/kernels/` at the root of the
 checkout, under `<name>_<hash of the source and the headers it
 includes>.so`, so an edited source or header rebuilds and an unchanged one
@@ -75,16 +76,16 @@ SIGNATURES = {
                                   _F, _I, _I, _I, _P],
     },
     "flash_attention_tf32x3": {
-        "flash_attention_tf32x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _F, _I, _I, _I, _P],
+        "flash_attention_tf32x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _F, _I, _I, _I, _P],
     },
     "flash_attention_bwd_wgmma": {
         "flash_attention_bwd_wgmma": [_P] * 11 + [_I] * 6 + [_F]
         + [_I] * 5 + [_P],
     },
-    "flash_attention_bwd": {
-        "flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_F] + [_I] * 4
-        + [_P],
+    "flash_attention_bwd_tf32x3": {
+        "flash_attention_bwd_tf32x3": [_P] * 11 + [_I] * 6 + [_F]
+        + [_I] * 5 + [_P],
     },
 }
 

@@ -1,7 +1,8 @@
-// The two passes of the bf16 attention backward (flash_attention_bwd_wgmma.cu,
-// which includes this header into its anonymous namespace) that need no
-// tensor core, written without PTX so that tests/cuda_emu/ compiles them
-// with g++ (in fp32 and bf16):
+// What the two attention backward kernels share (flash_attention_bwd_wgmma.cu,
+// bf16, and flash_attention_bwd_tf32x3.cu, fp32, which include this header
+// into their anonymous namespace): their parameters and masks, and the two
+// passes that need no tensor core, written without PTX so that
+// tests/cuda_emu/ compiles them with g++ (in fp32 and bf16):
 //   attn_bwd_prep      D = rowsum(dO o O), fp32 [b, h, tq]: a warp a row of
 //                      [b, tq, h, hd], 16-byte loads; memory-bound (O and
 //                      dO read once)
@@ -26,6 +27,45 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// What both backward kernels' dK/dV and dQ launches take.
+struct Params {
+  int b, tq, tkv, h, kvh, hd;  // hd: the launch's (16 bytes a row), <= W
+  float scale;
+  int causal, window, splits, fault;
+  const float* lse;            // [b, h, tq], natural log units of scale S
+  const float* dsum;           // D [b, h, tq]
+};
+
+// The causal diagonal's offset: key <= query + diag (1 under the fault).
+__device__ __forceinline__ int diag(const Params& p) {
+  return p.fault == kCausalOffByOne ? 1 : 0;
+}
+
+__device__ __forceinline__ bool live_pair(const Params& p, int q, int key) {
+  bool ok = q < p.tq && key < p.tkv;
+  if (p.causal) ok = ok && key <= q + diag(p);
+  if (p.window > 0) ok = ok && key > q - p.window;
+  return ok;
+}
+
+// Whether queries [q0, q0 + nq) and keys [k0, k0 + nk) hold a live pair.
+__device__ __forceinline__ bool any_live(const Params& p, int q0, int nq,
+                                         int k0, int nk) {
+  if (q0 >= p.tq || k0 >= p.tkv) return false;
+  if (p.causal && k0 > q0 + nq - 1 + diag(p)) return false;
+  if (p.window > 0 && k0 + nk - 1 <= q0 - p.window) return false;
+  return true;
+}
+
+// Whether every pair of the tile is live (no mask needed).
+__device__ __forceinline__ bool all_live(const Params& p, int q0, int nq,
+                                         int k0, int nk) {
+  if (q0 + nq > p.tq || k0 + nk > p.tkv) return false;
+  if (p.causal && k0 + nk - 1 > q0 + diag(p)) return false;
+  if (p.window > 0 && k0 <= q0 + nq - 1 - p.window) return false;
+  return true;
 }
 
 constexpr int kPassThreads = 256;

@@ -1,7 +1,8 @@
 // Hand-written Hopper (sm_90a) backward of attention on the tensor cores,
 // bf16 (src/repro_torch/kernels/flash_attention.py::flash_attention_bwd):
 // the gradients dq, dk and dv of the forward that flash_attention_wgmma.cu
-// computes.  fp32 goes to flash_attention_bwd.cu (the CUDA cores).
+// computes.  fp32 goes to flash_attention_bwd_tf32x3.cu (the same shape,
+// each product as three TF32 products).
 //
 // It replaces no TPU kernel: the JAX package's Pallas attention
 // (src/repro/kernels/flash_attention.py::flash_attention_tpu) is forward
@@ -154,44 +155,6 @@ struct DqTile : Width<W> {
   static constexpr uint32_t kSmem = 1024 + kBarriers + 8 * (1 + 2 * kStages);
   static_assert(kSmem <= 232448, "shared memory of one block");
 };
-
-struct Params {
-  int b, tq, tkv, h, kvh, hd;  // hd: the launch's, a multiple of 8, <= W
-  float scale;
-  int causal, window, splits, fault;
-  const float* lse;            // [b, h, tq], natural log units of scale S
-  const float* dsum;           // D [b, h, tq]
-};
-
-// The causal diagonal's offset: key <= query + diag (1 under the fault).
-__device__ __forceinline__ int diag(const Params& p) {
-  return p.fault == kCausalOffByOne ? 1 : 0;
-}
-
-__device__ __forceinline__ bool live_pair(const Params& p, int q, int key) {
-  bool ok = q < p.tq && key < p.tkv;
-  if (p.causal) ok = ok && key <= q + diag(p);
-  if (p.window > 0) ok = ok && key > q - p.window;
-  return ok;
-}
-
-// Whether queries [q0, q0 + nq) and keys [k0, k0 + nk) hold a live pair.
-__device__ __forceinline__ bool any_live(const Params& p, int q0, int nq,
-                                         int k0, int nk) {
-  if (q0 >= p.tq || k0 >= p.tkv) return false;
-  if (p.causal && k0 > q0 + nq - 1 + diag(p)) return false;
-  if (p.window > 0 && k0 + nk - 1 <= q0 - p.window) return false;
-  return true;
-}
-
-// Whether every pair of the tile is live (no mask needed).
-__device__ __forceinline__ bool all_live(const Params& p, int q0, int nq,
-                                         int k0, int nk) {
-  if (q0 + nq > p.tq || k0 + nk > p.tkv) return false;
-  if (p.causal && k0 + nk - 1 > q0 + diag(p)) return false;
-  if (p.window > 0 && k0 <= q0 + nq - 1 - p.window) return false;
-  return true;
-}
 
 // ---------------------------------------------------------------------------
 // dK / dV

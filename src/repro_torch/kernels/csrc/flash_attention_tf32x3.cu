@@ -13,8 +13,13 @@
 // softmax statistics are fp32: the running max starts at the finite
 // NEG_INF = -1e30, a masked score is -inf and contributes p = 0, and the
 // output is O / max(l, 1e-30), so a row with no live key gives zeros here
-// (the wrapper then gives such rows the Pallas kernel's value).  bf16 goes
-// to flash_attention_wgmma.cu.  The plain PyTorch version is
+// (the wrapper then gives such rows the Pallas kernel's value).  Where the
+// caller passes an `lse` buffer (training: the backward,
+// flash_attention_bwd_tf32x3.cu, takes P = exp(scale S - LSE) from it), the
+// epilogue also stores each row's log-sum-exp of the scaled scores,
+// ln 2 m + ln l, fp32 [b, h, tq], in a template instance of its own;
+// inference launches the instance without it.  bf16 goes to
+// flash_attention_wgmma.cu.  The plain PyTorch version is
 // flash_attention.py::flash_attention_plain.
 //
 // What bounds it on an H100: operations.  At glm4_9b's widths (h = 32,
@@ -108,12 +113,15 @@
 namespace {
 
 #include "tma_wgmma.cuh"
+#include "wgmma_tf32.cuh"
+#include "tf32_convert.cuh"
 
 constexpr int kConsumers = 2;                      // consumer warpgroups
 constexpr int kThreads = 128 * (1 + kConsumers);
 constexpr int kConverters = 96;      // producer threads preparing the stages
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // The widths the kernel is built for, each padded width W a template
 // instance: a call at head dim hd runs at the smallest W >= hd
@@ -161,84 +169,6 @@ struct Tile {
   static_assert(!kSplit || kKvBytes >= kConsumers * 128 * 32, "exchange");
 };
 
-// x with the low 13 mantissa bits cleared: the value a TF32 operand keeps.
-__device__ __forceinline__ float tf32_hi(float x) {
-  return __uint_as_float(__float_as_uint(x) & 0xFFFFE000u);
-}
-
-// x as TF32 terms hi and lo = x - hi (exact), as the bits of two operands.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  const float h = tf32_hi(x);
-  hi = __float_as_uint(h);
-  lo = __float_as_uint(x - h);
-}
-
-// The wgmma instructions this kernel issues (tf32 in, fp32 accumulators).
-
-// D[64 x 32] (+)= A[64 x 8] B[8 x 32], tf32 in, fp32 out: A and B K-major
-// in shared memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D[64 x 64] (+)= A[64 x 8] B[8 x 64], tf32 in, fp32 out: A and B K-major
-// in shared memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D[64 x N] (+)= A[64 x 8] B[8 x N] for N = 2 R, tf32 in, fp32 out: A in
-// registers, B K-major in shared memory.
-#define WGMMA_RS_TF32(N, R) \
-  WGMMA_RS(R, "m64n" #N "k8.f32.tf32.tf32", "1, 1")
-WGMMA_RS_TF32(16, 8)
-WGMMA_RS_TF32(32, 16)
-WGMMA_RS_TF32(64, 32)
-WGMMA_RS_TF32(80, 40)
-WGMMA_RS_TF32(96, 48)
-WGMMA_RS_TF32(112, 56)
-WGMMA_RS_TF32(128, 64)
-
-// Byte offset in Vt of 16-byte unit u (keys 4u..4u+3 in Vt's order) of row
-// n: 128-byte rows of 32 keys, a chunk per 32 keys; split, one 64-byte row
-// of 16 keys, unit u at u ^ ((n / 2) % 4) (the 64-byte swizzle).
-template <class T>
-__device__ __forceinline__ uint32_t vt_unit(int n, int u) {
-  if constexpr (T::kSplit)
-    return n * 64 + ((u ^ ((n >> 1) & 3)) << 4);
-  else
-    return (u / 8) * T::kVtChunk + swizzled(n, 16 * (u % 8), 0);
-}
-
 // A stage for both consumers, by converter thread `ctid` of kConverters:
 // K_lo = K - K_hi, and V transposed (keys contiguous, each 8 in the order
 // 0 2 4 6 1 3 5 7) as Vt and Vt_lo.  Vt's rows past hd are V's zero
@@ -253,24 +183,8 @@ __device__ __forceinline__ void convert_stage(uint8_t* st, int ctid) {
         make_float4(x.x - tf32_hi(x.x), x.y - tf32_hi(x.y),
                     x.z - tf32_hi(x.z), x.w - tf32_hi(x.w));
   }
-  // Item (n, g4): dims n of keys 8 (g4 / 2) + 2 i + g4 % 2, i < 4, to the
-  // 16-byte unit of Vt row n at key position 4 g4.
-  constexpr int kW = T::kWidth;
-  for (int e = ctid; e < kW * (T::kKeys / 4); e += kConverters) {
-    const int n = e % kW, g4 = e / kW;
-    const int key0 = 8 * (g4 / 2) + g4 % 2;
-    float x[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      x[i] = *reinterpret_cast<const float*>(
-          st + T::kV + swizzled(key0 + 2 * i, 4 * n, T::kKvChunk));
-    const uint32_t off = vt_unit<T>(n, g4);
-    *reinterpret_cast<float4*>(st + T::kVt + off) =
-        make_float4(x[0], x[1], x[2], x[3]);
-    *reinterpret_cast<float4*>(st + T::kVtLo + off) = make_float4(
-        x[0] - tf32_hi(x[0]), x[1] - tf32_hi(x[1]), x[2] - tf32_hi(x[2]),
-        x[3] - tf32_hi(x[3]));
-  }
+  transpose_tile<T::kKeys>(st + T::kV, st + T::kVt, st + T::kVtLo, 0,
+                           T::kWidth, T::kWidth, ctid, kConverters);
 }
 
 // A split block's S partial, by a consumer thread: s_hi = Q_hi [K; K_lo]
@@ -334,13 +248,16 @@ __device__ __forceinline__ void score_steps(float (&s_hi)[16],
   keep(s_lo);
 }
 
-// hd <= W, hd % 4 == 0; TMA maps over q, k, v, which o shares the layout of.
-template <int W>
+// hd <= W, hd % 4 == 0; TMA maps over q, k, v, which o shares the layout of;
+// kLse: also each row's LSE into lse (an instance of its own, so that the
+// inference path's code is the same as without it).
+template <int W, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_tf32x3_kernel(
     const __grid_constant__ CUtensorMap map_q,
     const __grid_constant__ CUtensorMap map_k,
-    const __grid_constant__ CUtensorMap map_v, float* __restrict__ o, int tq,
-    int tkv, int h, int kvh, int hd, float scale, int causal, int window) {
+    const __grid_constant__ CUtensorMap map_v, float* __restrict__ o,
+    float* __restrict__ lse, int tq, int tkv, int h, int kvh, int hd,
+    float scale, int causal, int window) {
   using T = Tile<W>;
   constexpr int kKeys = T::kKeys;
   constexpr int kStages = T::kStages;
@@ -587,6 +504,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tf32x3_kernel(
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
+  // Each row's log-sum-exp of the scaled scores, ln 2 m + ln l (m is in
+  // log2 units; -inf on a row with no live key), where the caller asked
+  // for it: the backward's P.  Split, both consumers hold the same m and
+  // l, and the first writes it.
+  if (kLse && tg == 0 && c0 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < tq)
+        lse[((size_t)bi * h + hi) * tq + row] = m[r] * kLn2 + logf(l[r]);
+    }
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
@@ -602,10 +531,22 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_tf32x3_kernel(
   }
 }
 
+// The LSE of a call with no keys: -inf on every row.
+__global__ void fill_neg_inf(float* x, size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) x[i] = -INFINITY;
+}
+
+cudaError_t launch_neg_inf(float* x, size_t n, cudaStream_t stream) {
+  if (n == 0) return cudaSuccess;
+  fill_neg_inf<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(x, n);
+  return cudaGetLastError();
+}
+
 template <int W>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int tq, int tkv, int h, int kvh, int hd, float scale, int causal,
-           int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int tq, int tkv, int h, int kvh, int hd, float scale,
+           int causal, int window, cudaStream_t stream) {
   using T = Tile<W>;
   constexpr auto kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   CUtensorMap map_q{}, map_k{}, map_v{};
@@ -615,13 +556,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   if (err == 0)
     err = make_map(&map_v, kF32, 4, v, b, tkv, kvh, hd, 32, T::kKeys);
   if (err != 0) return err;
-  auto kern = flash_attention_tf32x3_kernel<W>;
+  auto kern = lse != nullptr ? flash_attention_tf32x3_kernel<W, true>
+                             : flash_attention_tf32x3_kernel<W, false>;
   const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(h, (tq + T::kTileQ - 1) / T::kTileQ, b);
   kern<<<grid, kThreads, T::kSmem, stream>>>(
-      map_q, map_k, map_v, static_cast<float*>(o), tq, tkv, h, kvh, hd,
+      map_q, map_k, map_v, static_cast<float*>(o), lse, tq, tkv, h, kvh, hd,
       scale, causal, window);
   return (int)cudaGetLastError();
 }
@@ -629,14 +571,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 // The launch at the smallest width W >= hd of the list.
 template <int W, int... Wider>
 int launch_padded(const void* q, const void* k, const void* v, void* o,
-                  int b, int tq, int tkv, int h, int kvh, int hd, float scale,
-                  int causal, int window, cudaStream_t stream) {
+                  float* lse, int b, int tq, int tkv, int h, int kvh, int hd,
+                  float scale, int causal, int window, cudaStream_t stream) {
   if (hd <= W)
-    return launch<W>(q, k, v, o, b, tq, tkv, h, kvh, hd, scale, causal,
+    return launch<W>(q, k, v, o, lse, b, tq, tkv, h, kvh, hd, scale, causal,
                      window, stream);
   if constexpr (sizeof...(Wider) > 0)
-    return launch_padded<Wider...>(q, k, v, o, b, tq, tkv, h, kvh, hd, scale,
-                                   causal, window, stream);
+    return launch_padded<Wider...>(q, k, v, o, lse, b, tq, tkv, h, kvh, hd,
+                                   scale, causal, window, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -646,23 +588,29 @@ extern "C" {
 
 // q[b, tq, h, hd], k and v[b, tkv, kvh, hd] fp32 -> o[b, tq, h, hd] fp32,
 // for hd in 4, 8, ... 256 (the wrapper pads any other hd); h % kvh == 0
-// and contiguous tensors aligned to 16 bytes (the wrapper checks).
-// Launches on `stream` of `device` and returns the cudaError_t of the
-// launch (0 = queued).
+// and contiguous tensors aligned to 16 bytes (the wrapper checks).  Where
+// `lse` is not null, also each row's log-sum-exp of the scaled scores,
+// fp32 [b, h, tq] (-inf on a row with no live key).  Launches on `stream`
+// of `device` and returns the cudaError_t of the launch (0 = queued).
 int flash_attention_tf32x3(const void* q, const void* k, const void* v,
-                           void* o, int b, int tq, int tkv, int h, int kvh,
-                           int hd, float scale, int causal, int window,
-                           int device, void* stream) {
+                           void* o, void* lse, int b, int tq, int tkv, int h,
+                           int kvh, int hd, float scale, int causal,
+                           int window, int device, void* stream) {
   cudaGetLastError();
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (b <= 0 || tq <= 0 || h <= 0) return 0;
   if (hd < 4 || hd % 4) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (tkv <= 0)
-    return (int)cudaMemsetAsync(o, 0, (size_t)b * tq * h * hd * 4, s);
-  return launch_padded<TF32_WIDTHS>(q, k, v, o, b, tq, tkv, h, kvh, hd,
-                                    scale, causal, window, s);
+  if (tkv <= 0) {
+    cudaError_t err = cudaMemsetAsync(o, 0, (size_t)b * tq * h * hd * 4, s);
+    if (err == cudaSuccess && lse != nullptr)
+      err = launch_neg_inf(static_cast<float*>(lse), (size_t)b * h * tq, s);
+    return (int)err;
+  }
+  return launch_padded<TF32_WIDTHS>(q, k, v, o, static_cast<float*>(lse), b,
+                                    tq, tkv, h, kvh, hd, scale, causal,
+                                    window, s);
 }
 
 const char* flash_attention_tf32x3_error_string(int err) {

@@ -39,16 +39,18 @@ model.
 
 The gradient: `FlashAttention` (a `torch.autograd.Function`) saves q, k,
 v, the output and, where autograd will use it, each row's log-sum-exp
-(LSE) of the scaled scores, which the bf16 forward kernel and the plain
-version write beside the output (`with_lse=True`).  Its backward
-`flash_attention_bwd` (no TPU kernel: the reference differentiates its
-plain attention with XLA) launches, on a card, one of two kernels by the
-dtype (`bwd_kernel_for`):
+(LSE) of the scaled scores, which both forward kernels and the plain
+version write beside the output (`with_lse=True`; the kernels in a
+template instance of their own, so inference runs the one without it).
+Its backward `flash_attention_bwd` (no TPU kernel: the reference
+differentiates its plain attention with XLA) launches, on a card, one of
+two kernels by the dtype (`bwd_kernel_for`), both from the saved LSE:
 
-  flash_attention_bwd_wgmma  bf16: tensor cores (wgmma), from the saved LSE
-                             (`csrc/flash_attention_bwd_wgmma.cu`)
-  flash_attention_bwd        fp32: CUDA cores, the LSE recomputed
-                             (`csrc/flash_attention_bwd.cu`)
+  flash_attention_bwd_wgmma   bf16: tensor cores (wgmma)
+                              (`csrc/flash_attention_bwd_wgmma.cu`)
+  flash_attention_bwd_tf32x3  fp32: tensor cores, each product as three
+                              TF32 products
+                              (`csrc/flash_attention_bwd_tf32x3.cu`)
 
 or its plain twin `flash_attention_bwd_plain` on the CPU.  A query row with
 no live key has no gradient: the backward raises there.
@@ -226,8 +228,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     CPU also fp64), one dtype, h % kvh == 0, 1 <= hd <= 256, q_block,
     kv_block >= 1.  Returns [b, tq, h, hd] in q's dtype; `with_lse`:
     (out, lse), lse each row's log-sum-exp of the scaled scores [b, h, tq]
-    (`flash_attention_plain`'s; fp32 from the bf16 kernel; None from the
-    fp32 kernel, which writes none).
+    (`flash_attention_plain`'s; fp32 from either kernel).
 
     CPU tensors run `flash_attention_plain`; CUDA tensors launch the kernel
     that `kernel_for(dtype, hd)` names, or raise.  No autograd graph: the
@@ -255,14 +256,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                      with_lse=with_lse)
     out = torch.empty_like(q)
     lse = None
-    if with_lse and q.dtype == torch.bfloat16:
+    if with_lse:
         lse = torch.empty((b, h, tq), dtype=torch.float32, device=dev)
     if q.numel():
-        kern = KERNELS[kernel_for(q.dtype, hd)]
-        if lse is None:
-            kern(q, k, v, out, causal, window)
-        else:
-            kern(q, k, v, out, causal, window, lse=lse)
+        KERNELS[kernel_for(q.dtype, hd)](q, k, v, out, causal, window,
+                                         lse=lse)
     out = fill_dead_rows(out, v, causal=causal, window=window,
                          q_block=q_block, kv_block=kv_block)
     return (out, lse) if with_lse else out
@@ -359,10 +357,10 @@ def _no_dead_rows(tq: int, tkv: int, window: int) -> None:
 
 def bwd_kernel_for(dtype: torch.dtype) -> str:
     """Name of the backward kernel a call with this dtype launches on the
-    card: the wgmma kernel for bf16, the CUDA-core kernel for fp32."""
+    card: the wgmma kernel for bf16, the 3xTF32 kernel for fp32."""
     if dtype == torch.bfloat16:
         return "flash_attention_bwd_wgmma"
-    return "flash_attention_bwd"
+    return "flash_attention_bwd_tf32x3"
 
 
 def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
@@ -373,8 +371,8 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
     `lse` the forward's (`with_lse=True`), fp32 [b, h, tq] on a card.
 
     CPU tensors run `flash_attention_bwd_plain` (from `lse` where given);
-    CUDA tensors launch the kernel `bwd_kernel_for(dtype)` names, or raise:
-    bf16 needs `lse`, fp32 recomputes it.  Raises where a query row has no
+    CUDA tensors launch the kernel `bwd_kernel_for(dtype)` names from
+    `lse`, or raise (also without `lse`).  Raises where a query row has no
     live key."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention_bwd: q, k, v must be "
@@ -398,42 +396,21 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
     if _build.runs_plain(dev, "flash_attention_bwd"):
         return flash_attention_bwd_plain(q, k, v, out, dout, causal=causal,
                                          window=window, lse=lse)
+    if lse is None:
+        raise ValueError("flash_attention_bwd: the kernels take the "
+                         "forward's LSE (flash_attention(..., "
+                         "with_lse=True))")
+    _build.check(dev, ("lse", lse, torch.float32, (b, h, tq)))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if not q.numel():
         return dq, dk.zero_(), dv.zero_()
-    if q.dtype == torch.bfloat16:
-        if lse is None:
-            raise ValueError("flash_attention_bwd: the bf16 kernel takes the "
-                             "forward's LSE (flash_attention(..., "
-                             "with_lse=True))")
-        _build.check(dev, ("lse", lse, torch.float32, (b, h, tq)))
-        _bwd_wgmma_kernel(q, k, v, out, dout, lse, dq, dk, dv, causal,
-                          window)
-    else:
-        stats = torch.empty((2, b, h, tq), dtype=torch.float32, device=dev)
-        _bwd_kernel(q, k, v, out, dout, dq, dk, dv, stats[0], stats[1],
-                    causal, window)
+    BACKWARD[bwd_kernel_for(q.dtype)](q, k, v, out, dout, lse, dq, dk, dv,
+                                      causal, window)
     return dq, dk, dv
 
 
-def _bwd_kernel(q, k, v, out, dout, dq, dk, dv, lse, dsum, causal, window,
-                fault: int = 0):
-    """Launch `flash_attention_bwd` (`csrc/flash_attention_bwd.cu`: its
-    three kernels in turn), fp32.  `fault` plants one of the source's
-    `Fault`s, for a check that the comparison with the plain version
-    catches it; 0 on every path."""
-    b, tq, h, hd = q.shape
-    _build.launch("flash_attention_bwd", "flash_attention_bwd", q.device,
-                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                  dv.data_ptr(), lse.data_ptr(), dsum.data_ptr(), b, tq,
-                  k.shape[1], h, k.shape[2], hd, 1.0 / math.sqrt(hd),
-                  int(causal), int(window), int(fault))
-    _bwd_kernel.launches += 1
-
-
 def bwd_splits(b: int, tkv: int, h: int, kvh: int, sms: int) -> int:
-    """How many blocks of the bf16 backward's dK/dV kernel share a kv
+    """How many blocks of either backward's dK/dV kernel share a kv
     head's group of h / kvh query heads: the most, dividing the group, that
     keep its grid within four waves of `sms` blocks (one block an SM).  Its
     blocks take 64 keys."""
@@ -443,15 +420,16 @@ def bwd_splits(b: int, tkv: int, h: int, kvh: int, sms: int) -> int:
                if g % d == 0 and (d == 1 or blocks * d <= 4 * sms))
 
 
-def _bwd_wgmma_kernel(q, k, v, out, dout, lse, dq, dk, dv, causal, window,
-                      fault: int = 0):
-    """Launch `flash_attention_bwd_wgmma` (`csrc/flash_attention_bwd_wgmma.cu`:
-    D, dK/dV's partials, their sum, dQ), bf16, from the forward's `lse`.
-    Its TMA maps need what the forward's do (`_tma_launch`): where hd is
-    below `aligned_head_dim` it runs on zero-padded copies of q, k, v,
-    out and dout, and dq, dk, dv take the first hd columns.  `fault`
-    plants one of the source's `Fault`s (as `_bwd_kernel`'s); 0 on every
-    path."""
+def _bwd_tma_launch(name, q, k, v, out, dout, lse, dq, dk, dv, causal,
+                    window, fault):
+    """Launch the backward kernel `name` (`csrc/<name>.cu`: D, dK/dV's
+    partials, their sum, dQ) from the forward's `lse`.  Its TMA maps need
+    what the forward's do (`_tma_launch`): where hd is below
+    `aligned_head_dim` it runs on zero-padded copies of q, k, v, out and
+    dout, and dq, dk, dv take the first hd columns.  `fault` plants one of
+    the source's `Fault`s (D left out, the GQA sum over one head, the
+    causal mask off by one: 1, 2, 3), for a check that the comparison
+    with the plain version catches it; 0 on every path."""
     b, tq, h, hd = q.shape
     tkv, kvh = k.shape[1], k.shape[2]
     hd_k = aligned_head_dim(q.dtype, hd)
@@ -470,7 +448,7 @@ def _bwd_wgmma_kernel(q, k, v, out, dout, lse, dq, dk, dv, causal, window,
     dsum = torch.empty((b, h, tq), dtype=torch.float32, device=dev)
     parts = torch.empty((2, splits, b, tkv, kvh, hd_k), dtype=torch.float32,
                         device=dev)
-    _build.launch("flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma",
+    _build.launch(name, name,
                   dev, *(t.data_ptr() for t in ins[:3]), ins[3].data_ptr(),
                   ins[4].data_ptr(), lse.data_ptr(),
                   *(t.data_ptr() for t in outs), dsum.data_ptr(),
@@ -480,7 +458,22 @@ def _bwd_wgmma_kernel(q, k, v, out, dout, lse, dq, dk, dv, causal, window,
     for t, o in zip((dq, dk, dv), outs):
         if o is not t:
             t.copy_(o[..., :hd])
+
+
+def _bwd_wgmma_kernel(q, k, v, out, dout, lse, dq, dk, dv, causal, window,
+                      fault: int = 0):
+    """Launch `flash_attention_bwd_wgmma` (bf16; `_bwd_tma_launch`)."""
+    _bwd_tma_launch("flash_attention_bwd_wgmma", q, k, v, out, dout, lse, dq,
+                    dk, dv, causal, window, fault)
     _bwd_wgmma_kernel.launches += 1
+
+
+def _bwd_tf32x3_kernel(q, k, v, out, dout, lse, dq, dk, dv, causal, window,
+                       fault: int = 0):
+    """Launch `flash_attention_bwd_tf32x3` (fp32; `_bwd_tma_launch`)."""
+    _bwd_tma_launch("flash_attention_bwd_tf32x3", q, k, v, out, dout, lse,
+                    dq, dk, dv, causal, window, fault)
+    _bwd_tf32x3_kernel.launches += 1
 
 
 class FlashAttention(torch.autograd.Function):
@@ -523,7 +516,7 @@ def _tma_launch(name, q, k, v, out, causal, window, *extra):
     is below `aligned_head_dim`, it runs on copies of q, k and v
     zero-padded to it, with the scale of the real hd, and `out` takes the
     first hd columns of the padded output.  `extra`: pointers passed after
-    the output's (the wgmma kernel's LSE)."""
+    the output's (the LSE's)."""
     b, tq, h, hd = q.shape
     hd_k = aligned_head_dim(q.dtype, hd)
     o = out
@@ -551,23 +544,25 @@ def _wgmma_kernel(q, k, v, out, causal, window, lse=None):
     _wgmma_kernel.launches += 1
 
 
-def _tf32x3_kernel(q, k, v, out, causal, window):
+def _tf32x3_kernel(q, k, v, out, causal, window, lse=None):
     """Launch `flash_attention_tf32x3_kernel`
-    (`csrc/flash_attention_tf32x3.cu`)."""
-    _tma_launch("flash_attention_tf32x3", q, k, v, out, causal, window)
+    (`csrc/flash_attention_tf32x3.cu`), writing each row's LSE into `lse`
+    (fp32 [b, h, tq]) where given: the pointer is null otherwise."""
+    _tma_launch("flash_attention_tf32x3", q, k, v, out, causal, window,
+                None if lse is None else lse.data_ptr())
     _tf32x3_kernel.launches += 1
 
 
 _wgmma_kernel.launches = 0
 _tf32x3_kernel.launches = 0
-_bwd_kernel.launches = 0
 _bwd_wgmma_kernel.launches = 0
+_bwd_tf32x3_kernel.launches = 0
 # Each forward kernel's launcher, by the name its launches are counted
 # under; the backward's in BACKWARD (`bwd_kernel_for`).
 KERNELS = {"flash_attention_wgmma": _wgmma_kernel,
            "flash_attention_tf32x3": _tf32x3_kernel}
 BACKWARD = {"flash_attention_bwd_wgmma": _bwd_wgmma_kernel,
-            "flash_attention_bwd": _bwd_kernel}
+            "flash_attention_bwd_tf32x3": _bwd_tf32x3_kernel}
 
 
 def hbm_bytes_model(b, t, h, kvh, hd, *, dtype_bytes=2, train=True) -> float:

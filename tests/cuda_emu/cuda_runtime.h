@@ -13,7 +13,7 @@
 // in the tests, and the epilogue's blocks take tickets past two tiles.  Launches `kernel<<<grid, block, smem, stream>>>(args)` are
 // rewritten by the test into `EmuLaunch(grid, block, smem,
 // stream)(kernel)(args)`.  Only what the engine-round, table and
-// attention-backward kernels use is here (`cuda_bf16.h` beside it).
+// attention-backward kernels and the TF32 converters use is here (`cuda_bf16.h` beside it).
 #pragma once
 
 #include <atomic>
@@ -94,6 +94,26 @@ struct int4 {
   int x, y, z, w;
 };
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
+struct alignas(8) float2 {
+  float x, y;
+};
+inline float2 make_float2(float a, float b) { return {a, b}; }
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
+inline uint32_t __float_as_uint(float x) {
+  uint32_t u;
+  std::memcpy(&u, &x, sizeof u);
+  return u;
+}
+inline float __uint_as_float(uint32_t u) {
+  float x;
+  std::memcpy(&x, &u, sizeof x);
+  return x;
+}
 
 // A warp's lanes exchange values through two slot buffers used in turns,
 // so one barrier a call suffices: a buffer is written again only after

@@ -1,10 +1,11 @@
 """The backward of attention: `kernels.flash_attention.FlashAttention`
 (the autograd Function the kernel route runs), its backward
 `flash_attention_bwd`, the plain twin `flash_attention_bwd_plain`, the
-forward's log-sum-exp (LSE) that the bf16 route takes from the forward,
-and the CUDA sources `csrc/flash_attention_bwd.cu` (fp32) and
-`csrc/flash_attention_bwd_prep.cuh` (the bf16 route's passes without
-tensor cores) compiled for the CPU.
+forward's log-sum-exp (LSE) that both kernel routes take from the
+forward, the 3xTF32 backward's arithmetic emulated in PyTorch, and the
+CUDA headers without tensor cores (`csrc/tf32_convert.cuh`, the 3xTF32
+kernels' converters; `csrc/flash_attention_bwd_prep.cuh`, the backward's
+D and dK/dV-sum passes) compiled for the CPU.
 
   * `flash_attention_bwd_plain` against autograd of `flash_attention_plain`
     (fp64: within 1e-10 of the gradient's largest entry) and against
@@ -18,24 +19,26 @@ tensor cores) compiled for the CPU.
   * `torch.autograd.gradcheck` of the Function's CPU path in fp64;
   * `FlashAttention` asking its forward for the LSE where grad mode is on
     and an input needs a gradient, and passing it to the backward; asking
-    for none under `torch.no_grad()`;
+    for none under `torch.no_grad()`; the card branches' launches
+    recorded (both forward kernels pass an LSE pointer only where asked,
+    each dtype's backward kernel takes it, none without it);
   * the raise where a query row has no live key;
-  * the kernels: tests/cuda_emu/ (the CUDA runtime emulated with a thread
-    per CUDA thread, 3-D grids, warp shuffles, bf16) lets g++ compile
-    `flash_attention_bwd.cu` as it is, launches rewritten into calls of
-    the emulator; it is held against the plain backward within FP32_REL
-    of each gradient's largest entry (sums in another order) at every
-    padded width (hd 7 -> 32, 40 -> 64, 100 -> 128, 130 -> 256); the
-    three faults the source can plant (D left out, the GQA sum over one
-    head, the causal mask off by one) must each fail that tolerance.
-    The bf16 route's `attn_bwd_prep` (D = rowsum(dO o O)) and
-    `attn_bwd_dkdv_sum` (the dK/dV partials summed) are compiled the same
-    way, in fp32 and bf16, against plain PyTorch; D left out fails.  (The
-    route's wgmma kernels run only on a card: `chip_smoke.py`'s training
-    phase holds them to the plain backward.)  Skipped without g++.  The
-    module runs on one intra-op thread, and its cases are small: the
-    emulator runs a thread per CUDA thread, beside the other test
-    workers."""
+  * `csrc/flash_attention_bwd_tf32x3.cu`'s arithmetic: every product as
+    three TF32 products in the kernel's arrangement (`emulated_backward`),
+    within the chip's fp32 tolerance (BWD_TOL_FP32 of each gradient's
+    largest entry) of the fp64 plain backward at every padded width; one
+    TF32 pass is not.  (Its wgmma kernels run only on a card:
+    `chip_smoke.py`'s training phase holds them to the plain backward,
+    with three planted faults.)
+  * tests/cuda_emu/ (the CUDA runtime emulated with a thread per CUDA
+    thread, 3-D grids, warp shuffles, bf16) lets g++ compile the headers,
+    launches rewritten into calls of the emulator: the converters' lo
+    copies and key-ordered transposes at W 16, 128 and 256 bit for bit
+    against plain PyTorch; `attn_bwd_prep` (D = rowsum(dO o O)) and
+    `attn_bwd_dkdv_sum` (the dK/dV partials summed) in fp32 and bf16; D
+    left out fails.  Skipped without g++.  The module runs on one
+    intra-op thread, and its cases are small: the emulator runs a thread
+    per CUDA thread, beside the other test workers."""
 
 import ctypes
 import math
@@ -249,7 +252,7 @@ def _record_launches(monkeypatch):
 def test_forward_card_branch_writes_lse_where_asked(monkeypatch):
     """bf16 on a card: one `flash_attention_wgmma` launch with the LSE's
     pointer where `with_lse` (fp32 [b, h, tq]) and a null one where not;
-    fp32 launches the 3xTF32 kernel, which writes no LSE (None)."""
+    fp32 launches the 3xTF32 kernel, which writes one where asked too."""
     from repro_torch import kernels as tk
     calls = _record_launches(monkeypatch)
     tk.reset_launch_counts()
@@ -267,45 +270,94 @@ def test_forward_card_branch_writes_lse_where_asked(monkeypatch):
     q32, k32, v32 = (t.float() for t in (q, k, v))
     out32, lse32 = fa.flash_attention(q32, k32, v32, causal=True,
                                       with_lse=True)
-    assert lse32 is None and calls[-1][0] == "flash_attention_tf32x3"
-    assert tk.launch_counts()["flash_attention_wgmma"] == 2
+    assert lse32.shape == (b, h, tq) and lse32.dtype == torch.float32
+    assert calls[-1][0] == "flash_attention_tf32x3"
+    counts = tk.launch_counts()
+    assert counts["flash_attention_wgmma"] == 2
+    assert counts["flash_attention_tf32x3"] == 1
+
+
+def test_tf32x3_forward_card_branch_passes_the_lse(monkeypatch):
+    """fp32 on a card: `flash_attention_tf32x3` gets the LSE's pointer
+    where `with_lse` and a null one where not (the instance without the
+    store), the rest of its arguments equal; hd 7 runs zero-padded to 8."""
+    calls = _record_launches(monkeypatch)
+    b, tq, tkv, h, kvh, hd = 1, 40, 50, 4, 2, 7
+    q, k, v, _ = _inputs((b, tq, tkv, h, kvh, hd), torch.float32)
+    _, lse = fa.flash_attention(q, k, v, causal=True, window=9,
+                                with_lse=True)
+    fa.flash_attention(q, k, v, causal=True, window=9)
+    (lib, fn, args), (_, _, plain_args) = calls
+    assert lib == fn == "flash_attention_tf32x3"
+    assert len(args) == len(_build.SIGNATURES[lib][fn]) - 2
+    assert args[4] == lse.data_ptr() and plain_args[4] is None
+    assert lse.shape == (b, h, tq) and lse.dtype == torch.float32
+    assert args[5:] == plain_args[5:] == (b, tq, tkv, h, kvh, 8,
+                                          1 / math.sqrt(hd), 1, 9)
 
 
 def test_backward_card_branch_routes_by_dtype(monkeypatch):
-    """On a card bf16 launches `flash_attention_bwd_wgmma` once, from the
-    forward's LSE (hd 7 zero-padded to 8, the group of 4 heads split
-    over `bwd_splits` blocks), and raises without an LSE before any
-    launch; fp32 launches the CUDA-core `flash_attention_bwd`; each
-    launch counted under its own name."""
+    """On a card bf16 launches `flash_attention_bwd_wgmma` once and fp32
+    `flash_attention_bwd_tf32x3` once, each from the forward's LSE (hd 7
+    zero-padded to 8 and 4, the group of 4 heads split over `bwd_splits`
+    blocks); each launch counted under its own name."""
     from repro_torch import kernels as tk
     calls = _record_launches(monkeypatch)
     tk.reset_launch_counts()
     b, tq, tkv, h, kvh, hd = 1, 70, 70, 4, 1, 7
-    q, k, v, do = _inputs((b, tq, tkv, h, kvh, hd), torch.bfloat16)
-    out, lse = fa.flash_attention_plain(q, k, v, causal=True, with_lse=True)
+    splits = fa.bwd_splits(b, tkv, h, kvh, 132)
+    assert splits == 4
+    for dtype, hd_k in ((torch.bfloat16, 8), (torch.float32, 8)):
+        q, k, v, do = _inputs((b, tq, tkv, h, kvh, hd), dtype)
+        out, lse = fa.flash_attention_plain(q, k, v, causal=True,
+                                            with_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, out, do, causal=True, lse=lse)
+        assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
+        assert [t.dtype for t in got] == [dtype] * 3
+        lib, fn, args = calls[-1]
+        assert lib == fn == fa.bwd_kernel_for(dtype)
+        assert len(args) == len(_build.SIGNATURES[lib][fn]) - 2
+        assert args[5] == lse.data_ptr()
+        assert args[11:] == (b, tq, tkv, h, kvh, hd_k, 1 / math.sqrt(hd), 1,
+                             0, splits, 0)
+    assert [c[0] for c in calls] == ["flash_attention_bwd_wgmma",
+                                     "flash_attention_bwd_tf32x3"]
+    counts = tk.launch_counts()
+    assert counts["flash_attention_bwd_wgmma"] == 1
+    assert counts["flash_attention_bwd_tf32x3"] == 1
+    tk.reset_launch_counts()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_backward_card_branch_needs_the_lse(monkeypatch, dtype):
+    """On a card either dtype's backward raises without the forward's LSE,
+    before any launch: no route recomputes it."""
+    calls = _record_launches(monkeypatch)
+    q, k, v, do = _inputs((1, 30, 30, 2, 1, 16), getattr(torch, dtype))
+    out = fa.flash_attention_plain(q, k, v, causal=True)
     with pytest.raises(ValueError, match="LSE"):
         fa.flash_attention_bwd(q, k, v, out, do, causal=True)
     assert calls == []
-    got = fa.flash_attention_bwd(q, k, v, out, do, causal=True, lse=lse)
-    assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
-    assert [t.dtype for t in got] == [torch.bfloat16] * 3
-    ((lib, fn, args),) = calls
-    assert lib == fn == fa.bwd_kernel_for(torch.bfloat16)
-    assert len(args) == len(_build.SIGNATURES[lib][fn]) - 2
-    splits = fa.bwd_splits(b, tkv, h, kvh, 132)
-    assert splits == 4 and args[5] == lse.data_ptr()
-    assert args[11:] == (b, tq, tkv, h, kvh, 8, 1 / math.sqrt(hd), 1, 0,
-                         splits, 0)
-    q32, k32, v32, o32, do32 = (t.float() for t in (q, k, v, out, do))
-    fa.flash_attention_bwd(q32, k32, v32, o32, do32, causal=True)
-    assert calls[-1][0] == fa.bwd_kernel_for(torch.float32) == \
-        "flash_attention_bwd"
-    assert len(calls[-1][2]) == len(_build.SIGNATURES[
-        "flash_attention_bwd"]["flash_attention_bwd"]) - 2
-    counts = tk.launch_counts()
-    assert counts["flash_attention_bwd_wgmma"] == 1
-    assert counts["flash_attention_bwd"] == 1
-    tk.reset_launch_counts()
+
+
+def test_function_keeps_the_fp32_lse_on_a_card(monkeypatch):
+    """Under grad mode `FlashAttention` on fp32 card tensors asks the
+    3xTF32 forward for its LSE and hands that buffer to the 3xTF32
+    backward; without grad mode it asks for none."""
+    from repro_torch.models import attention as tattn
+    calls = _record_launches(monkeypatch)
+    monkeypatch.setattr(tattn, "kernel_route", lambda q, **kw: True)
+    q, k, v, do = _inputs((1, 30, 30, 2, 1, 16), torch.float32)
+    q.requires_grad_()
+    out = tattn.flash_attention(q, k, v, causal=True)
+    torch.autograd.grad(out, q, do)
+    (fwd, fwd_fn, fwd_args), (bwd, bwd_fn, bwd_args) = calls
+    assert fwd == "flash_attention_tf32x3" and fwd_args[4] is not None
+    assert bwd == "flash_attention_bwd_tf32x3"
+    assert bwd_args[5] == fwd_args[4]
+    with torch.no_grad():
+        tattn.flash_attention(q, k, v, causal=True)
+    assert calls[-1][0] == "flash_attention_tf32x3" and calls[-1][2][4] is None
 
 
 def test_backward_raises_on_rows_without_live_keys():
@@ -352,7 +404,7 @@ def test_model_route_uses_the_function(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# The kernel, compiled for the CPU
+# The 3xTF32 backward's arithmetic, emulated on the CPU
 # ---------------------------------------------------------------------------
 
 def _emulated(out, name, text):
@@ -371,34 +423,6 @@ def _emulated(out, name, text):
     return ctypes.CDLL(str(so))
 
 
-@pytest.fixture(scope="module")
-def kernel(tmp_path_factory):
-    """`flash_attention_bwd`'s C entry point, compiled by g++ against the
-    emulator."""
-    src = _build.source("flash_attention_bwd")
-    lib = _emulated(tmp_path_factory.mktemp("bwd_emu"), src.stem,
-                    src.read_text())
-    fn = lib.flash_attention_bwd
-    fn.argtypes = _build.SIGNATURES["flash_attention_bwd"][
-        "flash_attention_bwd"]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(fn, q, k, v, out, do, causal, window, fault=0):
-    b, tq, h, hd = q.shape
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    lse = torch.empty((b, h, tq))
-    dsum = torch.empty((b, h, tq))
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             lse.data_ptr(), dsum.data_ptr(), b, tq, k.shape[1], h,
-             k.shape[2], hd, 1.0 / math.sqrt(hd), int(causal), int(window),
-             fault, 0, None)
-    assert err == 0
-    return dq, dk, dv
-
-
 # two q tiles where the case allows, GQA, each padded width once
 KERNEL_CASES = {
     "causal_gqa_hd16": (1, 70, 70, 2, 1, 16, True, 0),
@@ -406,38 +430,219 @@ KERNEL_CASES = {
     "noncausal_ragged_hd40": (2, 50, 80, 2, 2, 40, False, 0),
     "causal_ragged_hd100": (1, 60, 90, 2, 1, 100, True, 0),
     "causal_hd130": (1, 40, 40, 2, 1, 130, True, 0),
+    "window_gqa_hd256": (1, 90, 90, 4, 1, 256, True, 40),
+}
+BWD_TOL_FP32 = 1e-4     # chip_smoke.py's BWD_TOL["float32"]
+
+
+def tf32(x):
+    """x with the low 13 mantissa bits cleared: what a TF32 operand of the
+    tensor cores keeps."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split(x):
+    """x as its TF32 terms (hi, lo): lo = x - hi is exact in fp32, and the
+    tensor cores read it as a TF32 operand too."""
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def matmul_tf32x3(a, b):
+    """a @ b as the 3xTF32 kernels form a product: a_hi b_hi + a_hi b_lo +
+    a_lo b_hi, each term of TF32 operands (exact products) in fp32."""
+    (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
+    return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
+
+
+def matmul_tf32(a, b):
+    return tf32(a) @ tf32(b)
+
+
+def emulated_backward(matmul, q, k, v, out, do, lse, causal, window):
+    """(dq, dk, dv) as `csrc/flash_attention_bwd_tf32x3.cu` forms them from
+    the forward's `lse`, fp32, every product through `matmul`: the dK/dV
+    kernel's S^T = K Q^T and dP^T = V dO^T, P^T and dS^T = P^T o (dP^T - D)
+    in fp32, dV += P^T dO and dK += dS^T Q (A split into hi and lo from
+    the accumulator, B the transposed tiles) over its passes of 96
+    columns past W 128; the dQ kernel's S = Q K^T and dP = dO V^T again, dQ += dS K over
+    its consumers' column halves past W 128; dk and dq scaled once."""
+    b, tq, h, hd = q.shape
+    tkv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    w = fa.padded_width(torch.float32, hd)
+    scale = 1.0 / math.sqrt(hd)
+    qf, of, dof = (t.permute(0, 2, 1, 3) for t in (q, out, do))
+    kf, vf = (t.repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+              for t in (k, v))
+    qpos, kpos = torch.arange(tq)[:, None], torch.arange(tkv)[None, :]
+    live = torch.ones(tq, tkv, dtype=torch.bool)
+    if causal:
+        live &= kpos <= qpos
+    if window > 0:
+        live &= kpos > qpos - window
+    dsum = (dof * of).sum(-1)                                 # D [b, h, tq]
+    # dK / dV: keys are M
+    st = matmul(kf, qf.transpose(-1, -2))
+    pt = torch.where(live.T, torch.exp(st * scale - lse[:, :, None]), 0.0)
+    dst = pt * (matmul(vf, dof.transpose(-1, -2)) - dsum[:, :, None])
+    passes = [slice(c, c + 96) for c in range(0, hd, 96)] if w > 128 \
+        else [slice(0, hd)]
+    dv = torch.cat([matmul(pt, dof[..., c]) for c in passes], -1)
+    dk = torch.cat([matmul(dst, qf[..., c]) for c in passes], -1) * scale
+    # dQ: queries are M
+    s = matmul(qf, kf.transpose(-1, -2))
+    p = torch.where(live, torch.exp(s * scale - lse[..., None]), 0.0)
+    ds = p * (matmul(dof, vf.transpose(-1, -2)) - dsum[..., None])
+    halves = [slice(0, w // 2), slice(w // 2, hd)] if w > 128 \
+        else [slice(0, hd)]
+    dq = torch.cat([matmul(ds, kf[..., c]) for c in halves], -1) * scale
+
+    def per_kv_head(x):              # [b, h, tkv, hd] -> [b, tkv, kvh, hd]
+        return x.reshape(b, kvh, g, tkv, hd).sum(2).permute(0, 2, 1, 3)
+    return dq.permute(0, 2, 1, 3), per_kv_head(dk), per_kv_head(dv)
+
+
+@pytest.mark.parametrize("name", list(KERNEL_CASES))
+def test_tf32x3_backward_meets_the_fp32_tolerance(name):
+    """The 3xTF32 backward's arithmetic, emulated on the CPU from the plain
+    forward's LSE, is within BWD_TOL_FP32 of each gradient's largest entry
+    of the plain backward in fp64; one TF32 pass is not, so the tolerance
+    tells the two apart."""
+    b, tq, tkv, h, kvh, hd, causal, window = KERNEL_CASES[name]
+    q, k, v, do = _inputs(KERNEL_CASES[name], torch.float32, seed=len(name))
+    out, lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, with_lse=True)
+    want = fa.flash_attention_bwd_plain(
+        *(t.double() for t in (q, k, v, out, do)), causal=causal,
+        window=window)
+    got = emulated_backward(matmul_tf32x3, q, k, v, out, do, lse, causal,
+                            window)
+    _close(got, want, BWD_TOL_FP32, name)
+    one = emulated_backward(matmul_tf32, q, k, v, out, do, lse, causal,
+                            window)
+    with pytest.raises(AssertionError):
+        _close(one, want, BWD_TOL_FP32, f"{name} one TF32 pass")
+
+
+# ---------------------------------------------------------------------------
+# The 3xTF32 kernels' converters, compiled for the CPU
+# ---------------------------------------------------------------------------
+
+CONVERT = """
+#include <cstddef>
+#include <cstdint>
+#include <cuda_runtime.h>
+namespace {
+SWIZZLED
+#include "tf32_convert.cuh"
+__global__ void lo_kernel(const uint8_t* src, uint8_t* dst, uint32_t bytes) {
+  lo_tile(src, dst, bytes, threadIdx.x, blockDim.x);
+}
+template <int kKeys>
+__global__ void t_kernel(const uint8_t* src, uint8_t* dst, uint8_t* dst_lo,
+                         int c0, int rows, int t_rows) {
+  transpose_tile<kKeys>(src, dst, dst_lo, c0, rows, t_rows, threadIdx.x,
+                        blockDim.x);
+}
+}
+extern "C" int lo(const void* src, void* dst, unsigned bytes) {
+  lo_kernel<<<1, 96>>>(static_cast<const uint8_t*>(src),
+                       static_cast<uint8_t*>(dst), bytes);
+  return 0;
+}
+extern "C" int transpose(int keys, const void* src, void* dst, void* dst_lo,
+                         int c0, int rows, int t_rows) {
+  auto* s = static_cast<const uint8_t*>(src);
+  auto* d = static_cast<uint8_t*>(dst);
+  auto* l = static_cast<uint8_t*>(dst_lo);
+  if (keys == 16) t_kernel<16><<<1, 96>>>(s, d, l, c0, rows, t_rows);
+  else if (keys == 32) t_kernel<32><<<1, 96>>>(s, d, l, c0, rows, t_rows);
+  else if (keys == 64) t_kernel<64><<<1, 96>>>(s, d, l, c0, rows, t_rows);
+  else return 1;
+  return 0;
+}
+"""
+# What each kernel's converters prepare at W 16, 128 and 256: a tile of
+# `keys` rows (the dK/dV kernel's kQ query rows, the dQ kernel's kKeys
+# keys) and its transposes, (first column, rows) of t_rows rows each
+CONVERT_CASES = {
+    "dkdv_w16": (16, 64, [(0, 16)], 16),
+    "dkdv_w128": (128, 16, [(0, 128)], 128),
+    "dkdv_w256": (256, 16, [(0, 96), (96, 96), (192, 64)], 96),
+    "dq_w16": (16, 32, [(0, 16)], 16),
+    "dq_w128": (128, 16, [(0, 128)], 128),
+    "dq_w256": (256, 16, [(0, 256)], 256),
 }
 
 
-@pytest.mark.parametrize("name,dtype",
-                         [(n, "float32") for n in KERNEL_CASES])
-def test_kernel_matches_plain_backward(kernel, name, dtype):
-    case = KERNEL_CASES[name]
-    b, tq, tkv, h, kvh, hd, causal, window = case
-    dt = getattr(torch, dtype)
-    q, k, v, do = _inputs(case, dt, seed=len(name))
-    out = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
-    want = fa.flash_attention_bwd_plain(q, k, v, out, do, causal=causal,
-                                        window=window)
-    got = _launch(kernel, q, k, v, out, do, causal, window)
-    assert [t.dtype for t in got] == [dt] * 3
-    _close(got, want, FP32_REL, name)
+@pytest.fixture(scope="module")
+def convert(tmp_path_factory):
+    """`csrc/tf32_convert.cuh` compiled by g++ against the emulator, with
+    `swizzled` (TMA's 128-byte swizzle) taken from `csrc/tma_wgmma.cuh`."""
+    fn = re.search(r"__device__ __forceinline__ uint32_t swizzled\(.*?\n}\n",
+                   (_build.CSRC / "tma_wgmma.cuh").read_text(), re.S)
+    text = CONVERT.replace("SWIZZLED", fn.group(0)).replace(
+        '#include "tf32_convert.cuh"',
+        (_build.CSRC / "tf32_convert.cuh").read_text())
+    lib = _emulated(tmp_path_factory.mktemp("convert"), "convert", text)
+    _P, _I = ctypes.c_void_p, ctypes.c_int
+    lib.lo.argtypes = [_P, _P, ctypes.c_uint]
+    lib.transpose.argtypes = [_I, _P, _P, _P, _I, _I, _I]
+    lib.lo.restype = lib.transpose.restype = _I
+    return lib
 
 
-@pytest.mark.parametrize("fault,case", [
-    (1, "causal_gqa_hd16"), (2, "causal_gqa_hd16"), (3, "causal_gqa_hd16"),
-    (1, "noncausal_ragged_hd40")])
-def test_planted_faults_fail_the_tolerance(kernel, fault, case):
-    """D left out (1), the GQA sum over one query head (2) and the causal
-    mask off by one (3) each put the kernel outside the fp32 tolerance."""
-    b, tq, tkv, h, kvh, hd, causal, window = KERNEL_CASES[case]
-    q, k, v, do = _inputs(KERNEL_CASES[case], torch.float32, seed=1)
-    out = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
-    want = fa.flash_attention_bwd_plain(q, k, v, out, do, causal=causal,
-                                        window=window)
-    got = _launch(kernel, q, k, v, out, do, causal, window, fault)
-    with pytest.raises(AssertionError):
-        _close(got, want, FP32_REL, f"fault {fault}")
+def swizzled_offsets(rows, cols):
+    """Byte offset of each fp32 element [rows, cols] in a TMA tile of
+    128-byte rows, 32 columns a chunk of `rows` rows, 128-byte swizzle
+    (16-byte unit u of row r at u ^ r % 8)."""
+    r, c = torch.arange(rows)[:, None], torch.arange(cols)[None, :]
+    unit = (c % 32) // 4
+    return (c // 32) * rows * 128 + r * 128 + ((unit ^ (r % 8)) << 4) \
+        + 4 * (c % 4)
+
+
+def transposed_offsets(keys, rows, t_rows):
+    """Byte offset of (row n, key) in a transposed tile: each 8 keys in
+    the order 0 2 4 6 1 3 5 7; 16 keys a 64-byte row (64-byte swizzle:
+    unit u at u ^ (n / 2) % 4), else 128-byte rows of 32 keys, a chunk of
+    t_rows rows per 32 keys (128-byte swizzle)."""
+    n, key = torch.arange(rows)[:, None], torch.arange(keys)[None, :]
+    pos = 8 * (key // 8) + (key % 8) // 2 + 4 * (key % 2)
+    u = pos // 4
+    if keys == 16:
+        return n * 64 + ((u ^ ((n >> 1) & 3)) << 4) + 4 * (pos % 4)
+    return (u // 8) * t_rows * 128 + n * 128 + (((u % 8) ^ (n % 8)) << 4) \
+        + 4 * (pos % 4)
+
+
+@pytest.mark.parametrize("name", list(CONVERT_CASES))
+def test_converters_split_and_transpose_in_key_order(convert, name):
+    """A stage's lo copy (x - x_hi, x_hi its top 19 bits) and the
+    transposes of its tile, as each kernel's converters write them at W 16,
+    128 and 256, equal plain PyTorch's bit for bit: row n of a transpose
+    holds column c0 + n of the tile's rows in the key order the register
+    fragments of the accumulator products want."""
+    width, keys, parts, t_rows = CONVERT_CASES[name]
+    cols = -(-width // 32) * 32
+    rng = np.random.default_rng(width + keys)
+    x = torch.from_numpy(rng.standard_normal((keys, cols)).astype(
+        np.float32))
+    tile = torch.zeros(keys * cols, dtype=torch.float32)
+    tile[swizzled_offsets(keys, cols).flatten() // 4] = x.flatten()
+    lo = torch.full_like(tile, float("nan"))
+    assert convert.lo(tile.data_ptr(), lo.data_ptr(), tile.numel() * 4) == 0
+    assert torch.equal(lo, tile - tf32(tile))
+    for c0, rows in parts:
+        size = t_rows * keys
+        t, t_lo = (torch.full((size,), float("nan")) for _ in range(2))
+        assert convert.transpose(keys, tile.data_ptr(), t.data_ptr(),
+                                 t_lo.data_ptr(), c0, rows, t_rows) == 0
+        at = transposed_offsets(keys, rows, t_rows) // 4
+        want = x[:, c0:c0 + rows].T
+        assert torch.equal(t[at], want), (name, c0)
+        assert torch.equal(t_lo[at], want - tf32(want)), (name, c0)
 
 
 # ---------------------------------------------------------------------------

@@ -687,7 +687,7 @@ def test_cpu_tensors_never_launch_and_counts_reset():
         "seqlock_gather", "cas_apply_round",
         "cas_apply_rounds", "llsc_commit_round", "cachehash_probe",
         "cachehash_find", "digest_rows", "flash_attention_wgmma", "flash_attention_tf32x3",
-        "flash_attention_bwd_wgmma", "flash_attention_bwd"}
+        "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32x3"}
     for _, call in _cpu_calls():
         call()
     assert not any(tk.launch_counts().values())
@@ -816,9 +816,9 @@ def test_every_library_needs_nvcc(monkeypatch, tmp_path):
 
 
 def test_library_path_hashes_the_included_header(monkeypatch, tmp_path):
-    """Editing `segment_replay.cuh` (or `tma_wgmma.cuh`) renames the
-    libraries that include it (so a stale build is never loaded) and no
-    other."""
+    """Editing `segment_replay.cuh` (or `tma_wgmma.cuh`, or
+    `tf32_convert.cuh`) renames the libraries that include it (so a stale
+    build is never loaded) and no other."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for path in _build.CSRC.iterdir():
@@ -837,14 +837,21 @@ def test_library_path_hashes_the_included_header(monkeypatch, tmp_path):
     last = {name: _build.library_path(name) for name in _build.SIGNATURES}
     changed = {name for name in after if after[name] != last[name]}
     assert changed == {"flash_attention_wgmma", "flash_attention_tf32x3",
-                       "flash_attention_bwd_wgmma"}
+                       "flash_attention_bwd_wgmma",
+                       "flash_attention_bwd_tf32x3"}
+    with open(csrc / "tf32_convert.cuh", "a") as f:
+        f.write("// edited\n")
+    tf32 = {name: _build.library_path(name) for name in _build.SIGNATURES}
+    changed = {name for name in last if last[name] != tf32[name]}
+    assert changed == {"flash_attention_tf32x3", "flash_attention_bwd_tf32x3"}
 
 
 def test_library_paths_are_keyed_by_each_source():
     paths = {name: _build.library_path(name) for name in _build.SIGNATURES}
     assert set(paths) == {"engine_round", "table_ops", "scrub_digest",
                           "flash_attention_wgmma", "flash_attention_tf32x3",
-                          "flash_attention_bwd_wgmma", "flash_attention_bwd"}
+                          "flash_attention_bwd_wgmma",
+                          "flash_attention_bwd_tf32x3"}
     for name, path in paths.items():
         assert path.parent == _build.BUILD_DIR
         assert re.fullmatch(rf"{name}_[0-9a-f]{{16}}\.so", path.name)
