@@ -174,6 +174,29 @@ package, and runs these phases:
              captured in a CUDA graph and replayed against the eager round
              (a failed capture fails the run); publish / read / transact /
              store_batch / cas_batch times.
+  10b. dist  `core/distributed.py` on a one-rank NCCL world
+             (`make_mesh((1,), ("shard",))` on the card: every route and
+             return is an all_to_all to self): `DistSpec(AtomicSpec(2**22,
+             4, p_max=16384), "shard", 1, 16384)` on the four layouts,
+             flat and with `dedup_loads` + `interleave`, batches (a), (c),
+             (d) and (e) with the ctx carried; the counts reset just before
+             each `dist.apply` and read just after it (each of the four
+             round kernels once: the branch is taken on the device; their
+             launches join the kernels line); each batch's values,
+             success, overflow, links, `logical` and `versions` equal
+             `atomics.apply` on the same state and batch and the numpy
+             oracle replaying `linearization_order`; batches (a), (c),
+             (d) once more under the profiler (each round kernel once a
+             batch, and two all_to_alls a batch, each putting at least
+             one operation on the card: NCCL's, at one rank a copy to
+             self); ms per eager `dist.apply` (median of 20, CUDA events)
+             beside `atomics.apply`, its split into route / round / return,
+             one all_to_all alone, host syncs per call;
+             `apply_hash` on `HashSpec(2**22, 2, p_max=16384)` (the
+             cachehash phase's prefill and three batches) against the
+             dict oracle and its contents; `mcas` on the txn phase's
+             cases against `mcas_reference`.  The group is destroyed at
+             the phase's end.
   11. serving
              the paged-KV server (`serving.engine.ServingEngine` over
              `models.transformer`, the CacheHash page table, the BigQueue
@@ -3011,7 +3034,8 @@ class TxnPhase:
 
     # -- MCAS ----------------------------------------------------------------
 
-    def mcas_cases(self, seed):
+    @staticmethod
+    def mcas_cases(seed):
         """(name, n, policy, slot, expected, desired, initial) per case:
         (i) T = 4096, W = 4 uniform over n = 2**22; (ii) the same, Zipf
         0.99 slots; (iii) T = 128, W = 4 over 8 cells, with no backoff
@@ -3575,6 +3599,487 @@ def txn_phase(smoke, tk, prefill, launches_main):
     log(f"[txn] phase in {txn_s:.1f} s")
     torch.cuda.empty_cache()
     return txn_out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10b: the sharded table on one NCCL rank (core/distributed.py).
+# ---------------------------------------------------------------------------
+
+DIST_BATCHES = ("a_distinct_all_kinds", "c_uniform_u20", "d_zipf099_u20",
+                "e1_ll", "e2_sc_validate")
+DIST_TIMED = ("a_distinct_all_kinds", "c_uniform_u20", "d_zipf099_u20")
+DIST_LEVERS = {"flat": {}, "dedup_interleave": {"dedup_loads": True,
+                                                "interleave": True}}
+DIST_TIMING_REPS = 20
+DIST_PROFILE_TRIES = 3
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def kernel_counts(events):
+    """Launches of the round's four kernels in a profiler trace's kernel
+    events (the slow round runs `segment_replay.cuh`'s replay kernels)."""
+    out = dict.fromkeys(ROUND_KERNELS, 0)
+    for ev in events:
+        if ev.get("cat") != "kernel":
+            continue
+        name = ev.get("name", "")
+        for role, key in (("round_prologue", "round_prologue_kernel"),
+                          ("fast_round", "fast_round"),
+                          ("slow_round", "replay_"),
+                          ("round_epilogue", "round_epilogue_kernel")):
+            if key in name:
+                out[role] += 1
+    return out
+
+
+def spans_ops(events, label):
+    """The device operations (kernels, copies, memsets) each host span
+    annotated `label` launched, by correlation id: a list, per span in
+    time order, of the operations' names."""
+    spans = sorted((ev["ts"], ev["ts"] + ev["dur"]) for ev in events
+                   if ev.get("cat") == "user_annotation"
+                   and ev.get("name") == label)
+    launch_span = {}
+    for ev in events:
+        corr = ev.get("args", {}).get("correlation")
+        if corr is None or not ev.get("name", "").startswith(LAUNCH_CALLS):
+            continue
+        for i, (a, b) in enumerate(spans):
+            if a <= ev["ts"] <= b:
+                launch_span[corr] = i
+    out = [[] for _ in spans]
+    for ev in events:
+        if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            i = launch_span.get(ev.get("args", {}).get("correlation"))
+            if i is not None:
+                out[i].append(ev.get("name", "?"))
+    return out
+
+
+class DistPhase:
+    """`core.distributed` on a one-rank NCCL world (`make_mesh((1,),
+    ("shard",))` on the card: every route and return is an all_to_all to
+    self): the main path's table, batches (a), (c), (d), (e) with the ctx
+    carried, flat and with `dedup_loads` + `interleave`, each batch equal
+    to `atomics.apply` on the same state and to the numpy oracle replaying
+    `linearization_order`; `apply_hash` at the cachehash phase's scale
+    against the dict oracle; `mcas` at the txn phase's against
+    `mcas_reference`."""
+
+    def __init__(self, smoke, dsb, ch, txn_mcas, queue):
+        self.smoke, self.torch = smoke, smoke.torch
+        self.dsb, self.ch, self.m, self.queue = dsb, ch, txn_mcas, queue
+        self.atomics, self.engine = smoke.atomics, smoke.engine
+        self.dev = smoke.dev
+        self.mesh = dsb.make_mesh((1,), ("shard",))
+
+    def fail(self, what):
+        raise SystemExit(f"dist: {what}")
+
+    same = SyncPhase.same
+
+    def oracle_step(self, data, ver, ctx, ops, order):
+        """`TableOracle.step` on the port's numpy oracle: the ops replayed
+        in the claimed order, the links merged back by lane."""
+        sub = tuple(np.asarray(x)[order] for x in ops)
+        sub_ctx = tuple(np.asarray(x)[order] for x in ctx)
+        data, ver, nctx, res = self.engine.apply_ops_reference(
+            data, ver, sub_ctx, sub, copy=False)
+        ctx = tuple(np.array(x, copy=True) for x in ctx)
+        for field, rows in zip(ctx, nctx):
+            field[order] = rows
+        p, k = ops[3].shape
+        value = np.zeros((p, k), np.uint32)
+        success = np.zeros(p, bool)
+        value[order], success[order] = res.value, res.success
+        return data, ver, ctx, value, success
+
+    def table(self, strategy, lever, seed, launches):
+        """The five batches, each checked; returns the ops for timing."""
+        smoke, torch, dsb, atomics = self.smoke, self.torch, self.dsb, \
+            self.atomics
+        spec = atomics.AtomicSpec(N, K, strategy, p_max=P)
+        dspec = dsb.DistSpec(spec, "shard", 1, P, **DIST_LEVERS[lever])
+        rng = np.random.default_rng(seed)
+        initial = rng.integers(0, 2 ** 32, (N, K), dtype=np.uint32)
+        st = dsb.init_dist(self.mesh, dspec, initial)
+        plain = atomics.init(spec, initial, device=self.dev)
+        ctx = dsb.init_dist_ctx(self.mesh, dspec)
+        pctx = atomics.init_ctx(P, K, device=self.dev)
+        data, ver = initial.copy(), np.zeros(N, np.uint32)
+        o_ctx = (np.full(P, -1, np.int32), np.zeros(P, np.uint32),
+                 np.zeros((P, K), np.uint32), np.zeros(P, bool))
+        kept = {}
+        what = f"{strategy}/{lever}"
+        for name in DIST_BATCHES:
+            ops_np = smoke.main_batch(name, rng, data, o_ctx[0])
+            ops = smoke.convert.op_batch(ops_np, self.dev)
+            if name in DIST_TIMED:
+                kept[name] = (st.local, ctx, ops)
+                st = dsb.DistState(clone(st.local), self.mesh)
+            torch.cuda.synchronize()
+            smoke.tk.reset_launch_counts()
+            st, ctx, res, ovf = dsb.apply(self.mesh, dspec, st, ops, ctx,
+                                          donate=True)
+            got = {kn: smoke.tk.WRAPPERS[kn].launches for kn in ROUND_KERNELS}
+            if set(got.values()) != {1}:
+                self.fail(f"{what}/{name}: round launches {got}, not one "
+                          "of each (the branch is taken on the device)")
+            for kn in ROUND_KERNELS:
+                launches[kn] += got[kn]
+            plain, pctx, pres, _, _ = atomics.apply(spec, plain, ops, pctx,
+                                                    donate=True)
+            order, ovf_ref = dsb.linearization_order(
+                dspec, self.engine.OpBatch(*ops_np))
+            data, ver, o_ctx, value, success = self.oracle_step(
+                data, ver, o_ctx, ops_np, order)
+            lg, vs = dsb.logical(dspec, st), dsb.versions(dspec, st)
+            for field, a, b in (
+                    ("value", res.value, pres.value),
+                    ("success", res.success, pres.success),
+                    *((f"ctx.{f}", x, y) for f, x, y in
+                      zip(self.engine.LinkCtx._fields, ctx, pctx)),
+                    ("logical", lg, atomics.logical(spec, plain)),
+                    ("versions", vs, plain.version)):
+                if not torch.equal(a, b):
+                    self.fail(f"{what}/{name}: {field} differs from "
+                              "atomics.apply")
+            for field, a, b in (("value", res.value, value),
+                                ("success", res.success, success),
+                                ("overflow", ovf, ovf_ref),
+                                *((f"ctx.{f}", x, y) for f, x, y in
+                                  zip(self.engine.LinkCtx._fields, ctx,
+                                      o_ctx)),
+                                ("logical", lg, data), ("versions", vs, ver)):
+                self.same(f"dist: {what}/{name}: {field}", a, b)
+            del lg, vs
+        return dspec, kept
+
+    def profiled(self, dspec, kept):
+        """One eager `dist.apply` of each kept batch under the profiler,
+        each `all_to_all_single` annotated: the round's four kernels once
+        a batch, and two all_to_alls a batch, each of which put at least
+        one operation on the card (NCCL's; at one rank a copy to self).
+        A trace that lost operations is taken again."""
+        from torch.profiler import ProfilerActivity, profile, record_function
+        torch, dsb = self.torch, self.dsb
+        tdist = dsb.dist
+        a2a = tdist.all_to_all_single
+
+        def annotated(*args, **kw):
+            with record_function("dist_all_to_all"):
+                return a2a(*args, **kw)
+        want = dict.fromkeys(ROUND_KERNELS, len(kept))
+        tdist.all_to_all_single = annotated
+        try:
+            for attempt in range(1, DIST_PROFILE_TRIES + 1):
+                fresh = [(dsb.DistState(clone(local), self.mesh), ctx, ops)
+                         for local, ctx, ops in kept.values()]
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for st, ctx, ops in fresh:
+                        dsb.apply(self.mesh, dspec, st, ops, ctx,
+                                  donate=True)
+                    torch.cuda.synchronize()
+                path = ROOT / "chiprun_out" / "dist_trace.tmp.json"
+                prof.export_chrome_trace(str(path))
+                events = json.loads(path.read_text())["traceEvents"]
+                path.unlink()
+                got = kernel_counts(events)
+                a2a_ops = spans_ops(events, "dist_all_to_all")
+                if got == want and len(a2a_ops) == 2 * len(kept) and \
+                        all(a2a_ops):
+                    return got, attempt, sorted({
+                        name for ops in a2a_ops for name in ops})
+        finally:
+            tdist.all_to_all_single = a2a
+        self.fail(f"profiled launches {got} over {len(kept)} batches, want "
+                  f"{want}; the all_to_alls' device operations {a2a_ops} "
+                  f"(want {2 * len(kept)} calls, each >= 1; "
+                  f"{DIST_PROFILE_TRIES} traces)")
+
+    def timing(self, dspec, kept):
+        """Per kept batch: median ms per eager `dist.apply` and per
+        `atomics.apply` (CUDA events, each call on a fresh copy of the
+        table), the dist call split at the local round (route: the host
+        check, the dedup, the owner ranks, the pack and the all_to_all
+        out; round: the engine round; return: the all_to_all back and the
+        merge), and the host syncs of one call."""
+        smoke, torch, dsb, atomics = self.smoke, self.torch, self.dsb, \
+            self.atomics
+        spec = dspec.inner
+        out = {}
+        for name, (local, ctx, ops) in kept.items():
+            def fresh():
+                return (clone(local),)
+
+            def dist_call(st):
+                dsb.apply(self.mesh, dspec, dsb.DistState(st, self.mesh),
+                          ops, ctx, donate=True)
+
+            def plain_call(st):
+                atomics.apply(spec, st, ops, ctx, donate=True)
+
+            row = {"dist_ms": smoke.time_ms(dist_call, reps=DIST_TIMING_REPS,
+                                            setup=fresh),
+                   "apply_ms": smoke.time_ms(plain_call,
+                                             reps=DIST_TIMING_REPS,
+                                             setup=fresh)}
+            row.update(self.split(dist_call, fresh))
+            st = fresh()[0]
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    dist_call(st)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            row["host_syncs"] = len([w for w in caught if "called a "
+                                     "synchronizing" in str(w.message)])
+            torch.cuda.synchronize()
+            out[name] = row
+        return out
+
+    def split(self, dist_call, fresh):
+        """Median ms of route / round / return: CUDA events recorded before
+        the call, around `_local_round`, and after it."""
+        torch, dsb = self.torch, self.dsb
+        inner = dsb._local_round
+        marks = []
+
+        def timed_round(*args):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            out = inner(*args)
+            b.record()
+            marks.append((a, b))
+            return out
+
+        spans = []
+        dsb._local_round = timed_round
+        try:
+            for _ in range(DIST_TIMING_REPS + 3):
+                st = fresh()[0]
+                torch.cuda.synchronize()
+                s, e = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                s.record()
+                dist_call(st)
+                e.record()
+                spans.append((s, *marks.pop(), e))
+        finally:
+            dsb._local_round = inner
+        torch.cuda.synchronize()
+        spans = spans[3:]
+        return {key: statistics.median(x.elapsed_time(y) for x, y in pairs)
+                for key, pairs in (
+                    ("route_ms", [(s, a) for s, a, _, _ in spans]),
+                    ("round_ms", [(a, b) for _, a, b, _ in spans]),
+                    ("return_ms", [(b, e) for _, _, b, e in spans]))}
+
+    def a2a_ms(self):
+        """Median ms of one `all_to_all_single` of the route's buffer
+        alone (16384 lanes of 2k + 4 words; CUDA events around the call,
+        so the host's time to issue it counts)."""
+        buf = self.torch.zeros(P * (2 * K + 4), dtype=self.torch.int32,
+                               device=self.dev)
+        out = self.torch.empty_like(buf)
+        group = self.mesh.groups["shard"]
+        return self.smoke.time_ms(
+            lambda: self.dsb.dist.all_to_all_single(out, buf, group=group),
+            reps=DIST_TIMING_REPS)
+
+    def hash(self, strategy, seed):
+        """`apply_hash` with `HashSpec(2**22, 2, p_max=16384)` at one shard:
+        the cachehash phase's prefill and three batches against the dict
+        oracle, then the contents; ms and host syncs of each batch."""
+        smoke, torch, dsb, ch = self.smoke, self.torch, self.dsb, self.ch
+        hp = HashPhase(smoke, ch)
+        prefill, runs = hp.batches(seed)
+        oracle = HashDict()
+        spec = ch.HashSpec(HASH_NB, HASH_VW, strategy, p_max=HASH_Q)
+        dspec = dsb.DistSpec(spec, "shard", 1, HASH_Q)
+        st = dsb.init_dist(self.mesh, dspec)
+        what = f"hash/{strategy}"
+        t0 = time.perf_counter()
+        for kind, keys, vals in prefill:
+            found, _ = oracle.step(kind, keys, vals)
+            ops = ch.make_hash_ops(kind, keys, vals, vw=HASH_VW,
+                                   device=self.dev)
+            st, res, ovf = dsb.apply_hash(self.mesh, dspec, st, ops,
+                                          donate=True)
+            if not np.array_equal(res.found.cpu().numpy(), found) or \
+                    bool(ovf.any()):
+                self.fail(f"{what}: a prefill batch differs from the dict "
+                          "oracle")
+        torch.cuda.synchronize()
+        out = {"prefill_s": time.perf_counter() - t0, "runs": {}}
+        for name, (kind, keys, vals) in runs.items():
+            found, value = oracle.step(kind, keys, vals)
+            ops = ch.make_hash_ops(kind, keys, vals, vw=HASH_VW,
+                                   device=self.dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    st, res, ovf = dsb.apply_hash(self.mesh, dspec, st, ops,
+                                                  donate=True)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            self.same(f"dist: {what}/{name} found", res.found, found)
+            self.same(f"dist: {what}/{name} value", res.value, value)
+            if bool(ovf.any()) or bool(res.overflow.any()):
+                self.fail(f"{what}/{name}: overflow reported")
+            out["runs"][name] = {
+                "ms": ms, "host_syncs": len([
+                    w for w in caught
+                    if "called a synchronizing" in str(w.message)])}
+        items = dsb.hash_items(dspec, st)
+        if len(items) != len(oracle.model) or any(
+                list(np.ravel(v)) != list(oracle.model.get(key, []))
+                for key, v in items.items()):
+            self.fail(f"{what}: contents differ from the dict oracle")
+        out["entries"] = len(items)
+        return out
+
+    def mcas(self, strategy, cases, launches):
+        """`dist.mcas` at one shard on the txn phase's cases against
+        `mcas_reference` in `linearization_order`; rounds, ms (host clock,
+        synchronised) and host syncs of each."""
+        torch, dsb, m, atomics = self.torch, self.dsb, self.m, self.atomics
+        out = {}
+        for name, n, pol, slot, expected, desired, init in cases:
+            spec = atomics.AtomicSpec(n, K, strategy, p_max=P)
+            dspec = dsb.DistSpec(spec, "shard", 1, P)
+            st = dsb.init_dist(self.mesh, dspec, init)
+            txns = m.make_txns(slot, expected, desired, k=K, device=self.dev)
+            policy = {"none": self.queue.BackoffPolicy("none"),
+                      "exp": self.queue.BackoffPolicy("exp", 1, 4)}[pol]
+            torch.cuda.synchronize()
+            self.smoke.tk.reset_launch_counts()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    st, res = dsb.mcas(self.mesh, dspec, st, txns,
+                                       policy=policy, donate=True)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            for kn in ROUND_KERNELS:
+                launches[kn] += self.smoke.tk.WRAPPERS[kn].launches
+            what = f"mcas/{strategy}/{name}"
+            if not bool((res.round > 0).all()):
+                self.fail(f"{what}: txns left unresolved")
+            order = m.linearization_order(res)
+            data, ver, succ, wit = m.mcas_reference(
+                init, np.zeros(n, np.uint32),
+                m.TxnBatch(slot, expected, desired), order)
+            self.same(f"dist: {what} success", res.success, succ)
+            self.same(f"dist: {what} witness", res.witness, wit)
+            self.same(f"dist: {what} logical", dsb.logical(dspec, st), data)
+            self.same(f"dist: {what} versions", dsb.versions(dspec, st), ver)
+            out[name] = {"t": len(slot), "rounds": int(res.rounds),
+                         "ms": ms, "host_syncs": len([
+                             w for w in caught
+                             if "called a synchronizing" in str(w.message)]),
+                         "commit_rate": float(succ.mean())}
+        return out
+
+
+def dist_phase(smoke, tk, launches_main):
+    """Phase 10b: a one-rank NCCL world on the card; the checked path with
+    the counts reset before each `dist.apply` and read after it (each batch
+    must launch each of the four round kernels once; their launches, and
+    the rounds' under `dist.mcas`, join
+    `launches_main`), the profiled batches, the timings, `apply_hash` and
+    `mcas`.  An NCCL init that fails, a mismatch or a missing launch fails
+    the run."""
+    torch = smoke.torch
+    import torch.distributed as tdist
+    from repro_torch.core import cachehash
+    from repro_torch.core import distributed as dsb
+    from repro_torch.sync import queue
+    from repro_torch.txn import mcas as txn_mcas
+    t0 = time.perf_counter()
+    torch.cuda.set_device(smoke.dev)
+    tdist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1)
+    try:
+        dp = DistPhase(smoke, dsb, cachehash, txn_mcas, queue)
+        launches = dict.fromkeys(ROUND_KERNELS, 0)
+        out = {"layouts": {}}
+        for si, strategy in enumerate(STRATEGIES):
+            for li, lever in enumerate(DIST_LEVERS):
+                dspec, kept = dp.table(strategy, lever, 16000 + 2 * si + li,
+                                       launches)
+                row = {}
+                if lever == "flat":
+                    row["profile"], row["profile_traces"], nccl = \
+                        dp.profiled(dspec, kept)
+                    row["a2a_device_ops"] = nccl
+                    row["timing"] = dp.timing(dspec, kept)
+                out["layouts"][f"{strategy}/{lever}"] = row
+                del kept
+                torch.cuda.empty_cache()
+            log(f"[dist] {strategy}: {len(DIST_BATCHES)} batches x "
+                f"{len(DIST_LEVERS)} levers at n = 2**22, p_local = {P} on "
+                "one NCCL rank equal atomics.apply and the oracle; each "
+                "round kernel launched once a batch")
+        out["a2a_ms"] = dp.a2a_ms()
+        txn_cases = TxnPhase.mcas_cases(16100)
+        out["hash"] = dp.hash("cached_me", 16200)
+        out["mcas"] = dp.mcas("cached_me", txn_cases, launches)
+        if not all(launches.values()):
+            raise SystemExit(f"dist: a round kernel never launched: "
+                             f"{launches}")
+        for kn in ROUND_KERNELS:
+            launches_main[kn] += launches[kn]
+        out["launches"] = launches
+    finally:
+        tdist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t0
+    for key, row in out["layouts"].items():
+        for name, t in row.get("timing", {}).items():
+            log(f"[dist-timing] {key:26s} {name:20s} dist.apply "
+                f"{t['dist_ms']:.4f} ms (route {t['route_ms']:.4f} / round "
+                f"{t['round_ms']:.4f} / return {t['return_ms']:.4f}), "
+                f"atomics.apply {t['apply_ms']:.4f} ms, host syncs "
+                f"{t['host_syncs']}")
+        if "profile" in row:
+            log(f"[dist] {key}: profiled launches {row['profile']} "
+                f"(traces {row['profile_traces']}), the all_to_alls' "
+                f"device operations {row['a2a_device_ops']}")
+    log(f"[dist-timing] one all_to_all_single of the route's buffer "
+        f"({P} x {2 * K + 4} words, to self) {out['a2a_ms']:.4f} ms")
+    h = out["hash"]
+    log(f"[dist] apply_hash cached_me at nb = 2**22: prefill "
+        f"{h['prefill_s']:.2f} s, {h['entries']} entries equal the dict "
+        "oracle; " + "; ".join(f"{name} {r['ms']:.2f} ms, host syncs "
+                               f"{r['host_syncs']}"
+                               for name, r in h["runs"].items()))
+    log("[dist] mcas cached_me: " + "; ".join(
+        f"{name} T={r['t']} rounds {r['rounds']} {r['ms']:.1f} ms, host "
+        f"syncs {r['host_syncs']}" for name, r in out["mcas"].items())
+        + "; equal to mcas_reference")
+    log(f"[dist] phase in {out['phase_s']:.1f} s, launches {launches}")
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -6126,6 +6631,9 @@ def main() -> int:
     # -- 10. txn ---------------------------------------------------------------
     txn_out = txn_phase(smoke, tk, prefill, launches_main)
 
+    # -- 10b. dist --------------------------------------------------------------
+    dist_out = dist_phase(smoke, tk, launches_main)
+
     # -- 11. serving -------------------------------------------------------------
     serving_out = serving_phase(smoke, tk, launches_main)
 
@@ -6209,6 +6717,7 @@ def main() -> int:
                "cachehash": {"phase_s": hash_s, "launches": hash_launches,
                              "variants": hash_out},
                "txn": txn_out,
+               "dist": dist_out,
                "serving": serving_out,
                "runtime": runtime_out,
                "families": families_out,

@@ -32,8 +32,14 @@ wrappers) are thin shims over this module.
 The transaction layer: k-word MCAS (`atomics.mcas`, checked txn
 construction via `atomics.make_txns`), bounded version lists
 (`VersionSpec`, `txn.versionlist`) and the optimistic transactional map
-(`txn.map`), all registry-dispatched.  The reference's mesh layer (`dist`,
-`DistSpec`, the sharded MCAS) is not ported yet.
+(`txn.map`), all registry-dispatched.
+
+The mesh-sharded layer: `atomics.dist` (`core.distributed`) runs the same
+specs sharded over `torch.distributed` ranks, one collective round per
+batch: `dist.make_mesh(shape, names)`, then `atomics.dist.apply(mesh,
+DistSpec(spec, axis, n_shards, p_local), state, ops, ctx)` on every rank
+with its own lanes, `dist.apply_hash` for CacheHash and `dist.mcas` for
+cross-shard MCAS.
 """
 
 from repro_torch.core.engine import (  # noqa: F401
@@ -53,6 +59,8 @@ from repro_torch.core.specs import (  # noqa: F401
     DEFAULT_STRATEGY, AtomicSpec, HashSpec, QueueSpec, VersionSpec,
 )
 from repro_torch.core import strategies as _builtin_strategies  # noqa: F401
+from repro_torch.core import distributed as dist  # noqa: F401
+from repro_torch.core.distributed import DistSpec, DistState  # noqa: F401
 from repro_torch import txn  # noqa: F401
 from repro_torch.txn.mcas import (  # noqa: F401
     McasResult, TxnBatch, make_txns, mcas,

@@ -97,6 +97,57 @@ def op_batch(fields, device="cuda") -> OpBatch:
     return to_torch(OpBatch, fields, device)
 
 
+_HASH_WORD_FIELDS = ("pool", "ring_head", "ring_tail", "count")
+
+
+def _shard_local(local, shard: int, device):
+    """One shard (row `shard` of every stacked leaf) of the reference's
+    `DistState.local` as the port's TableState or HashState."""
+    from repro_torch.core.cachehash import HashState
+    local = tuple(local)
+    if len(local) == len(HashState._fields) and \
+            len(local[0]) == len(TableState._fields):
+        table = to_torch(TableState, (np.asarray(x)[shard] for x in local[0]),
+                         device)
+        rest = (tensor(np.asarray(x)[shard], device,
+                       word=name in _HASH_WORD_FIELDS)
+                for name, x in zip(HashState._fields[1:], local[1:]))
+        return HashState(table, *rest)
+    return to_torch(TableState, (np.asarray(x)[shard] for x in local), device)
+
+
+def dist_state(local, shard: int, *, mesh=None, device="cuda"):
+    """The reference's stacked `DistState.local` (its leaves as numpy
+    arrays, every leaf [n_shards, ...]; a TableState's nine, or a
+    HashState's with its table's nine nested first) as the port's
+    `DistState` of shard `shard` on `device`: the local state one rank
+    holds (`distributed.shard_index(mesh, dspec)` names the rank's
+    shard)."""
+    from repro_torch.core.distributed import DistState
+    return DistState(_shard_local(local, shard, device), mesh)
+
+
+def dist_state_to_numpy(states) -> tuple:
+    """The reverse of `dist_state`: the ranks' port `DistState`s (or their
+    local states), one per shard in shard order, as the reference's
+    stacked `DistState.local` leaves in numpy, words as uint32."""
+    from repro_torch.core.cachehash import HashState
+    locals_ = [getattr(st, "local", st) for st in states]
+
+    def stack(nts, fields, words):
+        return tuple(np.stack([array(nt[i], word=name in words)
+                               for nt in nts])
+                     for i, name in enumerate(fields))
+    table_words = _WORD_FIELDS[TableState]
+    if isinstance(locals_[0], HashState):
+        table = stack([st.table for st in locals_], TableState._fields,
+                      table_words)
+        rest = stack([st[1:] for st in locals_], HashState._fields[1:],
+                     _HASH_WORD_FIELDS)
+        return (table, *rest)
+    return stack(locals_, TableState._fields, table_words)
+
+
 def model_params(tree, device="cuda"):
     """The reference's `init_params` tree (its leaves as numpy arrays, or
     anything `np.asarray` takes: jax arrays, ml_dtypes bfloat16) as the

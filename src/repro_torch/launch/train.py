@@ -3,7 +3,7 @@ and resume, preemption safety, a straggler watchdog and the versioned
 in-memory snapshot store (the big-atomics multiversioning application).
 The port of the JAX package's `launch/train.py`, without its mesh: a
 sharded run (`mesh=`) raises NotImplementedError until the port has one
-(ROADMAP Queue 1 item 8).
+(ROADMAP Queue 1 item 8e).
 
 Each step publishes (params, opt_state) into `core.multiversion`'s store;
 a checkpoint is written from a validated snapshot of it
@@ -47,7 +47,7 @@ def train(cfg, shape: Shape, *, steps: int, ckpt_dir: str | None = None,
     if mesh is not None:
         raise NotImplementedError(
             "train(mesh=...): sharded training is not ported yet (ROADMAP "
-            "Queue 1 item 8, distribution); train on one device")
+            "Queue 1 item 8e); train on one device")
     device = resolve_device(device)
     opt_cfg = opt_cfg or AdamWConfig(lr=lr, warmup=max(steps // 20, 1),
                                      total_steps=steps)

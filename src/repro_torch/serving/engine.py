@@ -32,7 +32,7 @@ device: the draws cannot equal `jax.random`'s.
 (`admit_compute` / `commit_admissions`) and decode (`dispatch_decode` /
 `finish_decode`) as two decoupled streams, so prefills overlap the decode
 in flight.  Not ported yet: the mesh-sharded engine (`mesh=`, ROADMAP
-Queue 1 item 8).  Scope, as the reference's: causal full-attention archs.
+Queue 1 item 8c).  Scope, as the reference's: causal full-attention archs.
 """
 
 from __future__ import annotations
@@ -109,8 +109,9 @@ class ServingEngine:
             "make_serve_step for SSM / hybrid / SWA / encoder"
         if mesh is not None:
             raise NotImplementedError(
-                "the mesh-sharded engine needs core/distributed.py, which "
-                "repro_torch does not port yet (ROADMAP Queue 1 item 8)")
+                "the mesh-sharded engine (dist.py's mesh rules over the "
+                "sharded page table) is not ported yet (ROADMAP Queue 1 "
+                "item 8c)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params

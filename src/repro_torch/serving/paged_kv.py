@@ -12,9 +12,8 @@ live in one pool per K and V: [n_attn_layers, n_pages, page_size, kvh,
 hd].  Functions return new states and leave the ones they were given
 valid, as the reference's.
 
-One shard only: a mesh-sharded page table (`n_shards > 1`) needs
-`core/distributed.py` and raises NotImplementedError (ROADMAP Queue 1 item
-8).  Recurrent layers (ssm / rglru) get no dense slot states here: the
+One shard only: a mesh-sharded page table (`n_shards > 1`) is not ported
+yet and raises NotImplementedError (ROADMAP Queue 1 item 8c).  Recurrent layers (ssm / rglru) get no dense slot states here: the
 reference builds them, but its engine serves only full-attention configs
 and nothing reads them (recurrent configs serve through
 `launch.steps.make_serve_step`).
@@ -42,9 +41,8 @@ PAGE_MASK = (1 << SEQ_SHIFT) - 1
 def _not_sharded(n_shards: int, mesh=None) -> None:
     if n_shards != 1 or mesh is not None:
         raise NotImplementedError(
-            "a sharded page table (n_shards > 1, a mesh) needs "
-            "core/distributed.py, which repro_torch does not port yet "
-            "(ROADMAP Queue 1 item 8)")
+            "a sharded page table (n_shards > 1, a mesh) is not ported yet "
+            "(ROADMAP Queue 1 item 8c)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -29,8 +29,8 @@ in the same call could change the verdict; such lanes defer instead).
 
 The ring state is the table's `TableState` (`.state`, on the queue's
 device); `BigQueue` is the host-side retry loop around it.  The sharded
-ring of the reference (`mesh` / `n_shards > 1`) needs the port of
-`core/distributed.py`, which is not there yet: the port raises
+ring of the reference (`mesh` / `n_shards > 1`, its rounds through
+`core.distributed.apply`) is not ported yet: the port raises
 `NotImplementedError` for it and never runs one shard in its place.
 """
 
@@ -83,8 +83,8 @@ class BigQueue:
 
     The table lives on `device` ("cuda" by default).  The reference's
     sharded mode (`mesh` / `n_shards > 1`, every round routed through
-    `core.distributed.apply`) needs the port of `core/distributed.py`;
-    until then asking for it raises `NotImplementedError`.
+    `core.distributed.apply`) is not ported yet; asking for it raises
+    `NotImplementedError`.
     """
 
     def __init__(self, capacity: int | None = None, *, k: int = 2,
@@ -102,9 +102,9 @@ class BigQueue:
                              p_max=p_max)
         if mesh is not None and n_shards > 1:
             raise NotImplementedError(
-                "the sharded BigQueue routes through core/distributed.py, "
-                "which repro_torch does not port yet (ROADMAP Queue 1 item "
-                "8)")
+                "the sharded BigQueue (its rounds through "
+                "core.distributed.apply) is not ported yet (ROADMAP Queue 1 "
+                "item 8b)")
         self.spec = spec
         self._tspec = spec.table_spec()
         self.policy = policy

@@ -14,8 +14,9 @@ Three layers, all dispatching through the strategy registry:
                write-set, validate + commit, serializable, retried in a
                host loop.
 
-The mesh-sharded variants (`core.distributed.mcas`, `map.transact_dist`)
-need the port of `core/distributed.py`; `transact_dist` raises until then.
+The mesh-sharded MCAS is `core.distributed.mcas`; the sharded map,
+`map.transact_dist`, is not ported yet and raises (ROADMAP Queue 1 item
+8b).
 """
 
 from repro_torch.txn import map as map  # noqa: F401  (txn.map module alias)

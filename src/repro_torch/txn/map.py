@@ -279,11 +279,11 @@ def transact(spec: HashSpec, state, txns: MapTxns, fn, *,
 def transact_dist(mesh, dspec, dstate, txns: MapTxns, fn, *,
                   policy: BackoffPolicy = BackoffPolicy("none"),
                   max_rounds: int | None = None):
-    """`transact` over a mesh-sharded CacheHash: needs the port of
-    `core/distributed.py`, which is not there yet."""
+    """`transact` over a mesh-sharded CacheHash (its rounds through
+    `core.distributed.apply_hash`): not ported yet."""
     raise NotImplementedError(
-        "transact_dist needs repro_torch.core.distributed, which is not "
-        "ported yet (ROADMAP Queue 1 item 8); run transact on one device")
+        "transact_dist (the map over core.distributed.apply_hash) is not "
+        "ported yet (ROADMAP Queue 1 item 8b); run transact on one device")
 
 
 def linearization_order(result: MapResult) -> np.ndarray:

@@ -1221,4 +1221,6 @@ def test_atomics_facade_exports_txn_layer():
     assert atomics.txn.transact is tmap.transact
     assert atomics.txn.run_mcas is tmcas.mcas
     assert guard.check_version_list is not None
-    assert not hasattr(atomics, "dist")        # the mesh layer: not yet
+    from repro_torch.core import distributed
+    assert atomics.dist is distributed       # the sharded MCAS: dist.mcas
+    assert atomics.dist.mcas is not atomics.mcas
