@@ -195,8 +195,12 @@ package, and runs these phases:
              `apply_hash` on `HashSpec(2**22, 2, p_max=16384)` (the
              cachehash phase's prefill and three batches) against the
              dict oracle and its contents; `mcas` on the txn phase's
-             cases against `mcas_reference`.  The group is destroyed at
-             the phase's end.
+             cases against `mcas_reference`; `txn.map.transact_dist` on
+             the txn phase's map cases (`map_check`: the table prefilled
+             with the cachehash phase's first 32 batches, load 1/8)
+             against the one-device `transact` bit for bit and
+             `transact_reference`, ms and host syncs of each.  The group
+             is destroyed at the phase's end.
   11. serving
              the paged-KV server (`serving.engine.ServingEngine` over
              `models.transformer`, the CacheHash page table, the BigQueue
@@ -232,6 +236,29 @@ package, and runs these phases:
              checked run's, wall time and tokens/s of each; the pipelined
              run's round and `flash_attention_wgmma` launches join the
              kernels line.
+  11b. sharded serving
+             two processes on the card in one gloo world (collectives on
+             card tensors, staged through the host: NCCL takes one card a
+             rank), `python3 chip_smoke.py --sharded-rank R PORT DIR`
+             each (`ShardedRank`), the mesh `make_mesh((2,), ("shard",),
+             device="cuda")`: the sharded `BigQueue(4096, k=2, p_max=64)`
+             (enqueue 32, dequeue 16, a mixed batch of 16 ENQ + 16 DEQ)
+             against the one-device ring; `transact_dist` at 2 shards
+             (`map_check`) against `transact` and `transact_reference`,
+             the hot counter in T rounds; glm4_9b whole, bf16, each rank
+             its own weights, through `ServingEngine(mesh=...)` on
+             cached_me, the six greedy requests: tokens equal to the
+             serving phase's (no mesh) and to rank 0's own engine without
+             a mesh (run while the other rank waits), one fused dispatch
+             a decode step, the table empty and every page back at the
+             end; with the counts reset just before each rank's sharded
+             run and read just after, rows 1-2b and 7a must have
+             launched on every rank, and their launches join the kernels
+             line.  Each step timed with CUDA events, the decode FIND
+             split into route / round / return / all_gather.  A rank
+             that fails or a world that outlives `SHARD_WORLD_TIMEOUT_S`
+             (each collective bounded by `SHARD_PG_TIMEOUT_S`) fails the
+             run.
   12. runtime
              the oversubscribed executor (`runtime.Executor` over
              `LocalTarget`) on the four lock-free layouts at
@@ -4014,6 +4041,7 @@ def dist_phase(smoke, tk, launches_main):
     from repro_torch.core import cachehash
     from repro_torch.core import distributed as dsb
     from repro_torch.sync import queue
+    from repro_torch.txn import map as txn_map
     from repro_torch.txn import mcas as txn_mcas
     t0 = time.perf_counter()
     torch.cuda.set_device(smoke.dev)
@@ -4045,6 +4073,8 @@ def dist_phase(smoke, tk, launches_main):
         txn_cases = TxnPhase.mcas_cases(16100)
         out["hash"] = dp.hash("cached_me", 16200)
         out["mcas"] = dp.mcas("cached_me", txn_cases, launches)
+        out["map"] = map_check(torch, dp.mesh, (dsb, cachehash, txn_map), 1,
+                               16300, smoke.dev)
         if not all(launches.values()):
             raise SystemExit(f"dist: a round kernel never launched: "
                              f"{launches}")
@@ -4077,6 +4107,13 @@ def dist_phase(smoke, tk, launches_main):
         f"{name} T={r['t']} rounds {r['rounds']} {r['ms']:.1f} ms, host "
         f"syncs {r['host_syncs']}" for name, r in out["mcas"].items())
         + "; equal to mcas_reference")
+    m = out["map"]
+    log(f"[dist] transact_dist at one shard equal to transact and "
+        f"transact_reference (prefill {m['prefill_keys']} keys "
+        f"{m['prefill_s']:.1f} s, {m['entries']} entries equal): " + "; ".join(
+            f"{name} T={r['t']} rounds {r['rounds']} {r['dist_ms']:.1f} ms "
+            f"(transact {r['one_ms']:.1f}), host syncs {r['dist_host_syncs']} "
+            f"({r['one_host_syncs']})" for name, r in m["runs"].items()))
     log(f"[dist] phase in {out['phase_s']:.1f} s, launches {launches}")
     torch.cuda.empty_cache()
     return out
@@ -5163,7 +5200,476 @@ def serving_phase(smoke, tk, launches_main):
             "steps": steps_seen, "launches": serve_launches,
             "dense": dense, "tolerance": [SERVE_ATOL, SERVE_RTOL],
             "prefill_route": route, "fp32_layouts": fp32,
-            "pipelined": pipelined, "timing": timing, "split": split, "phase_s": phase_s}
+            "pipelined": pipelined, "timing": timing, "split": split,
+            "tokens": out, "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
+# Phase 11b: the sharded server on two gloo ranks sharing the card
+# (serving over core/distributed.py: the sharded page table and rings,
+# txn.map.transact_dist).
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 2                  # processes on the one card, gloo between
+SHARD_PG_TIMEOUT_S = 120         # each collective of the world
+SHARD_WORLD_TIMEOUT_S = 600      # the whole world, seen from the parent
+SHARD_STRATEGY = "cached_me"
+SHARD_PREFILL_BATCHES = 32       # of the cachehash phase's 128: load 1/8
+SHARD_QUEUE = {"enqueue": 32, "dequeue": 16, "mixed": 32}
+
+
+def sync_warnings(caught) -> int:
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def map_check(torch, mesh, mods, n_shards, seed, dev):
+    """`txn.map.transact_dist` on `HashSpec(2**22, vw=2, p_max=16384)`
+    sharded `n_shards` ways, beside the one-device `transact` on the same
+    table: both prefilled with the cachehash phase's first
+    `SHARD_PREFILL_BATCHES` batches, then the txn phase's map cases (T =
+    4096 read-modify-write txns on disjoint keys, R = W = 2; one hot
+    counter, T = 64, which must take T rounds).  Every `MapResult` field
+    equal bit for bit, the read sets equal to `transact_reference`
+    replaying the claimed order, the contents equal.  Returns ms and host
+    syncs of each call (`set_sync_debug_mode("warn")`) and the rounds."""
+    dsb, ch, tmap = mods
+    rng = np.random.default_rng(seed)
+    prefill, _ = HashPhase(SimpleNamespace(torch=torch), ch).batches(seed)
+    prefill = prefill[:SHARD_PREFILL_BATCHES]
+    spec = ch.HashSpec(HASH_NB, HASH_VW, SHARD_STRATEGY, p_max=HASH_Q)
+    dspec = dsb.DistSpec(spec, "shard", n_shards, HASH_Q // n_shards)
+    dst = dsb.init_dist(mesh, dspec)
+    one = ch.init_hash(spec, device=dev)
+    t0 = time.perf_counter()
+    for kind, keys, vals in prefill:
+        ops = ch.make_hash_ops(kind, keys, vals, vw=HASH_VW, device=dev)
+        dst, res, ovf = dsb.apply_hash_global(mesh, dspec, dst, ops,
+                                              donate=True)
+        one, res1, _ = ch.apply_hash(spec, one, ops, donate=True)
+        if bool(ovf.any()) or not torch.equal(res.found, res1.found):
+            raise SystemExit("map: a sharded prefill batch differs from the "
+                             "one-device one")
+    torch.cuda.synchronize()
+    out = {"prefill_s": time.perf_counter() - t0,
+           "prefill_keys": len(prefill) * HASH_Q, "runs": {}}
+    pk = np.concatenate([b[1] for b in prefill])
+    pv = np.concatenate([b[2] for b in prefill])
+    chosen = rng.choice(len(pk), 2 * MAP_T, replace=False)
+    hot_key = np.uint32(rng.integers(0, 2 ** 32))
+    while np.isin(hot_key, pk):
+        hot_key = np.uint32(rng.integers(0, 2 ** 32))
+    model = {int(k): v for k, v in zip(pk[chosen], pv[chosen])}
+    for name, keys, fn in (
+            ("disjoint_rmw", pk[chosen].reshape(MAP_T, 2), map_fn_increment),
+            ("hot_counter", np.full((MAP_HOT_T, 1), hot_key, np.uint32),
+             map_fn_sum_plus_one)):
+        txns = tmap.make_map_txns(keys, keys, vw=HASH_VW, device=dev)
+        row = {"t": len(keys)}
+        for how in ("dist", "one"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    if how == "dist":
+                        dst, res = tmap.transact_dist(mesh, dspec, dst,
+                                                      txns, fn)
+                    else:
+                        one, res1 = tmap.transact(spec, one, txns, fn)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            row[f"{how}_ms"] = (time.perf_counter() - t) * 1e3
+            row[f"{how}_host_syncs"] = sync_warnings(caught)
+        for field, a, b in zip(res._fields, res, res1):
+            if not torch.equal(a.cpu(), b.cpu()):
+                raise SystemExit(f"map/{name}: transact_dist's {field} "
+                                 "differs from transact's")
+        model, rv, rf = tmap.transact_reference(
+            model, txns, fn, tmap.linearization_order(res), HASH_VW)
+        if not (np.array_equal(res.read_value.cpu().numpy().view(np.uint32),
+                               rv) and
+                np.array_equal(res.read_found.cpu().numpy(), rf)):
+            raise SystemExit(f"map/{name}: read sets differ from "
+                             "transact_reference")
+        row["rounds"] = int(res.rounds)
+        out["runs"][name] = row
+    if out["runs"]["hot_counter"]["rounds"] != MAP_HOT_T or \
+            list(model[int(hot_key)]) != [MAP_HOT_T] * HASH_VW:
+        raise SystemExit(f"map/hot_counter: {out['runs']['hot_counter']}, "
+                         f"counter {model[int(hot_key)]}")
+    got = dsb.hash_items(dspec, dst)
+    keys = np.fromiter(got, np.uint32, len(got))
+    order = np.argsort(keys)
+    values = np.stack([got[int(k)] for k in keys[order]])
+    want_k, want_v = ch.contents(one, inline=True, vw=HASH_VW)
+    o = np.argsort(want_k)
+    if not (np.array_equal(keys[order], want_k[o]) and
+            np.array_equal(values, want_v[o])):
+        raise SystemExit("map: the sharded contents differ from transact's")
+    for k, v in model.items():
+        if not np.array_equal(got[k], v):
+            raise SystemExit(f"map: key {k} holds {got[k]}, the model {v}")
+    out["entries"] = len(got)
+    return out
+
+
+class ShardedRank:
+    """One rank of phase 11b's world (`sharded_rank_main`): the sharded
+    `BigQueue` against the one-device one, `transact_dist` against
+    `transact`, then glm4_9b served through `ServingEngine(mesh=...)` with
+    the counts reset just before and read just after, and (rank 0 alone,
+    the other rank waiting) without the mesh."""
+
+    def __init__(self, torch, mesh, mods):
+        self.torch, self.mesh, self.dev = torch, mesh, mesh.device
+        (self.dsb, self.ch, self.tmap, self.queue_mod, self.serving,
+         self.pk, self.core_engine) = mods
+
+    def fail(self, what):
+        raise SystemExit(f"sharded: {what}")
+
+    def queue(self, seed):
+        """`BigQueue(4096, k=2, p_max=64)` sharded over the mesh and on one
+        device, the same calls: enqueue, dequeue, then a contended batch
+        of half ENQ, half DEQ lanes; payloads, success, rounds, the commit
+        log, `len` and the ring's cells equal.  ms of each call."""
+        torch, dsb, Q = self.torch, self.dsb, self.queue_mod
+        rng = np.random.default_rng(seed)
+        kw = dict(capacity=QUEUE_CAPACITY, k=QUEUE_K,
+                  strategy=SHARD_STRATEGY, p_max=QUEUE_LANES)
+        shq = Q.BigQueue(**kw, mesh=self.mesh, n_shards=SHARD_RANKS)
+        oneq = Q.BigQueue(**kw, device=self.dev)
+        m = SHARD_QUEUE["mixed"]
+        mixed = rng.permutation(np.repeat([Q.ENQ, Q.DEQ], m // 2)).astype(
+            np.int32)
+        calls = {
+            "enqueue": (np.full(SHARD_QUEUE["enqueue"], Q.ENQ, np.int32),
+                        rng.integers(0, 2 ** 32, (SHARD_QUEUE["enqueue"], 1),
+                                     dtype=np.uint32)),
+            "dequeue": (np.full(SHARD_QUEUE["dequeue"], Q.DEQ, np.int32),
+                        None),
+            "mixed": (mixed, rng.integers(0, 2 ** 32, (m, 1),
+                                          dtype=np.uint32))}
+        out = {}
+        for name, (kinds, values) in calls.items():
+            got = {}
+            for how, q in (("sharded", shq), ("one", oneq)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got[how] = q.run_batch(kinds, values)
+                torch.cuda.synchronize()
+                out.setdefault(name, {})[f"{how}_ms"] = \
+                    (time.perf_counter() - t) * 1e3
+            for a, b in zip(got["sharded"], got["one"]):
+                if not np.array_equal(a, b):
+                    self.fail(f"queue {name}: the sharded ring's results "
+                              "differ from the one-device ring's")
+            out[name]["rounds"] = int(got["one"][2])
+            out[name]["lanes"] = len(kinds)
+        view = dsb.DistSpec(shq._dist_inner, "shard", SHARD_RANKS, 1)
+        cells = dsb.logical(view, shq._dstate)[:oneq._tspec.n]
+        if shq.commit_log != oneq.commit_log or len(shq) != len(oneq) or \
+                not torch.equal(cells, self.core_engine.logical(
+                    oneq._tspec, oneq.state)):
+            self.fail("queue: commit log, length or ring cells differ")
+        return out
+
+    def serve(self, cfg, params, prompts, mesh):
+        """The six requests through `ServingEngine` (with `mesh`, sharded)
+        on `SHARD_STRATEGY`: every step timed with CUDA events, the decode
+        steps' page-table FIND too, split (sharded) into route (to the
+        owner's `cachehash.apply_hash`), round (that call), return (back
+        to the issuing rank) and the all_gather of the results.  Checks
+        one fused dispatch a decode step, every page back on the ring and
+        the table empty at the end.  Returns the tokens and the times."""
+        torch, pk, dsb = self.torch, self.pk, self.dsb
+        eng = self.serving.ServingEngine(cfg, params, mesh=mesh,
+                                         strategy=SHARD_STRATEGY,
+                                         device=self.dev, **SERVE_ENGINE)
+        for rid, prompt in enumerate(prompts):
+            eng.submit(self.serving.Request(rid=rid, prompt=prompt,
+                                            max_new_tokens=SERVE_NEW))
+        marks, in_fused = [], [False]
+
+        def mark(name):
+            if in_fused[0]:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append((name, ev))
+
+        def around(fn, before, after):
+            def run(*a, **kw):
+                mark(before)
+                out = fn(*a, **kw)
+                mark(after)
+                return out
+            return run
+
+        orig_fused = eng._fused_step
+
+        def fused(*a):
+            in_fused[0] = True
+            try:
+                return orig_fused(*a)
+            finally:
+                in_fused[0] = False
+
+        saved = [(pk, "_hash_apply"), (dsb, "apply_hash"),
+                 (dsb.ch, "apply_hash")]
+        saved = [(mod, attr, getattr(mod, attr)) for mod, attr in saved]
+        pk._hash_apply = around(saved[0][2], "find", "find_end")
+        dsb.apply_hash = around(saved[1][2], "route", "gather")
+        dsb.ch.apply_hash = around(saved[2][2], "round", "return")
+        eng._fused_step = fused
+        P = SERVE_ENGINE["page_size"]
+        rows, decode_steps = [], 0
+        try:
+            while True:
+                live = [s for s in eng.slots if s.active]
+                crossing = sum(s.pos % P == 0 for s in live)
+                admits = eng.pending() and len(live) < len(eng.slots)
+                pending = bool(eng._pending_retire)
+                done = sum(r.done for r in eng.requests.values())
+                marks.clear()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                n = eng.step()
+                b.record()
+                b.synchronize()
+                if not n and not eng.pending():
+                    break
+                decode_steps += n > 0
+                kind = ("admission" if admits else "retire_flush" if
+                        pending else "retire" if sum(
+                            r.done for r in eng.requests.values()) > done
+                        else "crossing" if crossing else "decode")
+                row = {"kind": kind, "live": n, "ms": a.elapsed_time(b)}
+                times = dict((name, ev) for name, ev in marks)
+                if "find" in times:
+                    row["find_ms"] = times["find"].elapsed_time(
+                        times["find_end"])
+                if "route" in times:
+                    for part, (x, y) in {"route": ("route", "round"),
+                                         "round": ("round", "return"),
+                                         "return": ("return", "gather"),
+                                         "gather": ("gather", "find_end")
+                                         }.items():
+                        row[f"{part}_ms"] = times[x].elapsed_time(times[y])
+                rows.append(row)
+        finally:
+            for mod, attr, fn in saved:
+                setattr(mod, attr, fn)
+        if eng.dispatch_count != decode_steps:
+            self.fail(f"{eng.dispatch_count} fused dispatches over "
+                      f"{decode_steps} decode steps")
+        if mesh is not None:
+            view = dsb.DistSpec(eng.paged.spec.table, "shard", SHARD_RANKS,
+                                1)
+            left = dsb.hash_items(view, eng.paged.state.table)
+        else:
+            left = self.ch.items(eng.paged.state.table, inline=True, vw=1)
+        if left or len(eng.paged.free) != SERVE_ENGINE["n_pages"]:
+            self.fail(f"{len(left)} pages still mapped, "
+                      f"{len(eng.paged.free)} on the free ring")
+        tokens = {rid: r.out_tokens for rid, r in eng.requests.items()}
+
+        def med(key, kind="decode"):
+            vals = [r[key] for r in rows if r["kind"] == kind
+                    and r["live"] == SERVE_ENGINE["max_batch"] and key in r]
+            return statistics.median(vals) if vals else None
+        return tokens, {
+            "decode_step_ms": med("ms"), "crossing_step_ms":
+                med("ms", "crossing"), "admission_step_ms":
+                med("ms", "admission"),
+            "find_ms": med("find_ms"),
+            "find_split_ms": {p: med(f"{p}_ms") for p in
+                              ("route", "round", "return", "gather")},
+            "steps": {k: sum(r["kind"] == k for r in rows) for k in
+                      ("decode", "crossing", "admission", "retire",
+                       "retire_flush")},
+            "dispatches": eng.dispatch_count}
+
+
+def sharded_rank_main(argv) -> int:
+    """One rank of phase 11b: `python3 chip_smoke.py --sharded-rank RANK
+    PORT OUT_DIR`, started by `sharded_phase` (the kernels already built);
+    writes OUT_DIR/sharded_rank<RANK>.json."""
+    import datetime
+
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, str(SRC))
+    from repro_torch import configs
+    from repro_torch import kernels as tk
+    from repro_torch.core import cachehash as ch
+    from repro_torch.core import distributed as dsb
+    from repro_torch.core import engine
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer
+    from repro_torch.serving import engine as serving_engine
+    from repro_torch.serving import paged_kv
+    from repro_torch.sync import queue
+    from repro_torch.txn import map as txn_map
+    rank, port, out_dir = int(argv[0]), int(argv[1]), Path(argv[2])
+    torch.cuda.set_device(0)
+    timeout = datetime.timedelta(seconds=SHARD_PG_TIMEOUT_S)
+    tdist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=SHARD_RANKS, timeout=timeout)
+    try:
+        mesh = dsb.make_mesh((SHARD_RANKS,), ("shard",), device="cuda",
+                             timeout=timeout)
+        for name in _build.SIGNATURES:
+            _build.load(name)
+        sr = ShardedRank(torch, mesh, (dsb, ch, txn_map, queue,
+                                       serving_engine, paged_kv, engine))
+        out = {"rank": rank, "card": torch.cuda.get_device_name(0)}
+        t = time.perf_counter()
+        out["queue"] = sr.queue(17000)
+        out["queue_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["map"] = map_check(torch, mesh, (dsb, ch, txn_map), SHARD_RANKS,
+                               17100, mesh.device)
+        out["map_s"] = time.perf_counter() - t
+        cfg = configs.get_config(SERVE_ARCH)
+        params = transformer.init_params(cfg, seed=SERVE_SEED,
+                                         device=mesh.device)
+        rng = np.random.default_rng(SERVE_SEED + 1)
+        prompts = [rng.integers(0, cfg.vocab, t).astype(np.int32)
+                   for t in SERVE_PROMPTS]
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        t = time.perf_counter()
+        out["tokens"], out["mesh"] = sr.serve(cfg, params, prompts, mesh)
+        torch.cuda.synchronize()
+        out["launches"] = {k: v for k, v in tk.launch_counts().items() if v}
+        out["mesh_s"] = time.perf_counter() - t
+        group = mesh.groups["shard"]
+        if rank == 0:                   # alone on the card: no contention
+            t = time.perf_counter()
+            out["tokens_one"], out["one"] = sr.serve(cfg, params, prompts,
+                                                     None)
+            out["one_s"] = time.perf_counter() - t
+        tdist.barrier(group=group)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        (out_dir / f"sharded_rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        tdist.destroy_process_group()
+    return 0
+
+
+def sharded_phase(smoke, tk, launches_main, want_tokens):
+    """Phase 11b: `SHARD_RANKS` processes on the card, one gloo world
+    (collectives on card tensors, staged through the host; NCCL takes one
+    card a rank), each running `ShardedRank` with its own copy of the
+    weights.  Fails on a rank that fails or a world that outlives
+    `SHARD_WORLD_TIMEOUT_S`, on ranks that disagree, on sharded tokens
+    that differ from the serving phase's (`want_tokens`, the engine
+    without a mesh on the same weights and requests) or from rank 0's
+    engine without a mesh, and on a kernel of rows 1-2b or 7a that a rank
+    never launched in its sharded run.  The ranks' launches join
+    `launches_main`."""
+    torch = smoke.torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "chiprun_out"
+    for r in range(SHARD_RANKS):
+        (out_dir / f"sharded_rank{r}.json").unlink(missing_ok=True)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("BIGATOMIC_OBS", "BIGATOMIC_GUARD")}
+    port = free_port()
+    t0 = time.perf_counter()
+    logs = [open(out_dir / f"sharded_rank{r}.log", "w")
+            for r in range(SHARD_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--sharded-rank",
+         str(r), str(port), str(out_dir)], stdout=logs[r],
+        stderr=subprocess.STDOUT, env=env) for r in range(SHARD_RANKS)]
+    try:
+        while True:
+            rcs = [p.poll() for p in procs]
+            if all(rc is not None for rc in rcs) or any(rcs) or \
+                    time.perf_counter() - t0 > SHARD_WORLD_TIMEOUT_S:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        rcs = [p.wait() for p in procs]
+        for f in logs:
+            f.close()
+    world_s = time.perf_counter() - t0
+    if any(rcs):
+        tails = "\n".join(
+            f"-- rank {r} (rc {rc}):\n" +
+            (out_dir / f"sharded_rank{r}.log").read_text()[-3000:]
+            for r, rc in enumerate(rcs))
+        raise SystemExit(f"sharded: the world failed after {world_s:.1f} s "
+                         f"(return codes {rcs}; {SHARD_WORLD_TIMEOUT_S} s "
+                         f"allowed):\n{tails}")
+    recs = [json.loads((out_dir / f"sharded_rank{r}.json").read_text())
+            for r in range(SHARD_RANKS)]
+
+    def tokens(d):
+        return {int(k): list(v) for k, v in d.items()}
+    want = tokens(want_tokens)
+    for r, rec in enumerate(recs):
+        if tokens(rec["tokens"]) != want:
+            diff = [rid for rid in want
+                    if tokens(rec["tokens"]).get(rid) != want[rid]]
+            raise SystemExit(f"sharded: rank {r}'s tokens of requests {diff} "
+                             "differ from the engine's without a mesh")
+        for kname in ROUND_KERNELS + (WGMMA,):
+            if not rec["launches"].get(kname):
+                raise SystemExit(f"sharded: rank {r} never launched {kname} "
+                                 "in its sharded run")
+    if tokens(recs[0]["tokens_one"]) != want:
+        raise SystemExit("sharded: rank 0's engine without a mesh gave "
+                         "other tokens than the serving phase's")
+    for key in ("queue", "map"):
+        if any(rec[key].keys() != recs[0][key].keys() for rec in recs):
+            raise SystemExit(f"sharded: ranks ran other {key} cases")
+    launches = {kname: [rec["launches"][kname] for rec in recs]
+                for kname in ROUND_KERNELS + (WGMMA,)}
+    for kname, per_rank in launches.items():
+        launches_main[kname] += sum(per_rank)
+    r0 = recs[0]
+    log(f"[sharded] {SHARD_RANKS} gloo ranks on the card (collectives on "
+        f"card tensors staged through the host), world in {world_s:.1f} s; "
+        f"BigQueue({QUEUE_CAPACITY}, k={QUEUE_K}) sharded equal to one "
+        "device: " + "; ".join(
+            f"{name} {c['lanes']} lanes {c['rounds']} rounds "
+            f"{c['sharded_ms']:.1f} ms (one device {c['one_ms']:.1f})"
+            for name, c in r0["queue"].items()))
+    m = r0["map"]
+    log(f"[sharded] transact_dist at {SHARD_RANKS} shards equal to transact "
+        f"and transact_reference (prefill {m['prefill_keys']} keys "
+        f"{m['prefill_s']:.1f} s, {m['entries']} entries equal): " + "; ".join(
+            f"{name} T={r['t']} rounds {r['rounds']} {r['dist_ms']:.1f} ms "
+            f"(transact {r['one_ms']:.1f}), host syncs {r['dist_host_syncs']} "
+            f"({r['one_host_syncs']})" for name, r in m["runs"].items()))
+    for rec in recs:
+        msh = rec["mesh"]
+        log(f"[sharded] rank {rec['rank']}: glm4_9b through "
+            f"ServingEngine(mesh=) on {SHARD_STRATEGY}, tokens equal to the "
+            f"engine without a mesh; launches {rec['launches']}; decode step "
+            f"{msh['decode_step_ms']} ms (4 live), crossing "
+            f"{msh['crossing_step_ms']}, admission "
+            f"{msh['admission_step_ms']}; FIND {msh['find_ms']} ms, split "
+            f"{json.dumps(msh['find_split_ms'])}; steps {msh['steps']}; "
+            f"peak {rec['peak_gib']:.1f} GiB")
+    one = r0["one"]
+    log(f"[sharded] rank 0 without a mesh (the other rank waiting): decode "
+        f"step {one['decode_step_ms']} ms, crossing "
+        f"{one['crossing_step_ms']}, admission {one['admission_step_ms']}; "
+        f"FIND {one['find_ms']} ms")
+    return {"ranks": SHARD_RANKS, "transport": "gloo, card tensors staged "
+            "through the host", "world_s": world_s, "launches": launches,
+            "per_rank": recs}
 
 
 # ---------------------------------------------------------------------------
@@ -6637,6 +7143,10 @@ def main() -> int:
     # -- 11. serving -------------------------------------------------------------
     serving_out = serving_phase(smoke, tk, launches_main)
 
+    # -- 11b. sharded serving ------------------------------------------------------
+    sharded_out = sharded_phase(smoke, tk, launches_main,
+                                serving_out["tokens"])
+
     # -- 12. runtime -------------------------------------------------------------
     runtime_out = runtime_phase(smoke, tk, launches_main)
 
@@ -6719,6 +7229,7 @@ def main() -> int:
                "txn": txn_out,
                "dist": dist_out,
                "serving": serving_out,
+               "sharded_serving": sharded_out,
                "runtime": runtime_out,
                "families": families_out,
                "training": train_out,
@@ -6733,4 +7244,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(sharded_rank_main(sys.argv[2:])
+             if sys.argv[1:2] == ["--sharded-rank"] else main())

@@ -32,8 +32,16 @@ same function with its own shard's state and its own lanes (lane j of the
 rank on shard i is global lane `i * p_local + j`, as the reference lays
 its global batch out source-major).  A mesh (`make_mesh`) holds one
 process group per axis: NCCL with tensors on the card, gloo with tensors
-on the CPU.  Ranks that differ only along an axis the spec does not shard
-over compute the same shard, as the reference's replicas do.
+on the CPU or on the card (staged through the host, so several ranks can
+share one card).  Ranks that differ only along an axis the spec does not
+shard over compute the same shard, as the reference's replicas do.
+
+`apply_global` / `apply_hash_global` are the single-controller form the
+reference's clients call: every rank passes the same GLOBAL batch, runs
+its own `p_local` lanes of it, and all-gathers every lane's result (and
+link) over the shard axis, so host logic that branches on results (a
+queue's claim loop, a map's pending set) sees the same values on every
+rank and the ranks issue the same collectives.
 
 `apply_hash` runs the same round for a `HashSpec` CacheHash (ops route by
 key owner, every shard applies its slice with `cachehash.apply_hash`);
@@ -101,10 +109,15 @@ class Mesh:
 
 
 def _backend_carries(backend: str, device: torch.device) -> bool:
-    """Can a group of `backend` run all_to_all on tensors of `device`?
-    (`backend` may list one per device type: "cpu:gloo,cuda:nccl".)"""
-    want = "nccl" if device.type == "cuda" else "gloo"
-    return want in str(backend).lower()
+    """Can a group of `backend` run all_to_all / all_gather on tensors of
+    `device`?  NCCL carries card tensors only; gloo carries CPU tensors
+    and card tensors too, staged through the host (so several ranks can
+    share one card).  `backend` may list one per device type:
+    "cpu:gloo,cuda:nccl"."""
+    backend = str(backend).lower()
+    if device.type == "cuda":
+        return "nccl" in backend or "gloo" in backend
+    return "gloo" in backend
 
 
 def make_mesh(shape, axis_names, *, device="cuda", timeout=None) -> Mesh:
@@ -116,7 +129,7 @@ def make_mesh(shape, axis_names, *, device="cuda", timeout=None) -> Mesh:
     `datetime.timedelta`) bounds each collective of those subgroups;
     None is `dist.new_group`'s default, which does not inherit the
     default group's.  Raises when the group's backend cannot carry
-    tensors on `device` (gloo with "cuda", NCCL with "cpu")."""
+    tensors on `device` (NCCL with "cpu")."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -134,7 +147,8 @@ def make_mesh(shape, axis_names, *, device="cuda", timeout=None) -> Mesh:
     backend = dist.get_backend()
     if not _backend_carries(backend, dev):
         raise ValueError(f"a {backend!r} process group cannot carry tensors "
-                         f"on {dev}: use nccl with cuda, gloo with cpu")
+                         f"on {dev}: use nccl or gloo with cuda, gloo with "
+                         "cpu")
     rank = dist.get_rank()
     coords = np.unravel_index(rank, shape)
     grid = np.arange(world).reshape(shape)
@@ -986,6 +1000,94 @@ def apply_hash(mesh: Mesh, dspec: DistSpec, dstate: DistState,
     overflow = active & ~fits
     return (DistState(st, mesh), ch.HashResult(found[:q], val[:q],
                                                walk_over[:q]), overflow[:q])
+
+
+# ---------------------------------------------------------------------------
+# The global-batch form: every rank passes the whole batch, reads it whole.
+# ---------------------------------------------------------------------------
+
+def _my_lanes(mesh: Mesh, dspec: DistSpec, x):
+    """This rank's p_local rows of a p_global-row tensor."""
+    i, pl = shard_index(mesh, dspec), dspec.p_local
+    return x[i * pl:(i + 1) * pl]
+
+
+def _gather_lanes(mesh: Mesh, dspec: DistSpec, cols, q: int):
+    """ONE all_gather over the shard axis of this rank's [p_local, W]
+    int32 result columns; returns the global [q, W] rows, lane order."""
+    packed = torch.cat([_i32(c).reshape(dspec.p_local, -1) for c in cols], 1)
+    return _gather_shards(mesh, dspec, packed).reshape(dspec.p_global, -1)[:q]
+
+
+def _global_spec(dspec: DistSpec, q: int, whole_batch_route: bool = False):
+    """`dspec` for a q-lane global batch: the lanes IDLE-padded to a
+    multiple of n_shards, each rank issuing q_pad / n_shards of them (the
+    spec's own p_local is not used).  The route capacity stays the spec's
+    (default p_local, which can never overflow: a source owns only p_local
+    lanes), or with `whole_batch_route` is the padded batch, so one shard
+    may receive every lane."""
+    p_local = max(-(-q // dspec.n_shards), 1)
+    return dataclasses.replace(
+        dspec, p_local=p_local,
+        route_capacity=(dspec.n_shards * p_local if whole_batch_route
+                        else dspec.route_capacity))
+
+
+def apply_global(mesh: Mesh, dspec: DistSpec, dstate: DistState,
+                 ops: engine.OpBatch, ctx: engine.LinkCtx | None = None, *,
+                 donate: bool = False):
+    """`apply` on a GLOBAL batch of any width (`_global_spec`: lane i
+    issues from shard i // p_local), passed alike by every rank of the
+    mesh: the rank runs its own lanes through `apply`, then value,
+    success, overflow and the link context ride one all_gather over the
+    shard axis, packed as [p_local, 2k + 5] int32.  Returns (dstate',
+    ctx', ApplyResult, overflow) for the whole batch on every rank, as the
+    reference's `apply` does on its one controller."""
+    if dspec.is_hash:
+        raise TypeError("hash DistSpec: use distributed.apply_hash_global")
+    dev, k = mesh.device, dspec.inner.k
+    q = ops.kind.shape[0]
+    dspec = _global_spec(dspec, q)
+    ops = _pad_ops(engine.canonicalize_ops(ops, dev), dspec.p_global)
+    ctx = engine.init_ctx(dspec.p_global, k, device=dev) if ctx is None \
+        else _pad_ctx(engine.canonicalize_ctx(ctx, dev), dspec.p_global, k)
+    dstate, nctx, res, overflow = apply(
+        mesh, dspec, dstate, engine.OpBatch(*(_my_lanes(mesh, dspec, x)
+                                              for x in ops)),
+        engine.LinkCtx(*(_my_lanes(mesh, dspec, x) for x in ctx)),
+        donate=donate)
+    g = _gather_lanes(mesh, dspec, [res.value, res.success, overflow,
+                                    nctx.slot, nctx.version, nctx.value,
+                                    nctx.linked], q)
+    gctx = engine.LinkCtx(slot=_cols(g, k + 2), version=_cols(g, k + 3),
+                          value=_cols(g, k + 4, 2 * k + 4),
+                          linked=g[:, 2 * k + 4] != 0)
+    return (dstate, gctx, engine.ApplyResult(_cols(g, 0, k), g[:, k] != 0),
+            g[:, k + 1] != 0)
+
+
+def apply_hash_global(mesh: Mesh, dspec: DistSpec, dstate: DistState,
+                      ops: engine.OpBatch, *, whole_batch_route: bool = False,
+                      donate: bool = False):
+    """`apply_hash` on a GLOBAL batch of any width (`_global_spec`, which
+    also reads `whole_batch_route`), passed alike by every rank: the rank
+    runs its own lanes, then found, value, the walk overflow and the route
+    overflow ride one all_gather over the shard axis ([p_local, vw + 3]
+    int32).  Returns (dstate', HashResult, overflow) for the whole batch
+    on every rank."""
+    if not dspec.is_hash:
+        raise TypeError("table DistSpec: use distributed.apply_global")
+    dev, vw = mesh.device, dspec.inner.vw
+    q = ops.kind.shape[0]
+    dspec = _global_spec(dspec, q, whole_batch_route)
+    ops = _pad_ops(engine.canonicalize_ops(ops, dev), dspec.p_global)
+    dstate, res, overflow = apply_hash(
+        mesh, dspec, dstate, engine.OpBatch(*(_my_lanes(mesh, dspec, x)
+                                              for x in ops)), donate=donate)
+    g = _gather_lanes(mesh, dspec, [res.found, res.value, res.overflow,
+                                    overflow], q)
+    return (dstate, ch.HashResult(g[:, 0] != 0, _cols(g, 1, 1 + vw),
+                                  g[:, 1 + vw] != 0), g[:, 2 + vw] != 0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,6 @@
 """Continuous-batching serving engine over the paged KV cache.
 
-The port of the JAX package's `serving/engine.py`, on one device.
-Requests are admitted into `max_batch` decode slots as they arrive; every
+The port of the JAX package's `serving/engine.py`.  Requests are admitted into `max_batch` decode slots as they arrive; every
 `step()` decodes ONE token for all live slots in one batched forward
 against page-gathered KV, then appends the new K/V through the page table
 (CacheHash INSERT on page-boundary crossings).  Finished sequences release
@@ -31,8 +30,20 @@ device: the draws cannot equal `jax.random`'s.
 `run_pipelined` serves through `runtime.Executor`: admission
 (`admit_compute` / `commit_admissions`) and decode (`dispatch_decode` /
 `finish_decode`) as two decoupled streams, so prefills overlap the decode
-in flight.  Not ported yet: the mesh-sharded engine (`mesh=`, ROADMAP
-Queue 1 item 8c).  Scope, as the reference's: causal full-attention archs.
+in flight.
+
+With `mesh=` (a `core.distributed.Mesh`) the page table is a CacheHash
+sharded over the mesh axis `shard_axis`, and the admission, slot and
+free-page rings are sharded `BigQueue`s: every page-table batch and ring
+round routes by owner, and each step's bookkeeping commits through
+`txn.map.transact_dist`.  The model and the K/V page pools are
+replicated.  Every rank of the mesh runs the same host program (the same
+`submit`s and `step`s with its own copy of the weights); every result a
+host decision reads is gathered to every rank, so the ranks take the same
+branches and issue the same collectives, and their tokens are those of
+the engine without a mesh.  `run_pipelined` works with a mesh too: the
+executor's schedule follows host state only (no event polls).  Scope, as
+the reference's: causal full-attention archs.
 """
 
 from __future__ import annotations
@@ -101,37 +112,41 @@ class ServingEngine:
                  n_pages: int | None = None, page_size: int | None = None,
                  max_pages_per_seq: int = 32, strategy: str | None = None,
                  max_queue: int = 256, seed: int = 0, fused: bool = True,
-                 mesh=None, txn_bookkeeping: bool = True,
+                 mesh=None, shard_axis: str = "shard",
+                 txn_bookkeeping: bool = True,
                  overload: OverloadPolicy | None = None, device="cuda"):
         assert all(k == "attn" for k in cfg.layer_kinds) and \
             cfg.causal and cfg.window == 0, \
             "paged engine serves causal full-attention archs; use " \
             "make_serve_step for SSM / hybrid / SWA / encoder"
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh-sharded engine (dist.py's mesh rules over the "
-                "sharded page table) is not ported yet (ROADMAP Queue 1 "
-                "item 8c)")
-        self.device = resolve_device(device)
+        # with a mesh, everything lives on the mesh's device
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
+        n_shards = mesh.size(shard_axis) if mesh is not None else 1
+        self.mesh = mesh
         self.cfg = cfg
         self.params = params
         self.max_batch = max_batch
         self.max_pages = max_pages_per_seq
         spec = pk.make_spec(cfg, n_pages if n_pages is not None else 256,
                             page_size if page_size is not None else 16,
-                            max_batch, strategy or DEFAULT_STRATEGY)
-        self.paged = pk.init(cfg, spec, device=self.device)
+                            max_batch, strategy or DEFAULT_STRATEGY,
+                            n_shards=n_shards, axis=shard_axis)
+        self.paged = pk.init(cfg, spec, mesh=mesh, device=self.device)
         self.slots = [_Slot() for _ in range(max_batch)]
         # Lock-free intake: rids wait in an MPMC big-atomic queue; decode
         # slots cycle through a second one (claim = dequeue, retire = enq).
+        # With a mesh both rings, like the page table, are sharded.
         self.admit_q = BigQueue(max(max_queue, 2), k=2,
-                                strategy=spec.table.strategy,
+                                strategy=spec.table.strategy, mesh=mesh,
+                                shard_axis=shard_axis, n_shards=n_shards,
                                 device=self.device)
         self.slot_q = BigQueue(max(max_batch, 2), k=2,
                                strategy=spec.table.strategy,
                                initial_items=np.arange(max_batch,
                                                        dtype=np.uint32),
-                               device=self.device)
+                               mesh=mesh, shard_axis=shard_axis,
+                               n_shards=n_shards, device=self.device)
         self.requests: dict[int, Request] = {}
         self._next_seq = 0
         self.seed = seed
@@ -346,7 +361,7 @@ class ServingEngine:
         spec = self.paged.spec
         P = spec.page_size
         pstate, phys, k_dense, v_dense, _ = pk.lookup_and_gather(
-            spec, pstate, seq_ids, self.max_pages)
+            spec, pstate, seq_ids, self.max_pages, mesh=self.mesh)
         logits, nk, nv = self._decode_batch(params, tokens, pos,
                                             k_dense, v_dense)
         b = tokens.shape[0]

@@ -1,7 +1,6 @@
 """Paged KV cache whose page table is a CacheHash of big atomics.
 
-The port of the JAX package's `serving/paged_kv.py`, on one shard.  The
-page table maps a logical page key (seq_id << 20 | page_no) to a physical
+The port of the JAX package's `serving/paged_kv.py`.  The page table maps a logical page key (seq_id << 20 | page_no) to a physical
 page index; every lookup is a CacheHash FIND (`core.cachehash.apply_hash`),
 page allocation and release are INSERT / DELETE, and the free physical
 pages ride a big-atomic ring (`sync.queue.BigQueue`, LL/SC claims).
@@ -12,8 +11,14 @@ live in one pool per K and V: [n_attn_layers, n_pages, page_size, kvh,
 hd].  Functions return new states and leave the ones they were given
 valid, as the reference's.
 
-One shard only: a mesh-sharded page table (`n_shards > 1`) is not ported
-yet and raises NotImplementedError (ROADMAP Queue 1 item 8c).  Recurrent layers (ssm / rglru) get no dense slot states here: the
+With `n_shards > 1` the page table is a mesh-sharded CacheHash
+(`core.distributed`) and the free ring a sharded `BigQueue`: every
+page-table batch (decode lookups, admission inserts, retirement deletes,
+the bookkeeping transaction through `txn.map.transact_dist`) routes by
+key owner over `spec.axis`, each shard applying its slice with its own
+node pool, and every rank passes the same global batch and reads the
+whole result (`distributed.apply_hash_global`).  The K/V page pools stay
+replicated.  Recurrent layers (ssm / rglru) get no dense slot states here: the
 reference builds them, but its engine serves only full-attention configs
 and nothing reads them (recurrent configs serve through
 `launch.steps.make_serve_step`).
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import cachehash as ch
+from repro_torch.core import distributed as dsb
 from repro_torch.core import engine
 from repro_torch.core.layout import as_u64, resolve_device, to_word
 from repro_torch.core.specs import DEFAULT_STRATEGY, HashSpec, QueueSpec
@@ -38,16 +44,10 @@ SEQ_SHIFT = 20                     # key = seq_id << 20 | page_no
 PAGE_MASK = (1 << SEQ_SHIFT) - 1
 
 
-def _not_sharded(n_shards: int, mesh=None) -> None:
-    if n_shards != 1 or mesh is not None:
-        raise NotImplementedError(
-            "a sharded page table (n_shards > 1, a mesh) is not ported yet "
-            "(ROADMAP Queue 1 item 8c)")
-
-
 @dataclasses.dataclass(frozen=True)
 class PagedSpec:
-    """Static geometry of the paged cache."""
+    """Static geometry of the paged cache.  With `n_shards > 1` the page
+    table and the free ring shard over the mesh axis `axis`."""
 
     n_pages: int
     page_size: int
@@ -61,7 +61,8 @@ class PagedSpec:
 class PagedState(NamedTuple):
     """Page table + physical pools."""
 
-    table: ch.HashState
+    table: object                  # ch.HashState, or this rank's shard
+    #                                (distributed.DistState) when sharded
     k_pages: torch.Tensor          # [L_attn, n_pages, P, kvh, hd]
     v_pages: torch.Tensor
 
@@ -74,6 +75,7 @@ class PagedKV:
     spec: PagedSpec
     state: PagedState
     free: BigQueue
+    mesh: object = None            # distributed.Mesh when spec.n_shards > 1
 
     @property
     def page_size(self) -> int:
@@ -106,7 +108,6 @@ def make_spec(cfg: ModelConfig, n_pages: int, page_size: int, max_seqs: int,
     if n_shards & (n_shards - 1):
         raise ValueError(f"n_shards must be a power of two (the page table "
                          f"is a power-of-two CacheHash): {n_shards}")
-    _not_sharded(n_shards)
     nb = 1
     while nb < max(2 * n_pages, n_shards):
         nb *= 2
@@ -121,23 +122,30 @@ def make_spec(cfg: ModelConfig, n_pages: int, page_size: int, max_seqs: int,
 
 def init(cfg: ModelConfig, spec: PagedSpec, mesh=None, *,
          device="cuda") -> PagedKV:
-    """The empty cache on `device`: an empty page table, zero pools and
-    every physical page on the free ring (in descending order, as the
-    reference's)."""
-    _not_sharded(spec.n_shards, mesh)
-    dev = resolve_device(device)
+    """The empty cache on `device` (with a mesh, on the mesh's device): an
+    empty page table, zero pools and every physical page on the free ring
+    (in descending order, as the reference's).  `spec.n_shards > 1` needs
+    the mesh whose axis `spec.axis` it shards over; every rank calls it."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     l_attn = sum(k == "attn" for k in cfg.layer_kinds)
     kv = (l_attn, spec.n_pages, spec.page_size, cfg.n_kv_heads, cfg.hd)
+    if spec.n_shards > 1:
+        if mesh is None:
+            raise ValueError("spec.n_shards > 1 requires a mesh")
+        table = dsb.init_dist(mesh, _table_dspec(spec))
+    else:
+        table = ch.init_hash(spec.table, device=dev)
     free = BigQueue(spec=spec.ring,
                     initial_items=np.arange(spec.n_pages - 1, -1, -1,
                                             dtype=np.uint32),
+                    mesh=mesh, shard_axis=spec.axis, n_shards=spec.n_shards,
                     device=dev)
-    state = PagedState(table=ch.init_hash(spec.table, device=dev),
+    state = PagedState(table=table,
                        k_pages=torch.zeros(kv, dtype=cfg.cdtype(),
                                            device=dev),
                        v_pages=torch.zeros(kv, dtype=cfg.cdtype(),
                                            device=dev))
-    return PagedKV(spec=spec, state=state, free=free)
+    return PagedKV(spec=spec, state=state, free=free, mesh=mesh)
 
 
 def init_paged(cfg: ModelConfig, n_pages: int, page_size: int,
@@ -152,10 +160,19 @@ def init_paged(cfg: ModelConfig, n_pages: int, page_size: int,
 # Page-table ops on the device state: the decode step composes these.
 # ---------------------------------------------------------------------------
 
-def _hash_apply(spec: PagedSpec, table, kind, keys, values=None):
-    """One page-table batch on the CacheHash (`apply_hash`: one host read).
-    Returns (table', HashResult)."""
-    dev = table.pool.device
+def _table_dspec(spec: PagedSpec):
+    """The DistSpec of the sharded page table (the global-batch calls size
+    its lanes to each batch)."""
+    return dsb.DistSpec(spec.table, spec.axis, spec.n_shards, 1)
+
+
+def _hash_apply(spec: PagedSpec, table, kind, keys, values=None, mesh=None):
+    """One page-table batch on the local CacheHash (`apply_hash`: one host
+    read) or, with `spec.n_shards > 1`, on the mesh-sharded one
+    (`distributed.apply_hash_global`).  Returns (table', HashResult) for
+    the whole batch."""
+    sharded = spec.n_shards > 1
+    dev = mesh.device if sharded else table.pool.device
     keys = torch.as_tensor(np.asarray(keys, np.uint32).view(np.int32)) \
         if not isinstance(keys, torch.Tensor) else keys
     q = keys.shape[0]
@@ -163,7 +180,11 @@ def _hash_apply(spec: PagedSpec, table, kind, keys, values=None):
     ops = ch.make_hash_ops(np.full(q, kind, np.int32), keys.to(dev),
                            torch.zeros((q, 1), dtype=torch.int32, device=dev)
                            if values is None else values, vw=1, device=dev)
-    table, res, _ = ch.apply_hash(spec.table, table, ops)
+    if not sharded:
+        table, res, _ = ch.apply_hash(spec.table, table, ops)
+        return table, res
+    table, res, _overflow = dsb.apply_hash_global(mesh, _table_dspec(spec),
+                                                  table, ops)
     return table, res
 
 
@@ -173,16 +194,18 @@ def _phys(res, shape):
 
 
 def lookup_and_gather(spec: PagedSpec, pstate: PagedState, seq_ids,
-                      n_pages_per_seq: int):
+                      n_pages_per_seq: int, mesh=None):
     """Batched page-table lookup + KV gather: one CacheHash FIND per
-    (seq, page), then the page-granular gather decode attention reads.
-    Returns (pstate', phys[b, n_pages_per_seq], k, v, valid)."""
+    (seq, page), key-owner-routed when the table is sharded, then the
+    page-granular gather decode attention reads.  Returns (pstate',
+    phys[b, n_pages_per_seq], k, v, valid)."""
     dev = pstate.k_pages.device
     seq_ids = torch.as_tensor(seq_ids).to(dev)
     b = seq_ids.shape[0]
     pages = torch.arange(n_pages_per_seq, device=dev)
     keys = page_key(seq_ids[:, None], pages[None, :]).reshape(-1)
-    table, res = _hash_apply(spec, pstate.table, engine.FIND, keys)
+    table, res = _hash_apply(spec, pstate.table, engine.FIND, keys,
+                             mesh=mesh)
     phys = _phys(res, (b, n_pages_per_seq))
     pstate = pstate._replace(table=table)
     k, v, valid = gather_fn(spec, pstate, phys)
@@ -232,7 +255,9 @@ def txn_bookkeep(paged: PagedKV, retires, allocs):
     """One decode step's page-table bookkeeping as ONE transaction:
     retirement deletes + page-boundary inserts commit all-or-nothing
     through the transactional map (`txn.map.transact`), with the retired
-    mappings as the transaction's read set.
+    mappings as the transaction's read set.  On a sharded page table the
+    commit rides the key-owner-routed collective (`txn.map.transact_dist`),
+    so cross-shard bookkeeping stays atomic.
 
     retires: [(seq_id, n_pages_used)]; allocs: [(seq_id, page_no)].
     Returns (paged, phys int32[len(allocs)]).  Freed physical pages go back
@@ -248,7 +273,7 @@ def txn_bookkeep(paged: PagedKV, retires, allocs):
         return paged, torch.zeros((0,), dtype=torch.int32, device=dev)
     if ret_keys:
         table, res = _hash_apply(paged.spec, paged.state.table, engine.FIND,
-                                 ret_keys)
+                                 ret_keys, mesh=paged.mesh)
         paged.state = paged.state._replace(table=table)
         found = res.found.cpu().numpy()
         freed = _words_np(res.value[:, 0])[found]
@@ -274,8 +299,13 @@ def txn_bookkeep(paged: PagedKV, retires, allocs):
         write_del=np.asarray([True] * len(ret_keys)
                              + [False] * q_alloc)[None],
         write_value=wval, device=dev)
-    table, _res = txn_map.transact(paged.spec.table, paged.state.table,
-                                   txns, None)
+    if paged.spec.n_shards == 1:
+        table, _res = txn_map.transact(paged.spec.table, paged.state.table,
+                                       txns, None)
+    else:
+        table, _res = txn_map.transact_dist(
+            paged.mesh, _table_dspec(paged.spec),
+            paged.state.table, txns, None)
     paged.state = paged.state._replace(table=table)
     return paged, torch.as_tensor(phys).to(dev)
 
@@ -295,7 +325,7 @@ def alloc_pages(paged: PagedKV, seq_ids, page_nos):
     table, _ = _hash_apply(
         paged.spec, paged.state.table, engine.INSERT,
         page_key(np.asarray(seq_ids), np.asarray(page_nos)),
-        torch.as_tensor(phys[:, None]).to(dev))
+        torch.as_tensor(phys[:, None]).to(dev), mesh=paged.mesh)
     paged.state = paged.state._replace(table=table)
     return paged, torch.as_tensor(phys).to(dev)
 
@@ -308,7 +338,7 @@ def lookup_pages(paged: PagedKV, seq_ids, n_pages_per_seq: int):
     keys = page_key(seq_ids[:, None],
                     np.arange(n_pages_per_seq, dtype=np.uint32)[None, :])
     table, res = _hash_apply(paged.spec, paged.state.table, engine.FIND,
-                             keys.reshape(-1))
+                             keys.reshape(-1), mesh=paged.mesh)
     paged.state = paged.state._replace(table=table)
     return paged, _phys(res, (b, n_pages_per_seq))
 
@@ -321,9 +351,10 @@ def free_pages(paged: PagedKV, seq_id: int, n_pages_used: int) -> PagedKV:
     keys = page_key(np.full((n_pages_used,), seq_id, np.uint32),
                     np.arange(n_pages_used, dtype=np.uint32))
     table, res = _hash_apply(paged.spec, paged.state.table, engine.FIND,
-                             keys)
+                             keys, mesh=paged.mesh)
     phys = _words_np(res.value[:, 0])[res.found.cpu().numpy()]
-    table, _ = _hash_apply(paged.spec, table, engine.DELETE, keys)
+    table, _ = _hash_apply(paged.spec, table, engine.DELETE, keys,
+                           mesh=paged.mesh)
     if len(phys):
         ok = paged.free.enqueue_batch(phys)
         assert ok.all()                   # ring is sized to hold every page

@@ -28,10 +28,13 @@ stably-empty queue return failure ("stably" = no pending opposite-kind lane
 in the same call could change the verdict; such lanes defer instead).
 
 The ring state is the table's `TableState` (`.state`, on the queue's
-device); `BigQueue` is the host-side retry loop around it.  The sharded
-ring of the reference (`mesh` / `n_shards > 1`, its rounds through
-`core.distributed.apply`) is not ported yet: the port raises
-`NotImplementedError` for it and never runs one shard in its place.
+device); `BigQueue` is the host-side retry loop around it.  With `mesh` /
+`n_shards > 1` the ring's cells shard over the mesh axis (`._dstate`,
+this rank's shard) and every round runs through
+`core.distributed.apply_global`: every rank of the mesh calls the same
+queue method with the same arguments and sees every lane's result, so
+the retry loop takes the same branches, and issues the same collectives,
+on every rank.
 """
 
 from __future__ import annotations
@@ -40,10 +43,12 @@ from typing import NamedTuple
 
 import numpy as np
 
+from repro_torch.core import distributed as dsb
 from repro_torch.core import engine
 from repro_torch.core.layout import resolve_device
 from repro_torch.core.specs import (DEFAULT_STRATEGY, QUEUE_HEAD,
-                                    QUEUE_SLOT0, QUEUE_TAIL, QueueSpec)
+                                    QUEUE_SLOT0, QUEUE_TAIL, AtomicSpec,
+                                    QueueSpec)
 from repro_torch.obs import telemetry as obs_telemetry
 
 HEAD, TAIL, SLOT0 = QUEUE_HEAD, QUEUE_TAIL, QUEUE_SLOT0
@@ -81,10 +86,12 @@ def _np_words(t) -> np.ndarray:
 class BigQueue:
     """Bounded MPMC queue; every cell a big atomic, every claim an LL/SC.
 
-    The table lives on `device` ("cuda" by default).  The reference's
-    sharded mode (`mesh` / `n_shards > 1`, every round routed through
-    `core.distributed.apply`) is not ported yet; asking for it raises
-    `NotImplementedError`.
+    The table lives on `device` ("cuda" by default).  With `mesh` /
+    `n_shards > 1` the ring's cells shard over the mesh axis `shard_axis`
+    (on the mesh's device) and every claim / publish round routes through
+    `core.distributed.apply_global`: the sharded decode-slot / admission
+    path of the serving engine.  The host retry loop is unchanged; only
+    the table execution layer swaps.  One shard stays local.
     """
 
     def __init__(self, capacity: int | None = None, *, k: int = 2,
@@ -100,11 +107,6 @@ class BigQueue:
             spec = QueueSpec(capacity, k=k,
                              strategy=strategy or DEFAULT_STRATEGY,
                              p_max=p_max)
-        if mesh is not None and n_shards > 1:
-            raise NotImplementedError(
-                "the sharded BigQueue (its rounds through "
-                "core.distributed.apply) is not ported yet (ROADMAP Queue 1 "
-                "item 8b)")
         self.spec = spec
         self._tspec = spec.table_spec()
         self.policy = policy
@@ -123,8 +125,23 @@ class BigQueue:
                 np.arange(1, m + 1, dtype=np.uint32)
             initial[SLOT0:SLOT0 + m, 1:] = items
             initial[TAIL, 0] = m
-        self.device = resolve_device(device)
-        self.state = engine.init(self._tspec, initial, device=self.device)
+        self._mesh = mesh if n_shards > 1 else None
+        if self._mesh is not None:
+            # Cell count padded up to a multiple of the shard count; the
+            # padding cells exist but no op ever targets them.
+            n_pad = -(-n // n_shards) * n_shards
+            self._dist_inner = AtomicSpec(n_pad, k, spec.strategy,
+                                          spec.p_max)
+            pad = np.zeros((n_pad, k), np.uint32)
+            pad[:n] = initial
+            self.device = self._mesh.device
+            self._dspec = dsb.DistSpec(self._dist_inner, shard_axis,
+                                       n_shards, 1)
+            self._dstate = dsb.init_dist(self._mesh, self._dspec, pad)
+            self.state = None
+        else:
+            self.device = resolve_device(device)
+            self.state = engine.init(self._tspec, initial, device=self.device)
         self.commit_log: list[tuple[str, int, int]] = []  # (kind, lane, ticket)
 
     # -- v1 attribute surface ------------------------------------------------
@@ -149,17 +166,29 @@ class BigQueue:
 
     def _apply_ops(self, ops, ctx):
         """One unified batch against the ring table; returns (result, ctx').
-        The queue owns its state, so the round updates it in place."""
-        self.state, ctx, res, _, _ = engine.apply(
-            self._tspec, self.state, ops, ctx, donate=True)
+        The queue owns its state, so the round updates it in place.
+
+        Sharded, the batch routes through `distributed.apply_global`, whose
+        default capacity can never overflow."""
+        if self._mesh is None:
+            self.state, ctx, res, _, _ = engine.apply(
+                self._tspec, self.state, ops, ctx, donate=True)
+            return res, ctx
+        self._dstate, ctx, res, _ovf = dsb.apply_global(
+            self._mesh, self._dspec, self._dstate, ops, ctx, donate=True)
         return res, ctx
 
     def _read_cells(self, cells) -> np.ndarray:
-        """Linearizable read of ring cells: the strategy's honest read
-        protocol (uint32 words on the host)."""
-        vals, _ = engine.read(self._tspec, self.state,
-                              np.asarray(cells, np.int32))
-        return _np_words(vals)
+        """Linearizable read of ring cells (uint32 words on the host): the
+        strategy's honest read protocol locally, a routed LOAD batch when
+        sharded."""
+        cells = np.asarray(cells, np.int32)
+        if self._mesh is None:
+            vals, _ = engine.read(self._tspec, self.state, cells)
+            return _np_words(vals)
+        res, _ = self._apply_ops(engine.loads(cells, k=self.k,
+                                              device=self.device), None)
+        return _np_words(res.value)
 
     # -- introspection -------------------------------------------------------
 

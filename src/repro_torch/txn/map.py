@@ -28,7 +28,9 @@ Losers retry after Dice-style backoff (`sync.queue.BackoffPolicy`); the
 lowest contending txn id always wins, so every round commits at least one
 txn and the loop terminates.  `transact` is a host loop over the port's
 `cachehash.apply_hash` (one host read per hash batch) that reads its loop
-condition once per round, where the reference runs a `lax.while_loop`.
+condition once per round, where the reference runs a `lax.while_loop`;
+`transact_dist` runs the same rounds over a mesh-sharded CacheHash
+(`core.distributed.apply_hash_global`), with the reference's host loop.
 Keys are words (int32 tensors holding the uint32 bits); `fn` is a plain
 callable on tensors (word[T, R, vw], bool[T, R]) -> words[T, W, vw].
 """
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import cachehash as ch
+from repro_torch.core import distributed as dsb
 from repro_torch.core import engine
 from repro_torch.core.engine import DELETE, FIND, IDLE, INSERT, OpBatch
 from repro_torch.core.layout import (WORD_DTYPE, TableState, as_words,
@@ -228,6 +231,12 @@ def _round(happly, spec: HashSpec, txns: MapTxns, fn, state, active):
     return state, confirmed, rv, rf
 
 
+def _own_hash(state: ch.HashState) -> ch.HashState:
+    """A copy of a CacheHash state the round loop may update in place."""
+    return ch.HashState(TableState(*(x.clone() for x in state.table)),
+                        *(x.clone() for x in state[1:]))
+
+
 def transact(spec: HashSpec, state, txns: MapTxns, fn, *,
              policy: BackoffPolicy = BackoffPolicy("none"),
              max_rounds: int | None = None):
@@ -244,8 +253,7 @@ def transact(spec: HashSpec, state, txns: MapTxns, fn, *,
     t, vw = txns.t, spec.vw
     r = txns.read_key.shape[1]
     dev = txns.read_key.device
-    state = ch.HashState(TableState(*(x.clone() for x in state.table)),
-                         *(x.clone() for x in state[1:]))
+    state = _own_hash(state)
 
     def happly(st, ops):
         st, res, _ = ch.apply_hash(spec, st, ops, donate=True)
@@ -279,11 +287,66 @@ def transact(spec: HashSpec, state, txns: MapTxns, fn, *,
 def transact_dist(mesh, dspec, dstate, txns: MapTxns, fn, *,
                   policy: BackoffPolicy = BackoffPolicy("none"),
                   max_rounds: int | None = None):
-    """`transact` over a mesh-sharded CacheHash (its rounds through
-    `core.distributed.apply_hash`): not ported yet."""
-    raise NotImplementedError(
-        "transact_dist (the map over core.distributed.apply_hash) is not "
-        "ported yet (ROADMAP Queue 1 item 8b); run transact on one device")
+    """`transact` over a mesh-sharded CacheHash: the same round logic, but
+    every hash batch routes by key owner through
+    `distributed.apply_hash_global` (capacity = the whole batch, so no
+    lane overflows), so transactions whose read / write sets span shards
+    commit atomically.  Every rank of the mesh calls it with the same
+    `txns` and its own shard's `dstate` (copied once on entry) and gets
+    the same `MapResult`; arbitration runs over the global `dspec.inner`.
+
+    The host loop is the reference's: a round in which every pending txn
+    is backing off runs no batch; losers' delays are set after the
+    others' count down.  Raises RuntimeError when `max_rounds` rounds
+    leave a txn pending."""
+    hs: HashSpec = dspec.inner
+    if max_rounds is None:
+        max_rounds = max_rounds_bound(txns.t, policy)
+    dev = mesh.device
+    dstate = dsb.DistState(_own_hash(dstate.local), mesh)
+
+    def happly(st, ops):
+        st, res, _ovf = dsb.apply_hash_global(mesh, dspec, st, ops,
+                                              whole_batch_route=True,
+                                              donate=True)
+        return st, res
+
+    t, vw = txns.t, hs.vw
+    r = txns.read_key.shape[1]
+    pending = np.ones((t,), bool)
+    round_res = np.zeros((t,), np.int32)
+    attempts = np.zeros((t,), np.int32)
+    delay = np.zeros((t,), np.int32)
+    orv = np.zeros((t, r, vw), np.uint32)
+    orf = np.zeros((t, r), bool)
+    rnd = 0
+    while pending.any() and rnd < max_rounds:
+        rnd += 1
+        active = pending & (delay <= 0)
+        if not active.any():
+            delay = np.maximum(delay - 1, 0)
+            continue
+        dstate, committed, rv, rf = _round(
+            happly, hs, txns, fn, dstate, torch.from_numpy(active).to(dev))
+        committed = _host(committed)
+        orv = np.where(committed[:, None, None], _host_words(rv), orv)
+        orf = np.where(committed[:, None], _host(rf), orf)
+        round_res = np.where(committed, rnd, round_res).astype(np.int32)
+        pending &= ~committed
+        lost = active & ~committed
+        attempts = attempts + lost.astype(np.int32)
+        delay = np.maximum(delay - 1, 0)
+        for i in np.nonzero(lost)[0]:
+            delay[i] = policy.delay(int(attempts[i]))
+    if pending.any():
+        raise RuntimeError(f"transact_dist round bound exceeded "
+                           f"({max_rounds}); pending="
+                           f"{np.nonzero(pending)[0].tolist()}")
+    return dstate, MapResult(
+        torch.from_numpy(orv.view(np.int32)).to(dev),
+        torch.from_numpy(orf).to(dev), torch.from_numpy(round_res).to(dev),
+        torch.from_numpy(attempts).to(dev),
+        torch.tensor(rnd, dtype=torch.int32, device=dev))
 
 
 def linearization_order(result: MapResult) -> np.ndarray:

@@ -16,8 +16,8 @@ results, the verdict of a failed admission and the verdicts of
 `OverloadPolicy`.
 
 In process: the host reads of a decode step pinned (every way a tensor
-reaches the host counted), the greedy rule on ties, the seeded sampler,
-and the NotImplementedError stub of the mesh-sharded engine."""
+reaches the host counted), the greedy rule on ties and the seeded
+sampler.  The mesh-sharded engine: tests/test_torch_distributed_serving.py."""
 
 import dataclasses
 import os
@@ -540,13 +540,3 @@ def test_run_pipelined_serves_requests_waiting_when_every_slot_retires():
     assert eng.run_pipelined() == want
     assert all(len(toks) == 3 for toks in want.values())
     assert not eng.decode_inflight and not eng._pending_retire
-
-
-def test_unported_serving_paths_raise_not_implemented():
-    """A mesh-sharded engine or page table (ROADMAP Queue 1 item 8)."""
-    from repro_torch.serving import paged_kv as pk
-    eng = _engine()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        pk.make_spec(eng.cfg, 16, 4, 2, n_shards=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        _engine(mesh=object())

@@ -486,11 +486,27 @@ def test_queue_fifo_against_sequential_replay(policy):
     assert len(q) == len(fifo)
 
 
-def test_queue_sharded_is_refused():
+def test_one_shard_queue_given_a_mesh_stays_local():
+    """The reference's rule `mesh if n_shards > 1 else None`: a one-shard
+    queue ignores the mesh (never touched here) and runs on its own table,
+    as the same queue built without one does."""
     from repro_torch.sync.queue import BigQueue
-    with pytest.raises(NotImplementedError, match="distributed"):
-        BigQueue(8, mesh=object(), n_shards=2, device="cpu")
-    BigQueue(8, mesh=object(), n_shards=1, device="cpu")   # one shard: local
+    rng = np.random.default_rng(6)
+    kw = dict(k=2, strategy="cached_me", initial_items=[[7], [8]],
+              device="cpu")
+    local = BigQueue(8, mesh=object(), n_shards=1, **kw)
+    assert local._mesh is None and local.state is not None
+    plain = BigQueue(8, **kw)
+    for _ in range(3):
+        kinds = rng.integers(0, 3, 12).astype(np.int32)
+        vals = rng.integers(0, 2 ** 32, (12, 1), dtype=np.uint32)
+        for a, b in zip(local.run_batch(kinds, vals),
+                        plain.run_batch(kinds, vals)):
+            np.testing.assert_array_equal(a, b)
+    assert local.commit_log == plain.commit_log
+    assert len(local) == len(plain)
+    for a, b in zip(local.state, plain.state):
+        assert torch.equal(a, b)
 
 
 def test_deprecated_entry_points_warn_once():

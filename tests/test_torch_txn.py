@@ -1202,10 +1202,6 @@ def test_make_map_txns_validation():
     with pytest.raises(ValueError, match="txn counts"):
         tmap.make_map_txns(np.zeros((2, 1), np.uint32),
                            np.zeros((3, 1), np.uint32), device="cpu")
-    txns = tmap.make_map_txns(np.zeros((1, 1), np.uint32),
-                              np.zeros((1, 1), np.uint32), device="cpu")
-    with pytest.raises(NotImplementedError, match="distributed"):
-        tmap.transact_dist(None, None, None, txns, None)
 
 
 def test_atomics_facade_exports_txn_layer():

@@ -12,7 +12,8 @@ the cases marked `ref` through `repro.core.distributed` in one subprocess
 on 8 fake XLA host devices.
 
 Case dicts:
-  name, kind        "table" | "oneshard" | "v1" | "hash" | "mcas"
+  name, kind        "table" | "oneshard" | "v1" | "hash" | "mcas" |
+                    "txnmap" | "queue" | "serving"
   mesh              (shape, axis names) of the 8-rank world
   inner             ("atomic", n, k, strategy, p_max) or
                     ("hash", nb, vw, strategy, p_max)
@@ -27,6 +28,17 @@ Case dicts:
   plugin            register the test strategy `dist_plugin_check`
   round, obs        table: through `apply_round` with its order; under
                     BIGATOMIC_OBS=counters, the snapshot recorded
+  map               txnmap: global (read_key, write_key, read_mask,
+                    write_mask, write_del, fn name) per step, each through
+                    `transact_dist` and the one-device `transact`;
+                    `policy` (BackoffPolicy arguments) and `max_rounds`
+  queue             capacity, k, strategy, p_max, policy and the global
+                    calls ("enq", values) / ("deq", p) / ("run", kinds,
+                    values), on a sharded and a one-device `BigQueue`;
+                    every routed batch recorded
+  serve             serving: config, engine keywords, prompts, new tokens,
+                    the path of the reference's weights (its `ref` run
+                    draws them and writes them there; the ranks wait)
   ref               also run on the reference
 """
 
@@ -47,6 +59,28 @@ ROOT = Path(__file__).resolve().parents[1]
 WORLD = 8
 PG_TIMEOUT_S = 60
 PLUGIN = "dist_plugin_check"
+
+
+def map_fn_copy(rv, rf):
+    """Write the read values back (R == W); numpy, jnp and torch alike."""
+    return rv
+
+
+def map_fn_sum_plus_one(rv, rf):
+    """The counter: the read set's sum + 1 (W == 1)."""
+    return rv.sum(axis=1, keepdims=True) + 1
+
+
+MAP_FNS = {"copy": map_fn_copy, "sum_plus_one": map_fn_sum_plus_one}
+
+
+def np_ctx(ctx) -> tuple:
+    """A LinkCtx as numpy (slot int32, version / value uint32, linked)."""
+    slot, version, value, linked = (
+        x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+        for x in ctx)
+    return (slot.astype(np.int32), bits(version), bits(value),
+            linked.astype(bool))
 
 
 def free_port() -> int:
@@ -124,9 +158,10 @@ def finish_reference(proc: subprocess.Popen, out_path, timeout: float = 240):
 
 
 def bits(x) -> np.ndarray:
-    """A result as numpy; 32-bit integers as their uint32 bits."""
+    """A result as numpy (a copy: a state updated in place later leaves it
+    as it was); 32-bit integers as their uint32 bits."""
     if hasattr(x, "detach"):
-        x = x.detach().cpu().numpy()
+        x = x.detach().cpu().numpy().copy()
     x = np.asarray(x)
     return x.view(np.uint32) if x.dtype in (np.int32, np.uint32) else x
 
@@ -330,6 +365,160 @@ class _Rank:
                                      np.uint32).reshape(-1, vw)})
         return out
 
+    def txnmap(self, case):
+        """Each step through `transact_dist` on the sharded CacheHash and
+        through the one-device `transact` on a local one (both under the
+        case's `policy` and `max_rounds`): both results, both contents,
+        the words each all_to_all handed over; a `RuntimeError` of
+        `transact_dist` ends the case, its message recorded."""
+        from repro_torch.txn import map as tmap
+        dsb, ch = self.dsb, self.ch
+        mesh, dspec, shard = self.setup(case)
+        hs = dspec.inner
+        st = dsb.init_dist(mesh, dspec)
+        one = ch.init_hash(hs, device="cpu")
+        out = {"shard": shard, "steps": []}
+
+        def contents(items):
+            keys = np.asarray(sorted(items), np.uint32)
+            return keys, np.asarray([bits(items[x]) for x in keys.tolist()],
+                                    np.uint32).reshape(-1, hs.vw)
+        kw = dict(policy=self.Backoff(*case.get("policy", ("none",))),
+                  max_rounds=case.get("max_rounds"))
+        for rk, wk, rm, wm, wd, fname in case["map"]:
+            txns = tmap.make_map_txns(rk, wk, read_mask=rm, write_mask=wm,
+                                      write_del=wd, vw=hs.vw, device="cpu")
+            fn = MAP_FNS[fname]
+            self.words.clear()
+            try:
+                st, res = tmap.transact_dist(mesh, dspec, st, txns, fn, **kw)
+            except RuntimeError as err:         # every rank alike, or a hang
+                out["error"] = str(err)
+                break
+            words = list(self.words)
+            one, res1 = tmap.transact(hs, one, txns, fn, **kw)
+            out["steps"].append({
+                "dist": [bits(x) for x in res], "one": [bits(x) for x in res1],
+                "words": words,
+                "items": contents(dsb.hash_items(dspec, st)),
+                "items_one": contents(ch.items(one, inline=hs.inline,
+                                               vw=hs.vw))})
+        return out
+
+    def queue(self, case):
+        """The same calls on a sharded `BigQueue` and a one-device one:
+        each call's outputs, the commit log, `len`, the ring's cells and
+        versions; every routed batch of the sharded queue (its global
+        ops, the ctx in and out, results, logical values and versions
+        after it)."""
+        from repro_torch.sync.queue import BigQueue
+        dsb, atomics = self.dsb, self.atomics
+        mesh = self.mesh(case)
+        s, qc = case["dist"]["n_shards"], case["queue"]
+        kw = dict(capacity=qc["capacity"], k=qc["k"],
+                  strategy=qc["strategy"], p_max=qc["p_max"],
+                  policy=self.Backoff(*qc["policy"]), device="cpu")
+        shq = BigQueue(**kw, mesh=mesh, shard_axis=case["dist"]["axis"],
+                       n_shards=s)
+        oneq = BigQueue(**kw)
+        n = oneq._tspec.n
+        view = dsb.DistSpec(shq._dist_inner, case["dist"]["axis"], s, 1)
+        routed = []
+        apply_global = dsb.apply_global
+
+        def recorded(mesh_, dspec, dstate, ops, ctx=None, **kwargs):
+            got = apply_global(mesh_, dspec, dstate, ops, ctx, **kwargs)
+            st, nctx, res, ovf = got
+            q = ops.kind.shape[0]                 # IDLE-padded to s lanes
+            routed.append({
+                "p_local": -(-q // dspec.n_shards),
+                "ops": [bits(x) for x in ops],
+                "ctx": None if ctx is None else np_ctx(ctx),
+                "value": bits(res.value), "success": bits(res.success),
+                "overflow": bits(ovf), "nctx": np_ctx(nctx),
+                "logical": bits(dsb.logical(dspec, st)),
+                "versions": bits(dsb.versions(dspec, st))})
+            return got
+
+        def run(q, call):
+            if call[0] == "enq":
+                got = q.run_batch(np.zeros(len(call[1]), np.int32), call[1])
+            elif call[0] == "deq":
+                got = q.run_batch(np.ones(call[1], np.int32))
+            else:
+                got = q.run_batch(call[1], call[2])
+            return [bits(x) for x in got[:2]] + [int(got[2])]
+
+        out = {"shard": dsb.shard_index(mesh, view), "calls": []}
+        dsb.apply_global = recorded
+        try:
+            for call in qc["calls"]:
+                rec = {"sharded": run(shq, call), "one": run(oneq, call)}
+                rec["len"] = (len(shq), len(oneq))
+                rec["log"] = (list(shq.commit_log), list(oneq.commit_log))
+                rec["cells"] = (bits(dsb.logical(view, shq._dstate))[:n],
+                                bits(atomics.logical(oneq._tspec,
+                                                     oneq.state)))
+                rec["versions"] = (bits(dsb.versions(view, shq._dstate))[:n],
+                                   bits(oneq.state.version))
+                out["calls"].append(rec)
+        finally:
+            dsb.apply_global = apply_global
+        out["routed"] = routed
+        out["n_pad"] = shq._dist_inner.n
+        return out
+
+    def length(self, case):
+        """`len()` of a sharded `BigQueue` holding `initial` items."""
+        from repro_torch.sync.queue import BigQueue
+        qc = case["queue"]
+        q = BigQueue(qc["capacity"], k=qc["k"], strategy=qc["strategy"],
+                     initial_items=qc["initial"], mesh=self.mesh(case),
+                     n_shards=case["dist"]["n_shards"], device="cpu")
+        return {"len": len(q)}
+
+    def serving(self, case):
+        """`ServingEngine(mesh=...)` on the reference's weights
+        (`serve["params"]`): `run_to_completion` and `run_pipelined` on
+        fresh engines, the tokens, `dispatch_count`, the
+        page table's contents and the free ring's length after the run."""
+        import dataclasses
+
+        from repro_torch import convert
+        from repro_torch.configs import get_config
+        from repro_torch.serving import Request, ServingEngine
+        dsb = self.dsb
+        mesh = self.mesh(case)
+        sv = case["serve"]
+        cfg = dataclasses.replace(get_config(sv["arch"], reduced=True),
+                                  **sv["cfg"])
+        path, t0 = Path(sv["params"]), time.perf_counter()
+        while not path.exists():        # the reference's run draws them
+            if time.perf_counter() - t0 > 120:
+                raise TimeoutError(f"{path} never written")
+            time.sleep(0.05)
+        params = convert.model_params(pickle.loads(path.read_bytes()),
+                                      device="cpu")
+        out = {"shard": mesh.coords[case["dist"]["axis"]]}
+        for how in ("run_to_completion", "run_pipelined"):
+            eng = ServingEngine(cfg, params, mesh=mesh,
+                                shard_axis=case["dist"]["axis"],
+                                device="cpu", **sv["engine"])
+            for rid, prompt in enumerate(sv["prompts"]):
+                eng.submit(Request(rid=rid, prompt=prompt,
+                                   max_new_tokens=sv["new"]))
+            tokens = getattr(eng, how)(max_steps=40)
+            table = eng.paged.state.table
+            dspec = dsb.DistSpec(eng.paged.spec.table,
+                                 case["dist"]["axis"],
+                                 eng.paged.spec.n_shards, 1)
+            out[how] = {"tokens": tokens,
+                        "dispatch_count": eng.dispatch_count,
+                        "items": dsb.hash_items(dspec, table),
+                        "free": len(eng.paged.free),
+                        "spec_shards": eng.paged.spec.n_shards}
+        return out
+
     def mcas(self, case):
         torch, dsb, txn_mcas = self.torch, self.dsb, self.txn_mcas
         mesh, dspec, shard = self.setup(case)
@@ -377,8 +566,12 @@ def rank_main(job, inputs, out_dir, rank, world, port, pg_timeout):
     r = _Rank(pg_timeout)
     if job == "hang":
         _plant_hang(r, rank)
+    if job == "skip_len":
+        _plant_skipped_len(rank)
     out = {case["name"]: getattr(r, case["kind"])(case) for case in cases}
     (Path(out_dir) / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+    if job == "skip_len" and rank == 1:
+        time.sleep(3600)          # stay in the world, as a stuck rank would
     dist.destroy_process_group()
 
 
@@ -397,6 +590,18 @@ def _plant_hang(r: _Rank, rank: int) -> None:
             time.sleep(3600)
         return reduce(*args, **kw)
     dist.all_reduce = leave
+
+
+def _plant_skipped_len(rank: int) -> None:
+    """Rank 1's sharded queues answer `len()` with 0, skipping the routed
+    LOAD: every other rank must fail at the collective rank 1 never
+    joins."""
+    if rank != 1:
+        return
+    from repro_torch.sync.queue import BigQueue
+    counted = BigQueue.__len__
+    BigQueue.__len__ = lambda self: 0 if self._mesh is not None \
+        else counted(self)
 
 
 # ---------------------------------------------------------------------------
@@ -435,6 +640,9 @@ def ref_main(job, inputs, out_path):
     out = {}
     for case in cases:
         if not case.get("ref"):
+            continue
+        if case["kind"] == "serving":
+            out[case["name"]] = ref_serving(case)
             continue
         mesh = jax.make_mesh(tuple(case["mesh"][0]), tuple(case["mesh"][1]))
         dspec = make_dspec(atomics, dsb, case)
@@ -486,6 +694,37 @@ def ref_main(job, inputs, out_path):
                     "versions": ver})
         out[case["name"]] = rec
     Path(out_path).write_bytes(pickle.dumps(out))
+
+
+def ref_serving(case) -> dict:
+    """The reference's one-device `ServingEngine` on the case's config and
+    requests, on the weights its own `init_params` draws.  Those weights
+    (numpy, in the params' tree) go to `serve["params"]` before the
+    engine runs; the port's ranks wait for them there."""
+    import dataclasses
+
+    import jax
+    from repro.configs import get_config
+    from repro.core import cachehash as ch
+    from repro.models.transformer import init_params
+    from repro.serving import Request, ServingEngine
+    sv = case["serve"]
+    cfg = dataclasses.replace(get_config(sv["arch"], reduced=True),
+                              **sv["cfg"])
+    params = init_params(cfg, jax.random.PRNGKey(sv["seed"]))
+    tmp = Path(sv["params"] + ".part")
+    tmp.write_bytes(pickle.dumps(jax.tree.map(np.asarray, params)))
+    os.replace(tmp, sv["params"])
+    eng = ServingEngine(cfg, params, **sv["engine"])
+    for rid, prompt in enumerate(sv["prompts"]):
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=sv["new"]))
+    tokens = eng.run_to_completion(max_steps=40)
+    items = ch.items(eng.paged.state.table, inline=True, vw=1)
+    return {"tokens": {int(r): [int(x) for x in v]
+                       for r, v in tokens.items()},
+            "dispatch_count": int(eng.dispatch_count),
+            "free": len(eng.paged.free),
+            "items": {int(x): bits(v) for x, v in items.items()}}
 
 
 if __name__ == "__main__":
