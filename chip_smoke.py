@@ -199,8 +199,15 @@ package, and runs these phases:
              the txn phase's map cases (`map_check`: the table prefilled
              with the cachehash phase's first 32 batches, load 1/8)
              against the one-device `transact` bit for bit and
-             `transact_reference`, ms and host syncs of each.  The group
-             is destroyed at the phase's end.
+             `transact_reference`, ms and host syncs of each; a
+             `runtime.DistTarget` over `DistSpec(AtomicSpec(2**22, 4),
+             "shard", 1, 2048)` beside `LocalTarget` on phase 12's
+             factor-4 hot streams (S = 8, 96 batches of 2048 lanes), each
+             history replayed equal to its table, the tables equal, wall
+             ms and Mops/s of each (with the counts reset just before the
+             `DistTarget` run and read just after, its round launches join
+             the kernels line).  The group is destroyed at the phase's
+             end.
   11. serving
              the paged-KV server (`serving.engine.ServingEngine` over
              `models.transformer`, the CacheHash page table, the BigQueue
@@ -245,7 +252,29 @@ package, and runs these phases:
              (enqueue 32, dequeue 16, a mixed batch of 16 ENQ + 16 DEQ)
              against the one-device ring; `transact_dist` at 2 shards
              (`map_check`) against `transact` and `transact_reference`,
-             the hot counter in T rounds; glm4_9b whole, bf16, each rank
+             the hot counter in T rounds; the sharded runtime
+             (`sharded_runtime`, `ShardedRuntime`) with the counts reset
+             just before and read just after (rows 1-2b must launch on
+             each rank, and their launches join the kernels line): on
+             each lock-free layout `runtime.DistTarget` over
+             `DistSpec(AtomicSpec(2**22, 4), "shard", 2, 1024)`, a run of
+             S = 4 hot streams (slots 1, factor 4, `checkpoint_every=2`)
+             with a `shard_loss` mid-round 3 recovered onto the mesh (1,
+             2) (one shard, both ranks): the `Recovery` at one shard,
+             p_global 2048 kept, the whole history replayed equal to the
+             final table, both ranks' histories equal (a digest each),
+             the recovery split into restore / reshard (gather, rebuild)
+             / journal replay / post-recovery checkpoint; clean runs on
+             phase 12's hot streams at factor 1 and 4 (Mops/s,
+             `x_of_f1`, an issue's host time split into prepare / route
+             / round / return / all_gather, host syncs and reads per
+             issue counted in one more factor-4 run ending in the same
+             table), the factor-4 history replayed and equal on both
+             ranks, printed after phase 12 beside its `LocalTarget`
+             numbers; `elastic.reshard_dist` 2 -> 1 -> 2 with values and
+             versions equal after each hop, split into gather and
+             rebuild, and an LL link taken before the trip committing
+             after it; glm4_9b whole, bf16, each rank
              its own weights, through `ServingEngine(mesh=...)` on
              cached_me, the six greedy requests: tokens equal to the
              serving phase's (no mesh) and to rank 0's own engine without
@@ -353,6 +382,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -3788,6 +3818,68 @@ class DistPhase:
             del lg, vs
         return dspec, kept
 
+    def executor(self, strategy, si, runtime, tk, launches):
+        """`runtime.DistTarget` over `DistSpec(AtomicSpec(2**22, 4,
+        layout), "shard", 1, 2048)` beside `LocalTarget` on the same table
+        and the same streams (phase 12's factor-4 hot: S = 8, 96 batches
+        of 2048 lanes): each history replayed equal to its own table, the
+        two tables equal; wall ms and Mops/s of each.  The counts are
+        reset just before the `DistTarget` run and read just after it;
+        its round launches join `launches`."""
+        torch = self.torch
+        rng = np.random.default_rng(12000 + si)
+        init = rng.integers(0, 2 ** 32, (N, K), dtype=np.uint32)
+        spec = self.atomics.AtomicSpec(N, K, strategy, p_max=RT_P)
+        factor = 4
+        n_streams = RT_SLOTS * factor
+        hot_cells, hot_frac = RT_MIXES["hot"]
+        out, tables = {}, {}
+        for name in ("dist", "local"):
+            target = (runtime.DistTarget(
+                self.mesh, self.dsb.DistSpec(spec, "shard", 1, RT_P), init)
+                if name == "dist" else
+                runtime.LocalTarget(spec, init, device=self.dev))
+            ex = runtime.Executor(
+                target, [runtime.SyntheticStream(
+                    f"s{i}", seed=100 * si + 10 * factor + i, n=N, k=K,
+                    width=RT_P, n_batches=RT_BATCHES // n_streams,
+                    hot_cells=hot_cells, hot_frac=hot_frac)
+                    for i in range(n_streams)],
+                slots=RT_SLOTS, oversubscription=factor)
+            torch.cuda.synchronize()
+            if name == "dist":
+                tk.reset_launch_counts()
+            t = time.perf_counter()
+            ex.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            if name == "dist":
+                for kn, c in tk.launch_counts().items():
+                    if kn in launches:
+                        launches[kn] += c
+            if name == "dist":
+                table = (self.dsb.logical(target.dspec, target.state),
+                         self.dsb.versions(target.dspec, target.state))
+            else:
+                table = (self.engine.logical(spec, target.state),
+                         target.state.version)
+            tables[name] = [x.cpu().numpy().view(np.uint32) for x in table]
+            oracle = runtime.replay_history(N, K, [RT_P] * n_streams,
+                                            ex.history, initial=init)
+            if not (np.array_equal(oracle.data, tables[name][0])
+                    and np.array_equal(oracle.version, tables[name][1])):
+                self.fail(f"{strategy}: the {name} executor's table differs "
+                          "from the replay of its history")
+            out[name] = {"wall_ms": wall * 1e3,
+                         "mops_s": RT_BATCHES * RT_P / wall / 1e6,
+                         "issues": ex.issues}
+            del ex, target
+        if not all(np.array_equal(a, b) for a, b in zip(tables["dist"],
+                                                        tables["local"])):
+            self.fail(f"{strategy}: DistTarget and LocalTarget end in other "
+                      "tables on the same streams")
+        return out
+
     def profiled(self, dspec, kept):
         """One eager `dist.apply` of each kept batch under the profiler,
         each `all_to_all_single` annotated: the round's four kernels once
@@ -4075,6 +4167,10 @@ def dist_phase(smoke, tk, launches_main):
         out["mcas"] = dp.mcas("cached_me", txn_cases, launches)
         out["map"] = map_check(torch, dp.mesh, (dsb, cachehash, txn_map), 1,
                                16300, smoke.dev)
+        from repro_torch import runtime
+        out["executor"] = {strategy: dp.executor(strategy, si, runtime, tk,
+                                                 launches)
+                           for si, strategy in enumerate(STRATEGIES)}
         if not all(launches.values()):
             raise SystemExit(f"dist: a round kernel never launched: "
                              f"{launches}")
@@ -4114,6 +4210,14 @@ def dist_phase(smoke, tk, launches_main):
             f"{name} T={r['t']} rounds {r['rounds']} {r['dist_ms']:.1f} ms "
             f"(transact {r['one_ms']:.1f}), host syncs {r['dist_host_syncs']} "
             f"({r['one_host_syncs']})" for name, r in m["runs"].items()))
+    card = card_line()
+    for strategy, row in out["executor"].items():
+        log(f"[dist] {card} | {strategy} executor, phase 12's f4_hot streams "
+            f"(S = 8, 96 x {RT_P} lanes): DistTarget at one NCCL rank "
+            f"{row['dist']['wall_ms']:.1f} ms ({row['dist']['mops_s']:.4f} "
+            f"Mops/s), LocalTarget {row['local']['wall_ms']:.1f} ms "
+            f"({row['local']['mops_s']:.4f} Mops/s); both histories "
+            "replayed equal, the tables equal")
     log(f"[dist] phase in {out['phase_s']:.1f} s, launches {launches}")
     torch.cuda.empty_cache()
     return out
@@ -5315,6 +5419,350 @@ def map_check(torch, mesh, mods, n_shards, seed, dev):
     return out
 
 
+SRT_P_LOCAL = 1024               # p_global 2048 at 2 shards: phase 12's width
+SRT_FAULT = {"streams": 4, "n_batches": 6, "loss_round": 3,
+             "checkpoint_every": 2}
+SRT_FACTORS = (1, 4)             # S = 2 and 8 at RT_SLOTS: x_of_f1
+SRT_LL_SLOT, SRT_STORE_SLOT = 12345, 4000000
+
+
+def history_digest(history) -> str:
+    """One hash of an executor history (stream, seq, ops, claimed order,
+    overflow, value, success of every issue): equal on two ranks iff
+    their journals are."""
+    h = hashlib.sha256()
+    for r in history:
+        h.update(np.asarray([r.stream, r.seq], np.int64).tobytes())
+        for x in (*r.ops, r.order, r.overflow, r.value, r.success):
+            h.update(b"-" if x is None else np.ascontiguousarray(x).tobytes())
+    return h.hexdigest()
+
+
+class Marks:
+    """Host-clock spans of wrapped functions (`wrap(obj, attr, label)`),
+    recorded while `on`; `restore()` puts every function back."""
+
+    def __init__(self):
+        self.spans, self.on, self._saved = [], False, []
+
+    def wrap(self, obj, attr, label):
+        fn = getattr(obj, attr)
+        self._saved.append((obj, attr, fn))
+
+        def run(*a, **kw):
+            if not self.on:
+                return fn(*a, **kw)
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.spans.append((label, t, time.perf_counter()))
+        setattr(obj, attr, run)
+
+    def restore(self):
+        for obj, attr, fn in reversed(self._saved):
+            setattr(obj, attr, fn)
+        self._saved.clear()
+
+    def total(self, label, lo=0.0, hi=float("inf")) -> float:
+        return sum(b - a for name, a, b in self.spans
+                   if name == label and a >= lo and b <= hi)
+
+    def within(self, label):
+        return [(a, b) for name, a, b in self.spans if name == label]
+
+
+class ShardedRuntime:
+    """The sharded runtime on one rank of phase 11b's world (see
+    `sharded_runtime`): `runtime.DistTarget` over
+    `DistSpec(AtomicSpec(2**22, 4, layout), "shard", 2, 1024)`."""
+
+    def __init__(self, torch, mesh, mods, timeout):
+        self.torch, self.mesh, self.dev = torch, mesh, mesh.device
+        self.rt, self.dsb, self.atomics = mods
+        self.timeout = timeout
+        self.one = None                  # the (1, 2) mesh, made at the loss
+
+    def fail(self, what):
+        raise SystemExit(f"sharded-runtime: {what}")
+
+    def spec(self, strategy):
+        return self.atomics.AtomicSpec(N, K, strategy, p_max=RT_P)
+
+    def factory(self, strategy):
+        """n_surviving -> (mesh, dspec): the two-shard mesh, or after the
+        loss one shard replicated on both ranks, mesh (1, 2)."""
+        def make(n_surviving):
+            if n_surviving >= SHARD_RANKS:
+                return self.mesh, self.dsb.DistSpec(
+                    self.spec(strategy), "shard", SHARD_RANKS, SRT_P_LOCAL)
+            if self.one is None:                # every rank, same point
+                self.one = self.dsb.make_mesh(
+                    (1, SHARD_RANKS), ("shard", "rest"), device=self.dev,
+                    timeout=self.timeout)
+            return self.one, self.dsb.DistSpec(
+                self.spec(strategy), "shard", 1, SHARD_RANKS * SRT_P_LOCAL)
+        return make
+
+    def table(self, target):
+        return (self.torch_words(self.dsb.logical(target.dspec,
+                                                  target.state)),
+                self.torch_words(self.dsb.versions(target.dspec,
+                                                   target.state)))
+
+    @staticmethod
+    def torch_words(t):
+        return t.cpu().numpy().view(np.uint32)
+
+    def streams(self, n_streams, n_batches, seed):
+        hot_cells, hot_frac = RT_MIXES["hot"]
+        return [self.rt.SyntheticStream(
+            f"s{i}", seed=seed + i, n=N, k=K, width=RT_P,
+            n_batches=n_batches, hot_cells=hot_cells, hot_frac=hot_frac)
+            for i in range(n_streams)]
+
+    def replay_equal(self, ex, init, what):
+        t = time.perf_counter()
+        oracle = self.rt.replay_history(N, K, [RT_P] * len(ex.streams),
+                                        ex.history, initial=init)
+        logical, versions = self.table(ex.target)
+        if not (np.array_equal(oracle.data, logical)
+                and np.array_equal(oracle.version, versions)):
+            self.fail(f"{what}: the table differs from the replay of its "
+                      "history")
+        return time.perf_counter() - t
+
+    def faulted(self, strategy, si):
+        """S = 4 streams of 6 hot batches, slots 1, factor 4, a shard loss
+        mid-round 3 (after two issues), `checkpoint_every=2`: the
+        recovery onto one shard on both ranks, its split, the replay."""
+        rt, torch = self.rt, self.torch
+        rng = np.random.default_rng(12000 + si)
+        init = rng.integers(0, 2 ** 32, (N, K), dtype=np.uint32)
+        make = self.factory(strategy)
+        mesh, dspec = make(SHARD_RANKS)
+        target = rt.DistTarget(mesh, dspec, init, mesh_factory=make)
+        f = SRT_FAULT
+        ex = rt.Executor(
+            target, self.streams(f["streams"], f["n_batches"], 700 + si),
+            slots=1, oversubscription=4,
+            checkpoint_every=f["checkpoint_every"],
+            injector=rt.FaultInjector([rt.Fault(
+                round=f["loss_round"], kind="shard_loss", shard=1,
+                after_issues=2)]))
+        marks = Marks()
+        from repro_torch.runtime import executor as ex_mod
+        for obj, attr, label in ((ex, "_recover", "recover"),
+                                 (ex, "_load_ck", "restore"),
+                                 (ex, "checkpoint", "checkpoint"),
+                                 (target, "shrink", "reshard"),
+                                 (self.dsb, "logical", "gather"),
+                                 (self.dsb, "versions", "gather")):
+            marks.wrap(obj, attr, label)
+        marks.on = True
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            rep = ex.run()
+            torch.cuda.synchronize()
+        finally:
+            marks.on = False
+            marks.restore()
+        wall = time.perf_counter() - t
+        (rec,) = rep["recoveries"] or [None]
+        if rec is None or rec["n_shards"] != 1 or target.width != RT_P \
+                or target.dspec.p_global != RT_P:
+            self.fail(f"{strategy}: recoveries {rep['recoveries']}, width "
+                      f"{target.width}")
+        replay_s = self.replay_equal(ex, init, f"{strategy} faulted")
+        (r0, r1), = marks.within("recover")
+        (s0, s1), = marks.within("reshard")
+        ck = [(a, b) for a, b in marks.within("checkpoint") if r0 <= a <= r1]
+        restore = marks.total("restore", r0, r1)
+        gather = marks.total("gather", s0, s1)
+        post_ck = ck[-1][1] - ck[-1][0]
+        normal_ck = [b - a for a, b in marks.within("checkpoint")
+                     if not r0 <= a <= r1]
+        return {"wall_s": wall, "issues": rep["issues"],
+                "rounds": rep["rounds"], "checkpoints": rep["checkpoints"],
+                "recovery": {k: v for k, v in rec.items()},
+                "split_s": {"restore": restore, "reshard": s1 - s0,
+                            "reshard_gather": gather,
+                            "reshard_rebuild": (s1 - s0) - gather,
+                            "journal_replay": (r1 - r0) - restore
+                            - (s1 - s0) - post_ck,
+                            "post_recovery_checkpoint": post_ck,
+                            "total": r1 - r0},
+                "checkpoint_s": normal_ck,
+                "digest": history_digest(ex.history), "replay_s": replay_s}
+
+    def clean(self, strategy, si):
+        """No fault, hot, phase 12's streams and table at factor 1 (S = 2)
+        and 4 (S = 8), slots 2, 96 batches: a timed run each (its issues'
+        host time split into prepare, route, round, return and
+        all_gather), then at factor 4 a run with every host sync and read
+        counted; the factor-4 history replayed."""
+        rt, torch, dsb = self.rt, self.torch, self.dsb
+        rng = np.random.default_rng(12000 + si)
+        init = rng.integers(0, 2 ** 32, (N, K), dtype=np.uint32)
+        out = {}
+        for factor in SRT_FACTORS:
+            n_streams = RT_SLOTS * factor
+            seed = 100 * si + 10 * factor
+
+            def executor():
+                make = self.factory(strategy)
+                mesh, dspec = make(SHARD_RANKS)
+                return rt.Executor(
+                    rt.DistTarget(mesh, dspec, init, mesh_factory=make),
+                    self.streams(n_streams, RT_BATCHES // n_streams, seed),
+                    slots=RT_SLOTS, oversubscription=factor)
+            ex = executor()
+            marks = Marks()
+            for obj, attr, label in ((ex.target, "issue", "issue"),
+                                     (dsb, "apply", "apply"),
+                                     (dsb, "_local_round", "round"),
+                                     (dsb, "_gather_lanes", "all_gather")):
+                marks.wrap(obj, attr, label)
+            marks.on = True
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                rep = ex.run()
+                torch.cuda.synchronize()
+            finally:
+                marks.on = False
+                marks.restore()
+            wall = time.perf_counter() - t
+            issues = rep["issues"]
+            if issues != RT_BATCHES:
+                self.fail(f"{strategy} f{factor}: {issues} issues")
+            apply_s = marks.total("apply")
+            round_s = marks.total("round")
+            route_s = sum(r0 - a0 for (a0, _), (r0, _) in zip(
+                marks.within("apply"), marks.within("round")))
+            row = {"streams": n_streams, "wall_s": wall,
+                   "mops_s": RT_BATCHES * RT_P / wall / 1e6,
+                   "issue_ms": marks.total("issue") / issues * 1e3,
+                   "split_ms": {
+                       "prepare": (marks.total("issue") - apply_s
+                                   - marks.total("all_gather")) / issues
+                       * 1e3,
+                       "route": route_s / issues * 1e3,
+                       "round": round_s / issues * 1e3,
+                       "return": (apply_s - route_s - round_s) / issues
+                       * 1e3,
+                       "all_gather": marks.total("all_gather") / issues
+                       * 1e3}}
+            if factor == SRT_FACTORS[-1]:
+                row["replay_s"] = self.replay_equal(ex, init,
+                                                    f"{strategy} f{factor}")
+                row["digest"] = history_digest(ex.history)
+                want = self.table(ex.target)
+                del ex
+                ex = executor()
+                with warnings.catch_warnings(record=True) as caught, \
+                        counting_host_reads(torch) as reads:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        ex.run()
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                got = self.table(ex.target)
+                if not (np.array_equal(got[0], want[0])
+                        and np.array_equal(got[1], want[1])):
+                    self.fail(f"{strategy} f{factor}: the counted run "
+                              "ended in another table")
+                row["host_syncs_per_issue"] = sync_warnings(caught) \
+                    / RT_BATCHES
+                row["host_reads_per_issue"] = reads["n"] / RT_BATCHES
+            out[f"f{factor}_hot"] = row
+            del ex
+        out["x_of_f1"] = out[f"f{SRT_FACTORS[-1]}_hot"]["mops_s"] \
+            / out["f1_hot"]["mops_s"]
+        return out
+
+    def reshard(self, strategy, si):
+        """`reshard_dist` 2 -> 1 -> 2 at n = 2**22: an LL of one cell and a
+        STORE to another first, values and versions equal after each hop,
+        then the SC with the link taken before the trip succeeds; each
+        hop's time split into gather and rebuild."""
+        dsb, torch, at = self.dsb, self.torch, self.atomics
+        from repro_torch.runtime import elastic
+        rng = np.random.default_rng(12400 + si)
+        init = rng.integers(0, 2 ** 32, (N, K), dtype=np.uint32)
+        make = self.factory(strategy)
+        mesh, dspec = make(SHARD_RANKS)
+        st = dsb.init_dist(mesh, dspec, init)
+        kind = np.full(RT_P, at.IDLE, np.int32)
+        slot = np.zeros(RT_P, np.int32)
+        desired = np.zeros((RT_P, K), np.uint32)
+        kind[0], slot[0] = at.LL, SRT_LL_SLOT
+        kind[1], slot[1], desired[1] = at.STORE, SRT_STORE_SLOT, 77
+        st, ctx, _, _ = dsb.apply_global(mesh, dspec, st, at.make_ops(
+            kind, slot, desired=desired, k=K, device=self.dev))
+        want = (dsb.logical(dspec, st), dsb.versions(dspec, st))
+        hops = []
+        for n_surv in (1, SHARD_RANKS):
+            mesh2, dspec2 = make(n_surv)
+            marks = Marks()
+            for attr in ("logical", "versions"):
+                marks.wrap(dsb, attr, "gather")
+            marks.on = True
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                st = elastic.reshard_dist(dspec, st, dspec2, mesh2)
+                torch.cuda.synchronize()
+            finally:
+                marks.on = False
+                marks.restore()
+            total = time.perf_counter() - t
+            mesh, dspec = mesh2, dspec2
+            got = (dsb.logical(dspec, st), dsb.versions(dspec, st))
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                self.fail(f"{strategy}: reshard to {dspec.n_shards} "
+                          "shard(s) changed values or versions")
+            hops.append({"n_shards": dspec.n_shards, "s": total,
+                         "gather_s": marks.total("gather"),
+                         "rebuild_s": total - marks.total("gather")})
+        kind = np.full(RT_P, at.IDLE, np.int32)
+        kind[0], desired[0] = at.SC, 55
+        st, ctx, res, _ = dsb.apply_global(mesh, dspec, st, at.make_ops(
+            kind, slot, desired=desired, k=K, device=self.dev), ctx)
+        if not bool(res.success[0]):
+            self.fail(f"{strategy}: the LL link taken before the 2 -> 1 -> "
+                      "2 trip did not commit after it")
+        return {"hops": hops, "bytes": N * K * 4 + N * 4}
+
+
+def sharded_runtime(torch, mesh, mods, tk, timeout) -> dict:
+    """The sharded-runtime phase on one rank of phase 11b's world: per
+    lock-free layout the faulted run, the clean runs and the reshard trip
+    (`ShardedRuntime`), the launch counts reset just before and read just
+    after: rows 1-2b must have launched."""
+    sr = ShardedRuntime(torch, mesh, mods, timeout)
+    out = {"layouts": {}}
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    for si, strategy in enumerate(STRATEGIES):
+        out["layouts"][strategy] = {
+            "faulted": sr.faulted(strategy, si),
+            "clean": sr.clean(strategy, si),
+            "reshard": sr.reshard(strategy, si)}
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    out["launches"] = {k: v for k, v in tk.launch_counts().items() if v}
+    for kname in ROUND_KERNELS:
+        if not out["launches"].get(kname):
+            sr.fail(f"{kname} never launched on the path")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 class ShardedRank:
     """One rank of phase 11b's world (`sharded_rank_main`): the sharded
     `BigQueue` against the one-device one, `transact_dist` against
@@ -5502,7 +5950,7 @@ def sharded_rank_main(argv) -> int:
     import torch
     import torch.distributed as tdist
     sys.path.insert(0, str(SRC))
-    from repro_torch import configs
+    from repro_torch import atomics, configs, runtime
     from repro_torch import kernels as tk
     from repro_torch.core import cachehash as ch
     from repro_torch.core import distributed as dsb
@@ -5534,6 +5982,8 @@ def sharded_rank_main(argv) -> int:
         out["map"] = map_check(torch, mesh, (dsb, ch, txn_map), SHARD_RANKS,
                                17100, mesh.device)
         out["map_s"] = time.perf_counter() - t
+        out["runtime"] = sharded_runtime(
+            torch, mesh, (runtime, dsb, atomics), tk, timeout)
         cfg = configs.get_config(SERVE_ARCH)
         params = transformer.init_params(cfg, seed=SERVE_SEED,
                                          device=mesh.device)
@@ -5637,6 +6087,19 @@ def sharded_phase(smoke, tk, launches_main, want_tokens):
                 for kname in ROUND_KERNELS + (WGMMA,)}
     for kname, per_rank in launches.items():
         launches_main[kname] += sum(per_rank)
+    rts = [rec["runtime"] for rec in recs]
+    for strategy in STRATEGIES:
+        a, b = (rt["layouts"][strategy] for rt in rts)
+        for what in ("faulted", "clean"):
+            da = a[what].get("digest") or a[what]["f4_hot"]["digest"]
+            db = b[what].get("digest") or b[what]["f4_hot"]["digest"]
+            if da != db:
+                raise SystemExit(f"sharded-runtime: {strategy} {what}: the "
+                                 "ranks' histories differ")
+    rt_launches = {kname: [rt["launches"][kname] for rt in rts]
+                   for kname in ROUND_KERNELS}
+    for kname, per_rank in rt_launches.items():
+        launches_main[kname] += sum(per_rank)
     r0 = recs[0]
     log(f"[sharded] {SHARD_RANKS} gloo ranks on the card (collectives on "
         f"card tensors staged through the host), world in {world_s:.1f} s; "
@@ -5667,9 +6130,31 @@ def sharded_phase(smoke, tk, launches_main, want_tokens):
         f"step {one['decode_step_ms']} ms, crossing "
         f"{one['crossing_step_ms']}, admission {one['admission_step_ms']}; "
         f"FIND {one['find_ms']} ms")
+    card = card_line()
+    for strategy in STRATEGIES:
+        for r, rt in enumerate(rts):
+            lay = rt["layouts"][strategy]
+            f, c, h = lay["faulted"], lay["clean"], lay["reshard"]
+            log(f"[sharded-runtime] {card} | rank {r} {strategy}: faulted "
+                f"S={SRT_FAULT['streams']} {f['issues']} issues in "
+                f"{f['wall_s']:.2f} s, recovery {f['recovery']} split s "
+                + json.dumps(f["split_s"]) + f", checkpoints s "
+                f"{[round(x, 4) for x in f['checkpoint_s']]}, replayed equal "
+                f"in {f['replay_s']:.2f} s; clean " + "; ".join(
+                    f"{name} S={row['streams']} {row['mops_s']:.4f} Mops/s "
+                    f"issue {row['issue_ms']:.3f} ms split ms "
+                    + json.dumps(row["split_ms"])
+                    for name, row in c.items() if name.startswith("f"))
+                + f"; x_of_f1 {c['x_of_f1']:.3f}; host syncs / reads per "
+                f"issue {c['f4_hot']['host_syncs_per_issue']} / "
+                f"{c['f4_hot']['host_reads_per_issue']}; reshard 2 -> 1 -> 2 "
+                + json.dumps(h["hops"]))
+    log(f"[sharded-runtime] {card} | both ranks' histories equal on every "
+        f"layout; phase {[round(rt['phase_s'], 1) for rt in rts]} s; "
+        f"launches per rank {rt_launches}")
     return {"ranks": SHARD_RANKS, "transport": "gloo, card tensors staged "
             "through the host", "world_s": world_s, "launches": launches,
-            "per_rank": recs}
+            "runtime_launches": rt_launches, "per_rank": recs}
 
 
 # ---------------------------------------------------------------------------
@@ -7149,6 +7634,17 @@ def main() -> int:
 
     # -- 12. runtime -------------------------------------------------------------
     runtime_out = runtime_phase(smoke, tk, launches_main)
+
+    for strategy in STRATEGIES:
+        d = sharded_out["per_rank"][0]["runtime"]["layouts"][strategy]["clean"]
+        loc = runtime_out["sweep"][strategy]
+        log(f"[sharded-runtime] {card} | {strategy} hot, phase 12's streams: "
+            + "; ".join(
+                f"f{f} S={RT_SLOTS * f} DistTarget (2 gloo ranks) "
+                f"{d[f'f{f}_hot']['mops_s']:.4f} Mops/s, LocalTarget "
+                f"{loc[f'f{f}_hot']['mops_s']:.4f}" for f in SRT_FACTORS)
+            + f"; x_of_f1 DistTarget {d['x_of_f1']:.3f}, LocalTarget "
+            f"{loc[f'f{SRT_FACTORS[-1]}_hot']['x_of_f1']:.3f}")
 
     # -- 13. model families -------------------------------------------------------
     families_out = families_phase(smoke, tk, launches_main)

@@ -31,10 +31,15 @@ The execution model is multi-controller: every rank of the mesh calls the
 same function with its own shard's state and its own lanes (lane j of the
 rank on shard i is global lane `i * p_local + j`, as the reference lays
 its global batch out source-major).  A mesh (`make_mesh`) holds one
-process group per axis: NCCL with tensors on the card, gloo with tensors
-on the CPU or on the card (staged through the host, so several ranks can
-share one card).  Ranks that differ only along an axis the spec does not
-shard over compute the same shard, as the reference's replicas do.
+process group per axis and one over all its ranks: NCCL with tensors on
+the card, gloo with tensors on the CPU or on the card (staged through the
+host, so several ranks can share one card).  It may hold a subset of the
+world (`ranks=`, as the reference builds meshes from device subsets); a
+rank outside it has `member` False, holds no shard and enters none of its
+collectives, and every entry point given such a mesh raises.  Ranks that
+differ only along an axis the spec does not shard over compute the same
+shard, as the reference's replicas do.  `agree_max` is the one
+all_reduce a host decision needs to be the same on every rank.
 
 `apply_global` / `apply_hash_global` are the single-controller form the
 reference's clients call: every rank passes the same GLOBAL batch, runs
@@ -87,25 +92,44 @@ from repro_torch.obs import telemetry as obs_telemetry
 class Mesh:
     """This rank's view of a logical device mesh.
 
-    shape / axis_names: the mesh geometry (row-major over the ranks of the
-    default group); coords: this rank's coordinate on each axis; groups:
-    per axis, the process group of the ranks that differ from this one
-    only along that axis (in coordinate order); device: where the mesh's
-    tensors live."""
+    shape / axis_names: the mesh geometry, laid row-major over `ranks` (the
+    world ranks the mesh holds, in order); member: whether this rank is one
+    of them; coords: this rank's coordinate on each axis (empty outside the
+    mesh); groups: per axis, the process group of the ranks that differ
+    from this one only along that axis (in coordinate order; empty outside
+    the mesh); group: every rank of the mesh as one group (None outside
+    it); device: where the mesh's tensors live.  A rank outside the mesh
+    holds no shard of it and enters none of its collectives: every entry
+    point of this module given such a mesh raises."""
 
-    def __init__(self, shape, axis_names, coords, groups, device):
+    def __init__(self, shape, axis_names, coords, groups, device, *,
+                 ranks=None, group=None):
         self.shape = tuple(shape)
         self.axis_names = tuple(axis_names)
-        self.coords = dict(zip(self.axis_names, coords))
+        self.ranks = tuple(range(math.prod(self.shape))) if ranks is None \
+            else tuple(int(r) for r in ranks)
+        self.member = coords is not None
+        self.coords = dict(zip(self.axis_names, coords)) if self.member \
+            else {}
         self.groups = groups
+        self.group = group
         self.device = device
 
     def size(self, axis: str) -> int:
         return dict(zip(self.axis_names, self.shape))[axis]
 
     def __repr__(self):
+        where = f"coords={self.coords}" if self.member else "not a member"
         return (f"Mesh(shape={self.shape}, axis_names={self.axis_names}, "
-                f"coords={self.coords}, device={self.device})")
+                f"ranks={self.ranks}, {where}, device={self.device})")
+
+
+def _member(mesh) -> None:
+    """Raise on a rank outside `mesh` (it holds no shard and would wait in
+    collectives its mesh's ranks never join)."""
+    if not getattr(mesh, "member", True):
+        raise ValueError(f"this rank is not a member of {mesh!r}: it holds "
+                         "no shard and enters none of its collectives")
 
 
 def _backend_carries(backend: str, device: torch.device) -> bool:
@@ -120,16 +144,19 @@ def _backend_carries(backend: str, device: torch.device) -> bool:
     return "gloo" in backend
 
 
-def make_mesh(shape, axis_names, *, device="cuda", timeout=None) -> Mesh:
-    """The mesh `shape` x `axis_names` over the initialised default
-    process group, whose world size must be prod(shape).  Rank r sits at
-    the row-major coordinate of r.  Every rank creates every axis
-    subgroup, its own or not, in the same order (`dist.new_group` is
-    collective over the world), and keeps its own.  `timeout` (a
-    `datetime.timedelta`) bounds each collective of those subgroups;
-    None is `dist.new_group`'s default, which does not inherit the
-    default group's.  Raises when the group's backend cannot carry
-    tensors on `device` (NCCL with "cpu")."""
+def make_mesh(shape, axis_names, *, ranks=None, device="cuda",
+              timeout=None) -> Mesh:
+    """The mesh `shape` x `axis_names` over `ranks` of the initialised
+    default process group (default: the first prod(shape) ranks of the
+    world).  The mesh's rank i sits at the row-major coordinate of i.
+    Every rank of the world calls it, in the mesh or not, and creates
+    every subgroup, its own or not, in the same order (`dist.new_group` is
+    collective over the world); a rank keeps its own.  A rank outside
+    `ranks` gets a mesh with `member` False.  `timeout` (a
+    `datetime.timedelta`) bounds each collective of those subgroups; None
+    is `dist.new_group`'s default, which does not inherit the default
+    group's.  Raises when the group's backend cannot carry tensors on
+    `device` (NCCL with "cpu")."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -141,25 +168,49 @@ def make_mesh(shape, axis_names, *, device="cuda", timeout=None) -> Mesh:
         raise RuntimeError("make_mesh needs an initialised default process "
                            "group (torch.distributed.init_process_group)")
     world = dist.get_world_size()
-    if math.prod(shape) != world:
-        raise ValueError(f"mesh {shape} holds {math.prod(shape)} ranks, the "
-                         f"world has {world}")
+    size = math.prod(shape)
+    ranks = list(range(size)) if ranks is None else [int(r) for r in ranks]
+    if len(ranks) != size or len(set(ranks)) != size or \
+            not all(0 <= r < world for r in ranks):
+        raise ValueError(f"mesh {shape} holds {size} ranks; got ranks "
+                         f"{ranks} of a world of {world}")
     backend = dist.get_backend()
     if not _backend_carries(backend, dev):
         raise ValueError(f"a {backend!r} process group cannot carry tensors "
                          f"on {dev}: use nccl or gloo with cuda, gloo with "
                          "cpu")
     rank = dist.get_rank()
-    coords = np.unravel_index(rank, shape)
-    grid = np.arange(world).reshape(shape)
+    grid = np.asarray(ranks).reshape(shape)
     groups = {}
     for a, name in enumerate(axis_names):
         lines = np.moveaxis(grid, a, -1).reshape(-1, shape[a])
-        for ranks in lines.tolist():           # every rank, same order
-            group = dist.new_group(ranks, timeout=timeout)
-            if rank in ranks:
+        for line in lines.tolist():             # every rank, same order
+            group = dist.new_group(line, timeout=timeout)
+            if rank in line:
                 groups[name] = group
-    return Mesh(shape, axis_names, [int(c) for c in coords], groups, dev)
+    whole = dist.group.WORLD if size == world and ranks == sorted(ranks) \
+        else dist.new_group(ranks, timeout=timeout)
+    if rank not in ranks:
+        return Mesh(shape, axis_names, None, {}, dev, ranks=ranks)
+    coords = np.unravel_index(ranks.index(rank), shape)
+    return Mesh(shape, axis_names, [int(c) for c in coords], groups, dev,
+                ranks=ranks, group=whole)
+
+
+def agree_max(mesh: Mesh, values) -> list:
+    """The elementwise max of `values` (floats) over every rank of the
+    mesh, returned on each: ONE `all_reduce(MAX)` over the mesh's group,
+    so host decisions made from it are the same on every rank.  A mesh of
+    one rank returns `values` and calls no collective."""
+    _member(mesh)
+    values = [float(v) for v in values]
+    if len(mesh.ranks) == 1 or not values:
+        return values
+    dev = torch.device("cpu") if _backend_carries(
+        dist.get_backend(mesh.group), torch.device("cpu")) else mesh.device
+    t = torch.tensor(values, dtype=torch.float64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+    return t.tolist()                                  # the host read
 
 
 # ---------------------------------------------------------------------------
@@ -319,9 +370,11 @@ def shard_index(mesh: Mesh, dspec: DistSpec) -> int:
 
 def init_dist(mesh: Mesh, dspec: DistSpec, initial=None) -> DistState:
     """This rank's initial shard.  `initial` (tables only) is the word[n, k]
-    array of initial GLOBAL logical values; the shard takes its block (or,
-    with `interleave`, its residue class `initial[i::s]`)."""
+    array (numpy, or a word tensor: the shard is copied from it on the
+    mesh's device) of initial GLOBAL logical values; the shard takes its
+    block (or, with `interleave`, its residue class `initial[i::s]`)."""
     s = dspec.n_shards
+    _member(mesh)
     _check_mesh(mesh, dspec)
     lsp = dspec.local_spec()
     i = shard_index(mesh, dspec)
@@ -331,18 +384,21 @@ def init_dist(mesh: Mesh, dspec: DistSpec, initial=None) -> DistState:
         return DistState(ch.init_hash(lsp, device=mesh.device), mesh)
     shard = None
     if initial is not None:
-        initial = np.asarray(initial)
-        if initial.shape != (dspec.n_global, lsp.k):
-            raise ValueError(f"initial shape {initial.shape} != "
+        if not isinstance(initial, torch.Tensor):
+            initial = np.asarray(initial)
+        if tuple(initial.shape) != (dspec.n_global, lsp.k):
+            raise ValueError(f"initial shape {tuple(initial.shape)} != "
                              f"({dspec.n_global}, {lsp.k})")
-        shard = np.ascontiguousarray(
-            initial[i::s] if dspec.interleave
-            else initial[i * dspec.n_local:(i + 1) * dspec.n_local])
+        shard = (initial[i::s] if dspec.interleave
+                 else initial[i * dspec.n_local:(i + 1) * dspec.n_local])
+        shard = as_words(shard, mesh.device).clone() \
+            if isinstance(shard, torch.Tensor) else np.ascontiguousarray(shard)
     return DistState(engine.init(lsp, shard, device=mesh.device), mesh)
 
 
 def init_dist_ctx(mesh: Mesh, dspec: DistSpec) -> engine.LinkCtx:
     """A fresh p_local-lane LinkCtx for this rank's lanes."""
+    _member(mesh)
     return engine.init_ctx(dspec.p_local, dspec.inner.k, device=mesh.device)
 
 
@@ -669,6 +725,7 @@ def apply(mesh: Mesh, dspec: DistSpec, dstate: DistState, ops: engine.OpBatch,
     success=False and no table effect."""
     if dspec.is_hash:
         raise TypeError("hash DistSpec: use distributed.apply_hash")
+    _member(mesh)
     engine.check_kinds(ops.kind, engine.TABLE_KINDS, "table")  # host read
     dev = mesh.device
     q, k = ops.kind.shape[0], dspec.inner.k
@@ -725,6 +782,7 @@ def apply_round(mesh: Mesh, dspec: DistSpec, dstate: DistState,
     """`apply` wrapped as an overlappable handle; with `with_order=True`
     the claimed linearization of the global batch rides along (the ranks'
     kinds and slots are all-gathered over the shard axes for it)."""
+    _member(mesh)
     order = None
     if with_order:
         dev = mesh.device
@@ -865,6 +923,7 @@ def mcas(mesh: Mesh, dspec: DistSpec, dstate: DistState, txns, *,
     if dspec.n_nodes > 1:
         raise NotImplementedError("cross-shard MCAS routes flat; build its "
                                   "DistSpec with n_nodes=1")
+    _member(mesh)
     policy = policy or BackoffPolicy("none")
     dev = mesh.device
     k = dspec.inner.k
@@ -967,6 +1026,7 @@ def apply_hash(mesh: Mesh, dspec: DistSpec, dstate: DistState,
     silently dropped, and never touch any shard's table."""
     if not dspec.is_hash:
         raise TypeError("table DistSpec: use distributed.apply")
+    _member(mesh)
     engine.check_kinds(ops.kind, engine.HASH_KINDS, "hash")   # host read
     dev = mesh.device
     s, cap = dspec.n_shards, dspec.cap
@@ -1045,6 +1105,7 @@ def apply_global(mesh: Mesh, dspec: DistSpec, dstate: DistState,
     reference's `apply` does on its one controller."""
     if dspec.is_hash:
         raise TypeError("hash DistSpec: use distributed.apply_hash_global")
+    _member(mesh)
     dev, k = mesh.device, dspec.inner.k
     q = ops.kind.shape[0]
     dspec = _global_spec(dspec, q)
@@ -1077,6 +1138,7 @@ def apply_hash_global(mesh: Mesh, dspec: DistSpec, dstate: DistState,
     on every rank."""
     if not dspec.is_hash:
         raise TypeError("table DistSpec: use distributed.apply_global")
+    _member(mesh)
     dev, vw = mesh.device, dspec.inner.vw
     q = ops.kind.shape[0]
     dspec = _global_spec(dspec, q, whole_batch_route)
@@ -1116,6 +1178,7 @@ def _gather_shards(mesh: Mesh, dspec: DistSpec, x):
 def logical(dspec: DistSpec, dstate: DistState) -> torch.Tensor:
     """Global logical values [n, k], de-sharded (tables only); every rank
     of the mesh must call it."""
+    _member(dstate.mesh)
     impl = registry.get_strategy(dspec.inner.strategy)
     vals = _gather_shards(dstate.mesh, dspec,
                           impl.logical(dstate.local))       # [s, n_local, k]
@@ -1126,6 +1189,7 @@ def logical(dspec: DistSpec, dstate: DistState) -> torch.Tensor:
 
 def versions(dspec: DistSpec, dstate: DistState) -> torch.Tensor:
     """Global cell versions [n] (tables only); every rank must call it."""
+    _member(dstate.mesh)
     ver = _gather_shards(dstate.mesh, dspec, dstate.local.version)
     if dspec.interleave:
         return ver.transpose(0, 1).reshape(-1)
@@ -1135,6 +1199,7 @@ def versions(dspec: DistSpec, dstate: DistState) -> torch.Tensor:
 def hash_items(dspec: DistSpec, dstate: DistState) -> dict:
     """All (key, value) pairs across every shard's CacheHash; every rank
     must call it."""
+    _member(dstate.mesh)
     hs: HashSpec = dspec.inner
     local = dstate.local
     leaves = [*local.table, *local[1:]]

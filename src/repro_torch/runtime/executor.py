@@ -1,4 +1,4 @@
-"""The oversubscribed multi-stream executor, on one device.
+"""The oversubscribed multi-stream executor, on one device or sharded.
 
 Big atomics pay off when MORE logical workers than hardware slots keep the
 engine's fast path saturated while stalled streams wait out contention.
@@ -17,36 +17,58 @@ This module is that regime as a scheduler:
                retiring a round waits for that event only, never for rounds
                issued after it.  Donation updates the table in place, so the
                window holds no copies of it.
-  target       `LocalTarget` wraps one table on one device
-               (`engine.apply_round`).  The sharded target, elastic
-               resharding and shard-loss recovery onto a smaller mesh are
-               not ported: against a `LocalTarget` a shard loss raises.
+  targets      `LocalTarget` wraps one table on one device
+               (`engine.apply_round`).  `DistTarget` wraps a table sharded
+               over a `core.distributed` mesh in the single-controller
+               form: every rank of the mesh runs the same `Executor` over
+               the same streams and passes each global batch; the rank runs
+               its own lanes and gets every lane's result back
+               (`distributed.apply_global`), so every rank journals the
+               whole batch.  With `n_nodes > 1` the round routes
+               hierarchically.
+  lockstep     with a `DistTarget` every rank must take the same host
+               branch, or the next collectives pair up wrong.  Once a round
+               the ranks agree on the watchdog's latency vector and on the
+               preemption flag (one `all_reduce(MAX)` over the mesh); an
+               issue whose host preparation raises on any rank raises on
+               every rank (one more `all_reduce` an issue) and is rolled
+               back alike; an error inside the collectives ends every rank.
+               A disk checkpoint is written by the mesh's first rank while
+               the others wait for it.
   faults       `runtime.faults.FaultInjector` injects delay / preempt /
                shard-loss at exact (round, issue) points and data-plane
                faults at drained round boundaries.  Delays surface through
                the StragglerWatchdog (flagged streams skip their next issue
-               slot); preemption drains, checkpoints and stops cleanly.
+               slot); preemption drains, checkpoints and stops cleanly;
+               shard loss discards in-flight rounds, restores the last
+               round-boundary checkpoint, reshards onto the survivors
+               (`elastic.reshard_dist`: versions kept, so LL links survive)
+               and replays the issue journal with the NEW geometry's
+               claimed orders.  Against a `LocalTarget` a shard loss
+               raises: there is nothing to reshard onto.
   history      every ops issue is journaled (stream, seq, ops, claimed
                order, delivered results); `runtime.replay.replay_history`
-               replays the whole multi-stream interleaving through one
-               sequential numpy oracle.
+               replays the whole multi-stream interleaving, across a
+               recovery too, through one sequential numpy oracle.
 
 Nothing here blocks except retirement past the in-flight budget and the
-explicit drains at checkpoint and scrub boundaries.  Checkpoints kept in
-memory stay on the table's device; a disk checkpoint holds the words as
-uint32, the bytes the reference's executor writes.
+explicit drains at checkpoint, scrub and recovery boundaries.  Checkpoints
+kept in memory stay on the table's device; a disk checkpoint holds the
+words as uint32, the bytes the reference's executor writes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from collections import deque
 
 import numpy as np
 import torch
 
 from repro_torch import convert
+from repro_torch.core import distributed as dsb
 from repro_torch.core import engine
 from repro_torch.core.layout import as_words, resolve_device
 from repro_torch.obs.recorder import Recorder
@@ -121,6 +143,178 @@ class LocalTarget:
                            "nothing to reshard onto")
 
 
+class IssueFailed(RuntimeError):
+    """An issue whose host preparation raised on some rank of a
+    `DistTarget`'s mesh: every rank raises it, before any collective of
+    the round, so every rank rolls the same batch back."""
+
+
+class DistTarget:
+    """Mesh-sharded table in the single-controller form.
+
+    Every rank of `mesh` builds the same target and runs the same
+    `Executor` over the same streams: each issue is a GLOBAL batch of up
+    to `p_global` host lanes, passed alike by every rank.  The rank runs
+    its own `p_local` lanes through `distributed.apply_global`, which
+    all-gathers every lane's value, success, overflow and link, so every
+    rank's journal holds the whole batch.  The claimed order is
+    `linearization_order(dspec, ops)` on the host batch (no gather).
+    `snapshot()` is the gathered global `{"logical", "versions"}`; `load`
+    rebuilds each rank's shard with `init_dist` and splices its row of the
+    versions back.  `shrink(n)` calls `mesh_factory(n)` (which builds the
+    survivors' mesh: `make_mesh` is collective, so every rank shrinks at
+    the same point) and then `elastic.reshard_dist`, keeping values,
+    versions and `p_global`."""
+
+    kind = "dist"
+
+    def __init__(self, mesh, dspec, initial=None, *, mesh_factory=None):
+        self.mesh, self.dspec = mesh, dspec
+        self.device = mesh.device
+        self.state = dsb.init_dist(mesh, dspec, initial)
+        # n_surviving -> (mesh, dspec): how to rebuild after shard loss
+        self.mesh_factory = mesh_factory
+
+    @property
+    def width(self) -> int:
+        return self.dspec.p_global
+
+    @property
+    def n_shards(self) -> int:
+        return self.dspec.n_shards
+
+    def _prepare(self, ops):
+        """Host work that may raise: kinds and width checked, the lanes
+        IDLE-padded to p_global, the claimed order, the upload."""
+        engine.check_kinds(ops.kind, engine.TABLE_KINDS, "table")
+        p = self.dspec.p_global
+        q = np.asarray(ops.kind).shape[0]
+        if q > p:
+            raise ValueError(f"batch width {q} > p_global {p}")
+        host = _ops_np(ops)
+        if q < p:
+            pad = p - q
+            k = host.desired.shape[1]
+            host = engine.OpBatch(
+                np.concatenate([host.kind, np.full(pad, engine.IDLE,
+                                                   np.int32)]),
+                np.concatenate([host.slot, np.zeros(pad, np.int32)]),
+                np.concatenate([host.expected, np.zeros((pad, k),
+                                                        np.uint32)]),
+                np.concatenate([host.desired, np.zeros((pad, k),
+                                                       np.uint32)]))
+        order, _ = dsb.linearization_order(self.dspec, host)
+        dev_ops, staged = engine.upload_ops(host, self.device)
+        return q, order, dev_ops, staged
+
+    def issue(self, ops, ctx, *, donate=True):
+        """One round of host (numpy) `ops`, the global batch; returns a
+        `DistIssue` whose results come back by `host_result()` after
+        `wait()`.  Raises `IssueFailed` on every rank when the host
+        preparation raised on any."""
+        err = None
+        try:
+            q, order, dev_ops, staged = self._prepare(ops)
+        except Exception as e:                  # agreed below, then raised
+            err = e
+        if dsb.agree_max(self.mesh, [err is not None])[0]:
+            raise IssueFailed("an issue's host preparation raised on a rank "
+                              "of the mesh") from err
+        p, k = self.dspec.p_global, self.dspec.inner.k
+        ctx = engine.canonicalize_ctx(ctx, self.device)
+        if ctx.slot.shape[0] < p:
+            blank = engine.init_ctx(p - ctx.slot.shape[0], k,
+                                    device=self.device)
+            ctx = engine.LinkCtx(*(torch.cat([a, b])
+                                   for a, b in zip(ctx, blank)))
+        self.state, nctx, res, ovf = dsb.apply_global(
+            self.mesh, self.dspec, self.state, dev_ops, ctx, donate=donate)
+        if q < p:
+            nctx = engine.LinkCtx(*(x[:q] for x in nctx))
+        return DistIssue(self.state, nctx, res.value[:q], res.success[:q],
+                         ovf[:q], order, staged)
+
+    def snapshot(self) -> dict:
+        """The gathered global logical plane and versions (word tensors on
+        the mesh's device, on every rank)."""
+        return {"logical": dsb.logical(self.dspec, self.state),
+                "versions": dsb.versions(self.dspec, self.state)}
+
+    def load(self, snap: dict) -> None:
+        """Rebuild this rank's shard from a global snapshot (numpy uint32
+        or word tensors) with its row of the versions spliced back: LL
+        links restored alongside MUST see their pre-checkpoint versions."""
+        logical = as_words(snap["logical"], self.device)
+        st = dsb.init_dist(self.mesh, self.dspec, logical)
+        row = _split_versions(self.dspec, snap["versions"], self.device)[
+            dsb.shard_index(self.mesh, self.dspec)]
+        self.state = dsb.DistState(st.local._replace(version=row.clone()),
+                                   self.mesh)
+
+    def shrink(self, n_surviving: int) -> None:
+        if self.mesh_factory is None:
+            raise RuntimeError("shard loss needs mesh_factory= to rebuild "
+                               "the mesh on the survivors")
+        from repro_torch.runtime.elastic import reshard_dist
+        mesh, dspec = self.mesh_factory(n_surviving)
+        if dspec.p_global != self.dspec.p_global:
+            raise ValueError(f"mesh_factory({n_surviving}) changes p_global "
+                             f"{self.dspec.p_global} -> {dspec.p_global}: "
+                             "the streams' lanes and links would not fit")
+        self.state = reshard_dist(self.dspec, self.state, dspec, mesh)
+        self.mesh, self.dspec, self.device = mesh, dspec, mesh.device
+        if not mesh.member:
+            raise RuntimeError("this rank holds no shard of the survivors' "
+                               "mesh: it leaves the run")
+
+
+class DistIssue:
+    """An issued sharded round: the rank's new shard, every lane's link
+    context and the claimed order; the gathered value, success and
+    overflow are copied to pinned host buffers behind the round with an
+    event after them (on the CPU they are the results themselves)."""
+
+    __slots__ = ("state", "ctx", "order", "_host", "_event", "_staged")
+
+    def __init__(self, state, ctx, value, success, overflow, order,
+                 staged=()):
+        self.state, self.ctx, self.order = state, ctx, order
+        self._staged = staged
+        self._host = (value, success, overflow)
+        self._event = None
+        if value.is_cuda:
+            self._host = tuple(
+                torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                .copy_(x, non_blocking=True) for x in self._host)
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def wait(self) -> "DistIssue":
+        if self._event is not None:
+            self._event.synchronize()
+        return self
+
+    def host_result(self) -> tuple[np.ndarray, np.ndarray]:
+        """(value uint32[q, k], success bool[q]) as numpy copies; call
+        after `wait()`."""
+        value, success = (x.numpy() for x in self._host[:2])
+        return value.view(np.uint32).copy(), success.copy()
+
+    @property
+    def overflow(self) -> np.ndarray:
+        """The route-capacity overflow mask (bool[q]); after `wait()`."""
+        return self._host[2].numpy().copy()
+
+
+def _split_versions(dspec, vers, device):
+    """The global version vector as [n_shards, n_local] word rows, row i
+    the shard i holds (the inverse of `distributed.versions`)."""
+    vers = as_words(vers, device)
+    s, nl = dspec.n_shards, dspec.n_local
+    return vers.reshape(nl, s).T.contiguous() if dspec.interleave \
+        else vers.reshape(s, nl)
+
+
 # ---------------------------------------------------------------------------
 # The issue journal.
 # ---------------------------------------------------------------------------
@@ -166,8 +360,10 @@ class Executor:
     """Schedule S streams against one target with more in-flight rounds
     than compute slots.
 
-    target:           `LocalTarget` (None for pure kind="host" stream sets,
-                      e.g. serving).
+    target:           `LocalTarget` / `DistTarget` (None for pure
+                      kind="host" stream sets, e.g. serving).  With a
+                      `DistTarget` every rank of its mesh builds the same
+                      executor over the same streams (see `lockstep`).
     streams:          `runtime.streams` objects (kinds "ops", "round",
                       "host" mix freely; "round" needs a LocalTarget).
     slots:            modeled compute slots per device.
@@ -181,12 +377,20 @@ class Executor:
                       injectable.
     guard:            `PreemptionGuard` (or compatible) polled at round
                       boundaries; `request_stop()` drains + checkpoints.
+                      With a `DistTarget` the ranks agree on the flag once
+                      a round, so a real signal stops a sharded run at the
+                      next round boundary, not mid-round (an injected
+                      preempt fault fires at the same point on every rank
+                      and stops it there).
     injector:         `faults.FaultInjector`, polled before every issue
                       (scheduling faults) and at drained round boundaries
                       (data-plane faults, `poll_boundary`).
     checkpoint_dir /  atomic disk checkpoints (`checkpoint.disk`) every N
     checkpoint_every  rounds at a drained round boundary; an in-memory copy
-                      on the table's device is always kept.
+                      on the table's device is always kept (it backs
+                      shard-loss recovery).  With a `DistTarget` the mesh's
+                      first rank writes and the others wait for it; the
+                      directory must be one every rank reads.
     retry_budget /    graceful degradation: a stream whose issue raises or
     backoff           whose every lane targets quarantined cells counts a
                       failed attempt, waits out `backoff.delay(attempts)`
@@ -219,6 +423,9 @@ class Executor:
         self.recorder = recorder if recorder is not None else Recorder()
 
         self._inflight: deque = deque()
+        # a sharded target: every rank takes the same host branch
+        self._lockstep = target is not None and target.kind == "dist"
+        self._stop = False                       # agreed / injected stop
         device = getattr(target, "device", "cpu")
         self._ctx = {i: engine.init_ctx(s.width, self._k(), device=device)
                      for i, s in enumerate(self.streams)
@@ -250,11 +457,30 @@ class Executor:
         if target is not None:
             from repro_torch import guard as _guard
             if _guard.enabled():
-                self.scrubber = _guard.Scrubber(target.spec,
-                                                device=target.device)
+                self.scrubber = _guard.Scrubber(
+                    self._table_spec(), n=self._n_cells(),
+                    device=target.device)
+
+    def _table_spec(self):
+        """The table's `AtomicSpec` (a sharded target's inner spec)."""
+        return self.target.spec if self.target.kind == "local" \
+            else self.target.dspec.inner
+
+    def _n_cells(self) -> int:
+        if self.target.kind == "local":
+            return self.target.spec.n
+        d = self.target.dspec
+        return d.n_shards * d.n_local
 
     def _k(self) -> int:
-        return 1 if self.target is None else self.target.spec.k
+        return 1 if self.target is None else self._table_spec().k
+
+    def _should_stop(self) -> bool:
+        """Stop at the next check?  With a `DistTarget` only the agreed or
+        injected stop counts (the same on every rank); else the guard."""
+        if self._lockstep:
+            return self._stop
+        return self.guard is not None and self.guard.should_stop
 
     # -- issue / retire ------------------------------------------------------
 
@@ -301,9 +527,14 @@ class Executor:
             span = self.recorder.begin_issue(si, name)
             try:
                 h = self.target.issue(ops, self._ctx[si], donate=self.donate)
-            except Exception:
+            except Exception as err:
                 # roll the stream back so the SAME batch retries after the
-                # backoff window; non-seekable streams can't retry
+                # backoff window; non-seekable streams can't retry.  A
+                # sharded issue rolls back only when every rank raised
+                # alike (`IssueFailed`); an error inside its collectives
+                # ends the run on every rank.
+                if self._lockstep and not isinstance(err, IssueFailed):
+                    raise
                 self.recorder.cancel_issue(span)
                 self._seq[si] = seq
                 if not hasattr(stream, "seek"):
@@ -364,6 +595,7 @@ class Executor:
                         PreemptionGuard
                     self.guard = PreemptionGuard()
                 self.guard.request_stop()
+                self._stop = True                # fires on every rank alike
             elif f.kind == "shard_loss":
                 self._recover(f.shard)
 
@@ -433,6 +665,11 @@ class Executor:
         self.recorder.data_fault(self._round, f.kind, info)
 
     def _damage_checkpoint(self, f, rng):
+        """Hit the newest disk checkpoint once.  With a `DistTarget` every
+        rank draws the same victim, offset and bit (the fault's own rng)
+        and records the same info, the writer alone damages the file, and
+        the ranks meet before and after: the same seeded flip applied by
+        every rank would undo itself."""
         from repro_torch.checkpoint.disk import list_steps
         if not self.checkpoint_dir:
             return None
@@ -449,18 +686,38 @@ class Executor:
         size = os.path.getsize(victim)
         info = {"kind": f.kind, "step": step,
                 "leaf": os.path.basename(victim)}
-        if f.kind == "ckpt_truncate":
+        if f.kind == "ckpt_corrupt":
+            off = int(rng.integers(size))
+            bit = int(rng.integers(8))
+            info["offset"] = off
+        self._meet()                             # every rank has drawn
+        if self._writer():
             with open(victim, "r+b") as fh:
-                fh.truncate(size // 2)
-            return info
-        off = int(rng.integers(size))
-        with open(victim, "r+b") as fh:
-            fh.seek(off)
-            byte = fh.read(1)[0]
-            fh.seek(off)
-            fh.write(bytes([byte ^ (1 << int(rng.integers(8)))]))
-        info["offset"] = off
+                if f.kind == "ckpt_truncate":
+                    fh.truncate(size // 2)
+                else:
+                    fh.seek(off)
+                    byte = fh.read(1)[0]
+                    fh.seek(off)
+                    fh.write(bytes([byte ^ (1 << bit)]))
+        self._meet()
         return info
+
+    def _writer(self) -> bool:
+        """Does this process write the disk checkpoints?  (A sharded run's
+        mesh's first rank; every process otherwise.)"""
+        if not self._lockstep:
+            return True
+        import torch.distributed as tdist
+        return tdist.get_rank() == self.target.mesh.ranks[0]
+
+    def _meet(self, failed: bool = False) -> bool:
+        """With a `DistTarget`: wait for every rank of the mesh and return
+        whether any of them `failed` (one `all_reduce(MAX)`); else
+        `failed`."""
+        if not self._lockstep:
+            return failed
+        return bool(dsb.agree_max(self.target.mesh, [failed])[0])
 
     # -- checkpoint / recovery ----------------------------------------------
 
@@ -475,13 +732,13 @@ class Executor:
     def _ck_template(self) -> dict:
         """The shapes and dtypes of a disk checkpoint's arrays (words as
         uint32), uninitialised: the template a restore fills."""
-        spec = self.target.spec
+        n, k = self._n_cells(), self._table_spec().k
 
         def word(shape):
             return np.empty(tuple(shape), np.uint32)
 
-        return {"table": {"logical": word((spec.n, spec.k)),
-                          "versions": word((spec.n,))},
+        return {"table": {"logical": word((n, k)),
+                          "versions": word((n,))},
                 "ctx": {str(si): {"slot": np.empty(tuple(c.slot.shape),
                                                    np.int32),
                                   "version": word(c.version.shape),
@@ -493,7 +750,9 @@ class Executor:
     def checkpoint(self) -> None:
         """Drain and snapshot at a round boundary: the in-memory recovery
         point (on the device) and, with `checkpoint_dir`, a disk
-        checkpoint for a preemption resume."""
+        checkpoint for a preemption resume (with a `DistTarget`: written
+        by the mesh's first rank, every rank waiting for it, and a failed
+        write raising on every rank)."""
         self._drain()
         payload = self._ck_state()
         meta = {"round": self._round,
@@ -504,15 +763,25 @@ class Executor:
             self.scrubber.set_checkpoint(payload["table"])
         if self.checkpoint_dir:
             from repro_torch.checkpoint.disk import save_checkpoint
-            save_checkpoint(self.checkpoint_dir, self._round,
-                            _host_payload(payload), meta=meta)
+            err = None
+            if self._writer():
+                try:
+                    save_checkpoint(self.checkpoint_dir, self._round,
+                                    _host_payload(payload), meta=meta)
+                except Exception as e:          # agreed below, then raised
+                    err = e
+            if self._meet(err is not None):
+                raise RuntimeError("the disk checkpoint of round "
+                                   f"{self._round} failed") from err
         self.checkpoints.append(self._round)
         self.recorder.checkpoint(self._round)
 
-    def _load_ck(self, payload: dict, meta: dict, hist_len: int) -> None:
-        """Common restore: state, ctxs, seqs, stream cursors; the journal
-        loses what was issued after the checkpoint.  Link contexts go to
-        the device here, at the drained boundary."""
+    def _load_ck(self, payload: dict, meta: dict, hist_len: int) -> list:
+        """Common restore: state, ctxs, seqs, stream cursors.  Returns the
+        journal suffix, the (stream, seq) pairs issued after the
+        checkpoint, which the journal loses.  Link contexts go to the
+        device here, at the drained boundary."""
+        journal = [(r.stream, r.seq) for r in self.history[hist_len:]]
         del self.history[hist_len:]
         self.target.load(payload["table"])
         for key, c in payload["ctx"].items():
@@ -523,25 +792,40 @@ class Executor:
             self._seq[si] = int(q)
             if hasattr(self.streams[si], "seek"):   # ops streams only
                 self.streams[si].seek(int(q))
+        return journal
 
     def _recover(self, shard: int) -> None:
         """Shard-loss recovery: discard in-flight, restore the last
-        checkpoint, reshard onto the survivors.  The only target here, a
-        `LocalTarget`, has nothing to reshard onto: its `shrink` raises,
-        leaving the state the reference leaves.  Replaying the journal
-        onto a smaller mesh comes with the sharded target."""
+        checkpoint, reshard onto the survivors (`target.shrink`: a
+        `LocalTarget` raises, having nothing to reshard onto), replay the
+        journal in its recorded interleaving (deliveries are idempotent by
+        seq: results issued after the checkpoint were provisional), drain,
+        and checkpoint the post-recovery state."""
         if self._last_ck is None:
             raise RuntimeError("shard loss before the first checkpoint")
+        t0 = time.perf_counter()
         self._inflight.clear()                  # results may span the loss
-        self._load_ck(*self._last_ck)
+        payload, meta, hist_len = self._last_ck
+        journal = self._load_ck(payload, meta, hist_len)
         self.target.shrink(self.target.n_shards - 1)
+        for si, seq in journal:
+            assert self._seq[si] == seq, (si, self._seq[si], seq)
+            self._issue(si, self.streams[si])
+        self._drain()
+        # the post-recovery state is the new baseline
+        self.checkpoint()
+        rec = Recovery(self._round, shard, self.target.n_shards,
+                       len(journal), time.perf_counter() - t0)
+        self.recoveries.append(rec)
+        self.recorder.recovery(rec.round, shard, rec.replayed, rec.latency_s)
 
     def resume(self, checkpoint_dir: str | None = None) -> int:
         """Resume from the newest VERIFYING disk checkpoint (preemption
         restart): restores table state + link ctxs + stream cursors;
         `run()` then continues bit-identically with the pre-preemption
         schedule.  A corrupt or truncated newest step is skipped
-        (`checkpoint.disk.restore_latest`)."""
+        (`checkpoint.disk.restore_latest`).  With a `DistTarget` every
+        rank of the mesh reads the same directory."""
         from repro_torch.checkpoint import disk
         ckdir = checkpoint_dir or self.checkpoint_dir
         payload, meta, _step = disk.restore_latest(ckdir, self._ck_template())
@@ -569,7 +853,7 @@ class Executor:
         issued = 0
         for si, stream in enumerate(self.streams):
             self._poll_faults(issued)
-            if self.guard is not None and self.guard.should_stop:
+            if self._should_stop():
                 return
             if si in self._shed_set or stream.done():
                 continue
@@ -593,9 +877,21 @@ class Executor:
         for d in self._delays.values():
             d[1] -= 1
         rcd.round_end(self._round)
-        if self.watchdog is not None and rcd.round_issued():
-            plan = self.watchdog.observe(
-                rcd.latency_vector(len(self.streams)))
+        lat = rcd.latency_vector(len(self.streams)) \
+            if self.watchdog is not None and rcd.round_issued() else []
+        if self._lockstep:
+            # the round's one agreement: the latencies each rank measured
+            # (the watchdog then flags the same streams everywhere) and a
+            # stop requested on any rank (a signal is per process)
+            signalled = self.guard is not None and self.guard.should_stop
+            *lat, stop = dsb.agree_max(self.target.mesh,
+                                       lat + [signalled])
+            if stop:
+                self._stop = True
+                if self.guard is not None:
+                    self.guard.request_stop()
+        if lat:
+            plan = self.watchdog.observe(lat)
             if plan.flagged:
                 rcd.straggler_flags(self._round, plan.flagged)
                 self._skip |= set(plan.flagged)
@@ -612,7 +908,7 @@ class Executor:
                 raise RuntimeError(f"executor exceeded {max_rounds} rounds")
             self._run_round()
             self._guard_boundary()
-            if self.guard is not None and self.guard.should_stop:
+            if self._should_stop():
                 self.recorder.preempt(self._round,
                                       drained=len(self._inflight))
                 if self.target is not None:

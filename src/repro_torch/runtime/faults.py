@@ -10,9 +10,11 @@ work runs; *data-plane* faults corrupt the state the work runs against
                      executor deprioritizes it (skips its next issue slot).
   kind="preempt"     the executor drains, checkpoints and stops cleanly
                      (a resumed executor continues bit-identically).
-  kind="shard_loss"  a shard of a distributed target dies mid-round; against
-                     the single-device `LocalTarget` it is fatal (`shrink`
-                     raises).
+  kind="shard_loss"  a shard of a distributed target dies mid-round: the
+                     executor restores the last checkpoint, reshards a
+                     `DistTarget` onto the survivors and replays the issue
+                     journal; against the single-device `LocalTarget` it is
+                     fatal (`shrink` raises).
 
   kind="bit_flip"        flip one bit of one live table word (a cell's
                          data/backup word or its version word).
@@ -40,6 +42,10 @@ Ordering contract (what makes chaos schedules reproducible):
     index]))`` stream, where ``index`` is the fault's position in the
     ORIGINAL schedule list, so one fault's draws never shift another's and
     one seed gives the same corruption in the port and the reference.
+  * With a `DistTarget` every rank of the mesh runs the same schedule, so
+    every fault fires at the same point on every rank with the same
+    draws; a disk-checkpoint fault damages the directory once (its writer
+    applies it).
 """
 
 from __future__ import annotations

@@ -13,7 +13,8 @@ on 8 fake XLA host devices.
 
 Case dicts:
   name, kind        "table" | "oneshard" | "v1" | "hash" | "mcas" |
-                    "txnmap" | "queue" | "serving"
+                    "txnmap" | "queue" | "serving" | "executor" |
+                    "elastic" | "train_elastic"
   mesh              (shape, axis names) of the 8-rank world
   inner             ("atomic", n, k, strategy, p_max) or
                     ("hash", nb, vw, strategy, p_max)
@@ -39,6 +40,26 @@ Case dicts:
   serve             serving: config, engine keywords, prompts, new tokens,
                     the path of the reference's weights (its `ref` run
                     draws them and writes them there; the ranks wait)
+  executor          a `runtime.Executor` over a `DistTarget` (the
+                    `executor` scenario): strategy, n, k, p_global, streams
+                    (S), n_batches, hot, seed, init, faults (Fault
+                    keywords), checkpoint_every, watchdog, slot_hi (the
+                    streams' cells below it), and either
+                    `halving` (the mesh (s, 8 // s) ("shard", "rest"), s
+                    halving on a shard loss) or `two_level` (mesh (2, 4)
+                    ("node", "shard"), n_nodes 2); optional `guard`
+                    (BIGATOMIC_GUARD=on), `ckdir` (disk checkpoints, then a
+                    fresh executor resumes from them) and `plant` (one
+                    rank's preemption flag, clock or issue: see
+                    `_Rank.executor`).  Every issue record, the recoveries,
+                    checkpoints, flags and the final table are recorded.
+  elastic           `reshard_dist` 8 -> 6 -> 4 -> 8 at (n, k, strategy):
+                    values and versions after each hop, an LL link taken
+                    before the trip and its SC after it
+  train_elastic     deepseek_7b reduced's train state through
+                    `elastic_mesh(n, model_parallel=2, global_batch=2)` and
+                    `reshard_state` for n in `hops`: each hop's placements,
+                    membership, and every leaf gathered at the end
   ref               also run on the reference
 """
 
@@ -208,6 +229,93 @@ def txn_steps(case, logical):
     for _ in range(m["steps"]):
         yield txn_arrays(rng, t=m["t"], w=m["w"], n=n, k=k,
                          current=logical(), match_frac=m["match_frac"])
+
+
+class TickClock:
+    """Stand-in for perf_counter: every call advances 1 ms, so each issue
+    measures one tick and injected delays dominate (the same in both
+    packages)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 0.001
+        return self.t
+
+
+def walk(tree, prefix=()):
+    """(path, leaf) over a nested dict / tuple / list tree, dicts by key."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from walk(tree[key], prefix + (key,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from walk(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def run_executor(rt, Recorder, case, target, *, recorder=None, guard=None):
+    """The case's executor on `target` (either package's `runtime`):
+    SyntheticStreams of the case's seeds, its faults, watchdog and
+    checkpoints, a tick clock."""
+    s, n, k, w = case["streams"], case["n"], case["k"], case["p_global"]
+    hot = case.get("hot", (4, 0.3))
+    streams = [rt.SyntheticStream(f"s{i}", seed=case["seed"] + i, n=n, k=k,
+                                  width=w, n_batches=case["n_batches"],
+                                  slot_hi=case.get("slot_hi"),
+                                  hot_cells=hot[0], hot_frac=hot[1])
+               for i in range(s)]
+    inj = rt.FaultInjector([rt.Fault(**f) for f in case.get("faults", [])],
+                           seed=case.get("fault_seed", 0))
+    return rt.Executor(
+        target, streams, slots=1, oversubscription=4,
+        watchdog=rt.StragglerWatchdog(n_hosts=s) if case.get("watchdog")
+        else None, injector=inj, guard=guard,
+        checkpoint_every=case.get("checkpoint_every", 0),
+        checkpoint_dir=case.get("ckdir"),
+        recorder=recorder or Recorder(trace=False, clock=TickClock()))
+
+
+def executor_record(ex, rep, logical, versions) -> dict:
+    """What an executor run is compared on: every issue (stream, seq, ops,
+    claimed order, overflow, value, success), the report's recoveries
+    without `latency_s`, checkpoints, rounds, issues, flags, the shed
+    streams, data faults and scrubs, and the final table."""
+    hist = [(r.stream, r.seq, *(bits(x) for x in r.ops),
+             None if r.order is None else np.asarray(r.order, np.int64),
+             bits(r.overflow), bits(r.value), bits(r.success))
+            for r in ex.history]
+    return {
+        "history": hist,
+        "recoveries": [{k_: v for k_, v in r.items() if k_ != "latency_s"}
+                       for r in rep["recoveries"]],
+        "checkpoints": list(rep["checkpoints"]), "rounds": rep["rounds"],
+        "issues": rep["issues"], "stopped": rep["stopped"],
+        "deprioritized": rep["deprioritized"],
+        "flags": [(r, list(f)) for r, f in ex.recorder.flags],
+        "shed": rep["shed"], "data_faults": rep["data_faults"],
+        "scrubs": [{k_: v for k_, v in sc.items() if k_ != "latency_s"}
+                   for sc in rep["scrubs"]],
+        "logical": bits(logical), "versions": bits(versions),
+        "width": ex.target.width, "n_shards": ex.target.n_shards}
+
+
+class _SignalAt:
+    """A preemption guard whose flag is set on one rank alone once its
+    executor reaches round `at` (as a signal delivered to one process
+    would be)."""
+
+    def __init__(self, planted: bool, at: int):
+        self.planted, self.at, self.ex, self._set = planted, at, None, False
+
+    @property
+    def should_stop(self) -> bool:
+        return self._set or (self.planted and self.ex._round >= self.at)
+
+    def request_stop(self):
+        self._set = True
 
 
 # ---------------------------------------------------------------------------
@@ -519,6 +627,194 @@ class _Rank:
                         "spec_shards": eng.paged.spec.n_shards}
         return out
 
+    def _factory(self, case):
+        """n_surviving -> (mesh, dspec): the `executor` scenario's halving
+        geometry, the mesh (s, world // s) ("shard", "rest") cached by
+        shape (every rank builds it at the same point)."""
+        n, k = case["n"], case["k"]
+        world = self.dist.get_world_size()
+
+        def factory(n_surviving):
+            s = 1
+            while s * 2 <= n_surviving and n % (s * 2) == 0:
+                s *= 2
+            mesh = self.mesh({"mesh": ((s, world // s), ("shard", "rest"))})
+            return mesh, self.dsb.DistSpec(
+                self.atomics.AtomicSpec(n, k, case["strategy"], p_max=64),
+                "shard", s, case["p_global"] // s)
+        return factory
+
+    def executor(self, case):
+        """The case's executor over a `DistTarget` on every rank.  Plants
+        (`plant` = (what, rank, arg)): "preempt" sets rank's preemption
+        flag alone at round arg; "clock" makes rank's recorded latency of
+        stream arg 50 ms slower; "raise" makes rank's arg-th issue raise
+        in its host preparation, once.  With `ckdir` the run checkpoints
+        to disk (the mesh's first rank writing: each rank counts its own
+        writes), then a fresh executor resumes from the newest verifying
+        step and runs to the end."""
+        from repro_torch import runtime as rt
+        from repro_torch.checkpoint import disk
+        from repro_torch.obs import Recorder
+        dsb = self.dsb
+        rank = self.dist.get_rank()
+        what, at, arg = case.get("plant") or (None, -1, None)
+        if case.get("two_level"):
+            mesh = self.mesh({"mesh": ((2, 4), ("node", "shard"))})
+            dspec = dsb.DistSpec(
+                self.atomics.AtomicSpec(case["n"], case["k"],
+                                        case["strategy"], p_max=64),
+                "shard", 8, case["p_global"] // 8, n_nodes=2,
+                node_axis="node")
+            factory = None
+        else:
+            factory = self._factory(case)
+            mesh, dspec = factory(self.dist.get_world_size())
+        saves = []
+        save = disk.save_checkpoint
+
+        def counted(*a, **kw):
+            saves.append(a[1])
+            return save(*a, **kw)
+        disk.save_checkpoint = counted
+        if case.get("guard"):
+            os.environ["BIGATOMIC_GUARD"] = "on"
+        try:
+            target = rt.DistTarget(mesh, dspec, case["init"],
+                                   mesh_factory=factory)
+            recorder = Recorder(trace=False, clock=TickClock())
+            if what == "clock" and rank == at:
+                lat = recorder.issue_latency
+                recorder.issue_latency = lambda si, sec: lat(
+                    si, sec + (0.05 if si == arg else 0.0))
+            guard = _SignalAt(what == "preempt" and rank == at, arg) \
+                if what == "preempt" else None
+            ex = run_executor(rt, Recorder, case, target, recorder=recorder,
+                              guard=guard)
+            if guard is not None:
+                guard.ex = ex
+            if what == "raise" and rank == at:
+                prep, calls = target._prepare, []
+
+                def raising(ops):
+                    calls.append(1)
+                    if len(calls) == arg:
+                        raise RuntimeError("planted: this rank's host "
+                                           "preparation raised")
+                    return prep(ops)
+                target._prepare = raising
+            failures = []
+            note = ex._note_failure
+            ex._note_failure = lambda si, reason: (
+                failures.append((ex._round, si, reason)), note(si, reason))
+            rep = ex.run()
+            out = executor_record(ex, rep, dsb.logical(target.dspec,
+                                                       target.state),
+                                  dsb.versions(target.dspec, target.state))
+            out["failures"] = failures
+            if case.get("ckdir"):
+                target2 = rt.DistTarget(mesh, dspec, case["init"],
+                                        mesh_factory=factory)
+                ex2 = run_executor(rt, Recorder, dict(case, faults=[]),
+                                   target2)
+                out["resumed_round"] = ex2.resume()
+                rep2 = ex2.run()
+                out["resumed"] = executor_record(
+                    ex2, rep2, dsb.logical(target2.dspec, target2.state),
+                    dsb.versions(target2.dspec, target2.state))
+                out["steps_on_disk"] = disk.list_steps(case["ckdir"])
+        finally:
+            disk.save_checkpoint = save
+            os.environ.pop("BIGATOMIC_GUARD", None)
+        out["saves"] = saves
+        return out
+
+    def elastic(self, case):
+        """`reshard_dist` 8 -> 6 -> 4 -> 8 (the `elastic` scenario's
+        table): an LL of cell 5 and a STORE of 77 to cell 7 first, the
+        values and versions after each hop (on the ranks of its mesh;
+        None elsewhere), then the SC of cell 5 with the link taken before
+        the trip."""
+        from repro_torch.runtime import reshard_dist
+        dsb, atomics = self.dsb, self.atomics
+        n, k = case["n"], case["k"]
+
+        def geo(s):
+            mesh = self.mesh({"mesh": ((s,), ("shard",))})
+            return mesh, dsb.DistSpec(
+                atomics.AtomicSpec(n, k, case["strategy"], p_max=64),
+                "shard", s, 8)
+        mesh, dspec = geo(8)
+        st = dsb.init_dist(mesh, dspec, case["init"])
+        p = dspec.p_global
+        kind = np.full(p, atomics.IDLE, np.int32)
+        slot = np.zeros(p, np.int32)
+        desired = np.zeros((p, k), np.uint32)
+        kind[0], slot[0] = atomics.LL, 5
+        kind[1], slot[1], desired[1] = atomics.STORE, 7, 77
+        zeros = np.zeros((p, k), np.uint32)
+        st, ctx, _, _ = dsb.apply_global(mesh, dspec, st, atomics.make_ops(
+            kind, slot, zeros, desired, k=k, device="cpu"))
+        out = {"hops": []}
+        for s in case["hops"]:
+            mesh2, dspec2 = geo(s)
+            st = reshard_dist(dspec, st, dspec2, mesh2)
+            mesh, dspec = mesh2, dspec2
+            out["hops"].append({
+                "s": s, "member": mesh.member,
+                "logical": bits(dsb.logical(dspec, st)) if mesh.member
+                else None,
+                "versions": bits(dsb.versions(dspec, st)) if mesh.member
+                else None})
+        kind = np.full(p, atomics.IDLE, np.int32)
+        kind[0], slot[0], desired[0] = atomics.SC, 5, 55
+        st, ctx, res, _ = dsb.apply_global(mesh, dspec, st, atomics.make_ops(
+            kind, slot, zeros, desired, k=k, device="cpu"), ctx)
+        out["sc_success"] = bool(res.success[0])
+        out["logical_after"] = bits(dsb.logical(dspec, st))
+        return out
+
+    def train_elastic(self, case):
+        """deepseek_7b reduced's (params, AdamW state) through
+        `elastic_mesh` + `reshard_state` for each n of `hops`: per hop the
+        mesh's plan, this rank's membership and every param leaf's
+        placement; at the end, on the ranks of the last mesh, whether
+        every gathered leaf (params, both moments, the step) equals the
+        initial one bit for bit."""
+        import torch
+        from repro_torch import dist
+        from repro_torch.configs import get_config
+        from repro_torch.launch.steps import init_train_state
+        from repro_torch.optim import AdamWConfig
+        from repro_torch.runtime import elastic_mesh, reshard_state
+        cfg = get_config("deepseek_7b", reduced=True)
+        state = init_train_state(cfg, AdamWConfig(warmup=1, total_steps=2),
+                                 0, device="cpu")
+        want = [(path, x.clone()) for path, x in walk(state)]
+        out = {"hops": []}
+        mesh = None
+        for n_dev in case["hops"]:
+            mesh = elastic_mesh(n_dev, model_parallel=2, global_batch=2,
+                                device="cpu", timeout=self.timeout)
+            state = reshard_state(state, cfg, mesh)
+            out["hops"].append({
+                "n": n_dev, "shape": mesh.shape, "ranks": mesh.ranks,
+                "member": mesh.member,
+                "placements": {path: leaf.spec for path, leaf in
+                               walk(state[0])},
+                "held": [leaf.local is not None
+                         for _, leaf in walk(state)]})
+        if mesh.member:
+            got = [(path, dist.gather_leaf(leaf)) for path, leaf in
+                   walk(state)]
+            out["equal"] = [
+                (a == b and x.dtype == y.dtype and x.shape == y.shape
+                 and torch.equal(x.reshape(-1).view(torch.uint8),
+                                 y.reshape(-1).view(torch.uint8)))
+                for (a, x), (b, y) in zip(want, got)]
+            out["n_leaves"] = len(want)
+        return out
+
     def mcas(self, case):
         torch, dsb, txn_mcas = self.torch, self.dsb, self.txn_mcas
         mesh, dspec, shard = self.setup(case)
@@ -568,6 +864,8 @@ def rank_main(job, inputs, out_dir, rank, world, port, pg_timeout):
         _plant_hang(r, rank)
     if job == "skip_len":
         _plant_skipped_len(rank)
+    if job == "issue_error":
+        return _issue_error(r, cases[0], rank)
     out = {case["name"]: getattr(r, case["kind"])(case) for case in cases}
     (Path(out_dir) / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
     if job == "skip_len" and rank == 1:
@@ -592,6 +890,31 @@ def _plant_hang(r: _Rank, rank: int) -> None:
     dist.all_reduce = leave
 
 
+def _issue_error(r: _Rank, case, rank: int) -> None:
+    """Rank 1's second `apply_global` raises inside a `DistTarget` issue,
+    past the issue's agreement (as an error in the collectives would):
+    its executor must not roll the batch back alone but end, and rank 1
+    then stays in the world, as a stuck rank would.  Every other rank
+    must fail at the collective rank 1 never joins."""
+    dsb = r.dsb
+    if rank == 1:
+        apply_global, calls = dsb.apply_global, []
+
+        def failing(*a, **kw):
+            calls.append(1)
+            if len(calls) == 2:
+                raise RuntimeError("planted: an error inside the round")
+            return apply_global(*a, **kw)
+        dsb.apply_global = failing
+        try:
+            r.executor(case)
+        except RuntimeError as err:
+            print(f"rank 1 ended its run: {err}", flush=True)
+            time.sleep(3600)
+        raise SystemExit("rank 1's executor went on past the error")
+    r.executor(case)
+
+
 def _plant_skipped_len(rank: int) -> None:
     """Rank 1's sharded queues answer `len()` with 0, skipping the routed
     LOAD: every other rank must fail at the collective rank 1 never
@@ -610,32 +933,15 @@ def _plant_skipped_len(rank: int) -> None:
 
 def ref_main(job, inputs, out_path):
     import jax
-    import jax.numpy as jnp
     from jax.experimental.pallas import tpu as pltpu
     if not hasattr(pltpu, "TPUMemorySpace"):   # renamed in newer jax
         pltpu.TPUMemorySpace = pltpu.MemorySpace
     from repro import atomics
     from repro.core import cachehash as ch
     from repro.core import distributed as dsb
-    from repro.core import registry
     from repro.sync.queue import BackoffPolicy
 
-    def global_view(dspec, st):
-        """(logical, versions) de-sharded in numpy from the stacked
-        leaves where the reference's own helpers cannot reshape."""
-        if not dspec.interleave and dspec.n_nodes == 1:
-            return (bits(dsb.logical(dspec, st)),
-                    bits(dsb.versions(dspec, st)))
-        impl = registry.get_strategy(dspec.inner.strategy)
-        leaves = jax.tree.map(np.asarray, st.local)
-        vals = np.stack([bits(impl.logical(jax.tree.map(
-            lambda x, i=i: jnp.asarray(x[i]), leaves)))
-            for i in range(dspec.n_shards)])
-        ver = bits(leaves.version)
-        if dspec.interleave:
-            vals, ver = np.swapaxes(vals, 0, 1), np.swapaxes(ver, 0, 1)
-        return vals.reshape(dspec.n_global, -1), ver.reshape(-1)
-
+    global_view = ref_global_view
     cases = pickle.loads(Path(inputs).read_bytes())
     out = {}
     for case in cases:
@@ -643,6 +949,9 @@ def ref_main(job, inputs, out_path):
             continue
         if case["kind"] == "serving":
             out[case["name"]] = ref_serving(case)
+            continue
+        if case["kind"] in REF_RUNTIME:
+            out[case["name"]] = REF_RUNTIME[case["kind"]](case)
             continue
         mesh = jax.make_mesh(tuple(case["mesh"][0]), tuple(case["mesh"][1]))
         dspec = make_dspec(atomics, dsb, case)
@@ -696,6 +1005,28 @@ def ref_main(job, inputs, out_path):
     Path(out_path).write_bytes(pickle.dumps(out))
 
 
+def ref_global_view(dspec, st):
+    """The reference's (logical, versions), de-sharded in numpy from the
+    stacked leaves where its own helpers cannot reshape (interleaved and
+    two-level states on jax 0.9)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import distributed as dsb
+    from repro.core import registry
+    if not dspec.interleave and dspec.n_nodes == 1:
+        return (bits(dsb.logical(dspec, st)),
+                bits(dsb.versions(dspec, st)))
+    impl = registry.get_strategy(dspec.inner.strategy)
+    leaves = jax.tree.map(np.asarray, st.local)
+    vals = np.stack([bits(impl.logical(jax.tree.map(
+        lambda x, i=i: jnp.asarray(x[i]), leaves)))
+        for i in range(dspec.n_shards)])
+    ver = bits(leaves.version)
+    if dspec.interleave:
+        vals, ver = np.swapaxes(vals, 0, 1), np.swapaxes(ver, 0, 1)
+    return vals.reshape(dspec.n_global, -1), ver.reshape(-1)
+
+
 def ref_serving(case) -> dict:
     """The reference's one-device `ServingEngine` on the case's config and
     requests, on the weights its own `init_params` draws.  Those weights
@@ -725,6 +1056,107 @@ def ref_serving(case) -> dict:
             "dispatch_count": int(eng.dispatch_count),
             "free": len(eng.paged.free),
             "items": {int(x): bits(v) for x, v in items.items()}}
+
+
+def ref_executor(case) -> dict:
+    """The reference's `DistTarget` executor on the case (8 fake devices,
+    the mesh (s, 8 // s) ("shard", "rest") or (2, 4) ("node", "shard"))."""
+    import jax
+    from repro import atomics
+    from repro import runtime as rt
+    from repro.core import distributed as dsb
+    from repro.obs import Recorder
+    n, k = case["n"], case["k"]
+    inner = atomics.AtomicSpec(n, k, case["strategy"], p_max=64)
+    if case.get("two_level"):
+        mesh = jax.make_mesh((2, 4), ("node", "shard"))
+        dspec = dsb.DistSpec(inner, "shard", 8, case["p_global"] // 8,
+                             n_nodes=2, node_axis="node")
+        factory = None
+    else:
+        def factory(n_surviving):
+            s = 1
+            while s * 2 <= n_surviving and n % (s * 2) == 0:
+                s *= 2
+            return (jax.make_mesh((s, 8 // s), ("shard", "rest")),
+                    dsb.DistSpec(inner, "shard", s, case["p_global"] // s))
+        mesh, dspec = factory(8)
+    target = rt.DistTarget(mesh, dspec, case["init"], mesh_factory=factory)
+    ex = run_executor(rt, Recorder, case, target)
+    rep = ex.run()
+    return executor_record(ex, rep, *ref_global_view(target.dspec,
+                                                     target.state))
+
+
+def ref_elastic(case) -> dict:
+    """The reference's `elastic` scenario table on the case: the same
+    records as `_Rank.elastic`."""
+    import jax
+    from jax.sharding import Mesh
+    from repro import atomics
+    from repro.core import distributed as dsb
+    from repro.runtime import reshard_dist
+    n, k = case["n"], case["k"]
+
+    def geo(s):
+        mesh = Mesh(np.asarray(jax.devices()[:s]), ("shard",))
+        return mesh, dsb.DistSpec(
+            atomics.AtomicSpec(n, k, case["strategy"], p_max=64), "shard", s,
+            8)
+    mesh, dspec = geo(8)
+    st = dsb.init_dist(mesh, dspec, case["init"])
+    ctx = dsb.init_dist_ctx(mesh, dspec)
+    p = dspec.p_global
+    kind = np.full(p, atomics.IDLE, np.int32)
+    slot = np.zeros(p, np.int32)
+    desired = np.zeros((p, k), np.uint32)
+    kind[0], slot[0] = atomics.LL, 5
+    kind[1], slot[1], desired[1] = atomics.STORE, 7, 77
+    st, ctx, _, _ = dsb.apply(mesh, dspec, st, atomics.make_ops(
+        kind, slot, desired=desired, k=k), ctx)
+    out = {"hops": []}
+    for s in case["hops"]:
+        mesh2, dspec2 = geo(s)
+        st = reshard_dist(dspec, st, dspec2, mesh2)
+        mesh, dspec = mesh2, dspec2
+        out["hops"].append({"s": s,
+                            "logical": bits(dsb.logical(dspec, st)),
+                            "versions": bits(dsb.versions(dspec, st))})
+    kind = np.full(p, atomics.IDLE, np.int32)
+    kind[0], slot[0], desired[0] = atomics.SC, 5, 55
+    st, ctx, res, _ = dsb.apply(mesh, dspec, st, atomics.make_ops(
+        kind, slot, desired=desired, k=k), ctx)
+    out["sc_success"] = bool(np.asarray(res.success)[0])
+    out["logical_after"] = bits(dsb.logical(dspec, st))
+    return out
+
+
+def ref_train_elastic(case) -> dict:
+    """The reference's placements (`dist.param_shardings` over
+    `elastic_mesh(n, model_parallel=2, global_batch=2)`) of its own
+    deepseek_7b reduced params, per hop, with each leaf's shape."""
+    from repro import dist
+    from repro.configs import get_config
+    from repro.launch.steps import init_train_state
+    from repro.optim import AdamWConfig
+    from repro.runtime import elastic_mesh
+    cfg = get_config("deepseek_7b", reduced=True)
+    params, _ = init_train_state(cfg, AdamWConfig(warmup=1, total_steps=2),
+                                 0)
+    out = {"shapes": {path: tuple(x.shape) for path, x in walk(params)},
+           "hops": []}
+    for n_dev in case["hops"]:
+        mesh = elastic_mesh(n_dev, model_parallel=2, global_batch=2)
+        sh = dist.param_shardings(params, cfg, mesh,
+                                  dist.make_rules(cfg, mesh))
+        out["hops"].append({
+            "n": n_dev, "shape": tuple(mesh.devices.shape),
+            "placements": {path: tuple(x.spec) for path, x in walk(sh)}})
+    return out
+
+
+REF_RUNTIME = {"executor": ref_executor, "elastic": ref_elastic,
+               "train_elastic": ref_train_elastic}
 
 
 if __name__ == "__main__":
