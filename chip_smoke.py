@@ -284,7 +284,29 @@ package, and runs these phases:
              run and read just after, rows 1-2b and 7a must have
              launched on every rank, and their launches join the kernels
              line.  Each step timed with CUDA events, the decode FIND
-             split into route / round / return / all_gather.  A rank
+             split into route / round / return / all_gather.  Then, the
+             serving models freed, sharded training (`sharded_training`):
+             rank 0 alone (the other rank at a barrier) runs glm4_9b at
+             its published width, SHARD_TRAIN_LAYERS of 40 layers, b 2,
+             t 4096, bf16, remat, AdamW fp32 moments, one snapshot slot,
+             through `launch.train.train` without a mesh for
+             SHARD_TRAIN_STEPS steps; then both ranks the same config
+             and seed through `train(mesh=(data 1, model 2))`, with the
+             counts reset just before and read just after: each rank
+             must launch `flash_attention_wgmma` 2 x layers x steps
+             (remat) and `flash_attention_bwd_wgmma` layers x steps,
+             every attention call on 16 query heads and 1 kv head on the
+             card (no plain route), rows 1-2b through the store's
+             publishes; every stored slice of a sharded leaf half the
+             leaf; losses and grad norms within SHARD_BF16_RTOL of the
+             one-device run's (step 1's tighter: the later steps follow
+             AdamW's first sign step); these launches join the kernels
+             line.
+             One more step instrumented: the host time of its 'model'
+             collectives (gloo, staged through the host).  Then data
+             parallel at (data 2, model 1) on reduced glm4_9b in fp32
+             (b 8, t 128) against rank 0's one-device run of it within
+             SHARD_FP32_RTOL.  A rank
              that fails or a world that outlives `SHARD_WORLD_TIMEOUT_S`
              (each collective bounded by `SHARD_PG_TIMEOUT_S`) fails the
              run.
@@ -5322,6 +5344,192 @@ SHARD_PREFILL_BATCHES = 32       # of the cachehash phase's 128: load 1/8
 SHARD_QUEUE = {"enqueue": 32, "dequeue": 16, "mixed": 32}
 
 
+# Sharded training (after the sharded serving, in the same world):
+# glm4_9b at its published width cut to SHARD_TRAIN_LAYERS of 40 layers,
+# phase 14's TRAIN_LAYERS: both ranks' train state (bf16 params, fp32
+# moments, one store slot, the update's new state: ~32 B a parameter,
+# half of it a rank) and their activations fit the card beside each
+# other at 4 layers, 35.1 GiB a rank (PERF.md section 4).
+SHARD_TRAIN_LAYERS = 4
+SHARD_TRAIN_STEPS = 3
+SHARD_TRAIN_SEED = 14500
+SHARD_TRAIN_MESH = (1, 2)              # (data, model)
+SHARD_DP_MESH = (2, 1)
+SHARD_DP_SHAPE = (128, 8)              # (t, global b), reduced glm4_9b fp32
+# Step 1 (the same parameters on both runs): the mesh sums each cut
+# product's bf16 partials over 'model' in fp32 and rounds once, as the
+# one-device product rounds its fp32 sum once, so an activation may
+# differ by a bf16 rounding: the loss and grad norm within one, 2^-8
+# relative.  The first AdamW step starts from zero moments, so it moves
+# every parameter by lr sign(g), and a parameter whose bf16 gradient has
+# the other sign on the other run ends 2 lr away: steps 2 and 3 compare
+# two trajectories, not one sum, and are held within 2^-4 (the
+# 4-layer card run: 3e-3 in the loss, 2.3e-2 in the grad norm at step 3,
+# a loss spike of norm 43).
+SHARD_BF16_RTOL = (2 ** -8, 2 ** -4)   # step 1, later steps
+SHARD_FP32_RTOL = (1e-5, 1e-5)         # fp32: sums in other orders only
+
+
+class _Timed:
+    """`torch.distributed`'s collectives wrapped to sum the host time of
+    those on `group` (a card sync first, so the time is the collective's:
+    gloo stages card tensors through the host)."""
+
+    NAMES = ("all_reduce", "all_gather", "all_to_all_single")
+
+    def __init__(self, torch, tdist, group):
+        self.torch, self.tdist, self.group = torch, tdist, group
+        self.s, self.calls, self.saved = 0.0, 0, {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = self.saved[name] = getattr(self.tdist, name)
+
+            def timed(*a, _fn=fn, **kw):
+                if kw.get("group") is not self.group:
+                    return _fn(*a, **kw)
+                self.torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = _fn(*a, **kw)
+                self.s += time.perf_counter() - t
+                self.calls += 1
+                return out
+            setattr(self.tdist, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.tdist, name, fn)
+        return False
+
+
+def _train_record(torch, hist, t0, held) -> dict:
+    torch.cuda.synchronize()
+    warm = hist["step_time"][1:] or hist["step_time"]
+    ms = statistics.median(warm) * 1e3
+    return {"loss": hist["loss"], "grad_norm": hist["grad_norm"],
+            "step_ms": [x * 1e3 for x in hist["step_time"]],
+            "step_ms_median_warm": ms, "call_s": time.perf_counter() - t0,
+            "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2 ** 30}
+
+
+def sharded_training(torch, rank, tk, timeout) -> dict:
+    """Sharded training on phase 11b's world (see the module docstring):
+    the one-device glm4_9b run on rank 0, the (1, 2) tensor-parallel run
+    on both ranks with its launches, heads and slices checked on each, an
+    instrumented step, and the (2, 1) data-parallel run on the reduced
+    config beside rank 0's one-device run of it."""
+    import gc
+
+    import torch.distributed as tdist
+    from repro_torch import configs, dist
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.core import distributed as dsb
+    from repro_torch.data import DataPipeline, to_device
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import AdamWConfig
+
+    def fail(what):
+        raise SystemExit(f"sharded-training: rank {rank}: {what}")
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH),
+                              n_layers=SHARD_TRAIN_LAYERS)
+    shape = Shape("train_4k", TRAIN_T, TRAIN_B, "train")
+    opt = AdamWConfig(**dict(TRAIN_OPT, total_steps=SHARD_TRAIN_STEPS))
+    kw = dict(steps=SHARD_TRAIN_STEPS, seed=SHARD_TRAIN_SEED, opt_cfg=opt,
+              snapshot_slots=1, log_every=1)
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    held = free()           # every rank: the serving models' memory freed
+    out = {"layers": SHARD_TRAIN_LAYERS, "steps": SHARD_TRAIN_STEPS,
+           "held_at_start_gib": held / 2 ** 30}
+    if rank == 0:                   # alone on the card: the other waits
+        t0 = time.perf_counter()
+        hist = train(cfg, shape, device="cuda", **kw)[2]     # state freed
+        out["one"] = _train_record(torch, hist, t0, held)
+    tdist.barrier()
+    mesh = dsb.make_mesh(SHARD_TRAIN_MESH, ("data", "model"),
+                         device="cuda", timeout=timeout)
+    calls = []
+    plain = attn_mod.flash_attention
+
+    def recorded(q, k, v, **akw):
+        calls.append((q.shape[2], k.shape[2],
+                      attn_mod.kernel_route(q, **{
+                          n: akw[n] for n in ("softcap", "score_dtype")
+                          if n in akw})))
+        return plain(q, k, v, **akw)
+    held = free()
+    attn_mod.flash_attention = recorded
+    try:
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, state, hist = train(cfg, shape, mesh=mesh, **kw)
+        tp = _train_record(torch, hist, t0, held)
+        tp["launches"] = {k: v for k, v in tk.launch_counts().items() if v}
+    finally:
+        attn_mod.flash_attention = plain
+    n = SHARD_TRAIN_LAYERS * SHARD_TRAIN_STEPS
+    m = SHARD_TRAIN_MESH[1]
+    want = {WGMMA: 2 * n, BWD["bfloat16"]: n, BWD["float32"]: None}
+    if any(tp["launches"].get(k) != v for k, v in want.items()):
+        fail(f"launches {tp['launches']}, expected {want}")
+    heads = (cfg.n_heads // m, cfg.n_kv_heads // m, True)
+    if len(calls) != 2 * n or any(c != heads for c in calls):
+        fail(f"attention calls (query heads, kv heads, kernel route) "
+             f"{sorted(set(calls))} x {len(calls)}, expected {heads} x "
+             f"{2 * n}")
+    tp["heads"] = list(heads[:2])
+    for leaf in tree_leaves((params, state)):
+        whole = math.prod(leaf.shape)
+        if leaf.placement.dim is not None and leaf.local.numel() * m != whole:
+            fail(f"a stored slice of {leaf.shape} holds "
+                 f"{leaf.local.numel()} elements, not 1/{m}")
+    tp["state_gib_rank"] = sum(x.local.numel() * x.local.element_size()
+                               for x in tree_leaves((params, state))) / 2 ** 30
+    # one more step, its 'model' collectives timed
+    batch = to_device(DataPipeline(cfg, shape, seed=SHARD_TRAIN_SEED)
+                      .batch(SHARD_TRAIN_STEPS), "cuda")
+    step = make_train_step(cfg, opt)
+    with dist.axis_rules(mesh, dist.make_rules(cfg, mesh)), \
+            _Timed(torch, tdist, mesh.groups["model"]) as timed:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = step(params, state, batch)
+        torch.cuda.synchronize()
+        tp["timed_step_ms"] = (time.perf_counter() - t0) * 1e3
+    tp["collective_ms"], tp["collectives"] = timed.s * 1e3, timed.calls
+    out["tp"] = tp
+    del params, state, new, batch
+    # data parallel on the reduced config
+    rcfg = dataclasses.replace(configs.get_config(TRAIN_ARCH, reduced=True),
+                               param_dtype="float32", compute_dtype="float32")
+    rshape = Shape("train", *SHARD_DP_SHAPE, "train")
+    held = free()
+    if rank == 0:
+        t0 = time.perf_counter()
+        hist = train(rcfg, rshape, device="cuda", **kw)[2]
+        out["dp_one"] = _train_record(torch, hist, t0, held)
+    tdist.barrier()
+    mesh2 = dsb.make_mesh(SHARD_DP_MESH, ("data", "model"), device="cuda",
+                          timeout=timeout)
+    held, t0 = free(), time.perf_counter()
+    hist = train(rcfg, rshape, mesh=mesh2, **kw)[2]
+    out["dp"] = _train_record(torch, hist, t0, held)
+    free()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    return out
+
+
 def sync_warnings(caught) -> int:
     return sum("called a synchronizing" in str(w.message) for w in caught)
 
@@ -6005,10 +6213,79 @@ def sharded_rank_main(argv) -> int:
             out["one_s"] = time.perf_counter() - t
         tdist.barrier(group=group)
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del params, sr
+        t = time.perf_counter()
+        out["training"] = sharded_training(torch, rank, tk, timeout)
+        out["training"]["training_s"] = time.perf_counter() - t
         (out_dir / f"sharded_rank{rank}.json").write_text(json.dumps(out))
     finally:
         tdist.destroy_process_group()
     return 0
+
+
+def sharded_training_check(trains, launches_main) -> dict:
+    """Phase 11b's sharded training, from each rank's `sharded_training`
+    record: the (1, 2) run's losses and grad norms within SHARD_BF16_RTOL
+    of rank 0's one-device run, the (2, 1) run's within SHARD_FP32_RTOL of
+    its one-device run, the ranks' losses equal, rows 1-2b launched on
+    each rank; the (1, 2) run's launches join `launches_main`.  Returns
+    them, per rank."""
+    card = card_line()
+    one, dp_one = trains[0]["one"], trains[0]["dp_one"]
+    for r, tr in enumerate(trains):
+        for run, want, rtol in (("tp", one, SHARD_BF16_RTOL),
+                                ("dp", dp_one, SHARD_FP32_RTOL)):
+            for key in ("loss", "grad_norm"):
+                got = tr[run][key]
+                if len(got) != SHARD_TRAIN_STEPS or not all(
+                        math.isfinite(x)
+                        and abs(x - w) <= rtol[i > 0] * abs(w)
+                        for i, (x, w) in enumerate(zip(got, want[key]))):
+                    raise SystemExit(
+                        f"sharded-training: rank {r}'s {run} {key} {got} "
+                        f"against one device's {want[key]} (rtol {rtol})")
+        if tr["tp"]["loss"] != trains[0]["tp"]["loss"]:
+            raise SystemExit("sharded-training: the ranks read other losses")
+        for kname in ROUND_KERNELS:
+            if not tr["tp"]["launches"].get(kname):
+                raise SystemExit(f"sharded-training: rank {r} never "
+                                 f"launched {kname} (the store's publish)")
+    train_launches = {kname: [tr["tp"]["launches"].get(kname, 0)
+                              for tr in trains]
+                      for kname in ROUND_KERNELS + (WGMMA, BWD["bfloat16"])}
+    for kname, per_rank in train_launches.items():
+        launches_main[kname] = launches_main.get(kname, 0) + sum(per_rank)
+    tb = TRAIN_B * TRAIN_T
+    log(f"[sharded-training] {card} | {TRAIN_ARCH} {SHARD_TRAIN_LAYERS} of "
+        f"40 layers, b {TRAIN_B}, t {TRAIN_T}, bf16, remat, {SHARD_TRAIN_STEPS}"
+        f" steps; one device (rank 0 alone): losses "
+        f"{[round(x, 4) for x in one['loss']]}, grad norms "
+        f"{[round(x, 4) for x in one['grad_norm']]}, "
+        f"{one['step_ms_median_warm']:.1f} ms a step (warm median; all "
+        f"{[round(x, 1) for x in one['step_ms']]}), "
+        f"{tb / one['step_ms_median_warm'] * 1e3:.0f} tokens/s, peak "
+        f"{one['peak_gib']:.2f} GiB")
+    for r, tr in enumerate(trains):
+        tp = tr["tp"]
+        log(f"[sharded-training] {card} | rank {r} at (data, model) = "
+            f"{SHARD_TRAIN_MESH}: losses {[round(x, 4) for x in tp['loss']]}"
+            f", grad norms {[round(x, 4) for x in tp['grad_norm']]} (within "
+            f"{SHARD_BF16_RTOL} of one device's), "
+            f"{tp['step_ms_median_warm']:.1f} ms a step (all "
+            f"{[round(x, 1) for x in tp['step_ms']]}), "
+            f"{tb / tp['step_ms_median_warm'] * 1e3:.0f} tokens/s, peak "
+            f"{tp['peak_gib']:.2f} GiB above {tr['held_at_start_gib']:.2f} "
+            f"held, state {tp['state_gib_rank']:.2f} GiB;"
+            f" heads (query, kv) {tp['heads']}; launches {tp['launches']}; "
+            f"an instrumented step {tp['timed_step_ms']:.1f} ms, its "
+            f"{tp['collectives']} 'model' collectives "
+            f"{tp['collective_ms']:.1f} ms of host time; data parallel "
+            f"{SHARD_DP_MESH} reduced fp32: losses "
+            f"{[round(x, 6) for x in tr['dp']['loss']]} (one device "
+            f"{[round(x, 6) for x in dp_one['loss']]}), "
+            f"{tr['dp']['step_ms_median_warm']:.1f} ms a step; training part "
+            f"{tr['training_s']:.1f} s")
+    return train_launches
 
 
 def sharded_phase(smoke, tk, launches_main, want_tokens):
@@ -6022,9 +6299,13 @@ def sharded_phase(smoke, tk, launches_main, want_tokens):
     engine without a mesh, and on a kernel of rows 1-2b or 7a that a rank
     never launched in its sharded run.  The ranks' launches join
     `launches_main`."""
+    import gc
     torch = smoke.torch
+    gc.collect()        # the serving phase's weights, held in cycles
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"[sharded] {held:.2f} GiB held on the card by this process")
     out_dir = ROOT / "chiprun_out"
     for r in range(SHARD_RANKS):
         (out_dir / f"sharded_rank{r}.json").unlink(missing_ok=True)
@@ -6087,6 +6368,8 @@ def sharded_phase(smoke, tk, launches_main, want_tokens):
                 for kname in ROUND_KERNELS + (WGMMA,)}
     for kname, per_rank in launches.items():
         launches_main[kname] += sum(per_rank)
+    train_launches = sharded_training_check(
+        [rec["training"] for rec in recs], launches_main)
     rts = [rec["runtime"] for rec in recs]
     for strategy in STRATEGIES:
         a, b = (rt["layouts"][strategy] for rt in rts)
@@ -6154,7 +6437,9 @@ def sharded_phase(smoke, tk, launches_main, want_tokens):
         f"launches per rank {rt_launches}")
     return {"ranks": SHARD_RANKS, "transport": "gloo, card tensors staged "
             "through the host", "world_s": world_s, "launches": launches,
-            "runtime_launches": rt_launches, "per_rank": recs}
+            "runtime_launches": rt_launches,
+            "training_launches": train_launches, "parent_held_gib": held,
+            "per_rank": recs}
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,20 @@ tuple with one dict per period position), remainder layers unstacked
 (`params["tail"]`).  The reference scans over the stack; here a Python
 loop takes one layer at a time, from views that `unbind` makes once a
 forward (indexing `stack[i]` per layer would make each layer's backward
-write a zero tensor the size of the whole stack).  `dist.shard` is the
-identity on one device and is dropped.
+write a zero tensor the size of the whole stack).
+
+Tensor parallelism: under an active `dist.axis_rules` whose 'model' axis
+has more than one rank, each rank runs the same program on its slices,
+cut where the reference annotates (`dist.local_slices`): attention on its
+query heads (`_Heads`: the kv heads they read, the GQA group kept), the
+MLP on its `d_ff` slice, each product summed over 'model' after its cut
+contraction (`wo`, `w_down`); the embedding looks up the rank's vocab
+rows and sums over 'model'; the head's logits are the rank's vocab slice
+and the cross-entropy is vocab-parallel (`_VocabCE`: max and sum-exp
+reduced over 'model', the gold logit from the rank that owns it).  Norms
+stay replicated.  `compute_cuts` names the slice of every parameter leaf
+a rank computes with (`dist.Cut`).  On one device, and outside a
+context, every layer takes its one-device path.
 
 Training: `lm_loss` (next-token CE, or per-position CE for the encoder,
 plus 0.01 x the MoE load-balancing loss), monolithic through
@@ -24,18 +36,20 @@ the period runs again in the backward.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as tdist
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import dist
 from repro_torch.core.layout import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ModelConfig, dense_init, norm,
-                                       normal_init, rope_tables)
+                                       normal_init, rope_tables, tree_map)
 
 MODES = ("train", "prefill", "decode")
 
@@ -231,6 +245,9 @@ def _mlp_apply(x, p, cfg: ModelConfig, mode: str = "train"):
         dropless = cfg.moe_dropless or mode == "decode"
         return moe_mod.moe_ffn(x, p["router"], p.get("w_gate"), p["w_up"],
                                p["w_down"], cfg, dropless=dropless)
+    cut = _mlp_cut(cfg)
+    if cut:
+        x = dist.to_model(x)
     u = attn.project(x, p["w_up"])
     if cfg.mlp == "swiglu":
         g = attn.project(x, p["w_gate"])
@@ -241,7 +258,53 @@ def _mlp_apply(x, p, cfg: ModelConfig, mode: str = "train"):
         h = torch.nn.functional.gelu(u.float(), approximate="tanh").to(
             x.dtype)
     y = attn.project(h, p["w_down"])
+    if cut:
+        y = dist.sum_over_model(y)
     return y, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _mlp_cut(cfg: ModelConfig) -> bool:
+    """Does this rank hold a slice of `d_ff` (tensor parallel)?"""
+    return dist.model_axis() is not None and \
+        dist.local_slice(cfg.d_ff, "mlp")[1] < cfg.d_ff
+
+
+class _Heads(NamedTuple):
+    """This rank's attention heads under tensor parallelism: query heads
+    [q0, q0 + nq), the kv heads [kv0, kv0 + nkv) they read (a cut of its
+    own where the kv heads replicate, `partial`), and `expand` (each query
+    head's kv head, when the rank's query heads are no whole GQA groups of
+    those kv heads), else None."""
+
+    q0: int
+    nq: int
+    kv0: int
+    nkv: int
+    partial: bool
+    expand: tuple | None
+
+
+def _heads(cfg: ModelConfig) -> _Heads | None:
+    """This rank's heads, or None where attention is not cut (one device,
+    no context, or a head count the 'model' axis does not divide: every
+    rank then computes the whole attention, as the reference replicates
+    it)."""
+    if dist.model_axis() is None:
+        return None
+    q0, nq = dist.local_slice(cfg.n_heads, "heads")
+    if nq == cfg.n_heads:
+        return None
+    kv0, nkv = dist.local_slice(cfg.n_kv_heads, "kv_heads")
+    if nkv < cfg.n_kv_heads:
+        return _Heads(q0, nq, kv0, nkv, False, None)
+    group = cfg.n_heads // cfg.n_kv_heads
+    own = [(q0 + i) // group for i in range(nq)]
+    kv0, nkv = own[0], own[-1] - own[0] + 1
+    per = nq // nkv
+    expand = None
+    if nq % nkv or any(h - kv0 != i // per for i, h in enumerate(own)):
+        expand = tuple(h - kv0 for h in own)
+    return _Heads(q0, nq, kv0, nkv, True, expand)
 
 
 def _attn_apply(x, p, cfg: ModelConfig, positions, cache, mode,
@@ -250,8 +313,14 @@ def _attn_apply(x, p, cfg: ModelConfig, positions, cache, mode,
     [b, S, kvh, hd]) is written in place at each row's position: the
     caller hands over a private copy (`forward` clones the cache it was
     given once).  `rope`: `rope_tables` of `positions`, or None."""
+    heads = _heads(cfg)
+    if heads is not None:
+        x = dist.to_model(x)
     q, k, v = attn.attn_qkv(x, p["wq"], p["wk"], p["wv"], positions, cfg,
                             rope)
+    if heads is not None and heads.expand is not None:
+        idx = torch.tensor(heads.expand, device=x.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
     if mode == "decode":
         pos = positions[:, 0, 0] if cfg.mrope_sections else positions[:, 0]
         W = cache["k"].shape[1]
@@ -296,6 +365,8 @@ def _attn_apply(x, p, cfg: ModelConfig, positions, cache, mode,
         else:
             new_cache = None
     y = attn.attn_out(o, p["wo"], x.dtype)
+    if heads is not None:
+        y = dist.sum_over_model(y)
     return y, new_cache
 
 
@@ -345,7 +416,15 @@ def embed_inputs(params, cfg: ModelConfig, batch: dict, mode: str):
         tokens = batch["tokens"]
         b, t = tokens.shape
         dev = tokens.device
-        x = params["embed"].to(cdt)[tokens.long()]
+        v0, nv = dist.local_slice(cfg.vocab, "vocab")
+        if dist.model_axis() is not None and nv < cfg.vocab:
+            # vocab-parallel: this rank's rows, zeros elsewhere, summed
+            idx = tokens.long() - v0
+            own = (idx >= 0) & (idx < nv)
+            x = params["embed"].to(cdt)[idx.clamp(0, nv - 1)]
+            x = dist.sum_over_model(torch.where(own[..., None], x, 0.0))
+        else:
+            x = params["embed"].to(cdt)[tokens.long()]
         if cfg.family == "vlm" and "vision_embeds" in batch:
             ve = torch.einsum("bpd,de->bpe", batch["vision_embeds"].to(cdt),
                               params["vision_proj"].to(cdt))
@@ -515,46 +594,169 @@ def _head(params, cfg: ModelConfig):
             else params["head"]).to(cfg.cdtype())
 
 
-def _chunk_ce(h, targets, valid, head, softcap: float):
+def _chunk_ce(h, targets, valid, head, softcap: float, v0=None):
     """One loss chunk: the head projection and its CE, summed over the
-    valid positions."""
+    valid positions (`v0`: the first vocab row of a vocab-parallel
+    head's cut)."""
     logits = torch.matmul(h, head)
     if softcap > 0:
         logits = softcap * torch.tanh(logits.float() / softcap)
-    return torch.sum(torch.where(valid[None, :],
-                                 _ce_terms(logits, targets), 0.0))
+    terms = _ce_terms(logits, targets) if v0 is None else \
+        _VocabCE.apply(logits, targets, v0, dist.model_axis().group)
+    return torch.sum(torch.where(valid[None, :], terms, 0.0))
+
+
+def _chunked_ce(h, targets, head, cfg: ModelConfig, v0=None):
+    """The CE of hidden states `h` [b, t, d] against `targets` [b, t],
+    summed: `cfg.loss_chunk` chunks of positions (the last padded), each
+    chunk's head projection and CE under `checkpoint`, so the [b, t,
+    vocab] logits never materialise, forward or backward (the reference
+    maps over the chunks with `lax.map`)."""
+    tm1 = h.shape[1]
+    nc = cfg.loss_chunk
+    pad = (-tm1) % nc
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad))
+    per = (tm1 + pad) // nc
+    valid = (torch.arange(tm1 + pad, device=h.device) < tm1).reshape(nc, per)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for j in range(nc):
+        sl = slice(j * per, (j + 1) * per)
+        total = total + checkpoint(
+            _chunk_ce, h[:, sl], targets[:, sl], valid[j], head,
+            cfg.logit_softcap, v0, use_reentrant=False)
+    return total
+
+
+class _VocabCE(torch.autograd.Function):
+    """`_ce_terms` of vocab-cut logits [..., V / m] (this rank's rows from
+    `v0`): the max and the sum of exponentials reduced over 'model', the
+    gold logit from the rank that owns it (a sum with the others' zeros);
+    the backward is local: softmax - one-hot, on the rank's columns."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, v0, group):
+        lf = logits.float()
+        nv = lf.shape[-1]
+        m = lf.amax(-1)
+        tdist.all_reduce(m, op=tdist.ReduceOp.MAX, group=group)
+        p = torch.exp(lf - m[..., None])
+        s = p.sum(-1)
+        tdist.all_reduce(s, group=group)
+        idx = targets.long() - v0
+        own = (idx >= 0) & (idx < nv)
+        safe = idx.clamp(0, nv - 1)
+        gold = torch.where(own, torch.gather(lf, -1, safe[..., None])[..., 0],
+                           0.0)
+        tdist.all_reduce(gold, group=group)
+        p.div_(s[..., None])
+        ctx.save_for_backward(p, safe, own)
+        ctx.dtype = logits.dtype
+        return torch.log(s) + m - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        p, safe, own = ctx.saved_tensors
+        grad = p * g[..., None]
+        grad.scatter_add_(-1, safe[..., None],
+                          -torch.where(own, g, 0.0)[..., None])
+        return grad.to(ctx.dtype), None, None, None
+
+
+def _vocab_start(cfg: ModelConfig):
+    """The first vocab row of this rank's cut of the head, or None where
+    the head is not cut."""
+    if dist.model_axis() is None:
+        return None
+    v0, nv = dist.local_slice(cfg.vocab, "vocab")
+    return v0 if nv < cfg.vocab else None
+
+
+def lm_loss_terms(params, cfg: ModelConfig, batch: dict):
+    """(the CE summed over this rank's targets, 0.01 x the MoE
+    load-balancing loss): the parts of `lm_loss` a sharded step adds up
+    over the batch axes, its loss the sum over the GLOBAL target count.
+    Under tensor parallelism the head and the CE are vocab-parallel
+    (`_VocabCE`), monolithic or, with `cfg.loss_chunk`, chunk by chunk."""
+    targets = batch["tokens"] if cfg.input_mode == "tokens" \
+        else batch["labels"]
+    x, positions = embed_inputs(params, cfg, batch, "train")
+    h, aux = _trunk(params, cfg, x, positions)
+    head = _head(params, cfg)
+    v0 = _vocab_start(cfg)
+    if v0 is not None:
+        h = dist.to_model(h)
+    if cfg.causal:
+        targets, h = targets[:, 1:], h[:, :-1]
+    if cfg.loss_chunk and cfg.causal:
+        return _chunked_ce(h, targets, head, cfg, v0), 0.01 * aux
+    valid = torch.ones(h.shape[1], dtype=torch.bool, device=h.device)
+    return _chunk_ce(h, targets, valid, head, cfg.logit_softcap, v0), \
+        0.01 * aux
+
+
+def compute_cuts(shapes, cfg: ModelConfig):
+    """For a parameter tree of global shapes (tuples), the `dist.Cut`
+    each leaf is computed with on this rank under the active context:
+    the embedding and head by vocab rows, `wq` / `wo` by query heads,
+    `wk` / `wv` by the kv heads the rank's query heads read, the MLP by
+    `d_ff`; the whole leaf elsewhere (norms, the features projection,
+    `vision_proj`, and any dim the 'model' axis does not divide)."""
+    heads = _heads(cfg)
+    v0 = _vocab_start(cfg)
+    nv = cfg.vocab // dist.model_axis().size if v0 is not None else 0
+    f0, nf = dist.local_slice(cfg.d_ff, "mlp") if cfg.d_ff else (0, 0)
+    mlp = _mlp_cut(cfg) if cfg.d_ff and not cfg.is_moe else False
+
+    def layer(p, lead):
+        out = {}
+        for name, x in p.items():
+            if isinstance(x, dict):
+                out[name] = layer(x, lead) if name in ("attn", "mlp") \
+                    else tree_map(lambda _: dist.Cut(), x)
+                continue
+            if name in ("wq", "wo") and heads is not None:
+                d = lead + (1 if name == "wq" else 0)
+                out[name] = dist.Cut(d, heads.q0, heads.nq)
+            elif name in ("wk", "wv") and heads is not None:
+                out[name] = dist.Cut(lead + 1, heads.kv0, heads.nkv,
+                                     heads.partial)
+            elif name in ("w_up", "w_gate", "w_down") and mlp:
+                d = lead + (0 if name == "w_down" else 1)
+                out[name] = dist.Cut(d, f0, nf)
+            else:
+                out[name] = dist.Cut()
+        return out
+
+    cuts = {}
+    for name, x in shapes.items():
+        if name == "stack":
+            cuts[name] = tuple(layer(p, 1) for p in x)
+        elif name == "tail":
+            cuts[name] = tuple(layer(p, 0) for p in x)
+        elif name == "embed" and cfg.input_mode == "tokens" and \
+                v0 is not None:
+            cuts[name] = dist.Cut(0, v0, nv)
+        elif name == "head" and v0 is not None:
+            cuts[name] = dist.Cut(1, v0, nv)
+        else:
+            cuts[name] = dist.Cut()
+    return cuts
 
 
 def lm_loss(params, cfg: ModelConfig, batch: dict):
     """Next-token CE (causal) / per-position CE (encoder).  Scalar mean,
     plus 0.01 x the MoE load-balancing loss.
 
-    With cfg.loss_chunk > 0 (causal) the sequence is cut into that many
-    chunks, and each chunk's head projection and CE run under
-    `checkpoint`, so the [b, t, vocab] logits never materialise, forward
-    or backward (the reference maps over the chunks with `lax.map`)."""
+    With cfg.loss_chunk > 0 (causal) the CE is `_chunked_ce`'s."""
     targets = batch["tokens"] if cfg.input_mode == "tokens"         else batch["labels"]
     if cfg.loss_chunk and cfg.causal:
         x, positions = embed_inputs(params, cfg, batch, "train")
         h, aux = _trunk(params, cfg, x, positions)
-        head = _head(params, cfg)
-        targets = targets[:, 1:]
-        h = h[:, :-1]
-        b, tm1, d = h.shape
-        nc = cfg.loss_chunk
-        pad = (-tm1) % nc
-        if pad:
-            h = torch.nn.functional.pad(h, (0, 0, 0, pad))
-            targets = torch.nn.functional.pad(targets, (0, pad))
-        per = (tm1 + pad) // nc
-        valid = (torch.arange(tm1 + pad, device=h.device) < tm1).reshape(
-            nc, per)
-        total = torch.zeros((), dtype=torch.float32, device=h.device)
-        for j in range(nc):
-            sl = slice(j * per, (j + 1) * per)
-            total = total + checkpoint(
-                _chunk_ce, h[:, sl], targets[:, sl], valid[j], head,
-                cfg.logit_softcap, use_reentrant=False)
+        b, tm1 = targets.shape[0], targets.shape[1] - 1
+        total = _chunked_ce(h[:, :-1], targets[:, 1:], _head(params, cfg),
+                            cfg)
         return total / (b * tm1) + 0.01 * aux
 
     logits, _, aux = forward(params, cfg, batch, mode="train")

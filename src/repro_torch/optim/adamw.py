@@ -7,6 +7,12 @@ alone.  The arithmetic is fp32 whatever the parameter's dtype; the moments
 are stored in `moment_dtype`.  Every number stays on the device (the
 norm, the learning rate and the step are 0-d tensors): no host read.
 
+On a mesh each rank updates its slices (`sharded`: a tree of bools, the
+leaf is a slice over `group`; the update is elementwise, so slicing is
+exact) and clips by the norm of the GLOBAL gradient: the sharded leaves'
+sums of squares summed over `group` (one all_reduce), a replicated leaf
+counted once.
+
 An update is elementwise, so each leaf is updated in slices of at most
 `UPDATE_SLICE` elements, the same arithmetic for every element: at
 glm4_9b's width the embedding alone has 6.2e8 parameters, and its fp32
@@ -19,6 +25,7 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as tdist
 
 from repro_torch.models.common import tree_map
 
@@ -87,24 +94,32 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
 
 
-def global_norm(tree):
+def global_norm(tree, *, sharded=None, group=None):
     """sqrt of the sum of squares of every float leaf, in fp32 (int32
-    leaves skipped), summed leaf by leaf in the reference's order."""
+    leaves skipped), summed leaf by leaf in the reference's order.  With
+    `sharded` (bools in `tree`'s structure) and `group`: the norm of the
+    global tree, each sharded leaf's sum of squares summed over `group`."""
+    xs = leaves(tree)
+    flags = leaves(sharded) if sharded is not None else [False] * len(xs)
+    sqs = [(torch.sum(torch.square(x.float())), f)
+           for x, f in zip(xs, flags) if x.dtype != torch.int32]
+    if group is not None and any(f for _, f in sqs):
+        vec = torch.stack([sq if f else torch.zeros_like(sq)
+                           for sq, f in sqs])
+        tdist.all_reduce(vec, group=group)
+        sqs = [(vec[i] if f else sq, f) for i, (sq, f) in enumerate(sqs)]
     total = None
-    for x in leaves(tree):
-        if x.dtype == torch.int32:
-            continue
-        sq = torch.sum(torch.square(x.float()))
+    for sq, _ in sqs:
         total = sq if total is None else total + sq
     if total is None:
         return torch.zeros(())
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm):
+def clip_by_global_norm(grads, max_norm, *, sharded=None, group=None):
     """(grads scaled so their global norm is at most `max_norm`, each in
     its own dtype; the norm before)."""
-    g = global_norm(grads)
+    g = global_norm(grads, sharded=sharded, group=group)
     scale = torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
     return tree_map(lambda x: (x.float() * scale).to(x.dtype), grads), g
 
@@ -132,9 +147,12 @@ def _update_leaf(p, g, m, v, lr, bc1, bc2, cfg: AdamWConfig, mdt):
     return out_p, out_m, out_v
 
 
-def adamw_update(params, grads, state, cfg: AdamWConfig):
-    """Returns (new_params, new_state, metrics {grad_norm, lr})."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+def adamw_update(params, grads, state, cfg: AdamWConfig, *, sharded=None,
+                 group=None):
+    """Returns (new_params, new_state, metrics {grad_norm, lr}); on a
+    mesh, of this rank's slices (`sharded`, `group`: see the module)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, sharded=sharded,
+                                       group=group)
     step = state["step"] + 1
     lr = wsd_schedule(cfg, step)
     bc1 = 1.0 - cfg.b1 ** step.float()

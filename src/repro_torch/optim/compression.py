@@ -7,18 +7,23 @@ decompresses at once, so the update sees what the all-reduce would have
 carried.  The residual (what the rounding lost) is carried in fp32 to the
 next step's compression.  The int8 scales travel in `meta`, never in the
 gradient tree.  `torch.round` rounds half to even, as `jnp.round` does.
+On a mesh the step compresses each rank's slices after the gradient's
+reduction; an int8 leaf held as slices over `group` (`sharded`) takes its
+scale from the whole leaf's largest magnitude (a max over `group`).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as tdist
 
 from repro_torch.models.common import tree_map
 from repro_torch.optim.adamw import leaves
 from repro_torch.optim.adamw import unflatten as _unflatten
 
 
-def compress_grads(grads, residual, mode: str = "bf16"):
+def compress_grads(grads, residual, mode: str = "bf16", *, sharded=None,
+                   group=None):
     """Returns (compressed_tree, new_residual_tree, meta).
 
     mode: none | bf16 | int8.  `meta` is passed to decompress_grads.  The
@@ -40,9 +45,14 @@ def compress_grads(grads, residual, mode: str = "bf16"):
                 ("bf16", None))
     if mode == "int8":
         comped, new_res, scales = [], [], []
-        for g, r in zip(g_leaves, r_leaves):
+        flags = leaves(sharded) if sharded is not None else \
+            [False] * len(g_leaves)
+        for g, r, f in zip(g_leaves, r_leaves, flags):
             tot = g.float() + r
-            scale = torch.clamp(tot.abs().max(), min=1e-12) / 127.0
+            amax = tot.abs().max()
+            if f and group is not None:
+                tdist.all_reduce(amax, op=tdist.ReduceOp.MAX, group=group)
+            scale = torch.clamp(amax, min=1e-12) / 127.0
             q = torch.clamp(torch.round(tot / scale), -127, 127).to(
                 torch.int8)
             comped.append(q)

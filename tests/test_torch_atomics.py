@@ -23,6 +23,7 @@ from repro.core import engine as jengine
 from repro_torch import atomics as tatomics
 from repro_torch import convert
 from repro_torch.kernels import engine_round as ter
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 STRATEGIES = ["plain", "simplock", "seqlock", "indirect", "cached_wf",

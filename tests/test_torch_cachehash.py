@@ -28,6 +28,7 @@ from repro.core.specs import HashSpec as JSpec
 from repro_torch.core import cachehash as tch
 from repro_torch.core import deprecation
 from repro_torch.core.specs import HashSpec as TSpec
+from torch_threads import one_thread  # noqa: F401
 
 LOCK_FREE = ["seqlock", "indirect", "cached_wf", "cached_me"]
 FIND, INSERT, DELETE, IDLE = 7, 8, 9, 3

@@ -34,6 +34,7 @@ from repro.core import distributed as ref_dsb
 from repro.core import engine as ref_engine
 from repro_torch import atomics, convert
 from repro_torch.core import distributed as dsb
+from torch_threads import one_thread  # noqa: F401
 
 LOCK_FREE = ["seqlock", "indirect", "cached_wf", "cached_me"]
 SHARDS = (2, 4, 8)
@@ -301,14 +302,14 @@ def runs(tmp_path_factory):
     cases, expected, checks = build()
     inputs = tmp / "cases.pkl"
     inputs.write_bytes(pickle.dumps(cases))
-    ref = W.start_reference("tables", inputs, tmp / "ref.pkl")
-    rcs, tails, seconds = W.run_world("tables", inputs, tmp / "world",
-                                      timeout=240)
-    assert not any(rcs), "\n".join(tails)
-    world = W.load_world(tmp / "world")
+    with W.reference("tables", inputs, tmp / "ref.pkl") as ref:
+        rcs, tails, seconds = W.run_world("tables", inputs, tmp / "world",
+                                          timeout=240)
+        assert not any(rcs), "\n".join(tails)
+        ref_out = W.finish_reference(ref, tmp / "ref.pkl")
     return {"cases": {c["name"]: c for c in cases}, "expected": expected,
-            "checks": checks, "world": world,
-            "ref": W.finish_reference(ref, tmp / "ref.pkl")}
+            "checks": checks, "world": W.load_world(tmp / "world"),
+            "ref": ref_out}
 
 
 def _global_steps(runs, name):

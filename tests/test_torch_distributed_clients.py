@@ -32,6 +32,7 @@ from repro.core import cachehash as ref_ch
 from repro.txn import mcas as ref_mcas
 from repro_torch import atomics
 from repro_torch.core import distributed as dsb
+from torch_threads import one_thread  # noqa: F401
 
 LOCK_FREE = ["seqlock", "indirect", "cached_wf", "cached_me"]
 SHARDS = (2, 4, 8)
@@ -139,13 +140,13 @@ def runs(tmp_path_factory):
     cases, expected = build()
     inputs = tmp / "cases.pkl"
     inputs.write_bytes(pickle.dumps(cases))
-    ref = W.start_reference("clients", inputs, tmp / "ref.pkl")
-    rcs, tails, seconds = W.run_world("clients", inputs, tmp / "world",
-                                      timeout=240)
-    assert not any(rcs), "\n".join(tails)
+    with W.reference("clients", inputs, tmp / "ref.pkl") as ref:
+        rcs, tails, seconds = W.run_world("clients", inputs, tmp / "world",
+                                          timeout=240)
+        assert not any(rcs), "\n".join(tails)
+        ref_out = W.finish_reference(ref, tmp / "ref.pkl")
     return {"cases": {c["name"]: c for c in cases}, "expected": expected,
-            "world": W.load_world(tmp / "world"),
-            "ref": W.finish_reference(ref, tmp / "ref.pkl")}
+            "world": W.load_world(tmp / "world"), "ref": ref_out}
 
 
 def _by_shard(runs, name):

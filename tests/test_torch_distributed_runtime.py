@@ -60,6 +60,7 @@ import pytest
 import torch_dist_world as W
 from repro_torch import atomics
 from repro_torch.core import distributed as dsb
+from torch_threads import one_thread  # noqa: F401
 
 EXEC_STRATEGIES = ("seqlock", "cached_wf")
 EXEC = [f"executor/{st}/S{s}" for st in EXEC_STRATEGIES for s in (2, 4, 8)]
@@ -128,8 +129,8 @@ def runs(tmp_path_factory):
     cases = build(tmp)
     inputs = tmp / "cases.pkl"
     inputs.write_bytes(pickle.dumps(cases))
-    ref = W.start_reference("runtime", inputs, tmp / "ref.pkl")
-    with ThreadPoolExecutor(1) as pool:
+    with W.reference("runtime", inputs, tmp / "ref.pkl") as ref, \
+            ThreadPoolExecutor(1) as pool:
         failing = pool.submit(_issue_error_world, tmp / "issue_error")
         rcs, tails, seconds = W.run_world("runtime", inputs, tmp / "world",
                                           timeout=240)

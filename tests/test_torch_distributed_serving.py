@@ -49,6 +49,7 @@ import pytest
 import torch_dist_world as W
 from repro_torch import atomics
 from repro_torch.core import distributed as dsb
+from torch_threads import one_thread  # noqa: F401
 
 LOCK_FREE = ["seqlock", "indirect", "cached_wf", "cached_me"]
 TXNMAP = [f"txnmap/{st}/s{s}" for st in LOCK_FREE for s in (2, 4)]
@@ -162,8 +163,8 @@ def runs(tmp_path_factory):
     cases = build(tmp / "ref_params.pkl")
     inputs = tmp / "cases.pkl"
     inputs.write_bytes(pickle.dumps(cases))
-    ref = W.start_reference("serving", inputs, tmp / "ref.pkl")
-    with ThreadPoolExecutor(1) as pool:     # meanwhile, the planted hang
+    with W.reference("serving", inputs, tmp / "ref.pkl") as ref, \
+            ThreadPoolExecutor(1) as pool:  # meanwhile, the planted hang
         skip_len = pool.submit(_skipped_len_world, tmp / "skip_len")
         rcs, tails, seconds = W.run_world("serving", inputs, tmp / "world",
                                           timeout=240)

@@ -15,6 +15,7 @@ from repro.core import engine as jengine
 from repro_torch import atomics as tatomics
 from repro_torch import convert
 from repro_torch.core import engine as tengine
+from torch_threads import one_thread  # noqa: F401
 
 STRATEGIES = ["plain", "simplock", "seqlock", "indirect", "cached_wf",
               "cached_me"]

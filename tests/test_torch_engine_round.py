@@ -25,6 +25,7 @@ from repro_torch import convert
 from repro_torch.core import engine as tengine
 from repro_torch.kernels import _build
 from repro_torch.kernels import engine_round as ter
+from torch_threads import one_thread  # noqa: F401
 
 SPECTRA = ["none", "low", "all_same"]
 ALL_KINDS = [0, 1, 2, 3, 4, 5, 6]

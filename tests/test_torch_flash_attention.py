@@ -45,6 +45,7 @@ from repro_torch.kernels.flash_attention import (KERNELS, TF32_WIDTHS,
                                                  flash_attention_plain,
                                                  hbm_bytes_model, kernel_for,
                                                  padded_width)
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -30,14 +30,14 @@ D and dK/dV-sum passes) compiled for the CPU.
     TF32 pass is not.  (Its wgmma kernels run only on a card:
     `chip_smoke.py`'s training phase holds them to the plain backward,
     with three planted faults.)
-  * tests/cuda_emu/ (the CUDA runtime emulated with a thread per CUDA
+  * tests/cuda_emu/ (the CUDA runtime emulated with a fiber per CUDA
     thread, 3-D grids, warp shuffles, bf16) lets g++ compile the headers,
     launches rewritten into calls of the emulator: the converters' lo
     copies and key-ordered transposes at W 16, 128 and 256 bit for bit
     against plain PyTorch; `attn_bwd_prep` (D = rowsum(dO o O)) and
     `attn_bwd_dkdv_sum` (the dK/dV partials summed) in fp32 and bf16; D
     left out fails.  Skipped without g++.  The module runs on one
-    intra-op thread, and its cases are small: the emulator runs a thread
+    intra-op thread, and its cases are small: the emulator runs a fiber
     per CUDA thread, beside the other test workers."""
 
 import ctypes
@@ -55,7 +55,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 
-from test_torch_train import one_thread  # noqa: F401
+from torch_threads import one_thread  # noqa: F401
 
 EMU = Path(__file__).resolve().parent / "cuda_emu"
 LAUNCH = re.compile(r"([A-Za-z_][\w:]*(?:<[^<>;]*>)?)<<<(.*?)>>>\(", re.S)

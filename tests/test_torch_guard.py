@@ -53,6 +53,7 @@ from repro_torch.guard.scrub import (FNV_OFFSET, FNV_PRIME, Scrubber,
                                      cell_digest, digest_np, scrub)
 from repro_torch.kernels.scrub_digest import digest_rows, digest_rows_plain
 from repro_torch.runtime import DATA_KINDS, SCHED_KINDS, Fault, LocalTarget
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 LAYOUTS = ("plain", "simplock", "seqlock", "indirect", "cached_wf",

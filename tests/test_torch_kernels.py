@@ -30,6 +30,7 @@ from repro_torch import convert
 from repro_torch import kernels as tk
 from repro_torch.core import engine as tengine
 from repro_torch.kernels import _build, llsc_commit, ops, ref
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 STORE, CAS, FULL = ref.STORE, ref.CAS, ref.FULL

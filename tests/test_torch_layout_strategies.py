@@ -14,6 +14,7 @@ from repro.core import layout as jlayout
 from repro_torch import atomics as tatomics
 from repro_torch import convert
 from repro_torch.core import layout as tlayout
+from torch_threads import one_thread  # noqa: F401
 
 STRATEGIES = ["plain", "simplock", "seqlock", "indirect", "cached_wf",
               "cached_me"]

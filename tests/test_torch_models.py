@@ -40,6 +40,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORTED = ["deepseek_7b", "glm4_9b", "codeqwen15_7b", "nemotron_4_15b",
@@ -470,16 +471,19 @@ def test_rope_and_mrope_positions_match_reference():
 
 def test_unported_paths_raise_not_implemented():
     """The stub that remains of ROADMAP Queue 1 item 8 (distribution)
-    raises NotImplementedError naming it: `train(mesh=...)` (8e).  (The
-    sharded clients and serving, 8b-8c, run since they were ported:
-    tests/test_torch_distributed_serving.py.)"""
+    raises NotImplementedError naming it: `train(mesh=...)` of a MoE config
+    on a mesh of two ranks (8f), before any collective (the mesh here has
+    no process group).  (Sharded training of the dense configs, 8e, runs
+    since it was ported: tests/test_torch_train_sharded.py.)"""
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import SHAPES, reduced_shape
+    from repro_torch.core import distributed as dsb
     from repro_torch.launch.train import train
-    cfg = get_config("deepseek_7b", reduced=True)
+    cfg = get_config("mixtral_8x7b", reduced=True)
+    mesh = dsb.Mesh((1, 2), ("data", "model"), [0, 0], {}, "cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        train(cfg, reduced_shape(SHAPES["train_4k"]), steps=1,
-              mesh=object(), device="cpu")
+        train(cfg, reduced_shape(SHAPES["train_4k"]), steps=1, mesh=mesh,
+              device="cpu")
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

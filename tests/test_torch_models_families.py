@@ -58,6 +58,7 @@ import torch
 from test_torch_models import (BF16_ATOL, BF16_RTOL, FP32_ATOL, _fp32,
                                _inputs, _Pkg, as_np, flatten,
                                scenario_consistency, scenario_multi_token)
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FAMILIES = ["mixtral_8x7b", "llama4_maverick_400b_a17b", "mamba2_780m",

@@ -41,6 +41,7 @@ from repro_torch.kernels import engine_round as ter
 from repro_torch.obs import telemetry as ttel
 from test_torch_engine_round import (LOCK_FREE, _no_host_read, make_batch,
                                      spectrum_ops)
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 N, K, P = 48, 2, 16

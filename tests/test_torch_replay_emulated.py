@@ -8,12 +8,14 @@ of `table_ops.cu`: the gather, the SC and STORE/CAS commit rounds, the
 CacheHash probe and find (`ref.*_ref`).
 
 There is no CUDA compiler or card here, so `tests/cuda_emu/cuda_runtime.h`
-stands in for the CUDA runtime: a block runs as one thread per CUDA thread,
-meeting at every warp shuffle, ballot and match and at `__syncthreads()`;
-blocks run in blockIdx order.  g++
+stands in for the CUDA runtime: a block runs as one fiber per CUDA thread,
+all on one OS thread, meeting at every warp shuffle, ballot and match and
+at `__syncthreads()`; blocks run in blockIdx order.  g++
 compiles the two sources as they are, apart from their `kernel<<<...>>>`
-launches, which become calls of the emulator, and the tests call the C
-entry points with CPU tensors.  This checks the kernels' logic: windows
+launches, which become calls of the emulator, and their loops' tests,
+which let the other emulated threads run first (`emu_spin`: a look-back
+spins on a flag another block sets), and the tests call the C entry
+points with CPU tensors.  This checks the kernels' logic: windows
 and segment ownership, the write-mask fixed point, the row carried across
 chunks, dead lanes, the thread per segment at other widths; the prologue's
 sort (the digit histograms, the ranks within a tile, the look-back between
@@ -42,6 +44,7 @@ from repro_torch import convert
 from repro_torch.core import engine as tengine
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import engine_round as ter
+from torch_threads import one_thread  # noqa: F401
 
 EMU = Path(__file__).resolve().parent / "cuda_emu"
 LAUNCH = re.compile(r"([A-Za-z_][\w:]*(?:<[^<>;]*>)?)<<<(.*?)>>>\(", re.S)
@@ -57,6 +60,9 @@ def libs(tmp_path_factory):
     for src in _build.sources("engine_round") + _build.sources("table_ops"):
         text = LAUNCH.sub(lambda m: f"EmuLaunch({m.group(2)})({m.group(1)})(",
                           src.read_text())
+        # a loop lets the other emulated threads run first: a look-back
+        # spins on a flag another block sets
+        text = text.replace("while (", "while (emu_spin() && ")
         (out / src.name).write_text(text)
     loaded = {}
     for name in ("engine_round", "table_ops"):

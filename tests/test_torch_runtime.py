@@ -40,6 +40,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 STRATEGIES = ("seqlock", "indirect", "cached_wf", "cached_me")

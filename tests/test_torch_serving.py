@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from test_torch_models import flatten, unflatten
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

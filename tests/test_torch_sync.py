@@ -28,6 +28,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 LOCK_FREE = ["seqlock", "indirect", "cached_wf", "cached_me"]

@@ -58,6 +58,7 @@ import pytest
 import torch
 
 from test_torch_models import flatten
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["hubert_xlarge", "llama4_maverick_400b_a17b", "mixtral_8x7b",
@@ -78,16 +79,6 @@ BF16_ATOL_REL = 2 ** -6
 # by 1.3e-4 / 1.1e-5 / 7.8e-6 of the leaf's largest entry, the
 # reference's by 2.7e-4 / 2.9e-5 / 8.8e-6 (b 2, t 128)
 CANCELLING_ATOL_REL = {"A_log": 1e-3, "dt_bias": 1e-4, "w_dt": 1e-4}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """The module's port runs on one intra-op thread: its tensors are
-    small, and idle threads only spin beside the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def case_config(get_config, arch: str, variant: dict, fp32: bool):
@@ -711,10 +702,22 @@ def test_train_resumes_bit_identical_and_matches_reference(reference,
 
 
 def test_train_with_a_mesh_raises():
+    """`train(mesh=...)` runs the dense configs (tests/
+    test_torch_train_sharded.py); an SSM or hybrid config on a mesh of two
+    ranks raises NotImplementedError naming Queue 1 item 8f, before any
+    collective (the mesh here has no process group), and so does a rank
+    outside its mesh with a dense one."""
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import SHAPES, reduced_shape
+    from repro_torch.core import distributed as dsb
     from repro_torch.launch.train import train
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        train(get_config("glm4_9b", reduced=True),
-              reduced_shape(SHAPES["train_4k"]), steps=1, mesh=object(),
-              device="cpu")
+    shape = reduced_shape(SHAPES["train_4k"])
+    mesh = dsb.Mesh((2, 1), ("data", "model"), [1, 0], {}, "cpu")
+    for arch in ("mamba2_780m", "recurrentgemma_9b"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8f"):
+            train(get_config(arch, reduced=True), shape, steps=1, mesh=mesh,
+                  device="cpu")
+    outside = dsb.Mesh((2, 1), ("data", "model"), None, {}, "cpu")
+    with pytest.raises(ValueError, match="not a member"):
+        train(get_config("glm4_9b", reduced=True), shape, steps=1,
+              mesh=outside, device="cpu")

@@ -17,8 +17,9 @@ aux loss's mean probabilities; the one-hot counts carry none) included."""
 import numpy as np
 import pytest
 
-from test_torch_train import (case_of, compare_case, one_thread,  # noqa: F401
-                              port_case, reference_run)
+from test_torch_train import (case_of, compare_case, port_case,
+                              reference_run)
+from torch_threads import one_thread  # noqa: F401
 from test_torch_train import run_reference as _run
 
 FAMILIES = ["mixtral_8x7b", "llama4_maverick_400b_a17b", "mamba2_780m",

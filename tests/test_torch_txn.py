@@ -35,6 +35,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from oracle import MapOracle, TxnOracle
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 LOCK_FREE = ["seqlock", "indirect", "cached_wf", "cached_me"]

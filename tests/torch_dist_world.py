@@ -60,14 +60,34 @@ Case dicts:
                     `elastic_mesh(n, model_parallel=2, global_batch=2)` and
                     `reshard_state` for n in `hops`: each hop's placements,
                     membership, and every leaf gathered at the end
+  train             `launch.train.train(mesh=...)` on the case's reduced
+                    config in fp32 (`train_config`): `arch`, `variant`,
+                    `comp`, `steps`, resumed from `ckdir` (a one-device
+                    checkpoint the test wrote); with `probe`, first one
+                    step on the checkpoint's state with its gradients
+                    kept and the gradients of the leaves every rank
+                    computes whole (`compute_cuts`)
+  train_preempt     a stop flag on rank `stop_rank` alone at its
+                    `stop_at`-th poll, then resumed at the same mesh and
+                    (from a copy) at `resume_mesh`
+  train_refuse      `train(mesh=...)` on each of `archs`: the error each
+                    rank raised
+  train_ref         `train(mesh=...)` from the reference's initial state
+                    (`state`, which the reference's run writes; the ranks
+                    wait), to hold against its live sharded step
+  train_specs       (reference only) `dist._spec`, each device's slice and
+                    `batch_shardings` for the case's shapes and meshes
   ref               also run on the reference
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import datetime
 import os
 import pickle
+import shutil
 import socket
 import subprocess
 import sys
@@ -166,6 +186,21 @@ def start_reference(job: str, inputs, out_path) -> subprocess.Popen:
     return subprocess.Popen(
         [sys.executable, __file__, "ref", job, str(inputs), str(out_path)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+@contextlib.contextmanager
+def reference(job: str, inputs, out_path):
+    """`start_reference`'s process, killed and reaped on the way out if it
+    is still running (a test that fails before `finish_reference` leaves
+    no process behind)."""
+    proc = start_reference(job, inputs, out_path)
+    try:
+        yield proc
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        proc.stdout.close()
 
 
 def finish_reference(proc: subprocess.Popen, out_path, timeout: float = 240):
@@ -300,6 +335,56 @@ def executor_record(ex, rep, logical, versions) -> dict:
                    for sc in rep["scrubs"]],
         "logical": bits(logical), "versions": bits(versions),
         "width": ex.target.width, "n_shards": ex.target.n_shards}
+
+
+# Sharded training: the shape (seq, global batch: every data axis of the
+# 8-rank meshes divides it), AdamW and data seed of every `train*` case.
+TRAIN_SHAPE = (32, 8)
+TRAIN_OPT = {"lr": 1e-3, "warmup": 1, "total_steps": 10}
+TRAIN_DATA_SEED = 5
+
+
+def train_config(get_config, arch: str, variant: dict):
+    """A train case's config: `arch` reduced, in fp32, with `variant`."""
+    return dataclasses.replace(get_config(arch, reduced=True),
+                               param_dtype="float32",
+                               compute_dtype="float32", **variant)
+
+
+def moment_state(state, seed: int, zeros_like, cast):
+    """An AdamW state as after 5 steps (m ~ N(0, 1e-3), v ~ U(0.5, 1.5) x
+    1e-5, step 5; drawn leaf by leaf in `walk` order), so an update is m /
+    sqrt(v) and not the sign of a gradient near 0 that a rounding moves.
+    `cast(array, like)` makes a leaf of either package."""
+    rng = np.random.default_rng(100 + seed)
+    m = {path: rng.standard_normal(tuple(x.shape)) * 1e-3
+         for path, x in walk(state["m"])}
+    v = {path: rng.uniform(0.5, 1.5, tuple(x.shape)) * 1e-5
+         for path, x in walk(state["v"])}
+
+    def rebuild(tree, vals, prefix=()):
+        if isinstance(tree, dict):
+            return {k: rebuild(t, vals, prefix + (k,))
+                    for k, t in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(rebuild(t, vals, prefix + (i,))
+                              for i, t in enumerate(tree))
+        return cast(vals[prefix], tree)
+    return {"m": rebuild(state["m"], m), "v": rebuild(state["v"], v),
+            "step": zeros_like(state["step"]) + 5}
+
+
+class _StopAfter:
+    """A preemption guard whose flag rises at its `n`-th poll on one rank
+    alone (`planted`), as a signal delivered to one process would."""
+
+    def __init__(self, planted: bool, n: int):
+        self.planted, self.n, self.polls = planted, n, 0
+
+    @property
+    def should_stop(self) -> bool:
+        self.polls += 1
+        return self.planted and self.polls >= self.n
 
 
 class _SignalAt:
@@ -815,6 +900,172 @@ class _Rank:
             out["n_leaves"] = len(want)
         return out
 
+    # -- sharded training ---------------------------------------------------
+
+    def _train_setup(self, case):
+        from repro_torch.configs import get_config
+        from repro_torch.configs.shapes import Shape
+        from repro_torch.optim import AdamWConfig
+        cfg = train_config(get_config, case["arch"], case.get("variant", {}))
+        t, b = TRAIN_SHAPE
+        opt = AdamWConfig(**TRAIN_OPT)
+        kw = dict(seed=TRAIN_DATA_SEED, opt_cfg=opt, log_every=0,
+                  ckpt_every=100, grad_compression=case.get("comp", "none"))
+        return cfg, Shape("train", t, b, "train"), opt, kw
+
+    def _gathered(self, tree):
+        """Every leaf of a ShardedLeaf tree whole (each rank joins the
+        gathers), as numpy on rank 0, None elsewhere."""
+        from repro_torch import dist
+        got = {path: bits(dist.gather_leaf(leaf)) for path, leaf in
+               walk(tree)}
+        return got if self.dist.get_rank() == 0 else None
+
+    def _probe(self, case, cfg, shape, opt, mesh):
+        """Step 1's gradients on the checkpoint's state, taken as the
+        mesh's step takes them (each stored slice to its compute cut, the
+        rank's rows, the global mean, summed over the batch axes), gathered;
+        its loss and global grad norm (after compression, as the step's);
+        and (with a 'model' axis) the gradients of the leaves this rank
+        computes whole, in the compute layout (their bytes)."""
+        torch = self.torch
+        from repro_torch import dist
+        from repro_torch.checkpoint import restore_checkpoint
+        from repro_torch.data import DataPipeline, to_device
+        from repro_torch.launch import steps as st
+        from repro_torch.models.common import tree_leaves, tree_map
+        from repro_torch.models.transformer import (compute_cuts,
+                                                    lm_loss_terms)
+        from repro_torch.optim import (compress_grads, decompress_grads,
+                                       global_norm)
+        from repro_torch.runtime import reshard_state
+        template = st.init_train_state(cfg, opt, 0, device="meta")
+        state, _ = restore_checkpoint(case["ckdir"], 0, template,
+                                      device="cpu")
+        params, _ = reshard_state(state, cfg, mesh)
+        batch = to_device(DataPipeline(cfg, shape, seed=TRAIN_DATA_SEED)
+                          .batch(0), "cpu")
+        rules = dist.make_rules(cfg, mesh)
+        ax = mesh.groups["model"] if mesh.size("model") > 1 else None
+        with dist.axis_rules(mesh, rules):
+            live = tree_map(lambda p: p.local.detach().requires_grad_(),
+                            params)
+            cuts = compute_cuts(tree_map(lambda p: p.shape, params), cfg)
+            comp = tree_map(lambda x, p, c: dist.to_compute(
+                x, p.placement, p.shape, c), live, params, cuts)
+            ce, aux = lm_loss_terms(comp, cfg,
+                                    dist.local_rows(batch, mesh, rules))
+            loss = ce / st._n_targets(cfg, batch) + aux
+            whole = [(path, x) for (path, c), (_, x) in
+                     zip(_insertion(cuts), _insertion(comp))
+                     if c.dim is None]
+            leaves = tree_leaves(live)
+            grads = torch.autograd.grad(
+                loss, leaves + [x for _, x in whole], allow_unused=True)
+            mine = [st._or_zeros(g, p) for g, p in zip(grads, leaves)]
+            loss, mine = st._sum_over_batch(mesh, rules, loss.detach(),
+                                            mine)
+        it = iter(mine)
+        tree = tree_map(lambda p: next(it), live)
+        out = {"grads": self._gathered(tree_map(
+            lambda g, p: dist.ShardedLeaf(g, p.placement, p.shape, p.dtype,
+                                          mesh), tree, params))}
+        sharded = tree_map(lambda p: p.placement.dim is not None, params)
+        comp_name = case.get("comp", "none")
+        if comp_name != "none":
+            tree, _, meta = compress_grads(tree, None, comp_name,
+                                           sharded=sharded, group=ax)
+            tree = decompress_grads(tree, meta)
+        out["probe"] = (float(loss), float(global_norm(
+            tree, sharded=sharded, group=ax)))
+        if ax is not None:
+            out["whole"] = {path: bits(g) for (path, _), g in
+                            zip(whole, grads[len(leaves):])
+                            if g is not None}
+        return out
+
+    def train(self, case):
+        from repro_torch.launch.train import train
+        mesh = self.mesh(case)
+        cfg, shape, opt, kw = self._train_setup(case)
+        out = {"coords": dict(mesh.coords)}
+        if case.get("probe"):
+            out.update(self._probe(case, cfg, shape, opt, mesh))
+        p, s, hist = train(cfg, shape, steps=case["steps"],
+                           ckpt_dir=case["ckdir"], mesh=mesh, **kw)
+        out["loss"], out["grad_norm"] = hist["loss"], hist["grad_norm"]
+        out["slices"] = {path: (leaf.spec, tuple(leaf.local.shape),
+                                tuple(leaf.shape))
+                         for path, leaf in walk((p, s))}
+        out["final"] = self._gathered((p, s))
+        return out
+
+    def train_preempt(self, case):
+        from repro_torch.checkpoint import list_steps
+        from repro_torch.launch.train import train
+        mesh = self.mesh(case)
+        cfg, shape, opt, kw = self._train_setup(case)
+        rank, ck = self.dist.get_rank(), case["ckdir"]
+        guard = _StopAfter(rank == case["stop_rank"], case["stop_at"])
+        _, _, first = train(cfg, shape, steps=case["steps"], ckpt_dir=ck,
+                            mesh=mesh, guard=guard, **kw)
+        out = {"first": first["loss"], "steps": list_steps(ck)}
+        if rank == 0:
+            for dst in case["copies"]:
+                shutil.copytree(ck, dst)
+        self.dist.barrier()
+        p, s, second = train(cfg, shape, steps=case["steps"], ckpt_dir=ck,
+                             mesh=mesh, **kw)
+        out["second"] = second["loss"]
+        out["final"] = self._gathered((p, s))
+        other = self.mesh({"mesh": case["resume_mesh"]})
+        p, s, third = train(cfg, shape, steps=case["steps"],
+                            ckpt_dir=case["copies"][0], mesh=other, **kw)
+        out["third"] = third["loss"]
+        out["final_other"] = self._gathered((p, s))
+        return out
+
+    def train_refuse(self, case):
+        from repro_torch.configs import get_config
+        from repro_torch.configs.shapes import Shape
+        from repro_torch.launch.train import train
+        mesh = self.mesh(case)
+        out = {}
+        for arch in case["archs"]:
+            t0 = time.perf_counter()
+            try:
+                train(get_config(arch, reduced=True), Shape("t", 16, 8, "t"),
+                      steps=1, mesh=mesh, log_every=0)
+                out[arch] = ("ran", time.perf_counter() - t0)
+            except NotImplementedError as err:
+                out[arch] = (str(err), time.perf_counter() - t0)
+        return out
+
+    def train_ref(self, case):
+        """`train(mesh=...)` from the reference's initial state (rank 0
+        writes it as a step-0 checkpoint into each case's `ckdir`, once)."""
+        from repro_torch import convert
+        from repro_torch.checkpoint import latest_step, save_checkpoint
+        from repro_torch.launch.train import train
+        path, t0 = Path(case["state"]), time.perf_counter()
+        while not path.exists():           # the reference's run writes it
+            if time.perf_counter() - t0 > 200:
+                raise TimeoutError("the reference's initial state never "
+                                   "came")
+            time.sleep(0.05)
+        if self.dist.get_rank() == 0 and latest_step(case["ckdir"]) is None:
+            ref = pickle.loads(path.read_bytes())
+            state = (convert.model_params(ref["params"], "cpu"),
+                     convert.opt_state(ref["opt"], "cpu"))
+            save_checkpoint(case["ckdir"], 0, state, meta={"next_step": 0})
+        self.dist.barrier()
+        mesh = self.mesh(case)
+        cfg, shape, opt, kw = self._train_setup(case)
+        p, s, hist = train(cfg, shape, steps=case["steps"],
+                           ckpt_dir=case["ckdir"], mesh=mesh, **kw)
+        return {"loss": hist["loss"], "grad_norm": hist["grad_norm"],
+                "final": self._gathered((p, s))}
+
     def mcas(self, case):
         torch, dsb, txn_mcas = self.torch, self.dsb, self.txn_mcas
         mesh, dspec, shard = self.setup(case)
@@ -851,6 +1102,18 @@ class _Rank:
         return out
 
 
+def _insertion(tree, prefix=()):
+    """(path, leaf) in insertion order (the order `tree_leaves` takes)."""
+    if isinstance(tree, dict):
+        for key, v in tree.items():
+            yield from _insertion(v, prefix + (key,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _insertion(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
 def rank_main(job, inputs, out_dir, rank, world, port, pg_timeout):
     import torch
     import torch.distributed as dist
@@ -866,7 +1129,13 @@ def rank_main(job, inputs, out_dir, rank, world, port, pg_timeout):
         _plant_skipped_len(rank)
     if job == "issue_error":
         return _issue_error(r, cases[0], rank)
-    out = {case["name"]: getattr(r, case["kind"])(case) for case in cases}
+    out = {}
+    for case in cases:
+        if case.get("world", True):
+            t0 = time.perf_counter()
+            out[case["name"]] = getattr(r, case["kind"])(case)
+            print(f"[rank {rank}] {case['name']}: "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
     (Path(out_dir) / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
     if job == "skip_len" and rank == 1:
         time.sleep(3600)          # stay in the world, as a stuck rank would
@@ -1155,8 +1424,96 @@ def ref_train_elastic(case) -> dict:
     return out
 
 
+def ref_train(case) -> dict:
+    """The reference's live sharded step on the case's config: its own
+    initial params and an AdamW state as after 5 steps (written to
+    `state` first, for the port's ranks), then `jax.jit(make_train_step)`
+    under `dist.axis_rules` on each of `meshes` (auto axes: `Mesh` over
+    the devices reshaped, as `elastic_mesh` builds it), `steps` steps of
+    `synthetic_batch` placed by `batch_shardings`: losses, grad norms and
+    the final params and moments, per mesh."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from repro import dist
+    from repro.configs import get_config
+    from repro.configs.shapes import Shape
+    from repro.data import synthetic_batch
+    from repro.launch.steps import make_train_step
+    from repro.models.transformer import init_params
+    from repro.optim import AdamWConfig, adamw_init
+    from repro.runtime import reshard_state
+    cfg = train_config(get_config, case["arch"], {})
+    opt = AdamWConfig(**TRAIN_OPT)
+    params = init_params(cfg, jax.random.PRNGKey(case["seed"]))
+    state = moment_state(adamw_init(params, opt), case["seed"],
+                         jnp.zeros_like,
+                         lambda a, like: jnp.asarray(a, like.dtype))
+    tmp = Path(case["state"] + ".part")
+    tmp.write_bytes(pickle.dumps({
+        "params": jax.tree.map(np.asarray, params),
+        "opt": jax.tree.map(np.asarray, state)}))
+    os.replace(tmp, case["state"])
+    t, b = TRAIN_SHAPE
+    shape = Shape("train", t, b, "train")
+    out = {}
+    for mshape in case["meshes"]:
+        mesh = Mesh(np.asarray(jax.devices()[:8]).reshape(mshape),
+                    ("data", "model"))
+        rules = dist.make_rules(cfg, mesh)
+        p, s = reshard_state((params, state), cfg, mesh)
+        rec = {"loss": [], "grad_norm": []}
+        with dist.axis_rules(mesh, rules):
+            step = jax.jit(make_train_step(cfg, opt))
+            for i in range(case["steps"]):
+                batch = synthetic_batch(cfg, shape, seed=TRAIN_DATA_SEED,
+                                        step=i)
+                p, s, m = step(p, s, jax.device_put(
+                    batch, dist.batch_shardings(batch, mesh, rules)))
+                rec["loss"].append(float(m["loss"]))
+                rec["grad_norm"].append(float(m["grad_norm"]))
+        rec["final"] = {path: bits(np.asarray(x)) for path, x in
+                        walk((p, s))}
+        out[tuple(mshape)] = rec
+    return out
+
+
+def ref_train_specs(case) -> dict:
+    """The reference's `dist._spec` of each (shape, names) in `specs` and
+    `batch_shardings` of `batch` (shapes) on each mesh of `meshes`
+    ((shape, axes) over the first devices), with each device's slice of
+    every dim as (start, length), by the device's mesh coordinate."""
+    import jax
+    from jax.sharding import Mesh, NamedSharding
+    from repro import dist
+    out = {}
+    for mshape, axes in case["meshes"]:
+        n = int(np.prod(mshape))
+        devs = np.asarray(jax.devices()[:n]).reshape(mshape)
+        mesh = Mesh(devs, axes)
+        rules = dist.make_rules(None, mesh)
+        coords = {d.id: c for c, d in np.ndenumerate(devs)}
+        specs = {}
+        for shape, names in case["specs"]:
+            spec = dist._spec(shape, names, mesh, rules)
+            idx = NamedSharding(mesh, spec).devices_indices_map(tuple(shape))
+            specs[(tuple(shape), tuple(names))] = (tuple(spec), {
+                coords[d.id]: tuple((sl.start or 0, (sl.stop or dim)
+                                     - (sl.start or 0))
+                                    for sl, dim in zip(ix, shape))
+                for d, ix in idx.items()})
+        batch = {k: jax.ShapeDtypeStruct(v, np.int32)
+                 for k, v in case["batch"].items()}
+        out[(tuple(mshape), tuple(axes))] = {
+            "specs": specs, "batch": {k: tuple(v.spec) for k, v in
+                                      dist.batch_shardings(batch, mesh,
+                                                           rules).items()}}
+    return out
+
+
 REF_RUNTIME = {"executor": ref_executor, "elastic": ref_elastic,
-               "train_elastic": ref_train_elastic}
+               "train_elastic": ref_train_elastic, "train_ref": ref_train,
+               "train_specs": ref_train_specs}
 
 
 if __name__ == "__main__":
